@@ -1,0 +1,61 @@
+"""Architecture configuration: the port's own copy of the dense-path fields.
+
+Mirrors ``repro.configs.base.ArchConfig`` field by field for what the dense
+paper-transformer path reads; the MoE, SSM, hybrid, encoder-decoder and VLM
+fields wait for their model families (ROADMAP Queue 1 item 17).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+__all__ = ["ArchConfig"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    """Architecture hyperparameters of a dense transformer."""
+
+    name: str
+    arch_type: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    sliding_window: Optional[int] = None
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    tie_embeddings: bool = False
+    citation: str = ""
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.n_heads
+
+    def param_count(self) -> int:
+        """Analytical parameter count of the dense layout the port builds."""
+        D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
+        H, KV, hd = self.n_heads, self.n_kv_heads, self.hd
+        total = V * D * (1 if self.tie_embeddings else 2)
+        attn = D * (H * hd) + 2 * D * (KV * hd) + (H * hd) * D
+        if self.qkv_bias:
+            attn += (H + 2 * KV) * hd
+        if self.norm == "layernorm":  # GELU MLP with biases, two norms with biases
+            mlp, norms = 2 * D * F + F + D, 4 * D
+        else:  # SwiGLU, two RMS scales
+            mlp, norms = 3 * D * F, 2 * D
+        final = 2 * D if self.norm == "layernorm" else D
+        return total + L * (attn + mlp + norms) + final
+
+    def _layer_kinds(self) -> Tuple[str, ...]:
+        if self.arch_type != "dense":
+            raise NotImplementedError(
+                f"arch_type {self.arch_type!r}: only dense transformers are "
+                f"ported (ROADMAP Queue 1 item 17, the other archs)"
+            )
+        return ("attn",) * self.n_layers

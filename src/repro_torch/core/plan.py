@@ -1,0 +1,191 @@
+"""Per-tensor reduce planning: the *plan* stage of ``scalecom_reduce``.
+
+The port of ``repro.core.plan`` without buckets. Plans are pure Python,
+resolved once per tree structure and cached: per tensor the compressor after
+``rate_rules``, the ``min_size`` dense fallback, grouping, the chunk layout,
+the residue storage shape and execute work view, and the wire bytes.
+
+Byte accounting, one rule for both layouts (per-worker transmit bytes for
+one tensor and step; fp32 values, int32 indices; k = n_chunks * topm):
+
+  dense                      4 * size
+  values (every compressor)  4 * k
+  indices:
+    local_topk               + 4 * k       every worker ships its own set
+    clt_k / true_topk        + 4 * k / G   the leader's set, amortized over G
+    random_k                 + 0           re-derived from the step counter
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import functools
+from typing import Optional, Tuple
+
+from repro_torch.core.chunked import num_chunks
+from repro_torch.core.compressors import CompressorConfig
+from repro_torch.core.rates import resolve_compressor
+from repro_torch.core.state import codec_signature, resolve_layout, storage_shape
+
+Shape = Tuple[int, ...]
+
+__all__ = ["TensorPlan", "plan_tensors", "payload_bytes"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorPlan:
+    """Everything the execute stage needs to know about one tensor.
+
+    path:          key-path string (also the residue-dict key)
+    shape:         parameter shape (no worker axis)
+    size:          element count
+    groups:        G, the ScaleCom worker count after hierarchical folding
+    layout:        resolved chunk layout ("flat" | "rowwise")
+    comp:          resolved CompressorConfig, or None => dense reduce
+    storage:       residue storage shape (no worker axis)
+    work:          execute-stage view: (size,) for flat, the parameter shape
+                   for rowwise; chunks always run along work[-1]
+    n_chunks:      total chunks across the tensor in this layout
+    k:             values each worker contributes per step
+    bytes_dense:   4 * size
+    bytes_payload: per-worker wire bytes under the rule above
+    """
+
+    path: str
+    shape: Shape
+    size: int
+    groups: int
+    layout: str
+    comp: Optional[CompressorConfig]
+    storage: Shape
+    work: Shape
+    n_chunks: int
+    k: int
+    bytes_dense: float
+    bytes_payload: float
+
+    @property
+    def dense(self) -> bool:
+        return self.comp is None
+
+
+# Per-worker INDEX bytes for k kept values, by compressor (see module docstring)
+_INDEX_BYTES = {
+    "clt_k": lambda k, G: 4.0 * k / G,
+    "true_topk": lambda k, G: 4.0 * k / G,
+    "local_topk": lambda k, G: 4.0 * k,
+    "random_k": lambda k, G: 0.0,
+}
+
+
+def payload_bytes(comp: Optional[CompressorConfig], k: int, groups: int) -> float:
+    """Per-worker wire bytes for k kept values."""
+    if comp is None or comp.name == "none":
+        raise ValueError("payload_bytes is for compressed tensors; dense is 4*size")
+    return 4.0 * k + _INDEX_BYTES[comp.name](k, groups)
+
+
+def _raise_state_drift(path, shape, G, layout, residue_dtype, actual, expected):
+    """Name what drifted between init_state and this reduce, then raise."""
+    other = "rowwise" if layout == "flat" else "flat"
+    causes = []
+    if actual == codec_signature(residue_dtype, G, storage_shape(shape, other)):
+        causes.append(
+            f"the residue was initialized under layout={other!r} but this "
+            f"reduce resolved layout={layout!r} (e.g. $SCALECOM_TORCH_LAYOUT "
+            f"changed between init_state and scalecom_reduce)"
+        )
+    q_shape = dict((name, sh) for name, sh, _ in actual).get("q")
+    if q_shape and q_shape[0] != G and actual == codec_signature(
+        residue_dtype, q_shape[0], storage_shape(shape, layout)
+    ):
+        causes.append(
+            f"the residue carries {q_shape[0]} worker rows but this reduce "
+            f"folds to G={G} workers (membership or `groups` changed)"
+        )
+    detail = "; ".join(causes) if causes else f"expected {expected}, found {actual}"
+    raise ValueError(
+        f"ScaleCom state drift on tensor {path!r}: the stored residue "
+        f"encoding does not match what this reduce's plan (layout={layout!r}, "
+        f"residue_dtype={residue_dtype!r}, G={G}) will decode — {detail}. "
+        f"Remediation: re-init the state (core.state.init_state) with the "
+        f"current config, or pin the layout explicitly on both sides."
+    )
+
+
+def _plan_one(path, shape, n_stack, layout, base, rate_rules, min_size, groups,
+              has_residue, residue_dtype, enc_sig) -> TensorPlan:
+    size = 1
+    for d in shape:
+        size *= d
+    if groups is not None and (groups < 1 or n_stack % groups != 0):
+        raise ValueError(
+            f"n={n_stack} workers are not divisible into groups={groups} "
+            f"(tensor {path!r}): hierarchical grouping needs n % groups == 0 "
+            f"with groups >= 1"
+        )
+    G = groups if groups is not None else n_stack
+    comp: Optional[CompressorConfig] = base
+    if rate_rules:
+        comp = resolve_compressor(path, base, rate_rules)
+    if comp is not None and (comp.name == "none" or size < min_size or not has_residue):
+        comp = None
+
+    storage = storage_shape(shape, layout)
+    if comp is not None and enc_sig is not None:
+        expected = codec_signature(residue_dtype, G, storage)
+        if enc_sig != expected:
+            _raise_state_drift(path, shape, G, layout, residue_dtype, enc_sig, expected)
+    if comp is None:
+        return TensorPlan(
+            path=path, shape=shape, size=size, groups=G, layout=layout,
+            comp=None, storage=storage, work=(size,), n_chunks=0, k=0,
+            bytes_dense=4.0 * size, bytes_payload=4.0 * size,
+        )
+    work = (size,) if layout == "flat" else storage
+    rows = 1
+    for d in work[:-1]:
+        rows *= d
+    nch = rows * num_chunks(work[-1], comp.chunk)
+    k = nch * comp.topm
+    return TensorPlan(
+        path=path, shape=shape, size=size, groups=G, layout=layout,
+        comp=comp, storage=storage, work=work, n_chunks=nch, k=k,
+        bytes_dense=4.0 * size, bytes_payload=payload_bytes(comp, k, G),
+    )
+
+
+@functools.lru_cache(maxsize=128)
+def _plan_cached(leaves, residue_paths, layout, base, rate_rules, min_size,
+                 groups, residue_dtype) -> Tuple[TensorPlan, ...]:
+    # residue_paths holds bare paths (no drift check) or the (path,
+    # signature) pairs of core.state.residue_signature
+    sigs = {e[0]: e[1] for e in residue_paths if isinstance(e, tuple)}
+    paths = {e if isinstance(e, str) else e[0] for e in residue_paths}
+    return tuple(
+        _plan_one(path, shape, n_stack, layout, base, rate_rules, min_size,
+                  groups, path in paths, residue_dtype, sigs.get(path))
+        for path, shape, n_stack in leaves
+    )
+
+
+def plan_tensors(leaves, cfg, residue_paths) -> Tuple[TensorPlan, ...]:
+    """Plans for a flattened gradient tree, cached per tree structure.
+
+    leaves:        tuple of (path, param_shape, worker_axis_size)
+    cfg:           ScaleComConfig (only plan-relevant fields key the cache)
+    residue_paths: paths that carry EF state, as bare strings or as the
+                   (path, signature) pairs of ``residue_signature``; with
+                   signatures, layout or worker-count drift between the
+                   stored residues and this plan raises a named ValueError.
+    """
+    return _plan_cached(
+        tuple(leaves),
+        frozenset(residue_paths),
+        resolve_layout(cfg.layout),
+        cfg.compressor,
+        tuple(cfg.rate_rules),
+        cfg.min_size,
+        cfg.groups,
+        cfg.residue_dtype,
+    )

@@ -1,0 +1,196 @@
+// Hand-written Hopper (sm_90a) kernels for the ScaleCom reduce's inner loop.
+//
+// Per compressed tensor and step the unfused reduce makes three launches
+// (repro_torch/core/scalecom.py:_execute):
+//
+//   chunk_argmax   per chunk row, arg-max of |x| and the signed value there
+//   ef_update      Eq. 5 residue update + the values each worker contributes
+//   chunk_scatter  densify the worker-mean values into the reduced gradient
+//
+// All three work on a (rows, chunk) row-major view whose trailing axis is
+// already padded to a chunk multiple (the Python wrappers in
+// repro_torch/kernels/ do the padding, reshaping and index broadcasting).
+//
+// Design shared by all three: one warp owns one chunk row at a time; its 32
+// lanes stride over the row, so neighbouring lanes touch neighbouring
+// addresses and every warp-wide load is one 128-byte transaction. Rows are
+// walked grid-stride with int64 offsets: a worker-stacked tensor can pass
+// 2^31 elements. Each kernel is bound by device-memory bytes, not by
+// arithmetic (a few flops per element against 4-12 bytes moved), so the
+// simple design aims only at coalesced single-pass traffic: every input is
+// read once and every output written once. Vector loads, TMA and
+// multi-row pipelining are later work.
+//
+// Every entry point launches on the caller's stream, allocates nothing, and
+// returns cudaGetLastError() so the Python wrapper can raise on a refused
+// launch.
+
+#include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kRowsPerBlock = 8;           // warps per block: 256 threads
+constexpr int64_t kMaxBlocks = 1 << 20;    // grid-stride beyond this
+
+inline int64_t blocks_for(int64_t rows) {
+  const int64_t b = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  return b < kMaxBlocks ? b : kMaxBlocks;
+}
+
+// Does magnitude a at lane ia beat magnitude b at lane ib? NaN ranks above
+// every number and ties go to the lower lane: the order torch.argmax and
+// jnp.argmax use.
+__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
+  const bool na = isnan(a), nb = isnan(b);
+  if (na || nb) return na && (!nb || ia < ib);
+  return a > b || (a == b && ia < ib);
+}
+
+// Replaces src/repro/kernels/chunk_topk.py:_argmax_kernel (the topm == 1
+// body of row_select). Bound: reads rows*chunk*4 bytes, writes rows*8 bytes.
+// Each lane keeps its own best (|x|, lane, x) over the lanes it visits in
+// increasing order, then a shuffle reduction merges the 32 candidates.
+__global__ void chunk_argmax_kernel(const float* __restrict__ x,
+                                    int32_t* __restrict__ idx,
+                                    float* __restrict__ val, int64_t rows,
+                                    int chunk) {
+  const int lane = threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
+       r < rows; r += stride) {
+    const float* row = x + r * chunk;
+    float best = -1.0f;  // below every magnitude: an empty lane never wins
+    int best_i = INT_MAX;
+    float best_v = 0.0f;
+    for (int c = lane; c < chunk; c += kWarp) {
+      const float v = row[c];
+      const float a = fabsf(v);
+      if (beats(a, c, best, best_i)) {
+        best = a;
+        best_i = c;
+        best_v = v;
+      }
+    }
+    for (int off = kWarp / 2; off > 0; off >>= 1) {
+      const float ob = __shfl_down_sync(0xffffffffu, best, off);
+      const int oi = __shfl_down_sync(0xffffffffu, best_i, off);
+      const float ov = __shfl_down_sync(0xffffffffu, best_v, off);
+      if (beats(ob, oi, best, best_i)) {
+        best = ob;
+        best_i = oi;
+        best_v = ov;
+      }
+    }
+    if (lane == 0) {
+      idx[r] = best_i;
+      val[r] = best_v;
+    }
+  }
+}
+
+// Replaces src/repro/kernels/ef_update.py:_ef_update_kernel. Paper Eq. 5:
+//   ef = m + g;  vals[j] = ef[idx[j]];  m' = m + beta * (g - onehot(ef at idx))
+// Bound: reads m and g (rows*chunk*4 bytes each) and the index set, writes
+// m' (rows*chunk*4 bytes) and vals (rows*topm*4 bytes). Worker row r reads
+// index row r % idx_rows, so one shared (R,) index set serves all G workers
+// without being materialized G times. beta is a runtime float. The update
+// rounds each operation separately (no FMA contraction), so m' is bitwise
+// equal to the plain PyTorch version on the card.
+__global__ void ef_update_kernel(const float* __restrict__ m,
+                                 const float* __restrict__ g,
+                                 const int32_t* __restrict__ idx,
+                                 float* __restrict__ m_out,
+                                 float* __restrict__ vals, int64_t rows,
+                                 int64_t idx_rows, int chunk, int topm,
+                                 float beta) {
+  const int lane = threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
+       r < rows; r += stride) {
+    const int32_t* ir = idx + (r % idx_rows) * topm;
+    float* vr = vals + r * topm;
+    const int64_t base = r * chunk;
+    const int i0 = ir[0];
+    for (int c = lane; c < chunk; c += kWarp) {
+      const float mv = m[base + c];
+      const float gv = g[base + c];
+      const float ef = __fadd_rn(mv, gv);
+      float own = (c == i0) ? ef : 0.0f;
+      if (c == i0) vr[0] = ef;
+      for (int j = 1; j < topm; ++j) {  // top-m: the offsets are distinct
+        const bool hit = (c == ir[j]);
+        own = __fadd_rn(own, hit ? ef : 0.0f);
+        if (hit) vr[j] = ef;
+      }
+      m_out[base + c] = __fadd_rn(mv, __fmul_rn(beta, __fsub_rn(gv, own)));
+    }
+  }
+}
+
+// Replaces src/repro/kernels/chunk_topk.py:_scatter_kernel. Bound: reads
+// rows*topm*8 bytes of (vals, idx), writes rows*chunk*4 bytes. Each lane
+// writes vals[j] where it equals idx[j] and 0 elsewhere; top-m entries are
+// summed in j order, as the plain version sums them.
+__global__ void chunk_scatter_kernel(const float* __restrict__ vals,
+                                     const int32_t* __restrict__ idx,
+                                     float* __restrict__ out, int64_t rows,
+                                     int chunk, int topm) {
+  const int lane = threadIdx.x;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
+       r < rows; r += stride) {
+    const int32_t* ir = idx + r * topm;
+    const float* vr = vals + r * topm;
+    const int i0 = ir[0];
+    const float v0 = vr[0];
+    float* orow = out + r * chunk;
+    for (int c = lane; c < chunk; c += kWarp) {
+      float o = (c == i0) ? v0 : 0.0f;
+      for (int j = 1; j < topm; ++j) {
+        o = __fadd_rn(o, (c == ir[j]) ? vr[j] : 0.0f);
+      }
+      orow[c] = o;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+int scalecom_chunk_argmax(const float* x, int32_t* idx, float* val,
+                          int64_t rows, int64_t chunk, void* stream) {
+  const dim3 block(kWarp, kRowsPerBlock);
+  const dim3 grid(static_cast<unsigned>(blocks_for(rows)));
+  chunk_argmax_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, idx, val, rows, static_cast<int>(chunk));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int scalecom_ef_update(const float* m, const float* g, const int32_t* idx,
+                       float* m_out, float* vals, int64_t rows,
+                       int64_t idx_rows, int64_t chunk, int64_t topm,
+                       float beta, void* stream) {
+  const dim3 block(kWarp, kRowsPerBlock);
+  const dim3 grid(static_cast<unsigned>(blocks_for(rows)));
+  ef_update_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      m, g, idx, m_out, vals, rows, idx_rows, static_cast<int>(chunk),
+      static_cast<int>(topm), beta);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int scalecom_chunk_scatter(const float* vals, const int32_t* idx, float* out,
+                           int64_t rows, int64_t chunk, int64_t topm,
+                           void* stream) {
+  const dim3 block(kWarp, kRowsPerBlock);
+  const dim3 grid(static_cast<unsigned>(blocks_for(rows)));
+  chunk_scatter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      vals, idx, out, rows, static_cast<int>(chunk), static_cast<int>(topm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

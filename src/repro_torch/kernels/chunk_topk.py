@@ -1,0 +1,115 @@
+"""Chunk-row select and scatter: CUDA kernels, their wrappers and plain versions.
+
+Both kernels work on a ``(rows, chunk)`` view whose trailing axis is already
+padded to a chunk multiple (``repro_torch.backends.cuda_backend`` pads,
+reshapes and broadcasts indices):
+
+  chunk_argmax   replaces src/repro/kernels/chunk_topk.py:_argmax_kernel
+                 (the topm == 1 body of ``row_select``): per row, the
+                 arg-max of |x| as an int32 lane offset and the signed value
+                 there; ties go to the lower lane.
+  chunk_scatter  replaces src/repro/kernels/chunk_topk.py:_scatter_kernel:
+                 a dense ``(rows, chunk)`` tile holding ``vals`` at ``idx``
+                 and zeros elsewhere; top-m entries are summed.
+
+Both are bound by device-memory bytes; the CUDA source
+(``csrc/scalecom_kernels.cu``) states the bytes and the design.
+
+A wrapper given CUDA tensors launches the kernel, counts the launch in its
+``launches`` attribute, and raises if the launch fails. Given CPU tensors it
+runs the plain PyTorch version in this module; that is the CPU test path,
+and ``chip_smoke.py`` holds each kernel against it on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import build
+
+__all__ = [
+    "chunk_argmax",
+    "chunk_argmax_plain",
+    "chunk_scatter",
+    "chunk_scatter_plain",
+]
+
+
+def chunk_argmax_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows, chunk) -> (idx (rows,) int32, val (rows,)); first maximum wins."""
+    idx = torch.argmax(x.abs(), dim=-1)
+    val = torch.gather(x, 1, idx[:, None])[:, 0]
+    return idx.to(torch.int32), val
+
+
+def chunk_argmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row magnitude arg-max of a contiguous fp32 ``(rows, chunk)`` tensor."""
+    name = "chunk_argmax"
+    build.require(x.dim() == 2 and x.shape[1] > 0, name, f"x must be (rows, chunk), got {tuple(x.shape)}")
+    build.require(x.dtype == torch.float32, name, f"x must be float32, got {x.dtype}")
+    build.require(x.is_contiguous(), name, "x must be contiguous")
+    if not build.on_card(name, x):
+        return chunk_argmax_plain(x)
+    rows, chunk = x.shape
+    idx = torch.empty(rows, dtype=torch.int32, device=x.device)
+    val = torch.empty(rows, dtype=torch.float32, device=x.device)
+    if rows:
+        rc = build.library().scalecom_chunk_argmax(
+            x.data_ptr(), idx.data_ptr(), val.data_ptr(), rows, chunk,
+            build.stream_of(x),
+        )
+        build.check(rc, name)
+        chunk_argmax.launches += 1
+    return idx, val
+
+
+chunk_argmax.launches = 0
+
+
+def _rows2d(t: torch.Tensor) -> torch.Tensor:
+    """(rows,) -> (rows, 1); (rows, m) unchanged."""
+    return t[:, None] if t.dim() == 1 else t
+
+
+def chunk_scatter_plain(
+    vals: torch.Tensor, idx: torch.Tensor, chunk: int
+) -> torch.Tensor:
+    """vals/idx (rows,) or (rows, m) -> dense (rows, chunk), top-m summed in order."""
+    v, i = _rows2d(vals), _rows2d(idx)
+    lanes = torch.arange(chunk, dtype=torch.int32, device=vals.device)
+    out = torch.where(lanes == i[:, :1], v[:, :1], 0.0)
+    for j in range(1, i.shape[1]):
+        out = out + torch.where(lanes == i[:, j : j + 1], v[:, j : j + 1], 0.0)
+    return out
+
+
+def chunk_scatter(
+    vals: torch.Tensor, idx: torch.Tensor, chunk: int
+) -> torch.Tensor:
+    """Dense ``(rows, chunk)`` fp32 with ``vals`` at lane ``idx`` per row."""
+    name = "chunk_scatter"
+    build.require(vals.dim() in (1, 2) and idx.shape == vals.shape, name,
+                  f"vals/idx must share a (rows,) or (rows, m) shape, got "
+                  f"{tuple(vals.shape)} / {tuple(idx.shape)}")
+    build.require(vals.dtype == torch.float32, name, f"vals must be float32, got {vals.dtype}")
+    build.require(idx.dtype == torch.int32, name, f"idx must be int32, got {idx.dtype}")
+    build.require(vals.is_contiguous() and idx.is_contiguous(), name, "vals/idx must be contiguous")
+    topm = 1 if idx.dim() == 1 else idx.shape[1]
+    build.require(1 <= topm <= chunk, name, f"need 1 <= topm <= chunk, got {topm}, {chunk}")
+    if not build.on_card(name, vals, idx):
+        return chunk_scatter_plain(vals, idx, chunk)
+    rows = idx.shape[0]
+    out = torch.empty((rows, chunk), dtype=torch.float32, device=vals.device)
+    if rows:
+        rc = build.library().scalecom_chunk_scatter(
+            vals.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, chunk, topm,
+            build.stream_of(vals),
+        )
+        build.check(rc, name)
+        chunk_scatter.launches += 1
+    return out
+
+
+chunk_scatter.launches = 0

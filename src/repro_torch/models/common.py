@@ -1,0 +1,134 @@
+"""Shared model pieces: parameter init, layernorm, RoPE, the GELU MLP,
+embeddings and the chunked cross-entropy.
+
+The port of the dense-path parts of ``repro.models.common``. Parameters are
+plain nested dicts of tensors with the JAX package's names and stacked
+shapes, so a JAX parameter tree carries across (``models.convert``) and the
+residue keys match.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+__all__ = [
+    "ParamStore",
+    "layernorm",
+    "apply_rope",
+    "gelu_mlp",
+    "embed_tokens",
+    "lm_logits",
+    "chunked_xent",
+]
+
+
+class ParamStore:
+    """Collects parameters during init, drawing from one explicit generator.
+
+    Normal draws come from ``generator`` (a CPU ``torch.Generator``, so the
+    values do not depend on the device) and are then moved to ``device``.
+    """
+
+    def __init__(self, generator: torch.Generator, device: torch.device):
+        self.gen = generator
+        self.device = device
+        self.params: Dict[str, object] = {}
+
+    def _full(self, shape, stacked: int):
+        return ((stacked,) if stacked else ()) + tuple(shape)
+
+    def dense(self, name, shape, scale: Optional[float] = None, stacked: int = 0):
+        """Normal(0, scale) init; scale defaults to 1/sqrt(fan_in)."""
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        s = scale if scale is not None else fan_in**-0.5
+        full = self._full(shape, stacked)
+        w = torch.randn(full, generator=self.gen, dtype=torch.float32) * s
+        self.params[name] = w.to(self.device)
+
+    def zeros(self, name, shape, stacked: int = 0):
+        full = self._full(shape, stacked)
+        self.params[name] = torch.zeros(full, dtype=torch.float32, device=self.device)
+
+    def ones(self, name, shape, stacked: int = 0):
+        full = self._full(shape, stacked)
+        self.params[name] = torch.ones(full, dtype=torch.float32, device=self.device)
+
+    def subtree(self, name: str) -> "ParamStore":
+        sub = ParamStore(self.gen, self.device)
+        self.params[name] = sub.params
+        return sub
+
+
+def layernorm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
+    """fp32 layernorm with the biased variance, as the JAX package computes it."""
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def init_norm(store: ParamStore, prefix: str, d: int, stacked: int = 0):
+    store.ones(f"{prefix}_scale", (d,), stacked=stacked)
+    store.zeros(f"{prefix}_bias", (d,), stacked=stacked)
+
+
+def apply_norm(x: Tensor, p: Dict[str, Tensor], prefix: str) -> Tensor:
+    return layernorm(x, p[f"{prefix}_scale"], p[f"{prefix}_bias"])
+
+
+def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
+    """Rotary embedding over split halves. x: (..., S, heads, hd); positions: (S,)."""
+    hd = x.shape[-1]
+    freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd))
+    ang = positions[..., None].to(torch.float32) * freqs  # (S, hd/2)
+    cos = torch.cos(ang)[..., None, :]  # broadcast over heads
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def init_gelu_mlp(store: ParamStore, d: int, f: int, stacked: int = 0):
+    store.dense("mlp_up", (d, f), stacked=stacked)
+    store.dense("mlp_down", (f, d), stacked=stacked)
+    store.zeros("mlp_up_b", (f,), stacked=stacked)
+    store.zeros("mlp_down_b", (d,), stacked=stacked)
+
+
+def gelu_mlp(p: Dict[str, Tensor], x: Tensor) -> Tensor:
+    """GELU MLP with biases; jax.nn.gelu's default is the tanh approximation."""
+    h = F.gelu(x @ p["mlp_up"] + p["mlp_up_b"], approximate="tanh")
+    return h @ p["mlp_down"] + p["mlp_down_b"]
+
+
+def init_embeddings(cfg, store: ParamStore):
+    store.dense("tok_embed", (cfg.vocab, cfg.d_model), scale=1.0)
+    if not cfg.tie_embeddings:
+        store.dense("lm_head", (cfg.d_model, cfg.vocab))
+
+
+def embed_tokens(p, tokens: Tensor) -> Tensor:
+    return p["tok_embed"][tokens.long()]
+
+
+def lm_logits(p, x: Tensor) -> Tensor:
+    w = p["lm_head"] if "lm_head" in p else p["tok_embed"].T
+    return x @ w
+
+
+def chunked_xent(p, h: Tensor, labels: Tensor, mask: Tensor, chunk: int) -> Tensor:
+    """Mean token cross-entropy over sequence chunks of ``chunk`` positions,
+    so only (B, chunk, V) logits exist at a time. Divides by sum(mask)."""
+    S = h.shape[1]
+    chunk = min(chunk, S)
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s0 in range(0, S, chunk):
+        logits = lm_logits(p, h[:, s0 : s0 + chunk]).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[:, s0 : s0 + chunk, None].long())[..., 0]
+        total = total + torch.sum((logz - gold) * mask[:, s0 : s0 + chunk])
+    return total / torch.clamp(torch.sum(mask), min=1.0)

@@ -1,0 +1,148 @@
+"""Train step: per-worker gradients + ScaleCom reduce + optimizer.
+
+The port of ``repro.training.train_step``. Two variants:
+
+  * **scalecom**: the paper's path. ``per_worker_grads`` takes one
+    ``torch.autograd.grad`` per worker over its own slice of the batch and
+    stacks the results to ``(n, *shape)``. That is the same value the JAX
+    package gets from broadcasting the parameters to a worker axis and
+    vmapping the loss, because worker i's loss touches only its own copy.
+    ``scalecom_reduce`` then runs Algorithm 1.
+  * **dense**: the uncompressed baseline and the compression warm-up: one
+    loss over the folded global batch, gradients reduced by the mean that
+    the folding implies.
+
+Batches arrive worker-stacked, as numpy arrays or tensors
+({"tokens": (n, B, S), ...}), and are moved to the parameters' device here.
+Microbatching waits (ROADMAP Queue 1 item 16).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch import tree
+from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
+from repro_torch.core.state import ScaleComState, init_state
+from repro_torch.optim.optimizer import Optimizer
+
+__all__ = [
+    "TrainState", "build_train_step", "init_train_state", "global_norm", "per_worker_grads",
+    "dense_grads",
+]
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: Dict
+    opt_state: Dict
+    sc_state: ScaleComState
+    step: int = 0
+
+
+def global_norm(grads) -> torch.Tensor:
+    """sqrt of the sum of squares over every leaf, summed in JAX's leaf order."""
+    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32))) for g in tree.leaves(grads)))
+
+
+def _batch_on(batch, device: torch.device):
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def _with_grad(params):
+    """Leaf tensors sharing the parameters' storage, with autograd on."""
+    return tree.tree_map(lambda p: p.detach().requires_grad_(True), params)
+
+
+def per_worker_grads(model, params, batch, n_workers: int):
+    """(mean worker loss, mean worker nll, {path: (n, *shape) gradients})."""
+    pg = _with_grad(params)
+    flat = tree.leaves(pg)
+    stacked = [torch.empty((n_workers,) + tuple(p.shape), dtype=p.dtype, device=p.device)
+               for p in flat]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    nll_sum = torch.zeros_like(loss_sum)
+    for i in range(n_workers):
+        loss, aux = model.loss(pg, {k: v[i] for k, v in batch.items()})
+        for out, g in zip(stacked, torch.autograd.grad(loss, flat)):
+            out[i].copy_(g)
+        loss_sum += loss.detach()
+        nll_sum += aux["nll"].detach()
+    return loss_sum / n_workers, nll_sum / n_workers, tree.unflatten(params, stacked)
+
+
+def dense_grads(model, params, batch):
+    """(loss, nll, grads) of the loss over the folded global batch."""
+    folded = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch.items()}
+    pg = _with_grad(params)
+    loss, aux = model.loss(pg, folded)
+    grads = torch.autograd.grad(loss, tree.leaves(pg))
+    return loss.detach(), aux["nll"].detach(), tree.unflatten(params, list(grads))
+
+
+def build_train_step(
+    model,
+    optimizer: Optimizer,
+    schedule: Callable[[int], float],
+    sc_cfg: ScaleComConfig,
+    *,
+    n_workers: int,
+    mode: str = "scalecom",  # scalecom | dense
+    grad_clip: Optional[float] = None,
+    compute_stats: bool = False,
+) -> Callable[[TrainState, Any], Tuple[TrainState, Dict[str, Any]]]:
+    """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    The step updates ``state.params`` and ``state.opt_state`` in place (see
+    ``repro_torch.optim``) and returns a new ``TrainState`` holding them.
+    Metric values are 0-d tensors (or floats) left on the device: reading
+    one waits for the step to finish.
+    """
+    if mode not in ("scalecom", "dense"):
+        raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
+    # The JAX package trains in full fp32 (compute_dtype="float32"); TF32
+    # would keep about three decimal digits in the card's matmuls.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        device = tree.leaves(state.params)[0].device
+        batch = _batch_on(batch, device)
+        if mode == "scalecom":
+            loss, nll, gpw = per_worker_grads(model, state.params, batch, n_workers)
+            ghat, sc_state, stats = scalecom_reduce(
+                gpw, state.sc_state, sc_cfg, compute_stats=compute_stats
+            )
+            del gpw
+        else:
+            loss, nll, ghat = dense_grads(model, state.params, batch)
+            sc_state = ScaleComState(residues=state.sc_state.residues, t=state.sc_state.t + 1)
+            stats = {}
+
+        gnorm = global_norm(ghat)
+        if grad_clip is not None:
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+            ghat = tree.tree_map(lambda g: g * scale, ghat)
+
+        lr = schedule(state.step)
+        params, opt_state = optimizer.update(ghat, state.opt_state, state.params, lr)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "nll": nll, **stats}
+        return TrainState(params, opt_state, sc_state, state.step + 1), metrics
+
+    return train_step
+
+
+def init_train_state(model, optimizer: Optimizer, sc_cfg: ScaleComConfig,
+                     generator: torch.Generator, *, n_workers: int,
+                     device="cuda") -> TrainState:
+    """Random parameters from ``generator`` on ``device``, optimizer state and
+    zero ScaleCom residues."""
+    params = model.init(generator, device)
+    sc_state = init_state(
+        params, sc_cfg.n_workers(n_workers), sc_cfg.residue_dtype, sc_cfg.min_size,
+        sc_cfg.layout,
+    )
+    return TrainState(params, optimizer.init(params), sc_state, 0)
