@@ -6,6 +6,7 @@ from repro_torch.backends.base import (
     KernelBackend,
     register_backend,
     resolve_backend,
+    resolve_fused,
 )
 from repro_torch.backends import cuda_backend, torch_backend  # noqa: F401  (register)
 
@@ -14,4 +15,5 @@ __all__ = [
     "KernelBackend",
     "register_backend",
     "resolve_backend",
+    "resolve_fused",
 ]

@@ -22,13 +22,17 @@ Registered backends:
 
   "torch"  the plain PyTorch ops of ``repro_torch.core.chunked`` on any
            device: the reference, and the path of a CPU run.
-  "cuda"   the hand-written CUDA kernels (``repro_torch.kernels``). On CPU
-           tensors (the tests) its wrappers run their plain versions.
+  "cuda"   the hand-written CUDA kernels (``repro_torch.kernels``), with
+           ``fused_reduce`` as one launch. On CPU tensors (the tests) its
+           wrappers run their plain versions.
 
 ``resolve_backend("auto", device)`` reads $SCALECOM_TORCH_BACKEND at call
 time; unset, the device decides: "cuda" for a CUDA run, "torch" for a CPU
 run. The caller chose the device, so "auto" never probes its way to the CPU.
 An explicit name or instance wins; an unknown name raises naming the set.
+
+``resolve_fused`` decides whether the reduce takes ``fused_reduce``: an
+explicit boolean wins; "auto" reads $SCALECOM_TORCH_FUSED at call time.
 """
 
 from __future__ import annotations
@@ -43,6 +47,7 @@ __all__ = [
     "FUSABLE_MODES",
     "register_backend",
     "resolve_backend",
+    "resolve_fused",
 ]
 
 # Selection modes fused_reduce implements: the shared-index compressors.
@@ -93,9 +98,10 @@ class KernelBackend:
                      leader: Optional[int] = None):
         """select over worker-stacked EF -> Eq. 5 update -> ghat scatter.
 
-        m, g: (G, ..., size). Returns (idx, vals, m_new, ghat). This default
-        composes the three primitives; the single-launch fused kernel is the
-        next slice of the port (ROADMAP Queue 2 row 4).
+        m, g: (G, ..., size); ``leader`` is the clt_k leader rank t mod G
+        (ignored for true_topk). Returns (idx, vals, m_new, ghat). This
+        default composes the three primitives, the op sequence of the
+        unfused reduce; the "cuda" backend overrides it with one kernel.
         """
         if mode not in FUSABLE_MODES:
             raise ValueError(f"fused_reduce supports modes {FUSABLE_MODES}, got {mode!r}")
@@ -144,3 +150,34 @@ def resolve_backend(
             f"unknown kernel backend {name!r}; registered: {sorted(_REGISTRY)}"
         ) from None
     return factory()
+
+
+_FUSED_ENV = "SCALECOM_TORCH_FUSED"
+_FUSED_TRUE = ("1", "true", "on", "yes")
+_FUSED_FALSE = ("0", "false", "off", "no")
+
+
+def resolve_fused(spec: Union[bool, str, None] = "auto") -> bool:
+    """Resolve the fused-reduce decision (True | False | "auto").
+
+    An explicit boolean wins. "auto" (or None) reads $SCALECOM_TORCH_FUSED at
+    call time: {1, true, on, yes} turn it on, {0, false, off, no} off (any
+    case); unset or empty means off. Anything else raises naming the valid
+    set. The JAX package's $SCALECOM_FUSED is not read.
+    """
+    if isinstance(spec, bool):
+        return spec
+    if spec in (None, "auto"):
+        env = os.environ.get(_FUSED_ENV, "").strip().lower()
+        if not env:
+            return False
+        if env in _FUSED_TRUE:
+            return True
+        if env in _FUSED_FALSE:
+            return False
+        raise ValueError(
+            f"invalid {_FUSED_ENV}={env!r}; expected one of {_FUSED_TRUE + _FUSED_FALSE}"
+        )
+    raise ValueError(
+        f"fused must be True, False, or 'auto' (then ${_FUSED_ENV} decides); got {spec!r}"
+    )

@@ -23,7 +23,7 @@ import functools
 from typing import Optional, Tuple
 
 from repro_torch.core.chunked import num_chunks
-from repro_torch.core.compressors import CompressorConfig
+from repro_torch.core.compressors import CompressorConfig, exact_k
 from repro_torch.core.rates import resolve_compressor
 from repro_torch.core.state import codec_signature, resolve_layout, storage_shape
 
@@ -43,8 +43,9 @@ class TensorPlan:
     layout:        resolved chunk layout ("flat" | "rowwise")
     comp:          resolved CompressorConfig, or None => dense reduce
     storage:       residue storage shape (no worker axis)
-    work:          execute-stage view: (size,) for flat, the parameter shape
-                   for rowwise; chunks always run along work[-1]
+    work:          execute-stage view: (size,) for flat and the exact path,
+                   the parameter shape for rowwise; chunks always run along
+                   work[-1]
     n_chunks:      total chunks across the tensor in this layout
     k:             values each worker contributes per step
     bytes_dense:   4 * size
@@ -142,12 +143,13 @@ def _plan_one(path, shape, n_stack, layout, base, rate_rules, min_size, groups,
             comp=None, storage=storage, work=(size,), n_chunks=0, k=0,
             bytes_dense=4.0 * size, bytes_payload=4.0 * size,
         )
-    work = (size,) if layout == "flat" else storage
+    # the exact (dense top-k) analysis path always runs on the flat view
+    work = (size,) if (layout == "flat" or comp.exact) else storage
     rows = 1
     for d in work[:-1]:
         rows *= d
     nch = rows * num_chunks(work[-1], comp.chunk)
-    k = nch * comp.topm
+    k = exact_k(size, comp) if comp.exact else nch * comp.topm
     return TensorPlan(
         path=path, shape=shape, size=size, groups=G, layout=layout,
         comp=comp, storage=storage, work=work, n_chunks=nch, k=k,

@@ -1,6 +1,6 @@
 """ScaleCom Algorithm 1: the worker-axis gradient reduce.
 
-The port of ``repro.core.scalecom`` (unfused path). ``scalecom_reduce``
+The port of ``repro.core.scalecom``. ``scalecom_reduce``
 replaces the dense data-parallel all-reduce: inputs are per-worker,
 unreduced gradients stacked on a leading worker axis plus the
 ``ScaleComState``; the output is the dense reduced, sparsified gradient ĝ
@@ -15,16 +15,17 @@ Plan / execute:
            (flat is the single-row case), every chunked op through one
            KernelBackend. On the "cuda" backend the inner loop is three
            kernel launches per tensor: worker-stacked select, fused Eq. 5
-           residue update, ĝ scatter.
+           residue update, ĝ scatter. With ``fused`` (True, or "auto" and
+           $SCALECOM_TORCH_FUSED set) clt_k and true_topk tensors take one
+           ``fused_reduce`` launch instead; local_topk, random_k, the exact
+           path and dense tensors keep the unfused path without a word.
 
 Hierarchical mode: with ``groups=G < n`` the n/G workers of a group are
 dense-averaged first and compression runs across the G groups; residues then
 live per group (init the state with n_workers=G).
 
-Not ported in this slice, and refused with NotImplementedError rather than
-ignored: lossy residue codecs, the fused single-launch reduce
-(``fused=True``), bucketed launch, telemetry taps, the exact top-k path and
-random_k (see ROADMAP).
+Not ported yet, and refused with NotImplementedError rather than ignored:
+lossy residue codecs, bucketed launch and telemetry taps (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch import tree
-from repro_torch.backends import resolve_backend
-from repro_torch.core.compressors import CompressorConfig, select_indices
+from repro_torch.backends import FUSABLE_MODES, resolve_backend, resolve_fused
+from repro_torch.core.compressors import CompressorConfig, compress, select_indices
+from repro_torch.core.filter import lowpass_update
 from repro_torch.core.plan import TensorPlan, plan_tensors
 from repro_torch.core.state import ScaleComState, require_codec, residue_signature
 
@@ -48,13 +50,15 @@ class ScaleComConfig:
     """ScaleCom configuration (the fields of ``repro.core.scalecom.ScaleComConfig``
     this slice runs).
 
-    compressor:    CompressorConfig (clt_k / true_topk / local_topk / none)
+    compressor:    CompressorConfig (clt_k / true_topk / local_topk / random_k / none)
     beta:          low-pass discount (1.0 = classic error feedback)
     min_size:      tensors smaller than this are reduced densely
     residue_dtype: "fp32" (lossy codecs are not ported)
     layout:        "auto" ($SCALECOM_TORCH_LAYOUT, else flat) | "flat" | "rowwise"
     backend:       "auto" | "torch" | "cuda" | a KernelBackend instance
-    fused:         the single-launch fused reduce; only False runs here
+    fused:         True | False | "auto" ($SCALECOM_TORCH_FUSED decides at
+                   call time, unset means off): the single-launch fused
+                   reduce for clt_k and true_topk tensors
     groups:        ScaleCom worker count; None => every worker
     warmup_steps:  dense steps before compression (applied by the train loop)
     telemetry:     metric taps; only False runs here
@@ -67,7 +71,7 @@ class ScaleComConfig:
     residue_dtype: str = "fp32"
     layout: str = "auto"
     backend: Any = "auto"
-    fused: bool = False
+    fused: Any = "auto"
     groups: Optional[int] = None
     warmup_steps: int = 0
     telemetry: bool = False
@@ -79,10 +83,10 @@ class ScaleComConfig:
             raise ValueError(
                 f"groups must be a positive worker-group count or None, got {self.groups}"
             )
-        if self.fused:
-            raise NotImplementedError(
-                "fused=True: the single-launch fused reduce kernel is the next "
-                "slice of the port (ROADMAP Queue 1 item 10, Queue 2 row 4)"
+        if not (isinstance(self.fused, bool) or self.fused in (None, "auto")):
+            raise ValueError(
+                f"fused must be True, False, or 'auto' (then $SCALECOM_TORCH_FUSED "
+                f"decides at call time); got {self.fused!r}"
             )
         if self.telemetry:
             raise NotImplementedError(
@@ -109,29 +113,52 @@ def dense_reduce(grads_pw):
     return tree.tree_map(lambda g: torch.mean(g, dim=0), grads_pw)
 
 
+def _execute_exact(ef: torch.Tensor, t: int, comp: CompressorConfig, backend):
+    """Dense top-k analysis path (comp.exact): the non-chunked ``compress``,
+    plus each worker's own dense contribution for the Eq. 5 update."""
+    vals, idx, ghat = compress(ef, t, comp, backend=backend)
+    i = idx.long() if comp.name == "local_topk" else idx.long().expand(vals.shape)
+    return ghat, torch.zeros_like(ef).scatter(1, i, vals)
+
+
 def _execute(plan: TensorPlan, gw: torch.Tensor, enc, codec, beta: float,
-             t: int, backend, compute_stats: bool):
+             t: int, backend, compute_stats: bool, fused: bool = False):
     """Algorithm 1 for one tensor over the plan's trailing-axis work view.
 
-    gw: (G, *plan.shape) folded fp32 gradients. Returns (ghat (*plan.shape),
-    new_enc, ef_mean), ef_mean only when ``compute_stats``.
+    gw: (G, *plan.shape) folded fp32 gradients. With ``fused`` a clt_k or
+    true_topk tensor takes the backend's ``fused_reduce`` (one kernel launch
+    on the "cuda" backend), and ``ef = m + g`` is built only when
+    ``compute_stats`` asks for it. Returns (ghat (*plan.shape), new_enc,
+    ef_mean), ef_mean only when ``compute_stats``.
     """
     comp = plan.comp
     G = gw.shape[0]
     work = gw.reshape((G,) + plan.work)
     m = codec.decode(enc, plan.storage).reshape((G,) + plan.work)
     C = work.shape[-1]
-    ef = m + work
-    idx = select_indices(ef, t, comp, backend)  # shared, or per worker
-    # fused Eq. 5: one pass gives the residue update and each worker's values
-    new_m, vals = backend.ef_update(m, work, idx, beta, comp.chunk, comp.topm)
-    if comp.name == "local_topk":
-        # union-average (gradient build-up): every worker scatters its own
-        ghat = torch.mean(backend.scatter(vals, idx, comp.chunk, C, comp.topm), dim=0)
+    use_fused = fused and not comp.exact and comp.name in FUSABLE_MODES
+    ef = None if use_fused else m + work
+    if comp.exact:
+        ghat, own = _execute_exact(ef, t, comp, backend)
+        new_m = lowpass_update(m, work, own, beta)
+    elif use_fused:
+        leader = t % G if comp.name == "clt_k" else None
+        _, _, new_m, ghat = backend.fused_reduce(
+            m, work, beta, comp.chunk, comp.topm, comp.name, leader
+        )
     else:
-        vmean = torch.mean(vals, dim=0)  # the all-reduce of k values
-        ghat = backend.scatter(vmean, idx, comp.chunk, C, comp.topm)
+        idx = select_indices(ef, t, comp, backend)  # shared, or per worker
+        # fused Eq. 5: one pass gives the residue update and each worker's values
+        new_m, vals = backend.ef_update(m, work, idx, beta, comp.chunk, comp.topm)
+        if comp.name == "local_topk":
+            # union-average (gradient build-up): every worker scatters its own
+            ghat = torch.mean(backend.scatter(vals, idx, comp.chunk, C, comp.topm), dim=0)
+        else:
+            vmean = torch.mean(vals, dim=0)  # the all-reduce of k values
+            ghat = backend.scatter(vmean, idx, comp.chunk, C, comp.topm)
     new_enc = codec.encode(new_m.reshape((G,) + plan.storage), plan.storage)
+    if compute_stats and ef is None:
+        ef = m + work
     ef_mean = torch.mean(ef, dim=0).reshape(plan.shape) if compute_stats else None
     return ghat.reshape(plan.shape), new_enc, ef_mean
 
@@ -160,6 +187,7 @@ def scalecom_reduce(
     flat = tree.flatten_with_path(grads_pw)
     device = flat[0][1].device if flat else None
     backend = resolve_backend(cfg.backend, device)
+    fused = resolve_fused(cfg.fused)
     plans = plan_tensors(
         tuple((p, tuple(g.shape[1:]), g.shape[0]) for p, g in flat),
         cfg,
@@ -179,7 +207,7 @@ def scalecom_reduce(
             continue
         ghat, new_enc, ef_mean = _execute(
             plan, gw, state.residues[plan.path], codec, cfg.beta, t, backend,
-            compute_stats,
+            compute_stats, fused,
         )
         new_residues[plan.path] = new_enc
         if compute_stats:

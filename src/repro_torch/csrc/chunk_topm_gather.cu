@@ -1,0 +1,101 @@
+// Hand-written Hopper (sm_90a) kernels: the per-chunk top-m select and the
+// gather of values at per-chunk offsets.
+//
+// Both work on a (rows, chunk) row-major view whose trailing axis is already
+// padded to a chunk multiple (repro_torch/backends/cuda_backend.py pads,
+// reshapes and lays out the index sets). Each launches on the caller's
+// stream, allocates nothing, and returns cudaGetLastError().
+
+#include "common.cuh"
+
+namespace scalecom {
+namespace {
+
+// Replaces src/repro/kernels/chunk_topk.py:_topm_kernel (the topm > 1 body
+// of row_select): per row, the top-m lanes by |x| in descending order, ties
+// to the lower lane and NaN above every number (the order of jax.lax.top_k
+// and of m masked-argmax passes), with the signed values there.
+//
+// Bound: reads rows*chunk*4 bytes, writes rows*topm*8 bytes. Design: one
+// warp per row; pass j is warp_pick() over the lanes ranking after pass
+// j-1's pick, so no mask and no shared memory are needed and any chunk width
+// works. Pass 0 streams the row from device memory; passes 1..m-1 re-read it
+// from L1. Each pass ends in a 5-step shuffle merge.
+__global__ void chunk_topm_kernel(const float* __restrict__ x,
+                                  int32_t* __restrict__ idx,
+                                  float* __restrict__ val, int64_t rows,
+                                  int chunk, int topm) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
+       r < rows; r += stride) {
+    const float* row = x + r * chunk;
+    int32_t* ir = idx + r * topm;
+    float* vr = val + r * topm;
+    Pick prev{0.0f, 0};
+    for (int j = 0; j < topm; ++j) {
+      prev = warp_pick([row](int c) { return fabsf(row[c]); }, chunk, j == 0, prev);
+      if (threadIdx.x == 0) {
+        ir[j] = prev.lane;
+        vr[j] = row[prev.lane];
+      }
+    }
+  }
+}
+
+// Replaces src/repro/kernels/chunk_topk.py:_gather_kernel: out[r, j] =
+// x[r, idx[r % idx_rows, j]]. Row r reads index row r % idx_rows, so one
+// shared (R,) set serves all G stacked workers (rows = G * R) without being
+// broadcast in memory.
+//
+// Bound: one 32-byte sector of x per distinct (row, offset sector), plus the
+// index set and the output. A gather has no row-wide work to spread over a
+// warp, so this kernel departs from the warp-per-row design: one thread per
+// output element, consecutive threads on consecutive outputs (coalesced
+// index reads and output writes, one sector read each from x). An offset
+// outside [0, chunk) yields NaN instead of a read outside its row.
+__global__ void chunk_gather_kernel(const float* __restrict__ x,
+                                    const int32_t* __restrict__ idx,
+                                    float* __restrict__ out, int64_t rows,
+                                    int64_t idx_rows, int chunk, int topm) {
+  const int64_t n = rows * topm;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       e < n; e += stride) {
+    const int64_t r = e / topm;
+    const int j = static_cast<int>(e - r * topm);
+    const int c = idx[(r % idx_rows) * topm + j];
+    out[e] = (c >= 0 && c < chunk) ? x[r * chunk + c] : __int_as_float(0x7fc00000);
+  }
+}
+
+constexpr int kGatherThreads = 256;
+
+}  // namespace
+}  // namespace scalecom
+
+extern "C" {
+
+int scalecom_chunk_topm(const float* x, int32_t* idx, float* val, int64_t rows,
+                        int64_t chunk, int64_t topm, void* stream) {
+  using namespace scalecom;
+  const dim3 block(kWarp, kRowsPerBlock);
+  const dim3 grid(static_cast<unsigned>(blocks_for(rows)));
+  chunk_topm_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, idx, val, rows, static_cast<int>(chunk), static_cast<int>(topm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+int scalecom_chunk_gather(const float* x, const int32_t* idx, float* out,
+                          int64_t rows, int64_t idx_rows, int64_t chunk,
+                          int64_t topm, void* stream) {
+  using namespace scalecom;
+  const int64_t n = rows * topm;
+  int64_t blocks = (n + kGatherThreads - 1) / kGatherThreads;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  chunk_gather_kernel<<<static_cast<unsigned>(blocks), kGatherThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      x, idx, out, rows, idx_rows, static_cast<int>(chunk), static_cast<int>(topm));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

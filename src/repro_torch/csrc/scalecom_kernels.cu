@@ -11,44 +11,24 @@
 // already padded to a chunk multiple (the Python wrappers in
 // repro_torch/kernels/ do the padding, reshaping and index broadcasting).
 //
-// Design shared by all three: one warp owns one chunk row at a time; its 32
-// lanes stride over the row, so neighbouring lanes touch neighbouring
-// addresses and every warp-wide load is one 128-byte transaction. Rows are
-// walked grid-stride with int64 offsets: a worker-stacked tensor can pass
-// 2^31 elements. Each kernel is bound by device-memory bytes, not by
-// arithmetic (a few flops per element against 4-12 bytes moved), so the
-// simple design aims only at coalesced single-pass traffic: every input is
-// read once and every output written once. Vector loads, TMA and
-// multi-row pipelining are later work.
+// Design shared by all three (csrc/common.cuh): one warp owns one chunk row
+// at a time; its 32 lanes stride over the row, so neighbouring lanes touch
+// neighbouring addresses and every warp-wide load is one 128-byte
+// transaction. Rows are walked grid-stride with int64 offsets: a
+// worker-stacked tensor can pass 2^31 elements. Each kernel is bound by
+// device-memory bytes, not by arithmetic (a few flops per element against
+// 4-12 bytes moved), so the simple design aims only at coalesced single-pass
+// traffic: every input is read once and every output written once. Vector
+// loads, TMA and multi-row pipelining are later work.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
-#include <climits>
-#include <cstdint>
-
+namespace scalecom {
 namespace {
-
-constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;           // warps per block: 256 threads
-constexpr int64_t kMaxBlocks = 1 << 20;    // grid-stride beyond this
-
-inline int64_t blocks_for(int64_t rows) {
-  const int64_t b = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  return b < kMaxBlocks ? b : kMaxBlocks;
-}
-
-// Does magnitude a at lane ia beat magnitude b at lane ib? NaN ranks above
-// every number and ties go to the lower lane: the order torch.argmax and
-// jnp.argmax use.
-__device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
-  const bool na = isnan(a), nb = isnan(b);
-  if (na || nb) return na && (!nb || ia < ib);
-  return a > b || (a == b && ia < ib);
-}
 
 // Replaces src/repro/kernels/chunk_topk.py:_argmax_kernel (the topm == 1
 // body of row_select). Bound: reads rows*chunk*4 bytes, writes rows*8 bytes.
@@ -159,11 +139,13 @@ __global__ void chunk_scatter_kernel(const float* __restrict__ vals,
 }
 
 }  // namespace
+}  // namespace scalecom
 
 extern "C" {
 
 int scalecom_chunk_argmax(const float* x, int32_t* idx, float* val,
                           int64_t rows, int64_t chunk, void* stream) {
+  using namespace scalecom;
   const dim3 block(kWarp, kRowsPerBlock);
   const dim3 grid(static_cast<unsigned>(blocks_for(rows)));
   chunk_argmax_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -175,6 +157,7 @@ int scalecom_ef_update(const float* m, const float* g, const int32_t* idx,
                        float* m_out, float* vals, int64_t rows,
                        int64_t idx_rows, int64_t chunk, int64_t topm,
                        float beta, void* stream) {
+  using namespace scalecom;
   const dim3 block(kWarp, kRowsPerBlock);
   const dim3 grid(static_cast<unsigned>(blocks_for(rows)));
   ef_update_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -186,6 +169,7 @@ int scalecom_ef_update(const float* m, const float* g, const int32_t* idx,
 int scalecom_chunk_scatter(const float* vals, const int32_t* idx, float* out,
                            int64_t rows, int64_t chunk, int64_t topm,
                            void* stream) {
+  using namespace scalecom;
   const dim3 block(kWarp, kRowsPerBlock);
   const dim3 grid(static_cast<unsigned>(blocks_for(rows)));
   chunk_scatter_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -1,13 +1,21 @@
 """Hand-written CUDA kernels of the ScaleCom reduce and their PyTorch wrappers.
 
-``chunk_topk`` (select, scatter) and ``ef_update`` wrap the kernels in
-``csrc/scalecom_kernels.cu``; ``build`` compiles that source with nvcc at
-first use. Importing this package builds nothing.
+``chunk_topk`` (select, top-m select, gather, scatter), ``ef_update`` and
+``fused_reduce`` wrap the kernels in ``csrc/*.cu``; ``build`` compiles those
+sources with nvcc at first use. Importing this package builds nothing.
 """
 
-from repro_torch.kernels import chunk_topk, ef_update
+from repro_torch.kernels import chunk_topk, ef_update, fused_reduce
 
-KERNELS = (chunk_topk.chunk_argmax, ef_update.ef_update, chunk_topk.chunk_scatter)
+# every kernel wrapper, in the order of the TPU kernels they replace
+KERNELS = (
+    chunk_topk.chunk_argmax,
+    chunk_topk.chunk_topm,
+    chunk_topk.chunk_gather,
+    chunk_topk.chunk_scatter,
+    ef_update.ef_update,
+    fused_reduce.fused_reduce,
+)
 
 
 def reset_launches() -> None:
@@ -21,4 +29,4 @@ def launches() -> dict:
     return {k.__name__: k.launches for k in KERNELS}
 
 
-__all__ = ["chunk_topk", "ef_update", "KERNELS", "reset_launches", "launches"]
+__all__ = ["chunk_topk", "ef_update", "fused_reduce", "KERNELS", "reset_launches", "launches"]

@@ -1,19 +1,27 @@
-"""Chunk-row select and scatter: CUDA kernels, their wrappers and plain versions.
+"""Chunk-row select, gather and scatter: CUDA kernels, wrappers, plain versions.
 
-Both kernels work on a ``(rows, chunk)`` view whose trailing axis is already
-padded to a chunk multiple (``repro_torch.backends.cuda_backend`` pads,
-reshapes and broadcasts indices):
+Every kernel works on a ``(rows, chunk)`` view whose trailing axis is
+already padded to a chunk multiple (``repro_torch.backends.cuda_backend``
+pads, reshapes and lays out the index sets):
 
   chunk_argmax   replaces src/repro/kernels/chunk_topk.py:_argmax_kernel
                  (the topm == 1 body of ``row_select``): per row, the
                  arg-max of |x| as an int32 lane offset and the signed value
                  there; ties go to the lower lane.
+  chunk_topm     replaces src/repro/kernels/chunk_topk.py:_topm_kernel (the
+                 topm > 1 body of ``row_select``): per row, the top-m lanes
+                 by |x| in descending order (ties to the lower lane, NaN
+                 first, as ``jax.lax.top_k``) and the signed values there.
+  chunk_gather   replaces src/repro/kernels/chunk_topk.py:_gather_kernel:
+                 values at per-chunk offsets; row r reads index row
+                 r % idx_rows, so a shared set serves all stacked workers.
   chunk_scatter  replaces src/repro/kernels/chunk_topk.py:_scatter_kernel:
                  a dense ``(rows, chunk)`` tile holding ``vals`` at ``idx``
                  and zeros elsewhere; top-m entries are summed.
 
-Both are bound by device-memory bytes; the CUDA source
-(``csrc/scalecom_kernels.cu``) states the bytes and the design.
+All are bound by device-memory bytes; the CUDA sources
+(``csrc/scalecom_kernels.cu``, ``csrc/chunk_topm_gather.cu``) state the
+bytes and the design.
 
 A wrapper given CUDA tensors launches the kernel, counts the launch in its
 ``launches`` attribute, and raises if the launch fails. Given CPU tensors it
@@ -32,9 +40,19 @@ from repro_torch.kernels import build
 __all__ = [
     "chunk_argmax",
     "chunk_argmax_plain",
+    "chunk_topm",
+    "chunk_topm_plain",
+    "chunk_gather",
+    "chunk_gather_plain",
     "chunk_scatter",
     "chunk_scatter_plain",
 ]
+
+
+def _check_rows(x: torch.Tensor, name: str) -> None:
+    build.require(x.dim() == 2 and x.shape[1] > 0, name, f"x must be (rows, chunk), got {tuple(x.shape)}")
+    build.require(x.dtype == torch.float32, name, f"x must be float32, got {x.dtype}")
+    build.require(x.is_contiguous(), name, "x must be contiguous")
 
 
 def chunk_argmax_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -47,9 +65,7 @@ def chunk_argmax_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def chunk_argmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row magnitude arg-max of a contiguous fp32 ``(rows, chunk)`` tensor."""
     name = "chunk_argmax"
-    build.require(x.dim() == 2 and x.shape[1] > 0, name, f"x must be (rows, chunk), got {tuple(x.shape)}")
-    build.require(x.dtype == torch.float32, name, f"x must be float32, got {x.dtype}")
-    build.require(x.is_contiguous(), name, "x must be contiguous")
+    _check_rows(x, name)
     if not build.on_card(name, x):
         return chunk_argmax_plain(x)
     rows, chunk = x.shape
@@ -68,9 +84,81 @@ def chunk_argmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 chunk_argmax.launches = 0
 
 
+def chunk_topm_plain(x: torch.Tensor, topm: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(rows, chunk) -> (idx (rows, topm) int32, val (rows, topm)) by masked-argmax passes."""
+    from repro_torch.core.chunked import chunk_topm_indices  # core imports the kernels
+
+    idx = chunk_topm_indices(x, x.shape[1], topm)[:, 0]
+    return idx, torch.gather(x, 1, idx.long())
+
+
+def chunk_topm(x: torch.Tensor, topm: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row magnitude top-m of a contiguous fp32 ``(rows, chunk)`` tensor."""
+    name = "chunk_topm"
+    _check_rows(x, name)
+    rows, chunk = x.shape
+    build.require(1 <= topm <= chunk, name, f"need 1 <= topm <= chunk, got {topm}, {chunk}")
+    if not build.on_card(name, x):
+        return chunk_topm_plain(x, topm)
+    idx = torch.empty((rows, topm), dtype=torch.int32, device=x.device)
+    val = torch.empty((rows, topm), dtype=torch.float32, device=x.device)
+    if rows:
+        rc = build.library().scalecom_chunk_topm(
+            x.data_ptr(), idx.data_ptr(), val.data_ptr(), rows, chunk, topm,
+            build.stream_of(x),
+        )
+        build.check(rc, name)
+        chunk_topm.launches += 1
+    return idx, val
+
+
+chunk_topm.launches = 0
+
+
 def _rows2d(t: torch.Tensor) -> torch.Tensor:
     """(rows,) -> (rows, 1); (rows, m) unchanged."""
     return t[:, None] if t.dim() == 1 else t
+
+
+def chunk_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (rows, chunk), idx (idx_rows[, m]) -> x at index row r % idx_rows, shaped (rows[, m])."""
+    i = _rows2d(idx).repeat(x.shape[0] // idx.shape[0], 1)
+    out = torch.gather(x, 1, i.long())
+    return out[:, 0] if idx.dim() == 1 else out
+
+
+def chunk_gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Values of a contiguous fp32 ``(rows, chunk)`` tensor at per-row offsets.
+
+    ``idx`` is int32 ``(idx_rows,)`` or ``(idx_rows, m)`` with ``rows`` a
+    multiple of ``idx_rows``; row r reads index row ``r % idx_rows``.
+    """
+    name = "chunk_gather"
+    _check_rows(x, name)
+    build.require(idx.dtype == torch.int32, name, f"idx must be int32, got {idx.dtype}")
+    build.require(idx.dim() in (1, 2), name, f"idx must be (idx_rows,) or (idx_rows, m), got {tuple(idx.shape)}")
+    build.require(idx.is_contiguous(), name, "idx must be contiguous")
+    rows, chunk = x.shape
+    idx_rows = idx.shape[0]
+    topm = 1 if idx.dim() == 1 else idx.shape[1]
+    build.require(idx_rows > 0 and rows % idx_rows == 0, name,
+                  f"rows {rows} must be a multiple of idx_rows {idx_rows}")
+    build.require(1 <= topm <= chunk, name, f"need 1 <= m <= chunk, got {topm}, {chunk}")
+    if not build.on_card(name, x, idx):
+        return chunk_gather_plain(x, idx)
+    out = torch.empty((rows,) if idx.dim() == 1 else (rows, topm),
+                      dtype=torch.float32, device=x.device)
+    if rows:
+        rc = build.library().scalecom_chunk_gather(
+            x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, idx_rows, chunk,
+            topm, build.stream_of(x),
+        )
+        build.check(rc, name)
+        chunk_gather.launches += 1
+    return out
+
+
+chunk_gather.launches = 0
 
 
 def chunk_scatter_plain(

@@ -6,9 +6,11 @@ on synthetic data, simulating n workers on one device.
 
 The port of ``repro.launch.train`` for the flags this slice covers. It runs
 on the CUDA card by default and raises if there is none; ``--device cpu``
-runs the plain PyTorch versions of the kernels instead. Microbatches,
-checkpointing, preflight scenarios, tracing, autotune, bucketing and the
-lossy residue codecs wait (ROADMAP Queue 1 items 12-16).
+runs the plain PyTorch versions of the kernels instead.
+``SCALECOM_TORCH_FUSED=1`` puts clt_k and true_topk tensors on the
+single-launch fused reduce. Microbatches, checkpointing, preflight
+scenarios, tracing, autotune, bucketing and the lossy residue codecs wait
+(ROADMAP Queue 1 items 12-16).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=0.05)
     ap.add_argument("--optimizer", default="sgdm", choices=["sgdm", "adam", "rmsprop"])
     ap.add_argument("--compressor", default="clt_k",
-                    choices=["clt_k", "true_topk", "local_topk", "none"])
+                    choices=["clt_k", "true_topk", "local_topk", "random_k", "none"])
     ap.add_argument("--chunk", type=int, default=64)
     ap.add_argument("--beta", type=float, default=0.1)
     ap.add_argument("--warmup-steps", type=int, default=10)

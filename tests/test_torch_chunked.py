@@ -23,6 +23,7 @@ from repro_torch import kernels
 from repro_torch.backends import resolve_backend
 from repro_torch.core import chunked as tchunked
 from repro_torch.kernels import chunk_topk, ef_update as ef_kernel
+from repro_torch.kernels import fused_reduce as fr_kernel
 
 SHAPES = [(64, 8), (100, 16), (4096, 64), (17, 4), (5, 8)]  # tests/test_chunked.py
 G = 3
@@ -128,15 +129,6 @@ def test_gather_matches_jnp(size, chunk):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_cuda_backend_refuses_unported_kernels():
-    be = resolve_backend("cuda")
-    x = torch.zeros(2, 64)
-    with pytest.raises(NotImplementedError, match="_topm_kernel"):
-        be.select(x, 16, topm=2)
-    with pytest.raises(NotImplementedError, match="_gather_kernel"):
-        be.gather(x, torch.zeros(2, 4, dtype=torch.int32), 16)
-
-
 @pytest.mark.parametrize(
     "call,match",
     [
@@ -151,6 +143,17 @@ def test_cuda_backend_refuses_unported_kernels():
                                      torch.zeros(4, dtype=torch.int32), 0.1), "multiple"),
         (lambda: ef_kernel.ef_update(torch.zeros(6, 8), torch.zeros(6, 4),
                                      torch.zeros(6, dtype=torch.int32), 0.1), "shape"),
+        (lambda: chunk_topk.chunk_topm(torch.zeros(4, 8), 9), "topm"),
+        (lambda: chunk_topk.chunk_topm(torch.zeros(4, 8, dtype=torch.float16), 2), "float32"),
+        (lambda: chunk_topk.chunk_gather(torch.zeros(6, 8), torch.zeros(4, dtype=torch.int32)),
+         "multiple"),
+        (lambda: chunk_topk.chunk_gather(torch.zeros(6, 8), torch.zeros(6, dtype=torch.int64)),
+         "int32"),
+        (lambda: fr_kernel.fused_reduce(torch.zeros(2, 3, 8), torch.zeros(2, 3, 8), 0.1, 1,
+                                        "local_topk"), "mode"),
+        (lambda: fr_kernel.fused_reduce(torch.zeros(2, 3, 8), torch.zeros(2, 3, 8), 0.1, 1,
+                                        "clt_k", 2), "leader"),
+        (lambda: fr_kernel.fused_reduce(torch.zeros(3, 8), torch.zeros(3, 8), 0.1), r"\(G, rows"),
     ],
 )
 def test_wrappers_refuse_bad_inputs(call, match):
@@ -165,4 +168,10 @@ def test_cpu_run_launches_no_kernel():
     idx = be.select_indices(x, 64)
     be.ef_update(x, x, idx[0], BETA, 64)
     be.scatter(torch.randn(5), idx[0], 64, 300)
-    assert kernels.launches() == {"chunk_argmax": 0, "ef_update": 0, "chunk_scatter": 0}
+    be.select(x, 64, topm=2)
+    be.gather(x, idx[0], 64)
+    be.fused_reduce(x, x, BETA, 64, 1, "clt_k", 1)
+    assert kernels.launches() == {
+        "chunk_argmax": 0, "chunk_topm": 0, "chunk_gather": 0, "chunk_scatter": 0,
+        "ef_update": 0, "fused_reduce": 0,
+    }

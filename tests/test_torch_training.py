@@ -199,4 +199,7 @@ def test_cpu_run_through_the_cuda_backend_launches_no_kernel():
                         "--warmup-steps", "1", "--local-batch", "2", "--seq", "16",
                         "--log-every", "1"])
     assert len(history) == 3 and all(np.isfinite(h["loss"]) for h in history)
-    assert kernels.launches() == {"chunk_argmax": 0, "ef_update": 0, "chunk_scatter": 0}
+    assert kernels.launches() == {
+        "chunk_argmax": 0, "chunk_topm": 0, "chunk_gather": 0, "chunk_scatter": 0,
+        "ef_update": 0, "fused_reduce": 0,
+    }
