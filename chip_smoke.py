@@ -18,22 +18,30 @@ Phases, each fatal on failure:
      at top-m 1 and 2; a chunk tail; small shapes full of ties with top-m 1,
      2 and chunk, and 1, 3 and 64 workers for the fused reduce), bitwise,
      with its time beside the plain version's, a PyTorch library call's and
-     the bound;
+     the bound. The two selects must run their vec4 variant at the tok_embed
+     shapes; their scalar variant runs on the same rows from a misaligned
+     base. Then the selects' variant edges, each checked for the variant
+     that ran: rows 1 to 100,003, chunk 4/8/64/128, top-m at the register
+     limit (8) and above it, misaligned bases, NaN payloads, and one tensor
+     past 2^31 elements;
   3. the main path: ``run_training`` trains paper-transformer-base at full
      width (6 layers, d 512, vocab 37000) with CLT-k, 8 workers of batch 4 x
      128 tokens, 2 dense warm-up steps then 3 compressed steps, once unfused
      and once with ``fused=True``; the loss must be finite and each kernel
      must have launched as often as the reduce plan says (unfused: select,
-     update and scatter once per compressed tensor and step; fused: one
-     fused_reduce and nothing else);
+     update and scatter once per compressed tensor and step, every select
+     in its vec4 variant; fused: one fused_reduce and nothing else);
   4. teacher-forced reduce from the trained state: the unfused "cuda"
      backend equals the "torch" backend bit for bit (and from the state
      before the first compressed step); the fused cuda reduce equals the
      unfused one (residues and the tok_embed idx/vals bitwise, ĝ to rtol
      1e-6) and the fused torch backend (clt_k; true_topk up to near ties,
      counted); a rate rule putting the blocks' tensors at top-2 runs
-     chunk_topm, fused and unfused, cuda against torch; host-clock times of
-     the per-worker gradients and of each reduce;
+     chunk_topm (vec4 variant), fused and unfused, cuda against torch;
+     host-clock times of the per-worker gradients and of each reduce; both
+     selects timed at their path's own shapes (chunk_argmax over the 17
+     compressed tensors of one step, chunk_topm over the 15 top-2 ones),
+     summed beside the summed byte bound;
   4b. ``compress()`` on the tok_embed EF gradient for clt_k, true_topk,
      local_topk and random_k at top-m 1 and 2, cuda backend against torch
      backend bitwise, one chunk_gather launch per call; the exact path once;
@@ -62,9 +70,9 @@ SRC = os.path.join(ROOT, "src")
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 CSRC = "src/repro_torch/csrc/"
-KERNELS = {  # name: (source, the Pallas body it replaces)
-    "chunk_argmax": ("scalecom_kernels.cu", "src/repro/kernels/chunk_topk.py:65"),
-    "chunk_topm": ("chunk_topm_gather.cu", "src/repro/kernels/chunk_topk.py:74"),
+KERNELS = {  # name: (source of the kernel timed, the Pallas body it replaces)
+    "chunk_argmax": ("chunk_select.cuh", "src/repro/kernels/chunk_topk.py:65"),
+    "chunk_topm": ("chunk_select.cuh", "src/repro/kernels/chunk_topk.py:74"),
     "chunk_gather": ("chunk_topm_gather.cu", "src/repro/kernels/chunk_topk.py:91"),
     "chunk_scatter": ("scalecom_kernels.cu", "src/repro/kernels/chunk_topk.py:101"),
     "ef_update": ("scalecom_kernels.cu", "src/repro/kernels/ef_update.py:44"),
@@ -167,6 +175,7 @@ def kernel_phase(card_line: str):
     """Phase 2: each kernel against its plain version at its path's shapes."""
     import torch
 
+    from repro_torch import kernels
     from repro_torch.backends import resolve_backend
     from repro_torch.kernels import chunk_topk as ct, ef_update as efk, fused_reduce as frk
 
@@ -197,12 +206,45 @@ def kernel_phase(card_line: str):
               f"bound_ms {bound_ms:.4f} ({bound_by}) on {card_line}")
 
     # select over the worker-stacked EF: (G*R, 64) rows; top-2 for a rate rule's tensors
+    kernels.reset_launches()
     record("chunk_argmax", lambda: ct.chunk_argmax(xr), lambda: ct.chunk_argmax_plain(xr),
            lambda: torch.argmax(xr.abs(), dim=-1), "torch.argmax(x.abs(), -1)",
            rows * CHUNK * 4 + rows * 8, 2 * rows * CHUNK)
     record("chunk_topm", lambda: ct.chunk_topm(xr, 2), lambda: ct.chunk_topm_plain(xr, 2),
            lambda: torch.topk(xr.abs(), 2, dim=-1), "torch.topk(x.abs(), 2, -1)",
            rows * CHUNK * 4 + rows * 2 * 8, 2 * 2 * rows * CHUNK)
+    for kern in (ct.chunk_argmax, ct.chunk_topm):
+        check(kern.variants["scalar"] == 0 and kern.variants["vec4"] == kern.launches,
+              f"{kern.__name__} at the tok_embed shapes ran {kern.variants}, want vec4 only")
+        results[kern.__name__]["variant"] = "vec4"
+    print(f"[kernel] chunk_argmax and chunk_topm at the tok_embed shapes ran the vec4 variant "
+          f"only ({ct.chunk_argmax.launches} and {ct.chunk_topm.launches} launches)")
+    # the same rows from a base 4 bytes past 16-byte alignment: the scalar variant
+    buf = torch.empty(rows * CHUNK + 4, device=dev)
+    mis = buf[1:1 + rows * CHUNK].view(rows, CHUNK)
+    mis.copy_(xr)
+    for kern, fn, plain in ((ct.chunk_argmax, lambda: ct.chunk_argmax(mis),
+                             lambda: ct.chunk_argmax_plain(mis)),
+                            (ct.chunk_topm, lambda: ct.chunk_topm(mis, 2),
+                             lambda: ct.chunk_topm_plain(mis, 2))):
+        before = kern.variants["scalar"]
+        check(bitwise(fn(), plain()) and kern.variants["scalar"] == before + 1,
+              f"{kern.__name__} on a misaligned base: scalar variant differs from plain "
+              f"or did not run ({kern.variants})")
+        results[kern.__name__]["scalar_ms"] = time_ms(fn)
+        print(f"[kernel] {kern.__name__} scalar variant (misaligned base, same rows): bitwise "
+              f"equal to plain; kernel_ms {results[kern.__name__]['scalar_ms']:.4f} against "
+              f"vec4 {results[kern.__name__]['ms']:.4f} on {card_line}")
+    # top-m at the register-list limit: vec4 against the scalar pass design
+    topm = ct.VEC4_MAX_TOPM
+    want = ct.chunk_topm_plain(xr, topm)
+    check(bitwise(ct.chunk_topm(xr, topm), want) and bitwise(ct.chunk_topm(mis, topm), want),
+          f"chunk_topm top-{topm} at the tok_embed shapes differs from plain")
+    print(f"[kernel] chunk_topm top-{topm}: both variants bitwise equal to plain; kernel_ms vec4 "
+          f"{time_ms(lambda: ct.chunk_topm(xr, topm)):.4f}, scalar "
+          f"{time_ms(lambda: ct.chunk_topm(mis, topm)):.4f}, bound_ms "
+          f"{bound(rows * CHUNK * 4 + rows * topm * 8, 0)[0]:.4f} on {card_line}")
+    del buf, mis, want
 
     # Eq. 5 update with the shared (R,) leader set, read by all G workers
     m = torch.randn(G, P, device=dev, generator=gen).view(-1, CHUNK)
@@ -321,7 +363,184 @@ def kernel_phase(card_line: str):
     print("[kernel] fused clt_k == unfused kernels; chunk tails through the cuda backend; small "
           "tied shapes (NaN in the selects) with top-m 1, 2 and chunk, fused over 1, 3 and 64 "
           "workers: bitwise equal")
+    select_boundaries(gen)
     return results
+
+
+def tied_nan(rows: int, chunk: int, gen):
+    """(rows, chunk) fp32 full of ties, with -0, +inf and NaNs of both signs and
+    many payloads: every corner of the selects' order."""
+    import torch
+
+    x = torch.randint(-3, 4, (rows, chunk), device="cuda", generator=gen).float()
+    x[::3, ::5] = -0.0
+    x[::11, 2::6] = float("inf")
+    x[::7, ::3] = float("nan")
+    xi = x.view(torch.int32)
+    pay = torch.randint(1, 1 << 22, xi[1::4, ::2].shape, device="cuda", generator=gen,
+                        dtype=torch.int32)
+    xi[1::4, ::2] = (0x7F800000 | pay) | torch.where(pay % 2 == 0, 0, -2**31).to(torch.int32)
+    return x
+
+
+def select_boundaries(gen) -> None:
+    """Both selects at the edges of their variants, bitwise against the plain
+    versions, checking which variant ran: row counts that fill no warp or
+    block (1 included), chunk 4, 8, 64 and 128, top-m at the register-list
+    limit and one above it, a misaligned base, and one tensor past 2^31
+    elements if the card holds it."""
+    import torch
+
+    from repro_torch.kernels import chunk_topk as ct
+
+    def run(x, topm):
+        """(out, out_plain, variant that ran) of one select."""
+        kern = ct.chunk_argmax if topm is None else ct.chunk_topm
+        before = dict(kern.variants)
+        out = ct.chunk_argmax(x) if topm is None else ct.chunk_topm(x, topm)
+        ran = [v for v in before if kern.variants[v] != before[v]]
+        plain = ct.chunk_argmax_plain(x) if topm is None else ct.chunk_topm_plain(x, topm)
+        return out, plain, ran
+
+    def expect(x, topm, want, label):
+        out, plain, ran = run(x, topm)
+        check(ran == [want], f"{label}: ran {ran}, want the {want} variant")
+        check(bitwise(out, plain), f"{label}: {want} variant differs from plain")
+
+    limit = ct.VEC4_MAX_TOPM
+    n = 0
+    for rows in (1, 7, 9, 63, 65, 257, 100_003):
+        for chunk in (4, 8, 64, 128):
+            x = tied_nan(rows, chunk, gen)
+            flat = torch.empty(rows * chunk + 4, device="cuda")
+            mis = flat[1:1 + rows * chunk].view(rows, chunk)
+            mis.copy_(x)
+            for topm in sorted({None, 1, 2, min(limit, chunk), min(limit + 1, chunk)},
+                               key=lambda m: m or 0):
+                label = f"({rows}, {chunk}) {'argmax' if topm is None else f'top-{topm}'}"
+                expect(x, topm, "vec4" if (topm or 1) <= limit else "scalar", label)
+                expect(mis, topm, "scalar", label + " misaligned")
+                n += 2
+    torch.cuda.synchronize()
+    print(f"[kernel] select boundaries: {n} cases (rows 1..100003, chunk 4/8/64/128, top-m "
+          f"1, 2, {limit} and {limit + 1}, aligned and misaligned bases, ties, -0, inf, NaN "
+          f"payloads): each ran its expected variant, bitwise equal to plain")
+
+    # one tensor past 2^31 elements: int64 row offsets in both variants
+    rows = 2**31 // CHUNK + 1001
+    nbytes = rows * CHUNK * 4
+    free, _ = torch.cuda.mem_get_info()
+    if free < 5 * nbytes:
+        print(f"[kernel] past 2^31 elements: not run, {free / 2**30:.1f} GiB free of the "
+              f"{5 * nbytes / 2**30:.1f} GiB it needs")
+        return
+    big = torch.empty(rows * CHUNK + 4, device="cuda")
+    big.normal_(generator=gen)
+    for base, want in ((0, "vec4"), (1, "scalar")):
+        x = big[base:base + rows * CHUNK].view(rows, CHUNK)
+        x[::997] = torch.randint(-3, 4, x[::997].shape, device="cuda", generator=gen).float()
+        x[-1] = float("nan")
+        for topm in (None, 2):
+            expect(x, topm, want, f"{rows * CHUNK:,} elements, {want}, "
+                                  f"{'argmax' if topm is None else f'top-{topm}'}")
+    del big, x
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[kernel] past 2^31 elements ({rows:,} rows of {CHUNK}, "
+          f"{rows * CHUNK:,} elements): argmax and top-2, vec4 and scalar variants, bitwise "
+          f"equal to plain")
+
+
+def path_selects(plans, rr_plans, workers: int, card_line: str) -> None:
+    """Both selects at the shapes one compressed step gives them on their
+    path: chunk_argmax over every compressed tensor of the unfused CLT-k step,
+    chunk_topm over the tensors a top-2 rate rule puts at top-2. Each
+    tensor's rows are selected from an aligned base (vec4) and a misaligned
+    one (scalar). Prints the kernels' summed device time per step from
+    torch.profiler (CUDA events around a small tensor's call would count the
+    wrapper's host dispatch too) beside the summed byte bound, and the
+    CUDA-event time of the step's calls back to back, dispatch gaps
+    included, which is what the path sees."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import chunk_topk as ct
+
+    reps = 10
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for name, chosen in (("chunk_argmax", [p for p in plans if not p.dense and p.comp.topm == 1]),
+                         ("chunk_topm", [p for p in rr_plans if not p.dense and p.comp.topm > 1])):
+        calls, bound_ms, elements = [], 0.0, 0
+        for p in chosen:
+            rows, chunk, topm = workers * p.n_chunks, p.comp.chunk, p.comp.topm
+            buf = torch.randn(rows * chunk + 4, device="cuda", generator=gen)
+            xs = [buf[base:base + rows * chunk].view(rows, chunk) for base in (0, 1)]
+            for x, want in zip(xs, ("vec4", "scalar")):
+                check(ct.select_variant(chunk, x.data_ptr(), topm) == want,
+                      f"{name} at {p.path}: the {want} variant would not run")
+            calls.append((xs, topm))
+            bound_ms += bound(rows * chunk * 4 + rows * topm * 8, 0)[0]
+            elements += rows * chunk
+
+        def step(base, calls=calls):
+            for xs, topm in calls:
+                ct.chunk_argmax(xs[base]) if topm == 1 else ct.chunk_topm(xs[base], topm)
+
+        wall = [time_ms(lambda: step(base)) for base in (0, 1)]
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                step(0)
+                step(1)
+            torch.cuda.synchronize()
+        device = {"vec4": [0.0, 0], "scalar": [0.0, 0]}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            kind = ("vec4" if "chunk_select_vec4_kernel" in e.key else
+                    "scalar" if f"{name}_kernel" in e.key else None)
+            if kind:
+                device[kind][0] += e.self_device_time_total / 1e3 / reps
+                device[kind][1] += e.count
+        if device["vec4"][1] == 0 and device["scalar"][1] == 0:
+            dev_text = "device time not measured (torch.profiler recorded no device events)"
+        else:
+            check(device["vec4"][1] == device["scalar"][1] == reps * len(calls),
+                  f"{name} on its path: the profiler saw {device} launches, want "
+                  f"{reps * len(calls)} of each variant")
+            dev_text = (f"kernel device ms {device['vec4'][0]:.4f} summed (scalar variant "
+                        f"{device['scalar'][0]:.4f}), bound ms {bound_ms:.4f}, lost "
+                        f"{device['vec4'][0] - bound_ms:.4f} per step")
+        print(f"[path] {name} over the {len(chosen)} tensors one compressed step gives it "
+              f"({elements:,} elements, {workers} workers): {dev_text}; the calls back to back "
+              f"{wall[0]:.4f} ms on the card's clock (scalar {wall[1]:.4f}) on {card_line}")
+        del calls
+
+
+def print_ptxas(log: str) -> None:
+    """Registers and spills per kernel from ptxas -v; the vec4 select's
+    instantiations (one per lanes-per-row and top-m) summed into one line."""
+    entries, name = [], None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "spill" in ln and name:
+            spills = sum(int(w) for w in ln.split() if w.isdigit()) - int(ln.split()[0])
+            entries.append([name, 0, spills])
+        elif "Used" in ln and "registers" in ln and entries and entries[-1][0] == name:
+            entries[-1][1] = int(ln.split("Used")[1].split()[0])
+            name = None
+    vec4 = [e for e in entries if "chunk_select_vec4_kernel" in e[0]]
+    for n, regs, spills in entries:
+        if "chunk_select_vec4_kernel" not in n:
+            short = next((k for k in KERNELS if f"{k}_kernel" in n), n)
+            print(f"[build] {short}{' (scalar)' if short in ('chunk_argmax', 'chunk_topm') else ''}: "
+                  f"{regs} registers, {spills} bytes spilled")
+    if vec4:
+        regs = [e[1] for e in vec4]
+        print(f"[build] vec4 select, {len(vec4)} instantiations: {min(regs)}-{max(regs)} registers, "
+              f"{sum(e[2] for e in vec4)} bytes spilled")
 
 
 def expected_launches(plans, fused: bool, steps: int) -> dict:
@@ -364,7 +583,7 @@ def main() -> None:
     from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
     from repro_torch.core.state import ScaleComState, residue_signature
     from repro_torch.data import make_batches
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, chunk_topk as ct
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer, schedule
     from repro_torch.training import TrainLoop, init_train_state, run_training
@@ -380,9 +599,7 @@ def main() -> None:
           f"python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     build.library()
     print(f"[build] nvcc {build.build_info['seconds']:.1f} s -> {build.build_info['path']}")
-    for ln in build.build_info["ptxas"].splitlines():
-        if "Compiling entry" in ln or "registers" in ln or "spill" in ln:
-            print(f"[build] {ln.strip()}")
+    print_ptxas(build.build_info["ptxas"])
 
     # -- 2. kernels against their plain versions -----------------------------
     results = kernel_phase(card_line)
@@ -426,6 +643,12 @@ def main() -> None:
         print(f"[train:{label}] launches {got} (want {want}: {n_compressed} tensors x "
               f"{steps - warmup} compressed steps)")
         check(got == want, f"{label}: launches {got} on the main path, want {want}")
+        check(ct.chunk_argmax.variants == {"vec4": got["chunk_argmax"], "scalar": 0},
+              f"{label}: chunk_argmax variants {ct.chunk_argmax.variants} on the main path, "
+              f"want vec4 only")
+        if got["chunk_argmax"]:
+            print(f"[train:{label}] chunk_argmax ran the vec4 variant on all "
+                  f"{got['chunk_argmax']} launches")
         path_launches.update({k: n for k, n in got.items() if n})
         return state, loop, batches
 
@@ -555,6 +778,10 @@ def main() -> None:
         check(got == want, f"rate rule: launches {got}, want {want}")
         if not fused:
             path_launches["chunk_topm"] = got["chunk_topm"]
+            check(ct.chunk_topm.variants == {"vec4": got["chunk_topm"], "scalar": 0},
+                  f"rate rule: chunk_topm variants {ct.chunk_topm.variants}, want vec4 only")
+            print(f"[reduce] rate rule unfused: chunk_topm ran the vec4 variant on all "
+                  f"{got['chunk_topm']} launches")
         rr_t = reduce(cfg_of("clt_k", fused, "torch", rules))
         if fused:
             agree(rr_c, rr_t, "rate rule fused cuda vs fused torch")
@@ -566,6 +793,9 @@ def main() -> None:
                   "rate rule unfused: cuda backend differs from torch backend")
             print("[reduce] rate rule unfused: cuda backend == torch backend, bitwise")
         del rr_c, rr_t
+
+    # the two selects at the shapes of their path, summed per compressed step
+    path_selects(flat_plans, rr_plans, workers, card_line)
 
     # -- 4b. compress() on the tok_embed EF gradient ------------------------------
     ef = m_t + g_t

@@ -5,7 +5,15 @@
 // padded to a chunk multiple (repro_torch/backends/cuda_backend.py pads,
 // reshapes and lays out the index sets). Each launches on the caller's
 // stream, allocates nothing, and returns cudaGetLastError().
+//
+// chunk_topm has two variants, picked in Python from shape, alignment and
+// top-m (repro_torch/kernels/chunk_topk.py:select_variant): "vec4"
+// (csrc/chunk_select.cuh: 16-byte loads, a few lanes per row, each lane's
+// best M in registers, one read of the row, a log2(lanes)-round merge) for
+// chunk % 4 == 0, a 16-byte-aligned base and top-m <= 8, as on the rate
+// rules' top-2 path; otherwise "scalar", the pass design below.
 
+#include "chunk_select.cuh"
 #include "common.cuh"
 
 namespace scalecom {
@@ -16,11 +24,13 @@ namespace {
 // to the lower lane and NaN above every number (the order of jax.lax.top_k
 // and of m masked-argmax passes), with the signed values there.
 //
-// Bound: reads rows*chunk*4 bytes, writes rows*topm*8 bytes. Design: one
-// warp per row; pass j is warp_pick() over the lanes ranking after pass
-// j-1's pick, so no mask and no shared memory are needed and any chunk width
-// works. Pass 0 streams the row from device memory; passes 1..m-1 re-read it
-// from L1. Each pass ends in a 5-step shuffle merge.
+// Bound: reads rows*chunk*4 bytes, writes rows*topm*8 bytes (0.192 ms at
+// the tok_embed shapes, top-2, on an H100). This is the scalar variant, for
+// any chunk width, any 4-byte-aligned base and any top-m: one warp per row;
+// pass j is warp_pick() over the lanes ranking after pass j-1's pick, so no
+// mask and no shared memory are needed. Pass 0 streams the row from device
+// memory with 4-byte loads (256 bytes in flight per warp); passes 1..m-1
+// re-read it from L1. Each pass ends in a 5-step shuffle merge.
 __global__ void chunk_topm_kernel(const float* __restrict__ x,
                                   int32_t* __restrict__ idx,
                                   float* __restrict__ val, int64_t rows,
@@ -83,6 +93,28 @@ int scalecom_chunk_topm(const float* x, int32_t* idx, float* val, int64_t rows,
   chunk_topm_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       x, idx, val, rows, static_cast<int>(chunk), static_cast<int>(topm));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The vec4 variant (csrc/chunk_select.cuh) at M = topm <= kVecMaxTopm. Needs
+// chunk % 4 == 0 and a 16-byte-aligned x; returns cudaErrorInvalidValue for
+// a top-m it was not built for.
+int scalecom_chunk_topm_vec4(const float* x, int32_t* idx, float* val,
+                             int64_t rows, int64_t chunk, int64_t topm,
+                             void* stream) {
+  using namespace scalecom;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  static_assert(kVecMaxTopm == 8, "one case per register-list length");
+  switch (topm) {
+    case 1: return static_cast<int>(select_vec4_lanes<1>(x, idx, val, rows, chunk, st));
+    case 2: return static_cast<int>(select_vec4_lanes<2>(x, idx, val, rows, chunk, st));
+    case 3: return static_cast<int>(select_vec4_lanes<3>(x, idx, val, rows, chunk, st));
+    case 4: return static_cast<int>(select_vec4_lanes<4>(x, idx, val, rows, chunk, st));
+    case 5: return static_cast<int>(select_vec4_lanes<5>(x, idx, val, rows, chunk, st));
+    case 6: return static_cast<int>(select_vec4_lanes<6>(x, idx, val, rows, chunk, st));
+    case 7: return static_cast<int>(select_vec4_lanes<7>(x, idx, val, rows, chunk, st));
+    case 8: return static_cast<int>(select_vec4_lanes<8>(x, idx, val, rows, chunk, st));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 int scalecom_chunk_gather(const float* x, const int32_t* idx, float* out,

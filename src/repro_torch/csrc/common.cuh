@@ -1,8 +1,11 @@
 // Shared device helpers of the port's kernels (included by every csrc/*.cu).
 //
-// The chunk-row kernels share one design: one warp owns one chunk row at a
-// time and its 32 lanes stride over the row, so neighbouring lanes touch
+// The first design of the chunk-row kernels: one warp owns one chunk row at
+// a time and its 32 lanes stride over the row, so neighbouring lanes touch
 // neighbouring addresses; rows are walked grid-stride with int64 offsets.
+// ef_update, chunk_scatter, fused_reduce and the scalar variants of the two
+// selects use it. The selects' fast "vec4" variant (several lanes per row,
+// 16-byte loads, a short merge) has its own helpers in chunk_select.cuh.
 
 #pragma once
 

@@ -10,30 +10,40 @@
 // All three work on a (rows, chunk) row-major view whose trailing axis is
 // already padded to a chunk multiple (the Python wrappers in
 // repro_torch/kernels/ do the padding, reshaping and index broadcasting).
+// Each is bound by device-memory bytes, not by arithmetic (a few flops per
+// element against 4-12 bytes moved); every input is read once and every
+// output written once. Rows are walked grid-stride with int64 offsets: a
+// worker-stacked tensor can pass 2^31 elements.
 //
-// Design shared by all three (csrc/common.cuh): one warp owns one chunk row
-// at a time; its 32 lanes stride over the row, so neighbouring lanes touch
-// neighbouring addresses and every warp-wide load is one 128-byte
-// transaction. Rows are walked grid-stride with int64 offsets: a
-// worker-stacked tensor can pass 2^31 elements. Each kernel is bound by
-// device-memory bytes, not by arithmetic (a few flops per element against
-// 4-12 bytes moved), so the simple design aims only at coalesced single-pass
-// traffic: every input is read once and every output written once. Vector
-// loads, TMA and multi-row pipelining are later work.
+// ef_update and chunk_scatter keep the first design (csrc/common.cuh): one
+// warp owns one chunk row at a time and its 32 lanes stride over the row, so
+// every warp-wide 4-byte load is one 128-byte transaction.
+//
+// chunk_argmax has two variants, picked in Python from shape and alignment
+// (repro_torch/kernels/chunk_topk.py:select_variant): "vec4"
+// (csrc/chunk_select.cuh, 16-byte loads, a few lanes per row, a
+// log2(lanes)-round merge) when chunk % 4 == 0 and the base is 16-byte
+// aligned, as on the main path; otherwise "scalar", the one-warp-per-row
+// kernel below.
 //
 // Every entry point launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() so the Python wrapper can raise on a refused
 // launch.
 
+#include "chunk_select.cuh"
 #include "common.cuh"
 
 namespace scalecom {
 namespace {
 
 // Replaces src/repro/kernels/chunk_topk.py:_argmax_kernel (the topm == 1
-// body of row_select). Bound: reads rows*chunk*4 bytes, writes rows*8 bytes.
-// Each lane keeps its own best (|x|, lane, x) over the lanes it visits in
-// increasing order, then a shuffle reduction merges the 32 candidates.
+// body of row_select). Bound: reads rows*chunk*4 bytes, writes rows*8 bytes
+// (0.187 ms at the tok_embed shapes, 2,368,000 rows of 64, on an H100).
+// This is the scalar variant, for any chunk width and any 4-byte-aligned
+// base: one warp per row, 4-byte loads; each lane keeps its own best
+// (|x|, lane, x) over the lanes it visits in increasing order, then a 5-round
+// shuffle reduction merges the 32 candidates. It holds only 256 bytes in
+// flight per warp; the vec4 variant (chunk_select.cuh) is the fast one.
 __global__ void chunk_argmax_kernel(const float* __restrict__ x,
                                     int32_t* __restrict__ idx,
                                     float* __restrict__ val, int64_t rows,
@@ -151,6 +161,16 @@ int scalecom_chunk_argmax(const float* x, int32_t* idx, float* val,
   chunk_argmax_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       x, idx, val, rows, static_cast<int>(chunk));
   return static_cast<int>(cudaGetLastError());
+}
+
+// The vec4 variant: the same function through csrc/chunk_select.cuh at M = 1
+// (idx and val are (rows,), the layout of (rows, 1)). Needs chunk % 4 == 0
+// and a 16-byte-aligned x.
+int scalecom_chunk_argmax_vec4(const float* x, int32_t* idx, float* val,
+                               int64_t rows, int64_t chunk, void* stream) {
+  using namespace scalecom;
+  return static_cast<int>(select_vec4_lanes<1>(x, idx, val, rows, chunk,
+                                               static_cast<cudaStream_t>(stream)));
 }
 
 int scalecom_ef_update(const float* m, const float* g, const int32_t* idx,

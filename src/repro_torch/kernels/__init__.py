@@ -19,9 +19,11 @@ KERNELS = (
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch count (and per-variant counts) to 0."""
     for k in KERNELS:
         k.launches = 0
+        if hasattr(k, "variants"):
+            k.variants = dict.fromkeys(k.variants, 0)
 
 
 def launches() -> dict:

@@ -53,7 +53,9 @@ _F32 = ctypes.c_float
 _I32 = ctypes.c_int
 _SIGNATURES = {
     "scalecom_chunk_argmax": (_P, _P, _P, _I64, _I64, _P),
+    "scalecom_chunk_argmax_vec4": (_P, _P, _P, _I64, _I64, _P),
     "scalecom_chunk_topm": (_P, _P, _P, _I64, _I64, _I64, _P),
+    "scalecom_chunk_topm_vec4": (_P, _P, _P, _I64, _I64, _I64, _P),
     "scalecom_chunk_gather": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "scalecom_ef_update": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F32, _P),
     "scalecom_chunk_scatter": (_P, _P, _P, _I64, _I64, _I64, _P),

@@ -20,8 +20,15 @@ pads, reshapes and lays out the index sets):
                  and zeros elsewhere; top-m entries are summed.
 
 All are bound by device-memory bytes; the CUDA sources
-(``csrc/scalecom_kernels.cu``, ``csrc/chunk_topm_gather.cu``) state the
-bytes and the design.
+(``csrc/scalecom_kernels.cu``, ``csrc/chunk_topm_gather.cu``,
+``csrc/chunk_select.cuh``) state the bytes and the design.
+
+The two selects each have two hand-written kernels, and ``select_variant``
+picks one from the shape, the base address and top-m alone: "vec4" (16-byte
+loads, several lanes per row, the picks kept in registers, one read of the
+row) wherever every row starts 16-byte aligned and top-m <= 8, as on the
+main path; "scalar" (one warp per row, 4-byte loads, one pass per pick) for
+any other width, base or top-m. Both are checked on the card.
 
 A wrapper given CUDA tensors launches the kernel, counts the launch in its
 ``launches`` attribute, and raises if the launch fails. Given CPU tensors it
@@ -38,6 +45,8 @@ import torch
 from repro_torch.kernels import build
 
 __all__ = [
+    "VEC4_MAX_TOPM",
+    "select_variant",
     "chunk_argmax",
     "chunk_argmax_plain",
     "chunk_topm",
@@ -53,6 +62,18 @@ def _check_rows(x: torch.Tensor, name: str) -> None:
     build.require(x.dim() == 2 and x.shape[1] > 0, name, f"x must be (rows, chunk), got {tuple(x.shape)}")
     build.require(x.dtype == torch.float32, name, f"x must be float32, got {x.dtype}")
     build.require(x.is_contiguous(), name, "x must be contiguous")
+
+
+VEC4_MAX_TOPM = 8  # csrc/chunk_select.cuh:kVecMaxTopm, the register lists' length
+
+
+def select_variant(chunk: int, data_ptr: int, topm: int = 1) -> str:
+    """The select kernel for a contiguous fp32 ``(rows, chunk)`` tensor at
+    address ``data_ptr``: "vec4" when chunk % 4 == 0, the base is 16-byte
+    aligned and ``topm <= VEC4_MAX_TOPM``, else "scalar"."""
+    if chunk % 4 == 0 and data_ptr % 16 == 0 and 1 <= topm <= VEC4_MAX_TOPM:
+        return "vec4"
+    return "scalar"
 
 
 def chunk_argmax_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,16 +93,18 @@ def chunk_argmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     idx = torch.empty(rows, dtype=torch.int32, device=x.device)
     val = torch.empty(rows, dtype=torch.float32, device=x.device)
     if rows:
-        rc = build.library().scalecom_chunk_argmax(
-            x.data_ptr(), idx.data_ptr(), val.data_ptr(), rows, chunk,
-            build.stream_of(x),
-        )
+        variant = select_variant(chunk, x.data_ptr())
+        lib = build.library()
+        fn = lib.scalecom_chunk_argmax_vec4 if variant == "vec4" else lib.scalecom_chunk_argmax
+        rc = fn(x.data_ptr(), idx.data_ptr(), val.data_ptr(), rows, chunk, build.stream_of(x))
         build.check(rc, name)
         chunk_argmax.launches += 1
+        chunk_argmax.variants[variant] += 1
     return idx, val
 
 
 chunk_argmax.launches = 0
+chunk_argmax.variants = {"vec4": 0, "scalar": 0}  # launches by variant
 
 
 def chunk_topm_plain(x: torch.Tensor, topm: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -103,16 +126,19 @@ def chunk_topm(x: torch.Tensor, topm: int) -> Tuple[torch.Tensor, torch.Tensor]:
     idx = torch.empty((rows, topm), dtype=torch.int32, device=x.device)
     val = torch.empty((rows, topm), dtype=torch.float32, device=x.device)
     if rows:
-        rc = build.library().scalecom_chunk_topm(
-            x.data_ptr(), idx.data_ptr(), val.data_ptr(), rows, chunk, topm,
-            build.stream_of(x),
-        )
+        variant = select_variant(chunk, x.data_ptr(), topm)
+        lib = build.library()
+        fn = lib.scalecom_chunk_topm_vec4 if variant == "vec4" else lib.scalecom_chunk_topm
+        rc = fn(x.data_ptr(), idx.data_ptr(), val.data_ptr(), rows, chunk, topm,
+                build.stream_of(x))
         build.check(rc, name)
         chunk_topm.launches += 1
+        chunk_topm.variants[variant] += 1
     return idx, val
 
 
 chunk_topm.launches = 0
+chunk_topm.variants = {"vec4": 0, "scalar": 0}  # launches by variant
 
 
 def _rows2d(t: torch.Tensor) -> torch.Tensor:
