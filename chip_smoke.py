@@ -16,21 +16,31 @@ Phases, each fatal on failure:
      workers: select, top-2 select, shared and per-worker gathers at top-m 1
      and 2, Eq. 5 update, scatter, the fused reduce for clt_k and true_topk
      at top-m 1 and 2; a chunk tail; small shapes full of ties with top-m 1,
-     2 and chunk, and 1, 3 and 64 workers for the fused reduce), bitwise,
-     with its time beside the plain version's, a PyTorch library call's and
-     the bound. The two selects must run their vec4 variant at the tok_embed
-     shapes; their scalar variant runs on the same rows from a misaligned
-     base. Then the selects' variant edges, each checked for the variant
-     that ran: rows 1 to 100,003, chunk 4/8/64/128, top-m at the register
-     limit (8) and above it, misaligned bases, NaN payloads, and one tensor
-     past 2^31 elements;
+     2 and chunk, and 1, 3 and 64 workers for the fused reduce), the gather
+     and scatter bit for bit, with its device time (``device_ms``: 20 calls
+     queued while the card is held, then run back to back between two CUDA
+     events, with an exact launch count) beside the plain version's, a
+     PyTorch library call's and the bound, and the kernel's and library
+     call's time between CUDA events around one call (host dispatch
+     included). The two selects and the scatter must run their vec4 variant
+     at the tok_embed shapes; the selects' scalar variant runs on the same
+     rows from a misaligned base, the scatter's scalar kernel is called
+     directly on the same inputs. Then the variant edges, each checked for
+     the variant that ran: the selects at rows 1 to 100,003, chunk
+     4/8/64/128, top-m at the register limit (8) and above it, misaligned
+     bases; the scatter and gather at rows 1, 33 and 100,003, chunk
+     4/8/17/64/128, top-m 1/2/8/9, duplicates, shared sets over 3, 8 and 16
+     copies and per-worker sets, offsets outside the chunk; NaN payloads, -0
+     and +-inf throughout; and one tensor past 2^31 elements through every
+     variant of the selects and the scatter and the gather;
   3. the main path: ``run_training`` trains paper-transformer-base at full
      width (6 layers, d 512, vocab 37000) with CLT-k, 8 workers of batch 4 x
      128 tokens, 2 dense warm-up steps then 3 compressed steps, once unfused
      and once with ``fused=True``; the loss must be finite and each kernel
      must have launched as often as the reduce plan says (unfused: select,
      update and scatter once per compressed tensor and step, every select
-     in its vec4 variant; fused: one fused_reduce and nothing else);
+     and scatter in its vec4 variant; fused: one fused_reduce and nothing
+     else);
   4. teacher-forced reduce from the trained state: the unfused "cuda"
      backend equals the "torch" backend bit for bit (and from the state
      before the first compressed step); the fused cuda reduce equals the
@@ -39,9 +49,10 @@ Phases, each fatal on failure:
      counted); a rate rule putting the blocks' tensors at top-2 runs
      chunk_topm (vec4 variant), fused and unfused, cuda against torch;
      host-clock times of the per-worker gradients and of each reduce; both
-     selects timed at their path's own shapes (chunk_argmax over the 17
-     compressed tensors of one step, chunk_topm over the 15 top-2 ones),
-     summed beside the summed byte bound;
+     selects and the scatter timed at their path's own shapes (chunk_argmax
+     and chunk_scatter over the 17 compressed tensors of one step,
+     chunk_topm over the 15 top-2 ones), device time per step of both
+     variants beside the summed byte bound;
   4b. ``compress()`` on the tok_embed EF gradient for clt_k, true_topk,
      local_topk and random_k at top-m 1 and 2, cuda backend against torch
      backend bitwise, one chunk_gather launch per call; the exact path once;
@@ -69,6 +80,8 @@ SRC = os.path.join(ROOT, "src")
 # H100 SXM data sheet: 3.35 TB/s of HBM3, 67 TFLOP/s fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# a spin of this many cycles lasts at least 1 ms on a card clocked up to 2 GHz
+SPIN_CYCLES_PER_MS = 2_000_000
 CSRC = "src/repro_torch/csrc/"
 KERNELS = {  # name: (source of the kernel timed, the Pallas body it replaces)
     "chunk_argmax": ("chunk_select.cuh", "src/repro/kernels/chunk_topk.py:65"),
@@ -78,6 +91,8 @@ KERNELS = {  # name: (source of the kernel timed, the Pallas body it replaces)
     "ef_update": ("scalecom_kernels.cu", "src/repro/kernels/ef_update.py:44"),
     "fused_reduce": ("fused_reduce.cu", "src/repro/kernels/fused_reduce.py:63"),
 }
+# the kernels with two variants, and the one each runs on the main path
+VARIANTS = {"chunk_argmax": "vec4", "chunk_topm": "vec4", "chunk_scatter": "vec4"}
 
 # the main path's largest compressed tensor: tok_embed, 37000 x 512, over 8 workers
 G, P, CHUNK, BETA = 8, 37000 * 512, 64, 0.1
@@ -97,7 +112,9 @@ def check(cond: bool, msg: str) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn`` over ``reps`` runs, by CUDA events."""
+    """Median time of one call of ``fn`` between two CUDA events: the device
+    work plus whatever host dispatch the device waits for inside the pair
+    (for a kernel shorter than its wrapper's host work, mostly dispatch)."""
     import torch
 
     for _ in range(warmup):
@@ -111,6 +128,82 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         marks.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in marks)
+
+
+def device_ms(fn, launched=None, reps: int = 20, warmup: int = 3, what: str = "") -> float:
+    """Device ms per call of ``fn``: ``reps`` calls queued while the card is
+    held in a spin kernel, timed between one pair of CUDA events. The card
+    runs them back to back from its queue, so the time holds the kernels and
+    the gaps between queued launches but no host dispatch. If the card
+    reached the timed calls before the host had queued them all (the host
+    was slow, or the driver's launch queue filled: a plain version launches
+    a hundred kernels or more per call), it tries again with a longer hold
+    and a quarter of the calls, down to one, and fails if that does not
+    help. With ``launched`` = (a launch counter, launches per call), it fails
+    unless the timed calls launched exactly that many kernels per call.
+    ``what`` names the calls in those failures."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    hold_ms = 2 * (time.perf_counter() - t0) * 1e3 + 1  # twice the time it took to queue them
+    torch.cuda.synchronize()
+    for _ in range(5):
+        before = launched[0]() if launched else 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(hold_ms * SPIN_CYCLES_PER_MS))
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()  # the card was still held when the last call was queued
+        torch.cuda.synchronize()
+        if launched:
+            got = launched[0]() - before
+            check(got == reps * launched[1],
+                  f"{what}: {reps} timed calls launched {got} kernels, want "
+                  f"{reps * launched[1]}")
+        if ahead:
+            return start.elapsed_time(end) / reps
+        hold_ms, reps = 2 * hold_ms, max(1, reps // 4)
+    fail(f"{what}: the host did not queue {reps} call(s) within a {hold_ms / 2:.1f} ms hold "
+         f"(a host sync in the calls?)")
+
+
+def counter(name: str, variant: str | None = None):
+    """A function returning the launch count of kernel ``name`` (of one of
+    its variants, with ``variant``), as its wrapper counts it."""
+    from repro_torch import kernels
+    from repro_torch.kernels import chunk_topk as ct
+
+    if variant is None:
+        return lambda: kernels.launches()[name]
+    return lambda: getattr(ct, name).variants[variant]
+
+
+def scatter_scalar(vals, idx, chunk: int):
+    """chunk_scatter's scalar kernel (the first design) on any shape,
+    launched as the wrapper launches it: ``scatter_variant`` picks vec4
+    wherever it takes the shape, and the two are held against each other on
+    the same inputs. Counts its launches in ``scatter_scalar.launches``."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    rows, topm = idx.shape[0], 1 if idx.dim() == 1 else idx.shape[1]
+    out = torch.empty((rows, chunk), dtype=torch.float32, device=vals.device)
+    rc = build.library().scalecom_chunk_scatter(vals.data_ptr(), idx.data_ptr(), out.data_ptr(),
+                                                rows, chunk, topm, build.stream_of(vals))
+    check(rc == 0, f"chunk_scatter scalar kernel: CUDA error {rc}")
+    scatter_scalar.launches += 1
+    return out
+
+
+scatter_scalar.launches = 0
 
 
 def host_ms(fn):
@@ -160,15 +253,15 @@ def max_abs_err(a, b) -> float:
     return max(float((x.double() - y.double()).abs().max()) if x.numel() else 0.0 for x, y in pairs)
 
 
-def gather_bytes(idx, rows: int) -> int:
-    """Bytes a gather must move: one 32-byte sector of x per distinct
-    (row, offset // 8) with 64-lane rows, plus the index set and the output."""
+def gather_bytes(idx, rows: int, sector: int = 32) -> int:
+    """Bytes a gather must move: one ``sector``-byte segment of x per distinct
+    (row, offset * 4 // sector), plus the index set and the output."""
     import torch
 
     i2 = idx[:, None] if idx.dim() == 1 else idx
-    s = torch.sort(torch.div(i2, 8, rounding_mode="floor"), dim=-1).values
-    sectors = int((1 + (s[:, 1:] != s[:, :-1]).sum(-1)).sum()) * (rows // i2.shape[0])
-    return sectors * 32 + i2.numel() * 4 + rows * i2.shape[1] * 4
+    s = torch.sort(torch.div(i2, sector // 4, rounding_mode="floor"), dim=-1).values
+    segments = int((1 + (s[:, 1:] != s[:, :-1]).sum(-1)).sum()) * (rows // i2.shape[0])
+    return segments * sector + i2.numel() * 4 + rows * i2.shape[1] * 4
 
 
 def kernel_phase(card_line: str):
@@ -188,22 +281,35 @@ def kernel_phase(card_line: str):
     results = {}
 
     def record(key, kern, plain, library, library_name, nbytes, ops):
+        """Check one kernel bitwise against its plain version and time both,
+        and the library call, by device time (``device_ms``), with the
+        kernel's and the library call's per-call CUDA-event time beside."""
         name = key.split("[")[0]
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
-        check(equal(out_k, out_p), f"{key}: kernel and plain version differ")
+        same = bitwise if name in ("chunk_gather", "chunk_scatter") else equal
+        check(same(out_k, out_p), f"{key}: kernel and plain version differ")
         err = max_abs_err(out_k, out_p)
-        ms, plain_ms = time_ms(kern), time_ms(plain)
-        library_ms = time_ms(library) if library is not None else None
+        ms = device_ms(kern, (counter(name, VARIANTS.get(name)), 1), what=f"{key} kernel")
+        call = time_ms(kern)
+        plain_ms = device_ms(plain, what=f"{key} plain")
+        library_ms = device_ms(library, what=f"{key} library") if library is not None else None
+        library_call = time_ms(library) if library is not None else None
         bound_ms, bound_by = bound(nbytes, ops)
         source, replaces = KERNELS[name]
         results[key] = dict(name=name, route="cuda", source=CSRC + source, replaces=replaces,
                             launches=None, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-        print(f"[kernel] {key}: bitwise equal to plain; kernel_ms {ms:.4f} plain_ms "
-              f"{plain_ms:.4f} library_ms "
-              f"{'null' if library_ms is None else f'{library_ms:.4f}'} ({library_name}) "
-              f"bound_ms {bound_ms:.4f} ({bound_by}) on {card_line}")
+                            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                            call_ms=call, library_call_ms=library_call)
+
+        def fmt(t):
+            return "null" if t is None else f"{t:.4f}"
+
+        print(f"[kernel] {key}: equal to plain{' bit for bit' if same is bitwise else ''}; "
+              f"device ms: kernel {ms:.4f}, plain {plain_ms:.4f}, library {fmt(library_ms)} "
+              f"({library_name}); bound_ms {bound_ms:.4f} ({bound_by}), {bound_ms / ms:.0%} of "
+              f"it; one call between CUDA events (host dispatch included): kernel {call:.4f}, "
+              f"library {fmt(library_call)} on {card_line}")
 
     # select over the worker-stacked EF: (G*R, 64) rows; top-2 for a rate rule's tensors
     kernels.reset_launches()
@@ -231,18 +337,19 @@ def kernel_phase(card_line: str):
         check(bitwise(fn(), plain()) and kern.variants["scalar"] == before + 1,
               f"{kern.__name__} on a misaligned base: scalar variant differs from plain "
               f"or did not run ({kern.variants})")
-        results[kern.__name__]["scalar_ms"] = time_ms(fn)
+        results[kern.__name__]["scalar_ms"] = device_ms(fn, (counter(kern.__name__, "scalar"), 1))
         print(f"[kernel] {kern.__name__} scalar variant (misaligned base, same rows): bitwise "
-              f"equal to plain; kernel_ms {results[kern.__name__]['scalar_ms']:.4f} against "
+              f"equal to plain; device ms {results[kern.__name__]['scalar_ms']:.4f} against "
               f"vec4 {results[kern.__name__]['ms']:.4f} on {card_line}")
     # top-m at the register-list limit: vec4 against the scalar pass design
     topm = ct.VEC4_MAX_TOPM
     want = ct.chunk_topm_plain(xr, topm)
     check(bitwise(ct.chunk_topm(xr, topm), want) and bitwise(ct.chunk_topm(mis, topm), want),
           f"chunk_topm top-{topm} at the tok_embed shapes differs from plain")
-    print(f"[kernel] chunk_topm top-{topm}: both variants bitwise equal to plain; kernel_ms vec4 "
-          f"{time_ms(lambda: ct.chunk_topm(xr, topm)):.4f}, scalar "
-          f"{time_ms(lambda: ct.chunk_topm(mis, topm)):.4f}, bound_ms "
+    print(f"[kernel] chunk_topm top-{topm}: both variants bitwise equal to plain; device ms "
+          f"vec4 {device_ms(lambda: ct.chunk_topm(xr, topm), (counter('chunk_topm', 'vec4'), 1)):.4f}, "
+          f"scalar {device_ms(lambda: ct.chunk_topm(mis, topm), (counter('chunk_topm', 'scalar'), 1)):.4f}, "
+          f"bound_ms "
           f"{bound(rows * CHUNK * 4 + rows * topm * 8, 0)[0]:.4f} on {card_line}")
     del buf, mis, want
 
@@ -254,13 +361,40 @@ def kernel_phase(card_line: str):
            lambda: efk.ef_update_plain(m, g, idx_shared, BETA), None, "no single call",
            3 * rows * CHUNK * 4 + R * 4 + rows * 4, 5 * rows * CHUNK)
 
-    # ghat scatter of the (R,) worker-mean values
+    # ghat scatter of the (R,) worker-mean values: the vec4 variant, then the
+    # scalar one forced on the same inputs
     vmean = torch.randn(R, device=dev, generator=gen)
+    before = dict(ct.chunk_scatter.variants)
     record("chunk_scatter", lambda: ct.chunk_scatter(vmean, idx_shared, CHUNK),
            lambda: ct.chunk_scatter_plain(vmean, idx_shared, CHUNK),
            lambda: torch.zeros(R, CHUNK, device=dev).scatter_(
                1, idx_shared.long()[:, None], vmean[:, None]),
            "torch.zeros().scatter_()", R * 8 + R * CHUNK * 4, R * CHUNK)
+    check(ct.chunk_scatter.variants["scalar"] == before["scalar"],
+          f"chunk_scatter at the tok_embed shapes ran {ct.chunk_scatter.variants}, want vec4 only")
+    results["chunk_scatter"]["variant"] = "vec4"
+    scalar = lambda: scatter_scalar(vmean, idx_shared, CHUNK)  # noqa: E731
+    check(bitwise(scalar(), ct.chunk_scatter_plain(vmean, idx_shared, CHUNK)),
+          "chunk_scatter scalar variant at the tok_embed shapes differs from plain")
+    results["chunk_scatter"]["scalar_ms"] = device_ms(
+        scalar, (lambda: scatter_scalar.launches, 1))
+    print(f"[kernel] chunk_scatter ran the vec4 variant; its scalar kernel (called directly, same "
+          f"inputs): "
+          f"bitwise equal to plain; device ms {results['chunk_scatter']['scalar_ms']:.4f} against "
+          f"vec4 {results['chunk_scatter']['ms']:.4f} on {card_line}")
+    for topm in (2, ct.VEC4_MAX_TOPM):
+        vm = torch.randn(R, topm, device=dev, generator=gen)
+        im = torch.randint(0, CHUNK, (R, topm), device=dev, generator=gen, dtype=torch.int32)
+        want = ct.chunk_scatter_plain(vm, im, CHUNK)
+        check(bitwise(ct.chunk_scatter(vm, im, CHUNK), want)
+              and bitwise(scatter_scalar(vm, im, CHUNK), want),
+              f"chunk_scatter top-{topm} at the tok_embed shapes differs from plain")
+        t4 = device_ms(lambda: ct.chunk_scatter(vm, im, CHUNK), (counter("chunk_scatter", "vec4"), 1))
+        t1 = device_ms(lambda: scatter_scalar(vm, im, CHUNK), (lambda: scatter_scalar.launches, 1))
+        print(f"[kernel] chunk_scatter top-{topm}: both variants bitwise equal to plain; device "
+              f"ms vec4 {t4:.4f}, scalar {t1:.4f}, bound_ms "
+              f"{bound(R * topm * 8 + R * CHUNK * 4, 0)[0]:.4f} on {card_line}")
+    del vm, im, want
 
     # gather of compress(): the shared (R,) set over all G*R rows, then the
     # per-worker set and top-2 sets of both kinds
@@ -275,6 +409,12 @@ def kernel_phase(card_line: str):
                lambda ids=ids: ct.chunk_gather_plain(xr, ids),
                lambda full=full: torch.gather(xr, 1, full), "torch.gather(x, 1, idx)",
                gather_bytes(ids, rows), 0)
+        # the same least time if the card fetches device memory in 64-byte units
+        r = results[key]
+        r["bound_64_ms"] = bound(gather_bytes(ids, rows, 64), 0)[0]
+        print(f"[kernel] {key}: bound_ms {r['bound_ms']:.4f} by 32-byte sectors "
+              f"({r['bound_ms'] / r['ms']:.0%} of it), {r['bound_64_ms']:.4f} by 64-byte segments "
+              f"({r['bound_64_ms'] / r['ms']:.0%} of it) on {card_line}")
 
     # the fused reduce of the same tensor, leader 3; clt_k at top-1 is the fused run's call
     m3, g3 = m.view(G, R, CHUNK), g.view(G, R, CHUNK)
@@ -364,17 +504,21 @@ def kernel_phase(card_line: str):
           "tied shapes (NaN in the selects) with top-m 1, 2 and chunk, fused over 1, 3 and 64 "
           "workers: bitwise equal")
     select_boundaries(gen)
+    scatter_gather_boundaries(gen)
+    past_int32(gen)
     return results
 
 
 def tied_nan(rows: int, chunk: int, gen):
-    """(rows, chunk) fp32 full of ties, with -0, +inf and NaNs of both signs and
-    many payloads: every corner of the selects' order."""
+    """(rows, chunk) fp32 full of ties, with -0, +-inf and NaNs of both signs
+    and many payloads: every corner of the selects' order."""
     import torch
 
     x = torch.randint(-3, 4, (rows, chunk), device="cuda", generator=gen).float()
     x[::3, ::5] = -0.0
     x[::11, 2::6] = float("inf")
+    x[::13, ::4] = float("-inf")
+    x[6::13, ::4] = float("inf")
     x[::7, ::3] = float("nan")
     xi = x.view(torch.int32)
     pay = torch.randint(1, 1 << 22, xi[1::4, ::2].shape, device="cuda", generator=gen,
@@ -426,7 +570,78 @@ def select_boundaries(gen) -> None:
           f"1, 2, {limit} and {limit + 1}, aligned and misaligned bases, ties, -0, inf, NaN "
           f"payloads): each ran its expected variant, bitwise equal to plain")
 
-    # one tensor past 2^31 elements: int64 row offsets in both variants
+
+
+def scatter_gather_boundaries(gen) -> None:
+    """chunk_scatter (the variant it picks, and the scalar kernel where it
+    picks vec4) and chunk_gather bitwise against their plain versions at the
+    edges: rows 1, 33 and 100,003; chunk 4, 8, 17, 64 and 128; top-m 1, 2, 8
+    and 9; duplicate offsets within a row at top-m > 1; values with -0, +-inf
+    and NaNs of both signs and many payloads; the gather with per-worker sets
+    and shared sets over 3, 8 and 16 copies, and with offsets -chunk, -1,
+    chunk and -chunk - 1."""
+    import torch
+
+    from repro_torch.kernels import chunk_topk as ct
+
+    limit, n = ct.VEC4_MAX_TOPM, 0
+    for rows in (1, 33, 100_003):
+        for chunk in (4, 8, 17, 64, 128):
+            for topm in sorted({1, 2, min(limit, chunk), min(limit + 1, chunk)}):
+                shape = (rows,) if topm == 1 else (rows, topm)
+                vals = tied_nan(rows, topm, gen).view(shape)
+                idx = torch.randint(0, chunk, (rows, topm), device="cuda", generator=gen,
+                                    dtype=torch.int32)
+                if topm > 1:
+                    idx[::2, 1] = idx[::2, 0]  # a duplicate offset in every other row
+                idx = idx.view(shape)
+                want = ct.chunk_scatter_plain(vals, idx, chunk)
+                picked = ct.scatter_variant(chunk, topm)
+                before = dict(ct.chunk_scatter.variants)
+                got = ct.chunk_scatter(vals, idx, chunk)
+                ran = [v for v in before if ct.chunk_scatter.variants[v] != before[v]]
+                label = f"chunk_scatter ({rows}, {chunk}) top-{topm} {picked}"
+                check(ran == [picked], f"{label}: ran {ran}")
+                check(bitwise(got, want), f"{label}: differs from plain")
+                n += 1
+                if picked == "vec4":  # the scalar kernel on the same inputs
+                    check(bitwise(scatter_scalar(vals, idx, chunk), want),
+                          f"chunk_scatter ({rows}, {chunk}) top-{topm} scalar: differs from plain")
+                    n += 1
+                for copies in (1, 3, 8, 16):
+                    x = tied_nan(rows * copies, chunk, gen)
+                    order = torch.rand(rows, chunk, device="cuda", generator=gen).argsort(-1)
+                    ids = order[:, :topm].to(torch.int32)
+                    if topm > 1:
+                        ids[::3, -1] = ids[::3, 0]
+                    ids = ids.reshape(shape).contiguous()
+                    label = f"chunk_gather ({rows} x {copies}, {chunk}) top-{topm}"
+                    check(bitwise(ct.chunk_gather(x, ids), ct.chunk_gather_plain(x, ids)),
+                          f"{label}: differs from plain")
+                    # offsets outside the chunk: [-chunk, 0) counts from the row's
+                    # end, as jnp.take_along_axis does; the rest give NaN
+                    bad = ids.clone().view(rows, -1)
+                    bad[::4, 0], bad[1::4, -1] = -1, chunk
+                    bad[2::4, 0], bad[3::4, -1] = -chunk, -chunk - 1
+                    bad = bad.view(shape)
+                    check(bitwise(ct.chunk_gather(x, bad), ct.chunk_gather_plain(x, bad)),
+                          f"{label}: offsets outside the chunk differ from plain")
+                    n += 2
+    torch.cuda.synchronize()
+    print(f"[kernel] scatter and gather boundaries: {n} cases (rows 1, 33 and 100003, chunk "
+          f"4/8/17/64/128, top-m 1, 2, {limit} and {limit + 1}, duplicates, -0, inf, NaN "
+          f"payloads; the scatter in each variant that takes the shape, the gather per worker "
+          f"and shared over 3, 8 and 16 copies, offsets -chunk, -1, chunk and -chunk - 1): bitwise "
+          f"equal to plain, each scatter in the variant it picks and the scalar kernel beside vec4")
+
+
+def past_int32(gen) -> None:
+    """One tensor past 2^31 elements, if the card holds it: int64 offsets in
+    both variants of the selects and the scatter, and in the gather."""
+    import torch
+
+    from repro_torch.kernels import chunk_topk as ct
+
     rows = 2**31 // CHUNK + 1001
     nbytes = rows * CHUNK * 4
     free, _ = torch.cuda.mem_get_info()
@@ -441,14 +656,39 @@ def select_boundaries(gen) -> None:
         x[::997] = torch.randint(-3, 4, x[::997].shape, device="cuda", generator=gen).float()
         x[-1] = float("nan")
         for topm in (None, 2):
-            expect(x, topm, want, f"{rows * CHUNK:,} elements, {want}, "
-                                  f"{'argmax' if topm is None else f'top-{topm}'}")
-    del big, x
+            kern = ct.chunk_argmax if topm is None else ct.chunk_topm
+            before = kern.variants[want]
+            out = ct.chunk_argmax(x) if topm is None else ct.chunk_topm(x, topm)
+            plain = ct.chunk_argmax_plain(x) if topm is None else ct.chunk_topm_plain(x, topm)
+            check(kern.variants[want] == before + 1 and bitwise(out, plain),
+                  f"{rows * CHUNK:,} elements, {want}, {kern.__name__}: differs from plain or "
+                  f"ran another variant")
+            del out, plain
+    # the gather of the last worker's rows (a shared set over 8 copies and a
+    # per-worker set), and the scatter of the whole tensor's rows
+    x = big[:rows * CHUNK].view(rows, CHUNK)
+    shared = rows // 8
+    for xs, ids in ((x[-8 * shared:], torch.randint(0, CHUNK, (shared,), device="cuda",
+                                                   generator=gen, dtype=torch.int32)),
+                    (x, torch.randint(0, CHUNK, (rows,), device="cuda", generator=gen,
+                                      dtype=torch.int32))):
+        check(bitwise(ct.chunk_gather(xs, ids), ct.chunk_gather_plain(xs, ids)),
+              f"chunk_gather past 2^31 elements ({ids.shape[0]:,} offsets) differs from plain")
+    vals = x[:, 0].contiguous()
+    want = ct.chunk_scatter_plain(vals, ids, CHUNK)
+    before = ct.chunk_scatter.variants["vec4"]
+    check(bitwise(ct.chunk_scatter(vals, ids, CHUNK), want)
+          and ct.chunk_scatter.variants["vec4"] == before + 1,
+          "chunk_scatter vec4 past 2^31 elements differs from plain or did not run")
+    check(bitwise(scatter_scalar(vals, ids, CHUNK), want),
+          "chunk_scatter scalar past 2^31 elements differs from plain")
+    del want
+    del big, x, xs, ids, vals
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     print(f"[kernel] past 2^31 elements ({rows:,} rows of {CHUNK}, "
-          f"{rows * CHUNK:,} elements): argmax and top-2, vec4 and scalar variants, bitwise "
-          f"equal to plain")
+          f"{rows * CHUNK:,} elements): argmax and top-2, vec4 and scalar variants; the "
+          f"scatter in both variants; the gather, shared and per-worker: bitwise equal to plain")
 
 
 def path_selects(plans, rr_plans, workers: int, card_line: str) -> None:
@@ -456,14 +696,12 @@ def path_selects(plans, rr_plans, workers: int, card_line: str) -> None:
     path: chunk_argmax over every compressed tensor of the unfused CLT-k step,
     chunk_topm over the tensors a top-2 rate rule puts at top-2. Each
     tensor's rows are selected from an aligned base (vec4) and a misaligned
-    one (scalar). Prints the kernels' summed device time per step from
-    torch.profiler (CUDA events around a small tensor's call would count the
-    wrapper's host dispatch too) beside the summed byte bound, and the
-    CUDA-event time of the step's calls back to back, dispatch gaps
-    included, which is what the path sees."""
+    one (scalar). Prints the device time of one step's calls (``device_ms``:
+    queued ahead, so no host dispatch; CUDA events around a small tensor's
+    call would count the wrapper's host dispatch too) beside the summed byte
+    bound, and the CUDA-event time of the step's calls back to back, dispatch
+    gaps included, which is what the path sees."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import chunk_topk as ct
 
@@ -488,39 +726,63 @@ def path_selects(plans, rr_plans, workers: int, card_line: str) -> None:
                 ct.chunk_argmax(xs[base]) if topm == 1 else ct.chunk_topm(xs[base], topm)
 
         wall = [time_ms(lambda: step(base)) for base in (0, 1)]
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                step(0)
-                step(1)
-            torch.cuda.synchronize()
-        device = {"vec4": [0.0, 0], "scalar": [0.0, 0]}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            kind = ("vec4" if "chunk_select_vec4_kernel" in e.key else
-                    "scalar" if f"{name}_kernel" in e.key else None)
-            if kind:
-                device[kind][0] += e.self_device_time_total / 1e3 / reps
-                device[kind][1] += e.count
-        if device["vec4"][1] == 0 and device["scalar"][1] == 0:
-            dev_text = "device time not measured (torch.profiler recorded no device events)"
-        else:
-            check(device["vec4"][1] == device["scalar"][1] == reps * len(calls),
-                  f"{name} on its path: the profiler saw {device} launches, want "
-                  f"{reps * len(calls)} of each variant")
-            dev_text = (f"kernel device ms {device['vec4'][0]:.4f} summed (scalar variant "
-                        f"{device['scalar'][0]:.4f}), bound ms {bound_ms:.4f}, lost "
-                        f"{device['vec4'][0] - bound_ms:.4f} per step")
+        vec4, scalar = (device_ms(lambda base=base: step(base), (counter(name, v), len(calls)), reps)
+                        for base, v in ((0, "vec4"), (1, "scalar")))
+        dev_text = (f"device ms {vec4:.4f} per step (scalar variant {scalar:.4f}), bound ms "
+                    f"{bound_ms:.4f}, lost {vec4 - bound_ms:.4f} per step")
         print(f"[path] {name} over the {len(chosen)} tensors one compressed step gives it "
               f"({elements:,} elements, {workers} workers): {dev_text}; the calls back to back "
               f"{wall[0]:.4f} ms on the card's clock (scalar {wall[1]:.4f}) on {card_line}")
         del calls
 
 
+def path_scatter(plans, card_line: str) -> None:
+    """chunk_scatter at the shapes one unfused CLT-k step gives it: the ĝ of
+    every compressed tensor, R = n_chunks rows of (worker-mean value, leader
+    offset). Prints the device time of one step's calls (``device_ms``) in
+    both variants on the same inputs (vec4, the new design; scalar, the
+    first) beside the summed byte bound, and the calls back to back on the
+    card's clock (CUDA events, dispatch included)."""
+    import torch
+
+    from repro_torch.kernels import chunk_topk as ct
+
+    reps = 10
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    chosen = [p for p in plans if not p.dense and p.comp.topm == 1]
+    calls, bound_ms, rows = [], 0.0, 0
+    for p in chosen:
+        n, chunk = p.n_chunks, p.comp.chunk
+        calls.append((torch.randn(n, device="cuda", generator=gen),
+                      torch.randint(0, chunk, (n,), device="cuda", generator=gen,
+                                    dtype=torch.int32), chunk))
+        bound_ms += bound(n * 8 + n * chunk * 4, 0)[0]
+        rows += n
+    for _, _, chunk in calls:
+        check(ct.scatter_variant(chunk) == "vec4", f"chunk_scatter at chunk {chunk}: not vec4")
+
+    def step(variant):
+        scatter = ct.chunk_scatter if variant == "vec4" else scatter_scalar
+        for v, i, chunk in calls:
+            scatter(v, i, chunk)
+
+    wall = {v: time_ms(lambda v=v: step(v)) for v in ("vec4", "scalar")}
+    text = []
+    for v, launched in (("vec4", counter("chunk_scatter", "vec4")),
+                        ("scalar", lambda: scatter_scalar.launches)):
+        ms = device_ms(lambda v=v: step(v), (launched, len(calls)), reps)
+        text.append(f"{v} variant {ms:.4f} device ms ({bound_ms / ms:.0%} of the bound), "
+                    f"{wall[v]:.4f} ms back to back")
+    print(f"[path] chunk_scatter over the {len(chosen)} tensors one unfused compressed step gives "
+          f"it ({rows:,} rows, {sum(i.numel() * c for _, i, c in calls):,} elements written): "
+          f"bound ms {bound_ms:.4f}; {'; '.join(text)} on {card_line}")
+    del calls
+
+
 def print_ptxas(log: str) -> None:
-    """Registers and spills per kernel from ptxas -v; the vec4 select's
-    instantiations (one per lanes-per-row and top-m) summed into one line."""
+    """Registers and spills per kernel from ptxas -v; a kernel template's
+    instantiations (the vec4 select and scatter, one per lanes-per-row and
+    top-m) summed into one line."""
     entries, name = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -531,16 +793,18 @@ def print_ptxas(log: str) -> None:
         elif "Used" in ln and "registers" in ln and entries and entries[-1][0] == name:
             entries[-1][1] = int(ln.split("Used")[1].split()[0])
             name = None
-    vec4 = [e for e in entries if "chunk_select_vec4_kernel" in e[0]]
+    templates = ("chunk_select_vec4_kernel", "chunk_scatter_vec4_kernel")
     for n, regs, spills in entries:
-        if "chunk_select_vec4_kernel" not in n:
+        if not any(t in n for t in templates):
             short = next((k for k in KERNELS if f"{k}_kernel" in n), n)
-            print(f"[build] {short}{' (scalar)' if short in ('chunk_argmax', 'chunk_topm') else ''}: "
-                  f"{regs} registers, {spills} bytes spilled")
-    if vec4:
-        regs = [e[1] for e in vec4]
-        print(f"[build] vec4 select, {len(vec4)} instantiations: {min(regs)}-{max(regs)} registers, "
-              f"{sum(e[2] for e in vec4)} bytes spilled")
+            kind = " (scalar)" if short in VARIANTS else ""
+            print(f"[build] {short}{kind}: {regs} registers, {spills} bytes spilled")
+    for t in templates:
+        group = [e for e in entries if t in e[0]]
+        if group:
+            regs = [e[1] for e in group]
+            print(f"[build] {t}, {len(group)} instantiations: {min(regs)}-{max(regs)} registers, "
+                  f"{sum(e[2] for e in group)} bytes spilled")
 
 
 def expected_launches(plans, fused: bool, steps: int) -> dict:
@@ -646,9 +910,13 @@ def main() -> None:
         check(ct.chunk_argmax.variants == {"vec4": got["chunk_argmax"], "scalar": 0},
               f"{label}: chunk_argmax variants {ct.chunk_argmax.variants} on the main path, "
               f"want vec4 only")
+        check(ct.chunk_scatter.variants == {"vec4": got["chunk_scatter"], "scalar": 0},
+              f"{label}: chunk_scatter variants {ct.chunk_scatter.variants} on the main path, "
+              f"want vec4 only")
         if got["chunk_argmax"]:
-            print(f"[train:{label}] chunk_argmax ran the vec4 variant on all "
-                  f"{got['chunk_argmax']} launches")
+            print(f"[train:{label}] chunk_argmax and chunk_scatter ran the vec4 variant on all "
+                  f"{got['chunk_argmax']} and {got['chunk_scatter']} launches "
+                  f"({got['chunk_scatter'] // (steps - warmup)} scatters per compressed step)")
         path_launches.update({k: n for k, n in got.items() if n})
         return state, loop, batches
 
@@ -778,10 +1046,12 @@ def main() -> None:
         check(got == want, f"rate rule: launches {got}, want {want}")
         if not fused:
             path_launches["chunk_topm"] = got["chunk_topm"]
-            check(ct.chunk_topm.variants == {"vec4": got["chunk_topm"], "scalar": 0},
-                  f"rate rule: chunk_topm variants {ct.chunk_topm.variants}, want vec4 only")
-            print(f"[reduce] rate rule unfused: chunk_topm ran the vec4 variant on all "
-                  f"{got['chunk_topm']} launches")
+            check(ct.chunk_topm.variants == {"vec4": got["chunk_topm"], "scalar": 0}
+                  and ct.chunk_scatter.variants == {"vec4": got["chunk_scatter"], "scalar": 0},
+                  f"rate rule: chunk_topm variants {ct.chunk_topm.variants}, chunk_scatter "
+                  f"variants {ct.chunk_scatter.variants}, want vec4 only")
+            print(f"[reduce] rate rule unfused: chunk_topm and chunk_scatter ran the vec4 variant "
+                  f"on all {got['chunk_topm']} and {got['chunk_scatter']} launches")
         rr_t = reduce(cfg_of("clt_k", fused, "torch", rules))
         if fused:
             agree(rr_c, rr_t, "rate rule fused cuda vs fused torch")
@@ -794,8 +1064,9 @@ def main() -> None:
             print("[reduce] rate rule unfused: cuda backend == torch backend, bitwise")
         del rr_c, rr_t
 
-    # the two selects at the shapes of their path, summed per compressed step
+    # the two selects and the scatter at the shapes of their path, summed per compressed step
     path_selects(flat_plans, rr_plans, workers, card_line)
+    path_scatter(flat_plans, card_line)
 
     # -- 4b. compress() on the tok_embed EF gradient ------------------------------
     ef = m_t + g_t

@@ -3,9 +3,10 @@
 // The first design of the chunk-row kernels: one warp owns one chunk row at
 // a time and its 32 lanes stride over the row, so neighbouring lanes touch
 // neighbouring addresses; rows are walked grid-stride with int64 offsets.
-// ef_update, chunk_scatter, fused_reduce and the scalar variants of the two
-// selects use it. The selects' fast "vec4" variant (several lanes per row,
-// 16-byte loads, a short merge) has its own helpers in chunk_select.cuh.
+// ef_update, fused_reduce and the scalar variants of the two selects and of
+// chunk_scatter use it. The selects' fast "vec4" variant (several lanes per
+// row, 16-byte loads, a short merge) has its own helpers in chunk_select.cuh;
+// the scatter's vec4 variant sizes its grid to the card (card_blocks below).
 
 #pragma once
 
@@ -24,6 +25,19 @@ constexpr unsigned kFullMask = 0xffffffffu;
 inline int64_t blocks_for(int64_t rows) {
   const int64_t b = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   return b < kMaxBlocks ? b : kMaxBlocks;
+}
+
+// Blocks of `threads` threads that fill the current card once: the blocks of
+// `kernel` one SM holds at a time (the occupancy calculator, at the kernel's
+// registers) times the SMs. Launchers cache it per kernel in a static.
+template <typename Kernel>
+int64_t card_blocks(Kernel kernel, int threads) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  const int64_t b = static_cast<int64_t>(sms) * per_sm;
+  return b > 0 ? b : 1;
 }
 
 // Does magnitude a at lane ia beat magnitude b at lane ib? NaN ranks above

@@ -59,6 +59,7 @@ _SIGNATURES = {
     "scalecom_chunk_gather": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
     "scalecom_ef_update": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F32, _P),
     "scalecom_chunk_scatter": (_P, _P, _P, _I64, _I64, _I64, _P),
+    "scalecom_chunk_scatter_vec4": (_P, _P, _P, _I64, _I64, _I64, _P),
     "scalecom_fused_reduce": (
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _P,
     ),

@@ -14,7 +14,10 @@ pads, reshapes and lays out the index sets):
                  first, as ``jax.lax.top_k``) and the signed values there.
   chunk_gather   replaces src/repro/kernels/chunk_topk.py:_gather_kernel:
                  values at per-chunk offsets; row r reads index row
-                 r % idx_rows, so a shared set serves all stacked workers.
+                 r % idx_rows, so a shared set serves all stacked workers;
+                 as ``jnp.take_along_axis`` does there, an offset in
+                 [-chunk, 0) counts from the row's end and one outside
+                 [-chunk, chunk) gives NaN.
   chunk_scatter  replaces src/repro/kernels/chunk_topk.py:_scatter_kernel:
                  a dense ``(rows, chunk)`` tile holding ``vals`` at ``idx``
                  and zeros elsewhere; top-m entries are summed.
@@ -28,7 +31,12 @@ picks one from the shape, the base address and top-m alone: "vec4" (16-byte
 loads, several lanes per row, the picks kept in registers, one read of the
 row) wherever every row starts 16-byte aligned and top-m <= 8, as on the
 main path; "scalar" (one warp per row, 4-byte loads, one pass per pick) for
-any other width, base or top-m. Both are checked on the card.
+any other width, base or top-m. The scatter has two as well, and
+``scatter_variant`` picks one from the chunk width and top-m alone (its
+output is a fresh tensor, so always aligned): "vec4" (whole rows as 16-byte
+stores, several rows' (idx, vals) loaded before any store) for chunk % 4 == 0
+and top-m <= 8, as on the main path; "scalar" (one warp per row, 4-byte
+stores) otherwise. All variants are checked on the card.
 
 A wrapper given CUDA tensors launches the kernel, counts the launch in its
 ``launches`` attribute, and raises if the launch fails. Given CPU tensors it
@@ -47,6 +55,7 @@ from repro_torch.kernels import build
 __all__ = [
     "VEC4_MAX_TOPM",
     "select_variant",
+    "scatter_variant",
     "chunk_argmax",
     "chunk_argmax_plain",
     "chunk_topm",
@@ -74,6 +83,13 @@ def select_variant(chunk: int, data_ptr: int, topm: int = 1) -> str:
     if chunk % 4 == 0 and data_ptr % 16 == 0 and 1 <= topm <= VEC4_MAX_TOPM:
         return "vec4"
     return "scalar"
+
+
+def scatter_variant(chunk: int, topm: int = 1) -> str:
+    """The scatter kernel for ``(rows, topm)`` values into ``(rows, chunk)``
+    rows: "vec4" when chunk % 4 == 0 and ``topm <= VEC4_MAX_TOPM``, else
+    "scalar"."""
+    return "vec4" if chunk % 4 == 0 and 1 <= topm <= VEC4_MAX_TOPM else "scalar"
 
 
 def chunk_argmax_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -147,9 +163,13 @@ def _rows2d(t: torch.Tensor) -> torch.Tensor:
 
 
 def chunk_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x (rows, chunk), idx (idx_rows[, m]) -> x at index row r % idx_rows, shaped (rows[, m])."""
-    i = _rows2d(idx).repeat(x.shape[0] // idx.shape[0], 1)
-    out = torch.gather(x, 1, i.long())
+    """x (rows, chunk), idx (idx_rows[, m]) -> x at index row r % idx_rows, shaped (rows[, m]);
+    an offset in [-chunk, 0) counts from the row's end, one outside [-chunk, chunk) gives NaN."""
+    chunk = x.shape[1]
+    i = _rows2d(idx).long().repeat(x.shape[0] // idx.shape[0], 1)
+    i = torch.where(i < 0, i + chunk, i)
+    inside = (i >= 0) & (i < chunk)
+    out = torch.where(inside, torch.gather(x, 1, torch.where(inside, i, 0)), float("nan"))
     return out[:, 0] if idx.dim() == 1 else out
 
 
@@ -217,13 +237,16 @@ def chunk_scatter(
     rows = idx.shape[0]
     out = torch.empty((rows, chunk), dtype=torch.float32, device=vals.device)
     if rows:
-        rc = build.library().scalecom_chunk_scatter(
-            vals.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, chunk, topm,
-            build.stream_of(vals),
-        )
+        variant = scatter_variant(chunk, topm)
+        lib = build.library()
+        fn = lib.scalecom_chunk_scatter_vec4 if variant == "vec4" else lib.scalecom_chunk_scatter
+        rc = fn(vals.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, chunk, topm,
+                build.stream_of(vals))
         build.check(rc, name)
         chunk_scatter.launches += 1
+        chunk_scatter.variants[variant] += 1
     return out
 
 
 chunk_scatter.launches = 0
+chunk_scatter.variants = {"vec4": 0, "scalar": 0}  # launches by variant

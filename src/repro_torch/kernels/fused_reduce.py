@@ -42,8 +42,9 @@ def _worker_mean(x: torch.Tensor) -> torch.Tensor:
     s = x[0]
     for w in range(1, x.shape[0]):
         s = s + x[w]
-    # a tensor divisor: a Python scalar makes PyTorch multiply by 1/G on the card
-    return s / torch.tensor(float(x.shape[0]), device=x.device)
+    # a tensor divisor (a Python scalar makes PyTorch multiply by 1/G on the
+    # card), filled on the card: a copy from pageable host memory waits for it
+    return s / torch.full((), float(x.shape[0]), device=x.device)
 
 
 def fused_reduce_plain(
