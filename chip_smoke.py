@@ -56,7 +56,25 @@ Phases, each fatal on failure:
   4b. ``compress()`` on the tok_embed EF gradient for clt_k, true_topk,
      local_topk and random_k at top-m 1 and 2, cuda backend against torch
      backend bitwise, one chunk_gather launch per call; the exact path once;
-  5. one more fused compressed step under ``torch.profiler``: device busy
+  5. the lossy residue codecs: bf16, fp8 and fp8_ec each train the model
+     fused, 2 dense + 3 compressed steps (finite loss, launches as the plan
+     says, residue bytes as ``residue_bytes`` says); from each trained state
+     the unfused cuda reduce equals the torch backend's bitwise and the
+     fused one's residues bitwise; ``[codec]`` lines time one step's decode
+     and encode over the 17 compressed tensors against their byte bound;
+     the trained tok_embed residue encodes on the card bit for bit as on the
+     CPU (every codec; stochastic rounding with one dither on both), and
+     the casts at their edges (+-inf, NaN payloads, 448..480, subnormals);
+     ``remap_state`` on the card (fp32 8 -> 4 -> 8 bitwise, every codec
+     8 -> 6 within its bound);
+  6. bucketed reduces (25 MB and 4 MB, overlap on the side stream and off,
+     unfused and fused), two calls back to back, bitwise equal to the
+     unbucketed one; telemetry reduces (metrics_every 1, bucketed too) and
+     the compute_stats reduce under ``set_sync_debug_mode("error")``, so a
+     host sync fails the run, with ĝ and residues bitwise equal to
+     telemetry off; ``[path]`` lines for ef_update and fused_reduce over the
+     17 tensors of one step;
+  7. one more fused compressed step under ``torch.profiler``: device busy
      time, idle share and the kernels that take the most device time.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -232,14 +250,16 @@ def equal(a, b) -> bool:
 
 
 def bitwise(a, b) -> bool:
-    """Equal bit patterns (NaN payloads and the sign of zero included)."""
+    """Equal shapes, dtypes and bit patterns (NaN payloads and the sign of
+    zero included), of tensors on any devices."""
     import torch
 
     if isinstance(a, tuple):
         return all(bitwise(x, y) for x, y in zip(a, b))
-    if a.dtype == torch.float32:
-        a, b = a.view(torch.int32), b.view(torch.int32)
-    return a.shape == b.shape and torch.equal(a, b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints).to(a.device))
 
 
 def close(a, b) -> bool:
@@ -779,6 +799,341 @@ def path_scatter(plans, card_line: str) -> None:
     del calls
 
 
+LOSSY = ("bf16", "fp8", "fp8_ec")
+# relative error a re-encode may add: the per-step bounds of the JAX package's
+# 50-step codec contraction test (tests/test_compat.py), which the port's
+# CPU tests hold it to as well
+CODEC_TOL = {"fp32": 1e-6, "bf16": 6e-3, "fp8": 6e-2, "fp8_ec": 5e-4}
+
+
+def same_enc(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(bitwise(a[k], b[k]) for k in a)
+
+
+def enc_bytes(enc: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in enc.values())
+
+
+def same_reduce(a, b, what: str, ghat_exact: bool = True) -> None:
+    """ĝ (bitwise, or to TOL) and every residue leaf (bitwise) of two reduces."""
+    from repro_torch import tree
+
+    for (path, x), (_, y) in zip(tree.flatten_with_path(a[0]), tree.flatten_with_path(b[0])):
+        check(bitwise(x, y) if ghat_exact else close(x, y), f"{what}: ghat {path} differs")
+    check(a[1].residues.keys() == b[1].residues.keys() and a[1].t == b[1].t,
+          f"{what}: state keys or step counter differ")
+    for path, enc in a[1].residues.items():
+        check(same_enc(enc, b[1].residues[path]), f"{what}: residue {path} differs")
+
+
+def edge_values():
+    """fp32 values at the casts' edges (CPU): a hair above 448, the 464 tie,
+    overflow, +-inf, NaN payloads of both signs, e4m3 and fp32 subnormals,
+    +-0, bf16 rounding ties; then normal values."""
+    import torch
+
+    gen = torch.Generator().manual_seed(7)
+    s = torch.tensor([0.0, -0.0, 448.0, 448.01, 455.0, 463.99, 464.0, 464.01, 470.0, 479.9,
+                      480.0, 1e9, 3.39e38, 3.4028235e38, float("inf"), float("nan"), 2.0**-9,
+                      2.0**-10, 1.5 * 2.0**-9, 2.0**-7, 1.0001 * 2.0**-10, 1e-30, 1e-40, 2e-45,
+                      1.0 + 2.0**-9, 1.0 + 3 * 2.0**-9])
+    pay = torch.randint(1, 1 << 22, (16,), generator=gen, dtype=torch.int32)
+    nans = (pay | 0x7F800000).view(torch.float32)
+    return torch.cat([s, -s, nans, -nans, 100 * torch.randn(4096, generator=gen)])
+
+
+def codec_card_vs_cpu(m, t: int) -> None:
+    """Encode of the same fp32 residue on the card and on the CPU, bitwise,
+    for every codec: nearest rounding, and stochastic rounding with one
+    dither tensor on both. Then the casts and stochastic rounding at their
+    edges (NaN, inf and all) and whole encodes of finite edge blocks."""
+    import torch
+
+    from repro_torch.core import state as st
+
+    m_cpu = m.cpu()
+    storage = (m.shape[1],)
+    for name, codec in st.CODECS.items():
+        enc = codec.encode(m, storage)
+        check(same_enc(enc, codec.encode(m_cpu, storage)),
+              f"{name}: nearest encode on the card differs from the CPU's")
+        check(bitwise(codec.decode(enc, storage), codec.decode(
+            {k: v.cpu() for k, v in enc.items()}, storage)), f"{name}: decode card vs CPU")
+        rounded = {"bf16": "q", "fp8_ec": "c"}.get(name)
+        if rounded:
+            d = st.codec_dither(st.codec_key("['tok_embed']", t), enc[rounded].shape, m.device)
+            check(same_enc(codec.encode(m, storage, key=d), codec.encode(m_cpu, storage,
+                                                                          key=d.cpu())),
+                  f"{name}: stochastic encode on the card differs from the CPU's, same dither")
+        del enc
+    e = edge_values()
+    ec = e.to(m.device)
+    d = torch.randint(0, 1 << 16, e.shape, generator=torch.Generator().manual_seed(8),
+                      dtype=torch.int32)
+    check(bitwise(st._to_e4m3(ec), st._to_e4m3(e)), "e4m3 cast at the edges: card vs CPU")
+    check(bitwise(st._to_bf16(ec), st._to_bf16(e)), "bf16 cast at the edges: card vs CPU")
+    check(bitwise(st.stochastic_round(ec, d.to(m.device)), st.stochastic_round(e, d)),
+          "stochastic rounding at the edges: card vs CPU")
+    finite = e[torch.isfinite(e) & (e.abs() < 1e38)]
+    blocks = torch.stack([finite * s for s in (1.0, 2.0**-60, 2.0**60, 2.0**-120)])
+    for name, codec in st.CODECS.items():
+        shape = (blocks.shape[1],)
+        check(same_enc(codec.encode(blocks.to(m.device), shape), codec.encode(blocks, shape)),
+              f"{name}: encode of the finite edge blocks, card vs CPU")
+    print(f"[codec] the trained tok_embed residue ({m.numel():,} elements): encode and decode on "
+          f"the card == on the CPU, bitwise, for {', '.join(st.CODECS)} (nearest; bf16 and "
+          f"fp8_ec also stochastic, one dither on both); the e4m3 and bf16 casts and "
+          f"stochastic rounding at {e.numel()} edge values (+-inf, NaN payloads, 448.01..480, "
+          f"subnormals, +-0) and every codec's encode of finite edge blocks at scales "
+          f"2^-120..2^60: bitwise")
+
+
+def codec_reduces(gpw, state, cfg, name: str, card_line: str) -> None:
+    """Teacher-forced from a codec's trained state: unfused cuda == torch
+    backend (ĝ and residues bitwise: the same draws on one card); fused cuda
+    == unfused cuda on the residues bitwise, ĝ to TOL."""
+    unfused = dataclasses.replace(cfg, fused=False)
+    from repro_torch.core.scalecom import scalecom_reduce
+
+    u_c, ms_u = host_ms(lambda: scalecom_reduce(gpw, state,
+                                                dataclasses.replace(unfused, backend="cuda")))
+    u_t = scalecom_reduce(gpw, state, dataclasses.replace(unfused, backend="torch"))
+    same_reduce(u_c, u_t, f"{name} unfused cuda vs torch backend")
+    del u_t
+    fused = dataclasses.replace(cfg, fused=True, backend="cuda")
+    f_c, ms_f = host_ms(lambda: scalecom_reduce(gpw, state, fused))
+    same_reduce(f_c, u_c, f"{name} fused vs unfused cuda", ghat_exact=False)
+    ms_f2 = host_ms(lambda: scalecom_reduce(gpw, state, fused))[1]
+    print(f"[reduce] {name} residues, teacher-forced from the trained state (t={state.t}): "
+          f"unfused cuda == torch backend (ghat and residues bitwise); fused cuda == unfused "
+          f"cuda (residues bitwise, ghat within rtol 1e-6 / atol 1e-7); host clock: unfused "
+          f"cuda {ms_u:.2f} ms, fused cuda {ms_f:.2f} and {ms_f2:.2f} ms on {card_line}")
+
+
+def codec_times(state, plans, name: str, card_line: str) -> dict:
+    """Device time of one compressed step's decode and of its encode (with
+    the step's stochastic-rounding draws) over the tensors the step
+    compresses, beside their summed byte bound (decode reads the encoding
+    and writes fp32, encode the reverse), and their host clock."""
+    from repro_torch.core.state import CODECS, codec_key
+
+    codec = CODECS[name]
+    chosen = [p for p in plans if not p.dense]
+    encs = [state.residues[p.path] for p in chosen]
+    ms = [codec.decode(e, p.storage).contiguous() for e, p in zip(encs, chosen)]
+    nbytes = sum(enc_bytes(e) + m.numel() * 4 for e, m in zip(encs, ms))
+    bound_ms = bound(nbytes, 0)[0]
+
+    def decode_all():
+        return [codec.decode(e, p.storage) for e, p in zip(encs, chosen)]
+
+    def encode_all():
+        return [codec.encode(m, p.storage, key=codec_key(p.path, state.t))
+                for m, p in zip(ms, chosen)]
+
+    out = {}
+    for what, fn in (("decode", decode_all), ("encode", encode_all)):
+        # a few hundred launches per call: two calls queue ahead, or one
+        out[what] = dict(ms=device_ms(fn, reps=2, what=f"{name} {what}"),
+                         host_ms=host_ms(fn)[1])
+    print(f"[codec] {name} over the {len(chosen)} tensors one compressed step gives it "
+          f"({sum(m.numel() for m in ms):,} elements, {nbytes / 1e9:.3f} GB each way): decode "
+          f"{out['decode']['ms']:.4f} device ms, encode {out['encode']['ms']:.4f}; bound ms "
+          f"{bound_ms:.4f} each ({bound_ms / out['decode']['ms']:.0%} and "
+          f"{bound_ms / out['encode']['ms']:.0%} of it); host clock {out['decode']['host_ms']:.2f} "
+          f"and {out['encode']['host_ms']:.2f} ms on {card_line}")
+    return out
+
+
+def remap_checks(states: dict, workers: int) -> None:
+    """``remap_state`` on the card. fp32 8 -> 4 -> 8: the expand repeats
+    each row bitwise and folding back gives the 4-worker state bitwise.
+    Every codec 8 -> 6 (through lcm 24): the re-encoded residue within the
+    codec's bound of the fp32 remap of its decoded rows, and the worker mean
+    kept within that bound (a mean's error is at most the rows' rms error)."""
+    import torch
+
+    from repro_torch.core.state import CODECS, remap_state
+
+    four = remap_state(states["fp32"], workers, 4)
+    eight = remap_state(four, 4, workers)
+    back = remap_state(eight, workers, 4)
+    r = workers // 4
+    for path, enc in four.residues.items():
+        q8 = eight.residues[path]["q"]
+        check(all(bitwise(q8[i::r], enc["q"]) for i in range(r))
+              and bitwise(back.residues[path]["q"], enc["q"]),
+              f"fp32 remap {workers} -> 4 -> {workers}: {path} not bitwise")
+    del four, eight, back
+    worst = {}
+    for name, state in states.items():
+        codec = CODECS[name]
+        six = remap_state(state, workers, 6, name)
+        worst[name] = (0.0, 0.0)
+        for path, enc in state.residues.items():
+            shape = tuple(enc["q"].shape[1:])
+            old = codec.decode(enc, shape)
+            lcm = math.lcm(workers, 6)
+            exact = torch.repeat_interleave(old, lcm // workers, 0).reshape(
+                (6, lcm // 6) + tuple(old.shape[1:])).mean(1)
+            new = codec.decode(six.residues[path], shape)
+            norm = float(torch.linalg.norm(exact)) or 1.0
+            err = float(torch.linalg.norm(new - exact)) / norm
+            mean_err = float(torch.linalg.norm(new.mean(0) - old.mean(0)))
+            mean_lim = CODEC_TOL[name] * norm / math.sqrt(6) + 1e-5 * float(
+                torch.linalg.norm(old.mean(0)))
+            check(six.residues[path]["q"].shape[0] == 6 and six.t == state.t,
+                  f"{name} remap {workers} -> 6: {path} shape or t")
+            check(err <= CODEC_TOL[name] and mean_err <= mean_lim,
+                  f"{name} remap {workers} -> 6: {path} error {err:.3g} (bound "
+                  f"{CODEC_TOL[name]}), mean error {mean_err:.3g} (bound {mean_lim:.3g})")
+            worst[name] = (max(worst[name][0], err), max(worst[name][1], mean_err / mean_lim))
+            del old, exact, new
+        del six
+    text = ", ".join(f"{n} {e:.2g} (bound {CODEC_TOL[n]:g}), mean at {m:.0%} of its bound"
+                     for n, (e, m) in worst.items())
+    print(f"[remap] on the card: fp32 {workers} -> 4 -> {workers} bitwise (the expand repeats, "
+          f"the fold back); {workers} -> 6 through lcm 24, worst relative error of the "
+          f"re-encoded residues against the fp32 remap: {text}")
+
+
+def bucket_phase(gpw, state, cfg, workers: int, card_line: str) -> None:
+    """Bucketed reduces (25 MB and 4 MB, overlap on and off, unfused and
+    fused) against the unbucketed one: ĝ and residues bitwise, two calls
+    back to back each (the side stream's tensors are handed back to the
+    caller's stream). The number of buckets, host ms and device ms."""
+    from repro_torch import tree
+    from repro_torch.core.plan import plan_buckets, plan_tensors
+    from repro_torch.core.scalecom import scalecom_reduce
+    from repro_torch.core.state import residue_signature
+
+    plans = plan_tensors(tuple((p, tuple(g.shape[1:]), workers)
+                               for p, g in tree.flatten_with_path(gpw)), cfg,
+                         residue_signature(state.residues))
+    for fused in (False, True):
+        base = dataclasses.replace(cfg, fused=fused, backend="cuda")
+        ref, ms = host_ms(lambda: scalecom_reduce(gpw, state, base, buckets=False))
+        label = "fused" if fused else "unfused"
+        # a reduce is 50-150 launches: two calls queue ahead of the card
+        dev = device_ms(lambda: scalecom_reduce(gpw, state, base, buckets=False), reps=2,
+                        what=f"{label} unbucketed reduce")
+        print(f"[bucket] {label} unbucketed: {ms:.2f} ms host clock, {dev:.3f} device ms "
+              f"on {card_line}")
+        for mb in ((25, 4) if not fused else (4,)):
+            n_buckets = len(plan_buckets(plans, mb << 20))
+            for overlap in (True, False):
+                c = dataclasses.replace(base, overlap=overlap)
+                (a, b), ms = host_ms(lambda: (scalecom_reduce(gpw, state, c, buckets=mb << 20),
+                                              scalecom_reduce(gpw, state, c, buckets=mb << 20)))
+                what = f"{label} {mb} MB buckets, overlap {'on' if overlap else 'off'}"
+                same_reduce(a, ref, what + " (first call)")
+                same_reduce(b, ref, what + " (second call, back to back)")
+                del a, b
+                dev = device_ms(lambda: scalecom_reduce(gpw, state, c, buckets=mb << 20),
+                                reps=2, what=what)
+                print(f"[bucket] {what}: {n_buckets} buckets; two calls back to back bitwise "
+                      f"equal to unbucketed; {ms / 2:.2f} ms host clock per call, {dev:.3f} "
+                      f"device ms on {card_line}")
+        del ref
+
+
+def telemetry_phase(gpw, state, cfg, card_line: str) -> None:
+    """Reduces with telemetry=True (metrics_every 1, unbucketed and 4 MB
+    buckets on the side stream, unfused and fused) and with compute_stats,
+    under ``torch.cuda.set_sync_debug_mode("error")``: any host sync in the
+    reduce raises. ĝ and residues bitwise those of telemetry off; every tap
+    a finite 0-d tensor on the card. Reduce time (host clock, and CUDA
+    events around one call) with telemetry off, on with a sampled step and on
+    with an unsampled one."""
+    import torch
+
+    from repro_torch.core.scalecom import scalecom_reduce
+
+    off = dataclasses.replace(cfg, fused=False, backend="cuda")
+    on = dataclasses.replace(off, telemetry=True, metrics_every=1)
+    runs = {"unfused": (off, False), "unfused, 4 MB buckets": (off, 4 << 20),
+            "fused": (dataclasses.replace(off, fused=True), False)}
+    refs = {k: scalecom_reduce(gpw, state, c, buckets=b) for k, (c, b) in runs.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = {k: scalecom_reduce(gpw, state, dataclasses.replace(
+            on, fused=c.fused), buckets=b) for k, (c, b) in runs.items()}
+        stats_run = scalecom_reduce(gpw, state, off, compute_stats=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    n_taps = {}
+    for k, out in outs.items():
+        same_reduce(out, refs[k], f"telemetry on vs off ({k})")
+        obs = {key: v for key, v in out[2].items() if key.startswith("obs/")}
+        for key, v in obs.items():
+            check(isinstance(v, torch.Tensor) and v.dim() == 0 and v.is_cuda
+                  and bool(torch.isfinite(v)), f"tap {key} ({k}): not a finite 0-d card tensor")
+        n_taps[k] = len(obs)
+    gamma = stats_run[2]["contraction_gamma"]
+    check(isinstance(gamma, torch.Tensor) and gamma.is_cuda and bool(torch.isfinite(gamma)),
+          "compute_stats contraction_gamma: not a finite tensor on the card")
+    sampled = n_taps["unfused"]
+    print(f"[telemetry] {', '.join(f'{k}: {n} taps' for k, n in n_taps.items())}; no host sync "
+          f"in these reduces nor in compute_stats (set_sync_debug_mode error); ghat and "
+          f"residues bitwise those of telemetry off; contraction_gamma "
+          f"{float(gamma):.4f} left on the card")
+    unsampled = dataclasses.replace(on, metrics_every=2 if state.t % 2 else 3)
+    check(state.t % unsampled.metrics_every != 0, "the unsampled telemetry step is sampled")
+    for label, c in (("off", off), ("on, similarity sampled", on),
+                     ("on, similarity not sampled", unsampled)):
+        _, ms = host_ms(lambda: scalecom_reduce(gpw, state, c))
+        # a sampled step is thousands of launches, more than the card's launch
+        # queue holds: CUDA events around one call, host dispatch included
+        card = time_ms(lambda: scalecom_reduce(gpw, state, c), reps=3, warmup=1)
+        print(f"[telemetry] unfused reduce, telemetry {label}: {ms:.2f} ms host clock, "
+              f"{card:.2f} ms on the card's clock (CUDA events, dispatch included) on "
+              f"{card_line}")
+    del outs, refs, stats_run
+
+
+def path_update(plans, workers: int, card_line: str, results: dict) -> None:
+    """ef_update and fused_reduce at the shapes one compressed step gives
+    them: every compressed tensor, (G x n_chunks, chunk) rows with a shared
+    (n_chunks,) leader set for ef_update, (G, n_chunks, chunk) for the fused
+    clt_k reduce. Device time per step (``device_ms``, exact launch count)
+    beside the summed byte bound."""
+    import torch
+
+    from repro_torch.kernels import ef_update as efk, fused_reduce as frk
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    chosen = [p for p in plans if not p.dense and p.comp.topm == 1]
+    calls, b_ef, b_fr = [], 0.0, 0.0
+    for p in chosen:
+        n, chunk = p.n_chunks, p.comp.chunk
+        m = torch.randn(workers, n, chunk, device="cuda", generator=gen)
+        g = torch.randn(workers, n, chunk, device="cuda", generator=gen)
+        idx = torch.randint(0, chunk, (n,), device="cuda", generator=gen, dtype=torch.int32)
+        calls.append((m, g, idx))
+        elems = workers * n * chunk
+        b_ef += bound(3 * elems * 4 + n * 4 + workers * n * 4, 5 * elems)[0]
+        b_fr += bound(3 * elems * 4 + workers * n * 4 + n * 4 + n * chunk * 4, 7 * elems)[0]
+
+    def ef_step():
+        for m, g, idx in calls:
+            efk.ef_update(m.view(-1, m.shape[-1]), g.view(-1, g.shape[-1]), idx, BETA)
+
+    def fr_step():
+        for m, g, _ in calls:
+            frk.fused_reduce(m, g, BETA, 1, "clt_k", 3)
+
+    for name, fn, b in (("ef_update", ef_step, b_ef), ("fused_reduce", fr_step, b_fr)):
+        ms = device_ms(fn, (counter(name), len(calls)), reps=10, what=f"{name} path")
+        results[name]["path_ms"], results[name]["path_bound_ms"] = ms, b
+        print(f"[path] {name} over the {len(chosen)} tensors one compressed step gives it "
+              f"({sum(m.numel() for m, _, _ in calls):,} elements, {workers} workers): device ms "
+              f"{ms:.4f} per step, bound ms {b:.4f} ({b / ms:.0%} of it), lost {ms - b:.4f} per "
+              f"step on {card_line}")
+    del calls
+
+
 def print_ptxas(log: str) -> None:
     """Registers and spills per kernel from ptxas -v; a kernel template's
     instantiations (the vec4 select and scatter, one per lanes-per-row and
@@ -845,7 +1200,7 @@ def main() -> None:
     from repro_torch.core.plan import plan_tensors
     from repro_torch.core.rates import RateRule
     from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
-    from repro_torch.core.state import ScaleComState, residue_signature
+    from repro_torch.core.state import ScaleComState, residue_bytes, residue_signature
     from repro_torch.data import make_batches
     from repro_torch.kernels import build, chunk_topk as ct
     from repro_torch.models import build_model
@@ -1089,6 +1444,31 @@ def main() -> None:
     check(idx_x.shape == (P // CHUNK,) and vals_x.shape == (workers, P // CHUNK)
           and bool(torch.isfinite(dense_x).all()), "compress exact clt_k: shapes or values")
     print(f"[compress] exact clt_k: k = {idx_x.numel()}, finite")
+
+    # -- 6. the lossy residue codecs, remap, buckets, telemetry -------------------
+    states = {"fp32": trained}
+    for name in ("fp32",) + LOSSY:
+        if name != "fp32":
+            run, _, _ = train_run(dataclasses.replace(sc_cfg, residue_dtype=name), f"fused {name}")
+            states[name], params = run.sc_state, run.params
+            del run
+        else:
+            params = state.params
+        held = sum(enc_bytes(e) for e in states[name].residues.values())
+        want = residue_bytes(params, workers, name, sc_cfg.min_size, sc_cfg.layout)
+        check(held == want, f"{name}: the residues hold {held} bytes, residue_bytes says {want}")
+        print(f"[train:fused {name}] the residues hold {held:,} bytes, as residue_bytes says")
+        del params
+        if name != "fp32":
+            codec_reduces(gpw, states[name], dataclasses.replace(base_cfg, residue_dtype=name),
+                          name, card_line)
+            codec_times(states[name], flat_plans, name, card_line)
+    codec_card_vs_cpu(m_t, trained.t)
+    remap_checks(states, workers)
+    del states
+    bucket_phase(gpw, trained, base_cfg, workers, card_line)
+    telemetry_phase(gpw, trained, base_cfg, card_line)
+    path_update(flat_plans, workers, card_line, results)
     print(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del gpw, ef, vals_x, idx_x, dense_x, m_new, vals, want_m, want_vals
 

@@ -1,9 +1,11 @@
 """Per-tensor reduce planning: the *plan* stage of ``scalecom_reduce``.
 
-The port of ``repro.core.plan`` without buckets. Plans are pure Python,
-resolved once per tree structure and cached: per tensor the compressor after
-``rate_rules``, the ``min_size`` dense fallback, grouping, the chunk layout,
-the residue storage shape and execute work view, and the wire bytes.
+The port of ``repro.core.plan``. Plans are pure Python, resolved once per
+tree structure and cached: per tensor the compressor after ``rate_rules``,
+the ``min_size`` dense fallback, grouping, the chunk layout, the residue
+storage shape and execute work view, and the wire bytes. ``plan_buckets``
+packs the plans into the launch buckets of the bucketed reduce
+(``core.overlap``).
 
 Byte accounting, one rule for both layouts (per-worker transmit bytes for
 one tensor and step; fp32 values, int32 indices; k = n_chunks * topm):
@@ -25,11 +27,11 @@ from typing import Optional, Tuple
 from repro_torch.core.chunked import num_chunks
 from repro_torch.core.compressors import CompressorConfig, exact_k
 from repro_torch.core.rates import resolve_compressor
-from repro_torch.core.state import codec_signature, resolve_layout, storage_shape
+from repro_torch.core.state import CODECS, codec_signature, resolve_layout, storage_shape
 
 Shape = Tuple[int, ...]
 
-__all__ = ["TensorPlan", "plan_tensors", "payload_bytes"]
+__all__ = ["TensorPlan", "Bucket", "plan_tensors", "plan_buckets", "payload_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,15 +104,26 @@ def _raise_state_drift(path, shape, G, layout, residue_dtype, actual, expected):
     ):
         causes.append(
             f"the residue carries {q_shape[0]} worker rows but this reduce "
-            f"folds to G={G} workers (membership or `groups` changed)"
+            f"folds to G={G} workers (membership or `groups` changed); "
+            f"core.state.remap_state(state, {q_shape[0]}, {G}) moves the EF "
+            f"mass to the new worker count"
         )
+    for name in CODECS:
+        if name != residue_dtype and actual == codec_signature(
+            name, G, storage_shape(shape, layout)
+        ):
+            causes.append(
+                f"the residue was encoded by the {name!r} codec but "
+                f"ScaleComConfig.residue_dtype={residue_dtype!r}"
+            )
     detail = "; ".join(causes) if causes else f"expected {expected}, found {actual}"
     raise ValueError(
         f"ScaleCom state drift on tensor {path!r}: the stored residue "
         f"encoding does not match what this reduce's plan (layout={layout!r}, "
         f"residue_dtype={residue_dtype!r}, G={G}) will decode — {detail}. "
         f"Remediation: re-init the state (core.state.init_state) with the "
-        f"current config, or pin the layout explicitly on both sides."
+        f"current config, or pin the layout explicitly on both sides; on a "
+        f"membership change use core.state.remap_state."
     )
 
 
@@ -191,3 +204,52 @@ def plan_tensors(leaves, cfg, residue_paths) -> Tuple[TensorPlan, ...]:
         cfg.groups,
         cfg.residue_dtype,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class Bucket:
+    """One launch unit of the bucketed reduce (``core.overlap`` runs them).
+
+    index:         position in the schedule
+    leaf_ids:      indices into the plan/leaf tuple, in reverse leaf order
+                   (backward makes the last parameters' gradients first)
+    bytes_dense:   summed dense gradient bytes, the packing target
+    bytes_payload: summed per-worker wire bytes
+    """
+
+    index: int
+    leaf_ids: Tuple[int, ...]
+    bytes_dense: float
+    bytes_payload: float
+
+
+@functools.lru_cache(maxsize=128)
+def _buckets_cached(plans: Tuple[TensorPlan, ...], bucket_bytes: int) -> Tuple[Bucket, ...]:
+    buckets = []
+    ids: list = []
+    acc_dense = acc_payload = 0.0
+    for i in range(len(plans) - 1, -1, -1):  # grad-ready (reverse leaf) order
+        p = plans[i]
+        if ids and acc_dense + p.bytes_dense > bucket_bytes:
+            buckets.append(Bucket(len(buckets), tuple(ids), acc_dense, acc_payload))
+            ids, acc_dense, acc_payload = [], 0.0, 0.0
+        ids.append(i)
+        acc_dense += p.bytes_dense
+        acc_payload += p.bytes_payload
+    if ids:
+        buckets.append(Bucket(len(buckets), tuple(ids), acc_dense, acc_payload))
+    return tuple(buckets)
+
+
+def plan_buckets(plans: Tuple[TensorPlan, ...], bucket_bytes: int) -> Tuple[Bucket, ...]:
+    """Pack plans into launch buckets of about ``bucket_bytes`` dense bytes (cached).
+
+    Greedy in reverse leaf order: a bucket closes when the next tensor would
+    push its dense bytes past the target. Every tensor lands in exactly one
+    bucket, dense fallbacks included; a tensor larger than the target gets a
+    bucket of its own. The plans themselves are untouched, so bucketing
+    changes launch order only.
+    """
+    if bucket_bytes <= 0:
+        raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
+    return _buckets_cached(tuple(plans), int(bucket_bytes))

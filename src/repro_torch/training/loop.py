@@ -6,8 +6,10 @@ during warm-up, so switching is state-compatible by construction.
 
 Logging goes to the ``repro_torch.training`` logger by default, which is
 silent unless a handler is attached (the launch CLI attaches one). Pass
-``log=print`` for console lines or ``log=None`` for none. Checkpointing and
-telemetry wait (ROADMAP Queue 1 items 14 and 16).
+``log=print`` for console lines or ``log=None`` for none. With
+``ScaleComConfig(telemetry=True)`` the taps are in each history entry as
+``obs/...`` floats. Checkpointing and the telemetry recorder wait (ROADMAP
+Queue 1 items 14 and 16).
 """
 
 from __future__ import annotations
@@ -37,10 +39,13 @@ class TrainLoop:
     grad_clip: Optional[float] = None
     log_every: int = 10
     compute_stats: bool = False
+    # launch spec of the bucketed reduce (scalecom_reduce buckets=...);
+    # None/"auto" reads $SCALECOM_TORCH_BUCKET_MB
+    buckets: Any = None
 
     def __post_init__(self):
         common = dict(n_workers=self.n_workers, grad_clip=self.grad_clip,
-                      compute_stats=self.compute_stats)
+                      compute_stats=self.compute_stats, buckets=self.buckets)
         self._dense = build_train_step(self.model, self.optimizer, self.schedule,
                                        self.sc_cfg, mode="dense", **common)
         self._compressed = build_train_step(self.model, self.optimizer, self.schedule,

@@ -93,8 +93,13 @@ def build_train_step(
     mode: str = "scalecom",  # scalecom | dense
     grad_clip: Optional[float] = None,
     compute_stats: bool = False,
+    buckets: Any = None,
 ) -> Callable[[TrainState, Any], Tuple[TrainState, Dict[str, Any]]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
+
+    ``buckets`` is the launch granularity of the ScaleCom reduce
+    (``scalecom_reduce(buckets=...)``): None/"auto" reads
+    $SCALECOM_TORCH_BUCKET_MB at each step; an explicit value wins.
 
     The step updates ``state.params`` and ``state.opt_state`` in place (see
     ``repro_torch.optim``) and returns a new ``TrainState`` holding them.
@@ -114,7 +119,7 @@ def build_train_step(
         if mode == "scalecom":
             loss, nll, gpw = per_worker_grads(model, state.params, batch, n_workers)
             ghat, sc_state, stats = scalecom_reduce(
-                gpw, state.sc_state, sc_cfg, compute_stats=compute_stats
+                gpw, state.sc_state, sc_cfg, compute_stats=compute_stats, buckets=buckets
             )
             del gpw
         else:
