@@ -22,25 +22,29 @@ Phases, each fatal on failure:
      events, with an exact launch count) beside the plain version's, a
      PyTorch library call's and the bound, and the kernel's and library
      call's time between CUDA events around one call (host dispatch
-     included). The two selects and the scatter must run their vec4 variant
-     at the tok_embed shapes; the selects' scalar variant runs on the same
-     rows from a misaligned base, the scatter's scalar kernel is called
-     directly on the same inputs. Then the variant edges, each checked for
-     the variant that ran: the selects at rows 1 to 100,003, chunk
+     included). The two selects, the scatter and the fused reduce must run
+     their vec4 variant at the tok_embed shapes; the selects' scalar variant
+     runs on the same rows from a misaligned base, the scalar kernels of the
+     scatter and of the fused reduce are called directly on the same inputs
+     (the fused reduce's bitwise too). Then the variant edges, each checked
+     for the variant that ran: the selects at rows 1 to 100,003, chunk
      4/8/64/128, top-m at the register limit (8) and above it, misaligned
      bases; the scatter and gather at rows 1, 33 and 100,003, chunk
      4/8/17/64/128, top-m 1/2/8/9, duplicates, shared sets over 3, 8 and 16
-     copies and per-worker sets, offsets outside the chunk; NaN payloads, -0
-     and +-inf throughout; and one tensor past 2^31 elements through every
-     variant of the selects and the scatter and the gather;
+     copies and per-worker sets, offsets outside the chunk; the fused reduce
+     over 1, 3, 8 and 64 workers, rows 1, 33 and 100,003, chunk
+     4/8/17/64/128, top-m 1/2/8/9, m or g misaligned, both modes; NaN
+     payloads, -0 and +-inf throughout; and one tensor past 2^31 elements
+     through every variant of the selects, the scatter and the fused reduce
+     and the gather;
   3. the main path: ``run_training`` trains paper-transformer-base at full
      width (6 layers, d 512, vocab 37000) with CLT-k, 8 workers of batch 4 x
      128 tokens, 2 dense warm-up steps then 3 compressed steps, once unfused
      and once with ``fused=True``; the loss must be finite and each kernel
      must have launched as often as the reduce plan says (unfused: select,
      update and scatter once per compressed tensor and step, every select
-     and scatter in its vec4 variant; fused: one fused_reduce and nothing
-     else);
+     and scatter in its vec4 variant; fused: one fused_reduce, in its vec4
+     variant, and nothing else);
   4. teacher-forced reduce from the trained state: the unfused "cuda"
      backend equals the "torch" backend bit for bit (and from the state
      before the first compressed step); the fused cuda reduce equals the
@@ -72,8 +76,8 @@ Phases, each fatal on failure:
      unbucketed one; telemetry reduces (metrics_every 1, bucketed too) and
      the compute_stats reduce under ``set_sync_debug_mode("error")``, so a
      host sync fails the run, with ĝ and residues bitwise equal to
-     telemetry off; ``[path]`` lines for ef_update and fused_reduce over the
-     17 tensors of one step;
+     telemetry off; ``[path]`` lines for ef_update and fused_reduce (both
+     variants) over the 17 tensors of one step; the fused reduces' variants;
   7. one more fused compressed step under ``torch.profiler``: device busy
      time, idle share and the kernels that take the most device time.
 
@@ -107,10 +111,11 @@ KERNELS = {  # name: (source of the kernel timed, the Pallas body it replaces)
     "chunk_gather": ("chunk_topm_gather.cu", "src/repro/kernels/chunk_topk.py:91"),
     "chunk_scatter": ("scalecom_kernels.cu", "src/repro/kernels/chunk_topk.py:101"),
     "ef_update": ("scalecom_kernels.cu", "src/repro/kernels/ef_update.py:44"),
-    "fused_reduce": ("fused_reduce.cu", "src/repro/kernels/fused_reduce.py:63"),
+    "fused_reduce": ("fused_reduce_vec4.cuh", "src/repro/kernels/fused_reduce.py:63"),
 }
 # the kernels with two variants, and the one each runs on the main path
-VARIANTS = {"chunk_argmax": "vec4", "chunk_topm": "vec4", "chunk_scatter": "vec4"}
+VARIANTS = {"chunk_argmax": "vec4", "chunk_topm": "vec4", "chunk_scatter": "vec4",
+            "fused_reduce": "vec4"}
 
 # the main path's largest compressed tensor: tok_embed, 37000 x 512, over 8 workers
 G, P, CHUNK, BETA = 8, 37000 * 512, 64, 0.1
@@ -196,11 +201,11 @@ def counter(name: str, variant: str | None = None):
     """A function returning the launch count of kernel ``name`` (of one of
     its variants, with ``variant``), as its wrapper counts it."""
     from repro_torch import kernels
-    from repro_torch.kernels import chunk_topk as ct
 
     if variant is None:
         return lambda: kernels.launches()[name]
-    return lambda: getattr(ct, name).variants[variant]
+    wrapper = {k.__name__: k for k in kernels.KERNELS}[name]
+    return lambda: wrapper.variants[variant]
 
 
 def scatter_scalar(vals, idx, chunk: int):
@@ -222,6 +227,34 @@ def scatter_scalar(vals, idx, chunk: int):
 
 
 scatter_scalar.launches = 0
+
+
+def fused_scalar(m, g, beta: float, topm: int, mode: str, leader: int = 0):
+    """fused_reduce's scalar kernel (the first design) on any (G, rows,
+    chunk) m and g, launched as the wrapper launches it: ``fused_variant``
+    picks vec4 wherever it takes the shape and bases, and the two are held
+    against each other on the same inputs. Counts its launches in
+    ``fused_scalar.launches``."""
+    import torch
+
+    from repro_torch.kernels import build, fused_reduce as frk
+
+    G, rows, chunk = m.shape
+    tail = () if topm == 1 else (topm,)
+    idx = torch.empty((rows,) + tail, dtype=torch.int32, device=m.device)
+    vals = torch.empty((G, rows) + tail, dtype=torch.float32, device=m.device)
+    m_new = torch.empty_like(m)
+    ghat = torch.empty((rows, chunk), dtype=torch.float32, device=m.device)
+    rc = build.library().scalecom_fused_reduce(
+        m.data_ptr(), g.data_ptr(), idx.data_ptr(), vals.data_ptr(), m_new.data_ptr(),
+        ghat.data_ptr(), rows, G, chunk, topm, frk.MODES.index(mode), leader, beta,
+        build.stream_of(m))
+    check(rc == 0, f"fused_reduce scalar kernel: CUDA error {rc}")
+    fused_scalar.launches += 1
+    return idx, vals, m_new, ghat
+
+
+fused_scalar.launches = 0
 
 
 def host_ms(fn):
@@ -307,7 +340,7 @@ def kernel_phase(card_line: str):
         name = key.split("[")[0]
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
-        same = bitwise if name in ("chunk_gather", "chunk_scatter") else equal
+        same = bitwise if name in ("chunk_gather", "chunk_scatter", "fused_reduce") else equal
         check(same(out_k, out_p), f"{key}: kernel and plain version differ")
         err = max_abs_err(out_k, out_p)
         ms = device_ms(kern, (counter(name, VARIANTS.get(name)), 1), what=f"{key} kernel")
@@ -436,20 +469,51 @@ def kernel_phase(card_line: str):
               f"({r['bound_ms'] / r['ms']:.0%} of it), {r['bound_64_ms']:.4f} by 64-byte segments "
               f"({r['bound_64_ms'] / r['ms']:.0%} of it) on {card_line}")
 
-    # the fused reduce of the same tensor, leader 3; clt_k at top-1 is the fused run's call
+    # the fused reduce of the same tensor, leader 3; clt_k at top-1 is the fused run's call.
+    # The vec4 variant through the wrapper, then the scalar kernel on the same inputs
     m3, g3 = m.view(G, R, CHUNK), g.view(G, R, CHUNK)
     cuda_be, torch_be = resolve_backend("cuda"), resolve_backend("torch")
+    before = frk.fused_reduce.variants["scalar"]
     for mode in ("clt_k", "true_topk"):
         for topm in (1, 2):
             key = "fused_reduce" if (mode, topm) == ("clt_k", 1) else f"fused_reduce[{mode}, top-{topm}]"
             leader = 3 if mode == "clt_k" else None
             nbytes = 3 * G * P * 4 + G * R * topm * 4 + R * topm * 4 + R * CHUNK * 4
             ops = (7 if mode == "clt_k" else 9) * G * P
+            plain = lambda mode=mode, topm=topm, leader=leader: frk.fused_reduce_plain(  # noqa: E731
+                m3, g3, BETA, topm, mode, leader or 0)
             record(key, lambda mode=mode, topm=topm, leader=leader:
                    frk.fused_reduce(m3, g3, BETA, topm, mode, leader),
-                   lambda mode=mode, topm=topm, leader=leader:
-                   frk.fused_reduce_plain(m3, g3, BETA, topm, mode, leader or 0),
-                   None, "no single call", nbytes, ops)
+                   plain, None, "no single call", nbytes, ops)
+            scalar = lambda mode=mode, topm=topm, leader=leader: fused_scalar(  # noqa: E731
+                m3, g3, BETA, topm, mode, leader or 0)
+            check(bitwise(scalar(), plain()),
+                  f"{key}: the scalar kernel at the tok_embed shapes differs from plain")
+            r = results[key]
+            r["variant"] = "vec4"
+            r["scalar_ms"] = device_ms(scalar, (lambda: fused_scalar.launches, 1),
+                                       what=f"{key} scalar")
+            print(f"[kernel] {key}: vec4 variant {r['ms']:.4f} device ms ({r['bound_ms'] / r['ms']:.0%}"
+                  f" of the bound); the scalar kernel (the first design, called directly, same "
+                  f"inputs) bitwise equal to plain, {r['scalar_ms']:.4f} device ms "
+                  f"({r['bound_ms'] / r['scalar_ms']:.0%}) on {card_line}")
+    check(frk.fused_reduce.variants["scalar"] == before,
+          f"fused_reduce at the tok_embed shapes ran {frk.fused_reduce.variants}, want vec4 only")
+    # true_topk's two vec4 designs, on both sides of the staging limit: 12 workers' rows
+    # fit a staged block at chunk 64 (shared memory), 13 do not (the L2 re-read)
+    for workers, design in ((12, "staged in shared memory"), (13, "L2 re-read")):
+        mw = torch.randn(workers, R, CHUNK, device=dev, generator=gen)
+        gw = torch.randn(workers, R, CHUNK, device=dev, generator=gen)
+        run = lambda mw=mw, gw=gw: frk.fused_reduce(mw, gw, BETA, 1, "true_topk")  # noqa: E731
+        check(bitwise(run(), frk.fused_reduce_plain(mw, gw, BETA, 1, "true_topk")),
+              f"fused_reduce true_topk at {workers} workers differs from plain")
+        ms = device_ms(run, (counter("fused_reduce", "vec4"), 1), what=f"true_topk {workers}")
+        b = bound(3 * workers * R * CHUNK * 4 + workers * R * 4 + R * 4 + R * CHUNK * 4, 0)[0]
+        results["fused_reduce"][f"true_topk_{workers}_workers_ms"] = ms
+        print(f"[kernel] fused_reduce[true_topk, top-1] at {workers} workers ({design}): vec4 "
+              f"bitwise equal to plain; device ms {ms:.4f}, bound_ms {b:.4f}, {b / ms:.0%} of it "
+              f"on {card_line}")
+        del mw, gw
     # clt_k against the unfused kernels from the same state: idx, vals, m' bitwise
     for topm in (1, 2):
         idx, vals, m_new, _ = cuda_be.fused_reduce(m3, g3, BETA, CHUNK, topm, "clt_k", 3)
@@ -525,7 +589,9 @@ def kernel_phase(card_line: str):
           "workers: bitwise equal")
     select_boundaries(gen)
     scatter_gather_boundaries(gen)
+    fused_boundaries(gen)
     past_int32(gen)
+    fused_past_int32(gen)
     return results
 
 
@@ -653,6 +719,101 @@ def scatter_gather_boundaries(gen) -> None:
           f"payloads; the scatter in each variant that takes the shape, the gather per worker "
           f"and shared over 3, 8 and 16 copies, offsets -chunk, -1, chunk and -chunk - 1): bitwise "
           f"equal to plain, each scatter in the variant it picks and the scalar kernel beside vec4")
+
+
+def fused_boundaries(gen) -> None:
+    """fused_reduce at the edges of its variants, both bitwise against the
+    plain version, checking which variant the wrapper ran: chunk 4, 8, 17,
+    64 and 128; top-m 1, 2, 8 and 9; 1, 3, 8 and 64 workers (at 8 the vec4
+    true_topk select is staged in shared memory, at 64 it re-reads L2); 1 and
+    33 rows, and 100,003 at 3 and 8 workers; m or g 4 bytes past 16-byte
+    alignment; clt_k with the first and the last worker as leader, and
+    true_topk; ties, -0, +-inf and NaNs of both signs and many payloads.
+    Where the wrapper runs vec4, the scalar kernel runs on the same inputs."""
+    import torch
+
+    from repro_torch.kernels import chunk_topk as ct, fused_reduce as frk
+
+    limit, n = ct.VEC4_MAX_TOPM, 0
+    for workers in (1, 3, 8, 64):
+        for rows in (1, 33) + ((100_003,) if workers in (3, 8) else ()):
+            for chunk in (4, 8, 17, 64, 128):
+                if rows > 33 and chunk not in (17, 64):
+                    continue
+                size = workers * rows * chunk
+                mg = tied_nan(2 * workers * rows, chunk, gen).view(2, workers, rows, chunk)
+                flat = torch.empty(2 * size + 4, device="cuda")
+                mis = flat[1:1 + 2 * size].view(2, workers, rows, chunk)  # m and g misaligned
+                mis.copy_(mg)
+                for topm in sorted({1, 2, min(limit, chunk), min(limit + 1, chunk)}):
+                    if rows > 33 and topm > 2:
+                        continue
+                    for mode, leader in (("clt_k", 0), ("clt_k", workers - 1), ("true_topk", 0)):
+                        want = frk.fused_reduce_plain(mg[0], mg[1], BETA, topm, mode, leader)
+                        label = f"fused_reduce ({workers}, {rows}, {chunk}) {mode} top-{topm}"
+                        for m_, g_, where in ((mg[0], mg[1], ""), (mis[0], mg[1], ", m misaligned"),
+                                              (mg[0], mis[1], ", g misaligned")):
+                            picked = frk.fused_variant(chunk, m_.data_ptr(), g_.data_ptr(), topm)
+                            before = dict(frk.fused_reduce.variants)
+                            got = frk.fused_reduce(m_, g_, BETA, topm, mode, leader)
+                            ran = [v for v in before if frk.fused_reduce.variants[v] != before[v]]
+                            check(ran == [picked], f"{label}{where}: ran {ran}, want {picked}")
+                            check(bitwise(got, want),
+                                  f"{label}{where}: {picked} differs from plain")
+                            n += 1
+                            if picked == "vec4":
+                                check(bitwise(fused_scalar(m_, g_, BETA, topm, mode, leader), want),
+                                      f"{label}{where}: the scalar kernel differs from plain")
+                                n += 1
+                del mg, flat, mis
+    torch.cuda.synchronize()
+    print(f"[kernel] fused boundaries: {n} cases (1, 3, 8 and 64 workers; rows 1, 33 and 100003; "
+          f"chunk 4/8/17/64/128; top-m 1, 2, {limit} and {limit + 1}; m or g misaligned; clt_k "
+          f"with the first and last leader, true_topk; ties, -0, inf, NaN payloads): each ran the "
+          f"variant fused_variant picks, and the scalar kernel beside vec4: bitwise equal to plain")
+
+
+def fused_past_int32(gen) -> None:
+    """fused_reduce over (8, rows, 64) m and g past 2^31 elements, if the card
+    holds it: both variants at clt_k top-1 and top-2 and true_topk top-1,
+    against the plain version on the first and the last 4096 rows (rows are
+    independent, so a slice's reduce is the whole one's slice)."""
+    import torch
+
+    from repro_torch.kernels import fused_reduce as frk
+
+    rows, tail = 2**31 // (G * CHUNK) + 1001, 4096
+    nbytes = G * rows * CHUNK * 4
+    free, _ = torch.cuda.mem_get_info()
+    if free < 4 * nbytes:
+        print(f"[kernel] fused past 2^31 elements: not run, {free / 2**30:.1f} GiB free of the "
+              f"{4 * nbytes / 2**30:.1f} GiB it needs")
+        return
+    m = torch.empty(G, rows, CHUNK, device="cuda").normal_(generator=gen)
+    g = torch.empty(G, rows, CHUNK, device="cuda").normal_(generator=gen)
+    m[:, ::997] = torch.randint(-3, 4, m[:, ::997].shape, device="cuda", generator=gen).float()
+    m[-1, -1, ::3] = float("nan")
+    ends = (slice(0, tail), slice(rows - tail, rows))
+    for mode, topm, leader in (("clt_k", 1, 7), ("clt_k", 2, 7), ("true_topk", 1, 0)):
+        wants = [frk.fused_reduce_plain(m[:, e].contiguous(), g[:, e].contiguous(), BETA, topm,
+                                        mode, leader) for e in ends]
+        before = frk.fused_reduce.variants["vec4"]
+        for name, fn in (("vec4", frk.fused_reduce), ("scalar", fused_scalar)):
+            idx, vals, m_new, ghat = fn(m, g, BETA, topm, mode, leader)
+            for e, want in zip(ends, wants):
+                check(bitwise((idx[e], vals[:, e], m_new[:, e], ghat[e]), want),
+                      f"fused_reduce {name} {mode} top-{topm} past 2^31 elements differs from "
+                      f"plain on rows {e.start}..{e.stop}")
+            del idx, vals, m_new, ghat
+        check(frk.fused_reduce.variants["vec4"] == before + 1,
+              f"fused_reduce past 2^31 elements did not run vec4 ({frk.fused_reduce.variants})")
+        del wants
+    del m, g
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"[kernel] fused past 2^31 elements ({G} x {rows:,} rows of {CHUNK}, "
+          f"{G * rows * CHUNK:,} elements): clt_k top-1 and top-2, true_topk top-1, vec4 and "
+          f"scalar: bitwise equal to plain on the first and last {tail} rows")
 
 
 def past_int32(gen) -> None:
@@ -900,14 +1061,19 @@ def codec_reduces(gpw, state, cfg, name: str, card_line: str) -> None:
     u_t = scalecom_reduce(gpw, state, dataclasses.replace(unfused, backend="torch"))
     same_reduce(u_c, u_t, f"{name} unfused cuda vs torch backend")
     del u_t
+    from repro_torch.kernels import fused_reduce as frk
+
     fused = dataclasses.replace(cfg, fused=True, backend="cuda")
+    before = dict(frk.fused_reduce.variants)
     f_c, ms_f = host_ms(lambda: scalecom_reduce(gpw, state, fused))
     same_reduce(f_c, u_c, f"{name} fused vs unfused cuda", ghat_exact=False)
     ms_f2 = host_ms(lambda: scalecom_reduce(gpw, state, fused))[1]
+    ran = {v: frk.fused_reduce.variants[v] - before[v] for v in before}
     print(f"[reduce] {name} residues, teacher-forced from the trained state (t={state.t}): "
           f"unfused cuda == torch backend (ghat and residues bitwise); fused cuda == unfused "
-          f"cuda (residues bitwise, ghat within rtol 1e-6 / atol 1e-7); host clock: unfused "
-          f"cuda {ms_u:.2f} ms, fused cuda {ms_f:.2f} and {ms_f2:.2f} ms on {card_line}")
+          f"cuda (residues bitwise, ghat within rtol 1e-6 / atol 1e-7; fused_reduce launches by "
+          f"variant {ran}); host clock: unfused cuda {ms_u:.2f} ms, fused cuda {ms_f:.2f} and "
+          f"{ms_f2:.2f} ms on {card_line}")
 
 
 def codec_times(state, plans, name: str, card_line: str) -> dict:
@@ -1007,11 +1173,14 @@ def bucket_phase(gpw, state, cfg, workers: int, card_line: str) -> None:
     from repro_torch.core.scalecom import scalecom_reduce
     from repro_torch.core.state import residue_signature
 
+    from repro_torch.kernels import fused_reduce as frk
+
     plans = plan_tensors(tuple((p, tuple(g.shape[1:]), workers)
                                for p, g in tree.flatten_with_path(gpw)), cfg,
                          residue_signature(state.residues))
     for fused in (False, True):
         base = dataclasses.replace(cfg, fused=fused, backend="cuda")
+        before = dict(frk.fused_reduce.variants)
         ref, ms = host_ms(lambda: scalecom_reduce(gpw, state, base, buckets=False))
         label = "fused" if fused else "unfused"
         # a reduce is 50-150 launches: two calls queue ahead of the card
@@ -1034,6 +1203,10 @@ def bucket_phase(gpw, state, cfg, workers: int, card_line: str) -> None:
                 print(f"[bucket] {what}: {n_buckets} buckets; two calls back to back bitwise "
                       f"equal to unbucketed; {ms / 2:.2f} ms host clock per call, {dev:.3f} "
                       f"device ms on {card_line}")
+        if fused:
+            ran = {v: frk.fused_reduce.variants[v] - before[v] for v in before}
+            print(f"[bucket] fused reduces, unbucketed and bucketed: fused_reduce launches by "
+                  f"variant {ran}")
         del ref
 
 
@@ -1124,10 +1297,21 @@ def path_update(plans, workers: int, card_line: str, results: dict) -> None:
         for m, g, _ in calls:
             frk.fused_reduce(m, g, BETA, 1, "clt_k", 3)
 
-    for name, fn, b in (("ef_update", ef_step, b_ef), ("fused_reduce", fr_step, b_fr)):
-        ms = device_ms(fn, (counter(name), len(calls)), reps=10, what=f"{name} path")
-        results[name]["path_ms"], results[name]["path_bound_ms"] = ms, b
-        print(f"[path] {name} over the {len(chosen)} tensors one compressed step gives it "
+    def fr_scalar_step():
+        for m, g, _ in calls:
+            fused_scalar(m, g, BETA, 1, "clt_k", 3)
+
+    for key, fn, b, launched in (
+            ("ef_update", ef_step, b_ef, counter("ef_update")),
+            ("fused_reduce", fr_step, b_fr, counter("fused_reduce", "vec4")),
+            ("fused_reduce scalar", fr_scalar_step, b_fr, lambda: fused_scalar.launches)):
+        ms = device_ms(fn, (launched, len(calls)), reps=10, what=f"{key} path")
+        name = key.split()[0]
+        field = "path_scalar_ms" if key.endswith("scalar") else "path_ms"
+        results[name][field], results[name]["path_bound_ms"] = ms, b
+        kind = {"fused_reduce": " (vec4 variant)", "fused_reduce scalar": " (scalar kernel, the "
+                "first design, same inputs)"}.get(key, "")
+        print(f"[path] {name}{kind} over the {len(chosen)} tensors one compressed step gives it "
               f"({sum(m.numel() for m, _, _ in calls):,} elements, {workers} workers): device ms "
               f"{ms:.4f} per step, bound ms {b:.4f} ({b / ms:.0%} of it), lost {ms - b:.4f} per "
               f"step on {card_line}")
@@ -1137,7 +1321,8 @@ def path_update(plans, workers: int, card_line: str, results: dict) -> None:
 def print_ptxas(log: str) -> None:
     """Registers and spills per kernel from ptxas -v; a kernel template's
     instantiations (the vec4 select and scatter, one per lanes-per-row and
-    top-m) summed into one line."""
+    top-m; the vec4 fused reduce, also per mode and design) summed into one
+    line per template and mode."""
     entries, name = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -1148,18 +1333,23 @@ def print_ptxas(log: str) -> None:
         elif "Used" in ln and "registers" in ln and entries and entries[-1][0] == name:
             entries[-1][1] = int(ln.split("Used")[1].split()[0])
             name = None
-    templates = ("chunk_select_vec4_kernel", "chunk_scatter_vec4_kernel")
+    fused = "fused_reduce_vec4_kernel"  # template <L, M, true_topk, staged>, mangled
+    groups = [(t, lambda n, t=t: t in n)
+              for t in ("chunk_select_vec4_kernel", "chunk_scatter_vec4_kernel")]
+    groups += [(f"{fused} {what}", lambda n, args=args: fused in n and f"{args}EEvPK" in n)
+               for what, args in (("clt_k", "Lb0ELb0E"), ("true_topk staged", "Lb1ELb1E"),
+                                  ("true_topk L2 re-read", "Lb1ELb0E"))]
     for n, regs, spills in entries:
-        if not any(t in n for t in templates):
+        if not any(match(n) for _, match in groups):
             short = next((k for k in KERNELS if f"{k}_kernel" in n), n)
             kind = " (scalar)" if short in VARIANTS else ""
             print(f"[build] {short}{kind}: {regs} registers, {spills} bytes spilled")
-    for t in templates:
-        group = [e for e in entries if t in e[0]]
+    for label, match in groups:
+        group = [e for e in entries if match(e[0])]
         if group:
             regs = [e[1] for e in group]
-            print(f"[build] {t}, {len(group)} instantiations: {min(regs)}-{max(regs)} registers, "
-                  f"{sum(e[2] for e in group)} bytes spilled")
+            print(f"[build] {label}, {len(group)} instantiations: {min(regs)}-{max(regs)} "
+                  f"registers, {sum(e[2] for e in group)} bytes spilled")
 
 
 def expected_launches(plans, fused: bool, steps: int) -> dict:
@@ -1202,7 +1392,7 @@ def main() -> None:
     from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
     from repro_torch.core.state import ScaleComState, residue_bytes, residue_signature
     from repro_torch.data import make_batches
-    from repro_torch.kernels import build, chunk_topk as ct
+    from repro_torch.kernels import build, chunk_topk as ct, fused_reduce as frk
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer, schedule
     from repro_torch.training import TrainLoop, init_train_state, run_training
@@ -1268,6 +1458,12 @@ def main() -> None:
         check(ct.chunk_scatter.variants == {"vec4": got["chunk_scatter"], "scalar": 0},
               f"{label}: chunk_scatter variants {ct.chunk_scatter.variants} on the main path, "
               f"want vec4 only")
+        check(frk.fused_reduce.variants == {"vec4": got["fused_reduce"], "scalar": 0},
+              f"{label}: fused_reduce variants {frk.fused_reduce.variants} on the main path, "
+              f"want vec4 only")
+        if got["fused_reduce"]:
+            print(f"[train:{label}] fused_reduce ran the vec4 variant on all "
+                  f"{got['fused_reduce']} launches (variants {frk.fused_reduce.variants})")
         if got["chunk_argmax"]:
             print(f"[train:{label}] chunk_argmax and chunk_scatter ran the vec4 variant on all "
                   f"{got['chunk_argmax']} and {got['chunk_scatter']} launches "

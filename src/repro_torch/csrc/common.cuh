@@ -3,10 +3,11 @@
 // The first design of the chunk-row kernels: one warp owns one chunk row at
 // a time and its 32 lanes stride over the row, so neighbouring lanes touch
 // neighbouring addresses; rows are walked grid-stride with int64 offsets.
-// ef_update, fused_reduce and the scalar variants of the two selects and of
-// chunk_scatter use it. The selects' fast "vec4" variant (several lanes per
-// row, 16-byte loads, a short merge) has its own helpers in chunk_select.cuh;
-// the scatter's vec4 variant sizes its grid to the card (card_blocks below).
+// ef_update and the scalar variants of the two selects, of chunk_scatter and
+// of fused_reduce use it. The fast "vec4" variants of the selects and of
+// fused_reduce (several lanes per row, 16-byte loads, a short merge) share
+// the helpers in chunk_select.cuh; the vec4 variants of the scatter and of
+// fused_reduce size their grid to the card (card_blocks below).
 
 #pragma once
 
@@ -29,13 +30,14 @@ inline int64_t blocks_for(int64_t rows) {
 
 // Blocks of `threads` threads that fill the current card once: the blocks of
 // `kernel` one SM holds at a time (the occupancy calculator, at the kernel's
-// registers) times the SMs. Launchers cache it per kernel in a static.
+// registers and `smem` bytes of dynamic shared memory) times the SMs.
+// Launchers cache it per kernel in a static.
 template <typename Kernel>
-int64_t card_blocks(Kernel kernel, int threads) {
+int64_t card_blocks(Kernel kernel, int threads, size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   const int64_t b = static_cast<int64_t>(sms) * per_sm;
   return b > 0 ? b : 1;
 }

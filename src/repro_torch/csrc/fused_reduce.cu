@@ -1,5 +1,6 @@
-// Hand-written Hopper (sm_90a) kernel: the single-launch fused reduce of one
-// compressed tensor (select -> Eq. 5 residue update -> ĝ scatter).
+// Hand-written Hopper (sm_90a) kernels: the single-launch fused reduce of one
+// compressed tensor (select -> Eq. 5 residue update -> ĝ scatter), in two
+// variants.
 //
 // Replaces src/repro/kernels/fused_reduce.py:_fused_kernel. Inputs are the
 // worker-stacked residue m and gradient g viewed as (G, rows, chunk), the
@@ -19,26 +20,66 @@
 // an integer and only its row is read for the select. Every operation is
 // rounded on its own (__fadd_rn / __fmul_rn / __fsub_rn / __fdiv_rn, no FMA
 // contraction), so idx, vals and m' equal the unfused kernels' bit for bit
-// from the same state, and the kernel equals fused_reduce_plain bit for bit.
+// from the same state, and both variants equal fused_reduce_plain bit for
+// bit.
 //
 // Bound: device-memory bytes. Reads m and g once (2 * G * rows * chunk * 4
 // bytes), writes m' (G * rows * chunk * 4), vals (G * rows * topm * 4), idx
-// (rows * topm * 4) and ĝ (rows * chunk * 4). Design: one warp per chunk row
-// (rows walked grid-stride, int64 offsets); the workers are streamed, never
-// held, so G is not limited. The select's re-reads (the leader's row in the
-// update; for true_topk every worker's row, a second time) come from L1/L2,
-// where that row was just read. With topm > 1 the select keys live in the ĝ
-// row between passes (each lane reads only the lanes it wrote); ĝ is then
-// zeroed and written. Vector loads, several rows per warp and TMA are later
-// work.
+// (rows * topm * 4) and ĝ (rows * chunk * 4): 0.569 ms at the tok_embed
+// shapes (8 workers, 296,000 rows of 64) on an H100 (3.35 TB/s), against a
+// few fp32 operations per element.
+//
+// The "scalar" variant (fused_reduce_kernel, the first design, for any chunk
+// width, base and top-m) is one warp per chunk row with 4-byte loads. What
+// held it near half the bound was latency, as in the first selects: two
+// 4-byte loads per lane and worker leave ~512 bytes in flight per warp; the
+// worker loop loads, computes and stores one worker at a time; each pick is
+// a 5-round (float, int) shuffle merge; at top-m > 1 the select keys go to
+// the ĝ row in device memory and are read back in every pass; ĝ's worker
+// mean re-reads vals.
+//
+// The "vec4" variant (fused_reduce_vec4_kernel in fused_reduce_vec4.cuh,
+// for chunk % 4 == 0, 16-byte-aligned m and g and top-m <= kVecMaxTopm, as
+// on the main path) keeps the selects' layout (csrc/chunk_select.cuh): L
+// lanes share a row (L = 4 at chunk 64, so a warp owns 8 rows), each lane
+// owns chunk / L floats as float4s, and rows are walked grid-stride over a
+// grid sized to the card.
+//
+//  * Select, clt_k. The leader's row comes in with 16-byte __ldg loads, all
+//    issued before any compare; lane_rank(m + g) goes into a LaneList<M> and
+//    the row's L lists merge (merge_row_lanes, log2(L) shuffle rounds):
+//    every lane then holds the row's M offsets in registers. No keys go to
+//    memory and no pass repeats per pick.
+//  * Select, true_topk. The key needs every worker's row before any update.
+//    Where a block's rows fit in shared memory (kStageBytes: G <= 12 at
+//    chunk <= 512) each thread copies all its (worker, batch) float4s there
+//    with cp.async, all in flight at once, sums ef over the workers in worker
+//    order and later updates from that copy. Otherwise it streams the rows
+//    once for the sum (the next worker's loads issued before this one is
+//    added) and reads them again from L2 in the update, with at most half
+//    the L2 in rows in flight. The staged design is the faster of the two
+//    (chip_smoke.py times both, at 12 and 13 workers); the L2 re-read holds
+//    two sets of float4 buffers in registers, which keeps it to one block
+//    per SM.
+//  * Update, worker by worker in order. The next (worker, batch) step's
+//    float4 loads are issued before this step's stores; own and m' are
+//    computed in ef_update's order of operations and m' is stored with
+//    __stcs (nothing re-reads it). The lane that owns pick j writes
+//    vals[w, r, j] and keeps pick j's worker sum in a register.
+//  * ĝ. Each lane writes its float4s of the row: zeros, and the worker mean
+//    __fdiv_rn(s_j, G) at pick j (plus 0.0f at top-m > 1, as the scatter's
+//    sum turns -0 into +0). Nothing re-reads vals or keys.
+//
+// Offsets are int64 throughout (a worker-stacked tensor passes 2^31
+// elements). The Python wrapper (repro_torch/kernels/fused_reduce.py:
+// fused_variant) picks the variant from the chunk width, both bases and
+// top-m.
 
 #include "common.cuh"
+#include "fused_reduce_vec4.cuh"
 
 namespace scalecom {
 namespace {
-
-// mode: the index in repro_torch.kernels.fused_reduce.MODES
-constexpr int kCltK = 0;  // else true_topk
 
 __global__ void fused_reduce_kernel(const float* __restrict__ m,
                                     const float* __restrict__ g,
@@ -137,6 +178,23 @@ int scalecom_fused_reduce(const float* m, const float* g, int32_t* idx,
       m, g, idx, vals, m_out, ghat, rows, static_cast<int>(workers),
       static_cast<int>(chunk), static_cast<int>(topm), mode, leader, beta);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The vec4 variant at M = topm <= kVecMaxTopm. Needs chunk % 4 == 0 and
+// 16-byte-aligned m and g (the outputs are fresh tensors).
+int scalecom_fused_reduce_vec4(const float* m, const float* g, int32_t* idx,
+                               float* vals, float* m_out, float* ghat,
+                               int64_t rows, int64_t workers, int64_t chunk,
+                               int64_t topm, int mode, int leader, float beta,
+                               void* stream) {
+  using namespace scalecom;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t rc =
+      mode == kCltK ? fused_vec4_topm<false>(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
+                                             topm, leader, beta, st)
+                    : fused_vec4_true_topk(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
+                                           topm, beta, st);
+  return static_cast<int>(rc);
 }
 
 }  // extern "C"

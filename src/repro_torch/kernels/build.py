@@ -63,6 +63,9 @@ _SIGNATURES = {
     "scalecom_fused_reduce": (
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _P,
     ),
+    "scalecom_fused_reduce_vec4": (
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _P,
+    ),
 }
 
 # filled by library(): seconds the build took (0.0 when it was cached on

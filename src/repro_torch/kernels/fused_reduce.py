@@ -1,4 +1,4 @@
-"""The single-launch fused reduce: CUDA kernel, wrapper and plain version.
+"""The single-launch fused reduce: CUDA kernels, wrapper and plain version.
 
 ``fused_reduce`` replaces src/repro/kernels/fused_reduce.py:_fused_kernel.
 Over the worker-stacked residue ``m`` and gradient ``g``, both viewed as
@@ -11,14 +11,22 @@ launch does the whole per-tensor inner loop of the reduce:
     scatter  ghat = the worker mean of vals at idx, zeros elsewhere
 
 Worker means are summed in worker order and then divided by G, here and in
-the kernel, so the two agree bit for bit on the card; ``torch.mean`` sums in
+the kernels, so they agree bit for bit on the card; ``torch.mean`` sums in
 another order, so against the torch backend's composition ghat (and, through
 a near tie that flips a true_topk index, m' and vals) agree to rtol 1e-6 /
 atol 1e-7. The leader is an integer (``t mod G``), ``beta`` a runtime float.
 Bound: device-memory bytes (see ``csrc/fused_reduce.cu``).
 
-The wrapper launches on CUDA tensors (counting ``fused_reduce.launches``)
-and runs the plain version on CPU tensors.
+The kernel has two hand-written variants, and ``fused_variant`` picks one
+from the chunk width, the bases of m and g and top-m alone: "vec4" (a few
+lanes per row, 16-byte loads and stores, the picks merged in registers, the
+next worker's loads issued before this one's stores) wherever chunk % 4 == 0,
+both bases are 16-byte aligned and top-m <= 8, as on the main path; "scalar"
+(one warp per row, 4-byte loads, one pass per pick: the first design) for
+any other width, base or top-m. Both are checked on the card.
+
+The wrapper launches on CUDA tensors (counting ``fused_reduce.launches`` and
+``fused_reduce.variants``) and runs the plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -28,13 +36,22 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.chunk_topk import chunk_scatter_plain, chunk_topm_plain
+from repro_torch.kernels.chunk_topk import VEC4_MAX_TOPM, chunk_scatter_plain, chunk_topm_plain
 from repro_torch.kernels.ef_update import ef_update_plain
 
-__all__ = ["MODES", "fused_reduce", "fused_reduce_plain"]
+__all__ = ["MODES", "fused_variant", "fused_reduce", "fused_reduce_plain"]
 
 # Selection modes of the fused kernel, by the integer the kernel takes
 MODES = ("clt_k", "true_topk")
+
+
+def fused_variant(chunk: int, m_ptr: int, g_ptr: int, topm: int = 1) -> str:
+    """The fused kernel for ``(G, rows, chunk)`` fp32 m and g at addresses
+    ``m_ptr`` and ``g_ptr``: "vec4" when chunk % 4 == 0, both bases are
+    16-byte aligned and ``topm <= VEC4_MAX_TOPM``, else "scalar"."""
+    if chunk % 4 == 0 and m_ptr % 16 == 0 and g_ptr % 16 == 0 and 1 <= topm <= VEC4_MAX_TOPM:
+        return "vec4"
+    return "scalar"
 
 
 def _worker_mean(x: torch.Tensor) -> torch.Tensor:
@@ -100,14 +117,17 @@ def fused_reduce(
     m_new = torch.empty_like(m)
     ghat = torch.empty((rows, chunk), dtype=torch.float32, device=m.device)
     if rows:
-        rc = build.library().scalecom_fused_reduce(
-            m.data_ptr(), g.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-            m_new.data_ptr(), ghat.data_ptr(), rows, G, chunk, topm,
-            MODES.index(mode), int(leader), float(beta), build.stream_of(m),
-        )
+        variant = fused_variant(chunk, m.data_ptr(), g.data_ptr(), topm)
+        lib = build.library()
+        fn = lib.scalecom_fused_reduce_vec4 if variant == "vec4" else lib.scalecom_fused_reduce
+        rc = fn(m.data_ptr(), g.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+                m_new.data_ptr(), ghat.data_ptr(), rows, G, chunk, topm,
+                MODES.index(mode), int(leader), float(beta), build.stream_of(m))
         build.check(rc, name)
         fused_reduce.launches += 1
+        fused_reduce.variants[variant] += 1
     return idx, vals, m_new, ghat
 
 
 fused_reduce.launches = 0
+fused_reduce.variants = {"vec4": 0, "scalar": 0}  # launches by variant
