@@ -78,7 +78,22 @@ Phases, each fatal on failure:
      host sync fails the run, with ĝ and residues bitwise equal to
      telemetry off; ``[path]`` lines for ef_update and fused_reduce (both
      variants) over the 17 tensors of one step; the fused reduces' variants;
-  7. one more fused compressed step under ``torch.profiler``: device busy
+  7. the rest of the training path as the CLI runs it, at full width:
+     ``[grads]`` holds the batched per-worker pass (one ``torch.func.vmap``
+     pass over the 8 workers, which every training run above goes through)
+     against ``per_worker_grads_loop`` (one autograd pass per worker) from
+     the trained state to rtol 1e-5 / atol 1e-7, two of its calls bit for
+     bit, with host ms of both beside ``dense_grads``;
+     ``[train:microbatches]`` holds one step's gradients at microbatches=2
+     against one pass (peak memory of each) and trains 2 dense + 3 fused
+     compressed steps through ``build_train_step(microbatches=2)``;
+     ``[telemetry:run]`` trains 5 fused steps with the recorder
+     (``run_training(telemetry=TelemetryRun)``, taps on, metrics_every 1)
+     and reads back its trace, event log and report; ``[checkpoint]`` saves
+     a trained TrainState and restores it onto the card, bit for bit (the
+     fp8 run's state where the fp32 one would take more than ~30 s). Each
+     run's launches are counted from 0 and held to the plan;
+  8. one more fused compressed step under ``torch.profiler``: device busy
      time, idle share and the kernels that take the most device time.
 
 The line before the last is a JSON object with one entry per kernel; the
@@ -1352,6 +1367,249 @@ def print_ptxas(log: str) -> None:
                   f"registers, {sum(e[2] for e in group)} bytes spilled")
 
 
+GRAD_TOL = dict(rtol=1e-5, atol=1e-7)  # one batched pass and the loop order a few sums differently
+
+
+def grad_errors(a: dict, b: dict, what: str, tol: dict = GRAD_TOL) -> tuple:
+    """Hold two {path: (n, *shape)} gradient trees to ``tol``, leaf by leaf;
+    returns (the largest max|a-b| / max|b| of any leaf, that leaf)."""
+    import torch
+
+    from repro_torch import tree
+
+    worst, worst_path = 0.0, None
+    by_path = dict(tree.flatten_with_path(b))
+    for path, x in tree.flatten_with_path(a):
+        y = by_path[path]
+        check(x.shape == y.shape and x.dtype == y.dtype, f"{what}: {path} shape or dtype")
+        check(bool(torch.isfinite(x).all()), f"{what}: {path} is not finite")
+        rel = float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
+        if rel > worst:
+            worst, worst_path = rel, path
+        if not torch.allclose(x, y, **tol):
+            bad = int((~torch.isclose(x, y, **tol)).sum())
+            fail(f"{what}: {path} differs beyond rtol {tol['rtol']} / atol {tol['atol']} at "
+                 f"{bad} of {x.numel()} elements (max |a-b| {float((x - y).abs().max()):.3e}, "
+                 f"max |b| {float(y.abs().max()):.3e})")
+    return worst, worst_path
+
+
+def grads_phase(model, params, batch, workers: int, t_dense: float, card_line: str):
+    """[grads]: the batched per-worker pass (the main path's) against the
+    loop of one autograd pass per worker, from the trained state; two calls
+    of the batched pass bit for bit; host ms of both beside dense_grads."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.training.train_step import per_worker_grads, per_worker_grads_loop
+
+    (l_loop, n_loop, g_loop), t_loop = host_ms(
+        lambda: per_worker_grads_loop(model, params, batch, workers))
+    (l_b, n_b, g_b), t_b = host_ms(lambda: per_worker_grads(model, params, batch, workers))
+    (l_b2, _, g_b2), t_b2 = host_ms(lambda: per_worker_grads(model, params, batch, workers))
+    check(bool(torch.isclose(l_b, l_loop, rtol=1e-6, atol=0)) and
+          bool(torch.isclose(n_b, n_loop, rtol=1e-6, atol=0)),
+          f"[grads] loss {float(l_b)} / nll {float(n_b)} against the loop's {float(l_loop)} / "
+          f"{float(n_loop)}")
+    worst, worst_path = grad_errors(g_b, g_loop, "[grads] batched pass vs loop")
+    differ = [p for (p, x), (_, y) in zip(tree.flatten_with_path(g_b),
+                                          tree.flatten_with_path(g_b2)) if not bitwise(x, y)]
+    # tok_embed's gradient accumulates rows by token index (index_put_ with
+    # accumulate under vmap's batching rule): the first to differ if any does
+    check(not differ and bool(torch.equal(l_b, l_b2)),
+          f"[grads] two calls of the batched pass differ in {differ}")
+    print(f"[grads] per_worker_grads, one batched pass ({workers} workers x 4 x 128 tokens) "
+          f"against per_worker_grads_loop: every gradient within rtol {GRAD_TOL['rtol']} / atol "
+          f"{GRAD_TOL['atol']}, largest max|a-b|/max|b| {worst:.3e} ({worst_path}); loss "
+          f"{float(l_b):.6f} vs {float(l_loop):.6f}")
+    print("[grads] two calls of the batched pass: bitwise equal in every gradient, "
+          "tok_embed's index-accumulate included")
+    print(f"[grads] host ms: batched pass {t_b:.1f} and {t_b2:.1f}, loop {t_loop:.1f}, "
+          f"dense_grads {t_dense:.1f} (the same {workers * 4} x 128 tokens folded) on "
+          f"{card_line}")
+    del g_loop, g_b, g_b2
+
+
+def microbatch_phase(model, opt, sched, sc_cfg, params, batch, batches_fn, plans, workers: int,
+                     warmup: int, steps: int, card_line: str) -> dict:
+    """[train:microbatches]: one step's per-worker gradients with
+    microbatches=2 against one batched pass from the trained state (peak
+    memory of each), then a full-width fused run of ``steps`` steps through
+    ``build_train_step(microbatches=2)``. Returns the run's launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.kernels import fused_reduce as frk
+    from repro_torch.training import build_train_step, init_train_state
+    from repro_torch.training.train_step import per_worker_grads
+
+    grads, peaks = {}, {}
+    for M in (1, 2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        (_, _, grads[M]), ms = host_ms(lambda: per_worker_grads(model, params, batch, workers, M))
+        peaks[M] = (torch.cuda.max_memory_allocated() - base, ms)
+    worst, worst_path = grad_errors(grads[2], grads[1], "[train:microbatches] M=2 vs M=1")
+    del grads
+    print(f"[train:microbatches] one step's per-worker gradients, microbatches=2 against 1 from "
+          f"the trained state: within rtol {GRAD_TOL['rtol']} / atol {GRAD_TOL['atol']}, largest "
+          f"max|a-b|/max|b| {worst:.3e} ({worst_path}); peak memory above the state "
+          + ", ".join(f"M={M} {peaks[M][0] / 2**30:.2f} GiB ({peaks[M][1]:.1f} ms)" for M in (1, 2))
+          + f" on {card_line}")
+
+    state = init_train_state(model, opt, sc_cfg, torch.Generator().manual_seed(0),
+                             n_workers=workers, device="cuda")
+    dense = build_train_step(model, opt, sched, sc_cfg, n_workers=workers, mode="dense",
+                             microbatches=2)
+    compressed = build_train_step(model, opt, sched, sc_cfg, n_workers=workers,
+                                  mode="scalecom", microbatches=2)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for i, b in zip(range(steps), batches_fn()):
+        kind = "compressed" if i >= warmup else "dense"
+        (state, metrics), ms = host_ms(lambda: (compressed if i >= warmup else dense)(state, b))
+        loss = float(metrics["loss"])
+        check(math.isfinite(loss), f"[train:microbatches] non-finite loss at step {i}")
+        print(f"[train:microbatches] step {i} {kind}: loss {loss:.4f} gnorm "
+              f"{float(metrics['grad_norm']):.4f} {ms:.1f} ms on {card_line}")
+    torch.cuda.synchronize()
+    got = kernels.launches()
+    want = expected_launches(plans, True, steps - warmup)
+    check(got == want, f"[train:microbatches] launches {got}, want {want}")
+    check(frk.fused_reduce.variants == {"vec4": got["fused_reduce"], "scalar": 0},
+          f"[train:microbatches] fused_reduce variants {frk.fused_reduce.variants}")
+    print(f"[train:microbatches] launches {got} (want {want}), all fused_reduce launches vec4")
+    return got
+
+
+def telemetry_run_phase(model, opt, sched, sc_cfg, batches_fn, plans, workers: int, warmup: int,
+                        steps: int, plain_ms: list, card_line: str) -> dict:
+    """[telemetry:run]: a full-width fused run with the recorder
+    (``run_training(telemetry=TelemetryRun)``, taps on, metrics_every 1)
+    into a temporary directory; its trace, event log and report. Returns the
+    run's launches."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.obs import TelemetryRun, read_events
+    from repro_torch.obs.report import summarize
+    from repro_torch.training import TrainLoop, init_train_state, run_training
+
+    cfg_t = dataclasses.replace(sc_cfg, telemetry=True, metrics_every=1)
+    state = init_train_state(model, opt, cfg_t, torch.Generator().manual_seed(0),
+                             n_workers=workers, device="cuda")
+    loop = TrainLoop(model=model, optimizer=opt, schedule=sched, sc_cfg=cfg_t,
+                     n_workers=workers, log_every=1)
+    with tempfile.TemporaryDirectory() as d:
+        run = TelemetryRun(d, backend_name="cuda",
+                           extra_provenance={"arch": "paper-transformer-base",
+                                             "compressor": "clt_k", "workers": workers})
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        try:
+            state, history = run_training(loop, state, batches_fn(), steps, log=None,
+                                          telemetry=run)
+        finally:
+            paths = run.close()
+        torch.cuda.synchronize()
+        got = kernels.launches()
+        with open(paths["trace"]) as f:
+            trace = json.load(f)
+        events = read_events(paths["events"])
+        summary = summarize(paths["events"])
+    types = [e["type"] for e in events]
+    step_spans = [e for e in events if e["type"] == "span" and e["name"] == "step"]
+    check(types[0] == "provenance" and types[-1] == "summary" and types.count("step") == steps
+          and len(step_spans) == steps,
+          f"[telemetry:run] event types {types}")
+    check(len([e for e in trace["traceEvents"] if e["name"] == "step"]) == steps,
+          "[telemetry:run] trace.json has no span per step")
+    check(summary["steps"] == steps and not summary["violations"]
+          and summary["bytes_plan_mismatches"] == 0,
+          f"[telemetry:run] report: {summary['steps']} steps, violations "
+          f"{summary['violations']}, {summary['bytes_plan_mismatches']} byte mismatches")
+    check(all(math.isfinite(h["loss"]) for h in history), "[telemetry:run] non-finite loss")
+    want = expected_launches(plans, True, steps - warmup)
+    check(got == want, f"[telemetry:run] launches {got}, want {want}")
+    prov = events[0]
+    step_ms = [e["dur_us"] / 1e3 for e in step_spans]
+    taps = sum(k.startswith("obs/") for k in events[steps]["metrics"])
+    print(f"[telemetry:run] {steps} fused steps with the recorder: trace.json loads "
+          f"({len(trace['traceEvents'])} spans), events.jsonl holds {len(events)} events "
+          f"(provenance, {types.count('step')} steps with {taps} taps at the last, "
+          f"{types.count('span')} spans, summary); launches {got}; provenance device_kind "
+          f"{prov['device_kind']!r}, card {prov['card_name']!r} at {prov['power_limit']!r}, "
+          f"backend {prov['backend']}")
+    print(f"[telemetry:run] report: {summary['steps']} steps, compression ratio "
+          f"{summary['compression_ratio']['mean']:.1f}x, build-up nnz/k "
+          f"{list(summary['buildup_curve'].values())[-1]:.3f}, contraction gamma "
+          f"{summary['contraction_gamma_mean']:.4f}, violations none")
+    print(f"[telemetry:run] step host ms with the recorder (taps on, metrics_every 1): "
+          + " / ".join(f"{ms:.1f}" for ms in step_ms)
+          + "; the fused run without it: " + " / ".join(f"{ms:.1f}" for ms in plain_ms)
+          + f" on {card_line}")
+    return got
+
+
+def checkpoint_phase(fp32_state, fp8_state, model, opt, sc_cfg, workers: int,
+                     card_line: str) -> None:
+    """[checkpoint]: save a trained full-width TrainState with
+    ``repro_torch.checkpoint``, restore it into a fresh state on the card,
+    every leaf bit for bit. The fp32 state is ~2.3 GB, which deflate may take
+    minutes to write: a 64 MiB sample of its parameters (random weights, the
+    least compressible part) is written first, and where the whole would take
+    more than ~30 s at that rate the fp8 run's state goes instead."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import checkpoint
+    from repro_torch.checkpoint.checkpoint import _flatten
+    from repro_torch.training import init_train_state
+
+    def nbytes(state):
+        return sum(v.numel() * v.element_size() for _, v in _flatten(state)
+                   if isinstance(v, torch.Tensor))
+
+    with tempfile.TemporaryDirectory() as d:
+        sample = fp32_state.params["tok_embed"].reshape(-1)[: 16 << 20].cpu().numpy()
+        t0 = time.perf_counter()
+        np.savez_compressed(os.path.join(d, "sample.npz"), x=sample)
+        rate = sample.nbytes / (time.perf_counter() - t0)
+        estimate = nbytes(fp32_state) / rate * 1.5  # restore inflates in about half the time
+        which, state, codec = ("fp32", fp32_state, "fp32") if estimate <= 30 else (
+            "fp8 (the fp32 state would take ~%.0f s at %.0f MB/s)" % (estimate, rate / 1e6),
+            fp8_state, "fp8")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = checkpoint.save(d, int(state.step), state)
+        t_save = time.perf_counter() - t0
+        file_bytes = os.path.getsize(path)
+        like = init_train_state(model, opt, dataclasses.replace(sc_cfg, residue_dtype=codec),
+                                torch.Generator().manual_seed(1), n_workers=workers,
+                                device="cuda")
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(d, like)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    leaves, want = _flatten(restored), _flatten(state)
+    check([k for k, _ in leaves] == [k for k, _ in want], "[checkpoint] leaf keys differ")
+    for (key, a), (_, b) in zip(leaves, want):
+        if isinstance(b, torch.Tensor):
+            check(a.is_cuda and bitwise(a, b), f"[checkpoint] {key} differs after restore")
+        else:
+            check(a == b, f"[checkpoint] {key}: {a} restored, {b} saved")
+    print(f"[checkpoint] trained full-width TrainState, {which} residues: {len(leaves)} leaves, "
+          f"{nbytes(state):,} bytes in tensors, {file_bytes:,} bytes on disk; save "
+          f"{t_save:.1f} s, restore onto the card {t_restore:.1f} s; every leaf bitwise after "
+          f"the round trip (sample rate {rate / 1e6:.0f} MB/s) on {card_line}")
+    del restored, like
+
+
 def expected_launches(plans, fused: bool, steps: int) -> dict:
     """Kernel launches the reduce plan implies for ``steps`` reduces on the cuda backend."""
     from repro_torch.backends import FUSABLE_MODES
@@ -1421,7 +1679,10 @@ def main() -> None:
                               min_size=1024, warmup_steps=warmup, fused=False)
     opt = make_optimizer("sgdm")
     sched = schedule.linear_warmup(schedule.constant(0.05), warmup)
-    path_launches = {}
+    path_launches, step_ms = {}, {}
+
+    def batches_fn():
+        return make_batches(cfg.vocab, workers, 4, 128, seed=0)
 
     def train_run(sc_cfg, label):
         state = init_train_state(model, opt, sc_cfg, torch.Generator().manual_seed(0),
@@ -1434,7 +1695,7 @@ def main() -> None:
               f"{len(plans)} tensors compressed")
         loop = TrainLoop(model=model, optimizer=opt, schedule=sched, sc_cfg=sc_cfg,
                          n_workers=workers, log_every=1)
-        batches = make_batches(cfg.vocab, workers, 4, 128, seed=0)
+        batches = batches_fn()
         torch.cuda.synchronize()
         kernels.reset_launches()
         state, history = run_training(loop, state, batches, steps, log=None)
@@ -1442,6 +1703,7 @@ def main() -> None:
         got = kernels.launches()
         per_step = [history[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
                                              for a, b in zip(history, history[1:])]
+        step_ms[label] = [dt * 1e3 for dt in per_step]
         for h, dt in zip(history, per_step):
             kind = "compressed" if loop.compressed_at(h["step"]) else "dense"
             print(f"[train:{label}] step {h['step']} {kind}: loss {h['loss']:.4f} gnorm "
@@ -1484,6 +1746,7 @@ def main() -> None:
     print(f"[time] per_worker_grads ({workers} workers x 4 x 128 tokens): {t_pw:.1f} ms; "
           f"dense_grads (the same {workers * 4} x 128 tokens folded): {t_dense:.1f} ms "
           f"(host clock) on {card_line}")
+    grads_phase(model, state.params, batch, workers, t_dense, card_line)
     trained = state.sc_state
     before = ScaleComState(
         residues={k: {"q": torch.zeros_like(v["q"])} for k, v in trained.residues.items()},
@@ -1647,6 +1910,8 @@ def main() -> None:
         if name != "fp32":
             run, _, _ = train_run(dataclasses.replace(sc_cfg, residue_dtype=name), f"fused {name}")
             states[name], params = run.sc_state, run.params
+            if name == "fp8":
+                fp8_state = run  # for [checkpoint]
             del run
         else:
             params = state.params
@@ -1667,8 +1932,18 @@ def main() -> None:
     path_update(flat_plans, workers, card_line, results)
     print(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del gpw, ef, vals_x, idx_x, dense_x, m_new, vals, want_m, want_vals
+    torch.cuda.empty_cache()
 
-    # -- 5. where a fused compressed step's time goes ------------------------------
+    # -- 7. microbatches, the telemetry recorder and checkpoints at full width ------
+    microbatch_phase(model, opt, sched, sc_cfg, state.params, batch, batches_fn, flat_plans,
+                     workers, warmup, steps, card_line)
+    telemetry_run_phase(model, opt, sched, sc_cfg, batches_fn, flat_plans, workers, warmup,
+                        steps, step_ms["fused"], card_line)
+    checkpoint_phase(state, fp8_state, model, opt, sc_cfg, workers, card_line)
+    del fp8_state
+    torch.cuda.empty_cache()
+
+    # -- 8. where a fused compressed step's time goes ------------------------------
     step_batch = next(batches)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -2,28 +2,33 @@
 on synthetic data, simulating n workers on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --workers 8 --steps 200 \
-        --compressor clt_k --chunk 64 --beta 0.1 [--device cuda|cpu]
+        --compressor clt_k --chunk 64 --beta 0.1 [--device cuda|cpu] \
+        [--trace-dir DIR [--metrics-every N]] [--checkpoint-dir DIR]
 
-The port of ``repro.launch.train`` for the flags this slice covers. It runs
-on the CUDA card by default and raises if there is none; ``--device cpu``
-runs the plain PyTorch versions of the kernels instead.
-``SCALECOM_TORCH_FUSED=1`` puts clt_k and true_topk tensors on the
-single-launch fused reduce. ``--residue-dtype`` picks the residue codec,
-``--bucket-mb`` the bucketed launch (unset: $SCALECOM_TORCH_BUCKET_MB,
-<= 0: unbucketed) and ``--no-overlap`` runs the buckets on the caller's
-stream. Microbatches, checkpointing, preflight scenarios, tracing and
-autotune wait (ROADMAP Queue 1 items 14-16).
+The port of ``repro.launch.train``. It runs on the CUDA card by default and
+raises if there is none; ``--device cpu`` runs the plain PyTorch versions of
+the kernels instead. ``SCALECOM_TORCH_FUSED=1`` puts clt_k and true_topk
+tensors on the single-launch fused reduce. ``--residue-dtype`` picks the
+residue codec, ``--bucket-mb`` the bucketed launch (unset:
+$SCALECOM_TORCH_BUCKET_MB, <= 0: unbucketed) and ``--no-overlap`` runs the
+buckets on the caller's stream. ``--trace-dir`` turns on the telemetry taps
+and the recorder (``DIR/trace.json`` and ``DIR/events.jsonl``, summarized
+by ``python -m repro_torch.obs.report``); ``--checkpoint-dir`` saves the
+train state at half the steps. Each worker's gradient comes from one
+batched pass over all workers. ``--preflight-scenarios`` (the fault
+harness) and ``--autotune`` wait (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import logging
 import os
 
 import torch
 
+from repro_torch import obs
+from repro_torch.backends import resolve_backend
 from repro_torch.configs import registry
 from repro_torch.core.compressors import CompressorConfig
 from repro_torch.core.scalecom import ScaleComConfig
@@ -61,10 +66,25 @@ def main(argv=None):
     ap.add_argument("--no-overlap", action="store_true",
                     help="run the buckets on the caller's stream instead of a side "
                          "CUDA stream (same numerics)")
+    ap.add_argument("--trace-dir", default=None, metavar="DIR",
+                    help="enable the telemetry subsystem (repro_torch.obs): metric taps on "
+                         "the reduce (measured wire bytes, build-up, contraction gamma, "
+                         "codec error), wall-clock step spans, and write DIR/trace.json "
+                         "(Chrome trace, Perfetto-loadable) + DIR/events.jsonl (summarize "
+                         "with `python -m repro_torch.obs.report`)")
+    ap.add_argument("--metrics-every", type=int, default=0, metavar="N",
+                    help="with --trace-dir: sample the paper's residue-similarity "
+                         "diagnostics (core.metrics.residue_similarity_report) every N "
+                         "steps. 0 disables")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--history-out", default=None)
+    ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     args = ap.parse_args(argv)
+
+    if args.metrics_every and not args.trace_dir:
+        ap.error("--metrics-every requires --trace-dir (the similarity taps "
+                 "need the telemetry run to land anywhere)")
 
     device = resolve_device(args.device)
     cfg = registry.smoke(args.arch)
@@ -91,16 +111,37 @@ def main(argv=None):
         warmup_steps=args.warmup_steps,
         bucket_bytes=bucket_bytes,
         overlap=not args.no_overlap,
+        telemetry=args.trace_dir is not None,
+        metrics_every=args.metrics_every,
     )
     opt = make_optimizer(args.optimizer)
     sched = schedule.linear_warmup(schedule.constant(args.lr), args.warmup_steps)
     state = init_train_state(model, opt, sc_cfg, torch.Generator().manual_seed(args.seed),
                              n_workers=args.workers, device=device)
     loop = TrainLoop(model=model, optimizer=opt, schedule=sched, sc_cfg=sc_cfg,
-                     n_workers=args.workers, log_every=args.log_every, buckets=buckets)
+                     n_workers=args.workers, checkpoint_dir=args.checkpoint_dir,
+                     checkpoint_every=max(args.steps // 2, 1) if args.checkpoint_dir else 0,
+                     log_every=args.log_every, buckets=buckets)
     batches = make_batches(cfg.vocab, args.workers, args.local_batch, args.seq, seed=args.seed)
-    logging.basicConfig(level=logging.INFO, format="%(message)s")
-    state, history = run_training(loop, state, batches, args.steps)
+    telemetry = None
+    if args.trace_dir:
+        telemetry = obs.TelemetryRun(
+            args.trace_dir,
+            backend_name=resolve_backend(args.backend, device).name,
+            extra_provenance={"arch": args.arch, "compressor": args.compressor,
+                              "workers": args.workers},
+        )
+    # run_training's default log is the port's (silent by default) logger;
+    # the CLI is the consumer that wants visible step lines
+    obs.enable_console_logging()
+    try:
+        state, history = run_training(loop, state, batches, args.steps, telemetry=telemetry)
+    finally:
+        if telemetry is not None:
+            paths = telemetry.close()
+            print(f"[launch.train] trace -> {paths['trace']}")
+            print(f"[launch.train] events -> {paths['events']} "
+                  f"(summarize: python -m repro_torch.obs.report {paths['events']})")
     final = history[-1]
     print(f"final: loss={final['loss']:.4f} at step {final['step']}")
     if args.history_out:

@@ -1,26 +1,29 @@
-"""Training loop: dense warm-up, then the compressed ScaleCom steps.
+"""Training loop: dense warm-up, then the compressed ScaleCom steps, metric
+logging, the telemetry recorder and periodic checkpoints.
 
 The port of ``repro.training.loop``. The warm-up runs the dense step (the
 paper trains uncompressed before enabling compression); residues stay zero
 during warm-up, so switching is state-compatible by construction.
 
-Logging goes to the ``repro_torch.training`` logger by default, which is
-silent unless a handler is attached (the launch CLI attaches one). Pass
+Logging goes to the ``repro_torch.training`` logger by default
+(``repro_torch.obs.get_logger``), which is silent unless a handler is
+attached (``obs.enable_console_logging``; the launch CLI does). Pass
 ``log=print`` for console lines or ``log=None`` for none. With
 ``ScaleComConfig(telemetry=True)`` the taps are in each history entry as
-``obs/...`` floats. Checkpointing and the telemetry recorder wait (ROADMAP
-Queue 1 items 14 and 16).
+``obs/...`` floats; ``telemetry=`` a ``TelemetryRun`` adds a step span and a
+``step`` event per step. ``TrainLoop.checkpoint_dir`` saves the
+``TrainState`` every ``checkpoint_every`` steps (``repro_torch.checkpoint``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-import logging
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
 import numpy as np
 
+from repro_torch import checkpoint, obs
 from repro_torch.core.scalecom import ScaleComConfig
 from repro_torch.training.train_step import TrainState, build_train_step
 
@@ -37,6 +40,8 @@ class TrainLoop:
     sc_cfg: ScaleComConfig
     n_workers: int
     grad_clip: Optional[float] = None
+    checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 0
     log_every: int = 10
     compute_stats: bool = False
     # launch spec of the bucketed reduce (scalecom_reduce buckets=...);
@@ -66,6 +71,7 @@ def run_training(
     num_steps: int,
     *,
     log: Any = _LOGGER,
+    telemetry: Optional[obs.TelemetryRun] = None,
 ) -> tuple[TrainState, List[Dict[str, float]]]:
     """Drive ``num_steps`` steps; returns (state, history).
 
@@ -73,15 +79,27 @@ def run_training(
     the metrics as floats plus ``step`` and ``wall_s`` (seconds since the
     start). Reading the metrics waits for the device, so ``wall_s`` at a
     logged step counts the work of every step up to it.
+
+    ``telemetry``: an ``obs.TelemetryRun``. Every step gets a wall-clock
+    span and a ``step`` event carrying the metrics as floats; converting
+    them waits for the card at every step, the recorder's honest cost. The
+    caller closes the run. With ``loop.checkpoint_dir`` and
+    ``loop.checkpoint_every``, the state after step i is saved at every
+    i > 0 that ``checkpoint_every`` divides.
     """
     if log is _LOGGER:
-        log = logging.getLogger("repro_torch.training").info
+        log = obs.get_logger("training").info
     history: List[Dict[str, float]] = []
     t0 = time.perf_counter()
     for i, batch in enumerate(batches):
         if i >= num_steps:
             break
-        state, metrics = loop.step(state, batch, i)
+        if telemetry is not None:
+            with telemetry.step_span(i):
+                state, metrics = loop.step(state, batch, i)
+                telemetry.record_step(i, {k: float(v) for k, v in metrics.items()})
+        else:
+            state, metrics = loop.step(state, batch, i)
         if (i % loop.log_every == 0) or i == num_steps - 1:
             m = {k: float(v) for k, v in metrics.items()}
             m["step"] = i
@@ -90,4 +108,6 @@ def run_training(
             if log is not None:
                 log(f"step {i:5d}  loss {m['loss']:.4f}  gnorm {m['grad_norm']:.3f}"
                     f"  lr {m['lr']:.2e}")
+        if loop.checkpoint_dir and loop.checkpoint_every and i and i % loop.checkpoint_every == 0:
+            checkpoint.save(loop.checkpoint_dir, i, state)
     return state, history

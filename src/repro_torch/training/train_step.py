@@ -2,19 +2,23 @@
 
 The port of ``repro.training.train_step``. Two variants:
 
-  * **scalecom**: the paper's path. ``per_worker_grads`` takes one
-    ``torch.autograd.grad`` per worker over its own slice of the batch and
-    stacks the results to ``(n, *shape)``. That is the same value the JAX
-    package gets from broadcasting the parameters to a worker axis and
-    vmapping the loss, because worker i's loss touches only its own copy.
-    ``scalecom_reduce`` then runs Algorithm 1.
+  * **scalecom**: the paper's path. ``per_worker_grads`` takes every
+    worker's gradient in one batched pass: ``torch.func.vmap`` of
+    ``grad_and_value(model.loss)`` with the parameters shared and the batch
+    split along its worker axis. That is the torch form of the JAX package's
+    broadcast of the parameters to a worker axis under one vmapped
+    ``value_and_grad``, because worker i's loss reads only its own copy.
+    ``microbatches=M`` splits each worker's batch into M chunks taken one
+    after another and accumulates their gradients in fp32, as the reference
+    does in a ``lax.scan``. ``scalecom_reduce`` then runs Algorithm 1 once
+    per step. ``per_worker_grads_loop`` (one ``torch.autograd.grad`` per
+    worker) is the plain version the tests hold the batched pass against.
   * **dense**: the uncompressed baseline and the compression warm-up: one
     loss over the folded global batch, gradients reduced by the mean that
     the folding implies.
 
 Batches arrive worker-stacked, as numpy arrays or tensors
 ({"tokens": (n, B, S), ...}), and are moved to the parameters' device here.
-Microbatching waits (ROADMAP Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from repro_torch.optim.optimizer import Optimizer
 
 __all__ = [
     "TrainState", "build_train_step", "init_train_state", "global_norm", "per_worker_grads",
-    "dense_grads",
+    "per_worker_grads_loop", "dense_grads",
 ]
 
 
@@ -57,8 +61,55 @@ def _with_grad(params):
     return tree.tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
-def per_worker_grads(model, params, batch, n_workers: int):
-    """(mean worker loss, mean worker nll, {path: (n, *shape) gradients})."""
+def _worker_grads(model):
+    """(params, one worker's batch) -> (grads, (loss, nll)), for vmap."""
+    def loss(params, batch):
+        value, aux = model.loss(params, batch)
+        return value, aux["nll"]
+
+    return torch.func.grad_and_value(loss, has_aux=True)
+
+
+def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1):
+    """(mean worker loss, mean worker nll, {path: (n, *shape) gradients}).
+
+    One vmapped pass over the workers per microbatch. With ``microbatches``
+    M > 1, microbatch j is rows j*B/M .. (j+1)*B/M - 1 of every worker's
+    batch; the gradients are summed in fp32 and divided by M, the loss is
+    the mean of the M passes' loss sums over n and nll the mean of their
+    worker means.
+    """
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    if any(s[0] != n_workers for s in shapes.values()):
+        raise ValueError(f"batch leaves {shapes} do not lead with {n_workers} workers")
+    batched = torch.func.vmap(_worker_grads(model), in_dims=(None, 0))
+    if microbatches == 1:
+        grads, (losses, nlls) = batched(params, batch)
+        return torch.sum(losses) / n_workers, torch.mean(nlls), grads
+    B = next(iter(shapes.values()))[1]
+    if B % microbatches:
+        raise ValueError(f"per-worker batch {B} is not divisible by microbatches={microbatches}")
+    mbs = {k: v.reshape((n_workers, microbatches, B // microbatches) + tuple(v.shape[2:]))
+           for k, v in batch.items()}
+    acc = tree.tree_map(
+        lambda p: torch.zeros((n_workers,) + tuple(p.shape), dtype=torch.float32,
+                              device=p.device), params)
+    loss_sums, nlls = [], []
+    for j in range(microbatches):
+        grads, (losses, nll) = batched(params, {k: v[:, j] for k, v in mbs.items()})
+        for a, g in zip(tree.leaves(acc), tree.leaves(grads)):
+            a.add_(g.to(torch.float32))
+        del grads
+        loss_sums.append(torch.sum(losses))
+        nlls.append(torch.mean(nll))
+    for a in tree.leaves(acc):
+        a.div_(microbatches)
+    return torch.mean(torch.stack(loss_sums)) / n_workers, torch.mean(torch.stack(nlls)), acc
+
+
+def per_worker_grads_loop(model, params, batch, n_workers: int):
+    """``per_worker_grads`` as one ``torch.autograd.grad`` per worker: the
+    plain version the batched pass is held against."""
     pg = _with_grad(params)
     flat = tree.leaves(pg)
     stacked = [torch.empty((n_workers,) + tuple(p.shape), dtype=p.dtype, device=p.device)
@@ -91,6 +142,7 @@ def build_train_step(
     *,
     n_workers: int,
     mode: str = "scalecom",  # scalecom | dense
+    microbatches: int = 1,
     grad_clip: Optional[float] = None,
     compute_stats: bool = False,
     buckets: Any = None,
@@ -101,6 +153,12 @@ def build_train_step(
     (``scalecom_reduce(buckets=...)``): None/"auto" reads
     $SCALECOM_TORCH_BUCKET_MB at each step; an explicit value wins.
 
+    ``microbatches=M`` splits each worker's batch into M chunks with fp32
+    gradient accumulation (``per_worker_grads``): activation memory scales
+    with about 1/M, the accumulators add one fp32 copy of the per-worker
+    gradients, and the reduce still runs once per step. The dense step
+    takes the whole folded batch at once, as in the reference.
+
     The step updates ``state.params`` and ``state.opt_state`` in place (see
     ``repro_torch.optim``) and returns a new ``TrainState`` holding them.
     Metric values are 0-d tensors (or floats) left on the device: reading
@@ -108,6 +166,8 @@ def build_train_step(
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
+    if microbatches < 1:
+        raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     # The JAX package trains in full fp32 (compute_dtype="float32"); TF32
     # would keep about three decimal digits in the card's matmuls.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -117,7 +177,8 @@ def build_train_step(
         device = tree.leaves(state.params)[0].device
         batch = _batch_on(batch, device)
         if mode == "scalecom":
-            loss, nll, gpw = per_worker_grads(model, state.params, batch, n_workers)
+            loss, nll, gpw = per_worker_grads(model, state.params, batch, n_workers,
+                                              microbatches)
             ghat, sc_state, stats = scalecom_reduce(
                 gpw, state.sc_state, sc_cfg, compute_stats=compute_stats, buckets=buckets
             )

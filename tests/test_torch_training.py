@@ -1,8 +1,9 @@
 """repro_torch's training path against ``repro.training``, plus the port's rules.
 
 One compressed step from a carried-across TrainState agrees to rtol 1e-4 /
-atol 1e-6 (matmul and worker-mean sums are ordered differently); a 6-step
-run with 2 dense warm-up steps keeps its loss history within rtol 1e-3.
+atol 1e-6 (matmul and worker-mean sums are ordered differently), with one
+batched pass and with two microbatches; a 6-step run with 2 dense warm-up
+steps keeps its loss history within rtol 1e-3.
 """
 
 import os
@@ -107,7 +108,8 @@ def test_optimizer_update_matches_jax(name):
     _assert_tree_close(tp, jp, 1e-6, 1e-7, name)
 
 
-def test_one_compressed_step_matches_jax():
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_one_compressed_step_matches_jax(microbatches):
     jmodel, tmodel = _models()
     jcfg, tcfg = _cfgs()
     jopt, topt = jmake_opt("sgdm"), make_optimizer("sgdm")
@@ -123,8 +125,10 @@ def test_one_compressed_step_matches_jax():
     ts = _carry(js)
     batch = next(jmake_batches(512, N, LOCAL_B, SEQ, seed=2))
 
-    jstep = jax.jit(jbuild_step(jmodel, jopt, sched_j, jcfg, n_workers=N, mode="scalecom"))
-    tstep = build_train_step(tmodel, topt, sched_t, tcfg, n_workers=N, mode="scalecom")
+    jstep = jax.jit(jbuild_step(jmodel, jopt, sched_j, jcfg, n_workers=N, mode="scalecom",
+                                microbatches=microbatches))
+    tstep = build_train_step(tmodel, topt, sched_t, tcfg, n_workers=N, mode="scalecom",
+                             microbatches=microbatches)
     js2, jm = jstep(js, batch)
     ts2, tm = tstep(ts, batch)
 
@@ -177,13 +181,36 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
-        "print(len(mods), bad)\n"
-        "sys.exit(1 if bad or len(mods) < 30 else 0)\n"
+        "want = ['repro_torch.checkpoint', 'repro_torch.checkpoint.checkpoint',\n"
+        "        'repro_torch.obs.events', 'repro_torch.obs.provenance', 'repro_torch.obs.registry',\n"
+        "        'repro_torch.obs.report', 'repro_torch.obs.run', 'repro_torch.obs.tracing']\n"
+        "missing = [m for m in want if m not in mods]\n"
+        "print(len(mods), bad, missing)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 38 else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_obs_report_runs_without_jax_or_torch(tmp_path):
+    """``python -m repro_torch.obs.report`` is stdlib only: it runs where
+    neither jax nor torch can be imported."""
+    log = tmp_path / "events.jsonl"
+    log.write_text('{"type": "provenance", "wall_s": 0.0, "device_kind": "cpu"}\n'
+                   '{"type": "step", "wall_s": 1.0, "step": 0, "metrics": {"loss": 6.5}}\n')
+    code = (
+        "import runpy, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro', 'torch', 'numpy'): sys.modules[name] = None\n"
+        f"sys.argv = ['report', {str(log)!r}]\n"
+        "runpy.run_module('repro_torch.obs.report', run_name='__main__')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=SRC)
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "telemetry report: 1 steps, 2 events" in out.stdout
 
 
 def test_cli_without_cuda_raises_unless_cpu_is_asked_for():
