@@ -37,6 +37,16 @@ Phases, each fatal on failure:
      payloads, -0 and +-inf throughout; and one tensor past 2^31 elements
      through every variant of the selects, the scatter and the fused reduce
      and the gather;
+  2b. ``[harness]``, the fault harness on the card: the launch preflight
+     (``launch.train.preflight``: 8 workers, clt_k, chunk 64, fp32, all five
+     scenarios) and its wall time; the harness CLI's sweeps
+     (``HARNESS_SWEEPS``: every scenario, flat and hierarchical, 12 steps,
+     with the build-up sweep; clt_k unfused and fused at 8-64 workers,
+     true_topk fused at 16 and 64, top-2 at 8, each lossy codec at 8 and 64),
+     each passing every invariant; the clt_k sweeps at 8 and 64 workers run
+     again on the CPU, with equal records and re-plans and distances within
+     ``HARNESS_DIST_ATOL``. Their kernel launches count toward each
+     kernel's ``launches``;
   3. the main path: ``run_training`` trains paper-transformer-base at full
      width (6 layers, d 512, vocab 37000) with CLT-k, 8 workers of batch 4 x
      128 tokens, 2 dense warm-up steps then 3 compressed steps, once unfused
@@ -44,14 +54,16 @@ Phases, each fatal on failure:
      must have launched as often as the reduce plan says (unfused: select,
      update and scatter once per compressed tensor and step, every select
      and scatter in its vec4 variant; fused: one fused_reduce, in its vec4
-     variant, and nothing else);
+     variant, and nothing else); every compressed step's comm bytes equal
+     the plan's (the harness's ``check_comm_accounting``);
   4. teacher-forced reduce from the trained state: the unfused "cuda"
      backend equals the "torch" backend bit for bit (and from the state
      before the first compressed step); the fused cuda reduce equals the
      unfused one (residues and the tok_embed idx/vals bitwise, ĝ to rtol
      1e-6) and the fused torch backend (clt_k; true_topk up to near ties,
-     counted); a rate rule putting the blocks' tensors at top-2 runs
-     chunk_topm (vec4 variant), fused and unfused, cuda against torch;
+     counted), and its nnz(ĝ)/k passes ``check_buildup``; a rate rule
+     putting the blocks' tensors at top-2 runs chunk_topm (vec4 variant),
+     fused and unfused, cuda against torch;
      host-clock times of the per-worker gradients and of each reduce; both
      selects and the scatter timed at their path's own shapes (chunk_argmax
      and chunk_scatter over the 17 compressed tensors of one step,
@@ -102,6 +114,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -1610,6 +1623,131 @@ def checkpoint_phase(fp32_state, fp8_state, model, opt, sc_cfg, workers: int,
     del restored, like
 
 
+# The harness CLI's sweeps on the card: (label, SCALECOM_TORCH_FUSED set,
+# arguments), every scenario, flat and hierarchical, 12 steps, with the
+# build-up sweep
+HARNESS_SWEEPS = (
+    ("clt_k unfused", False, ["--workers", "8,16,32,64"]),
+    ("clt_k fused", True, ["--workers", "8,16,32,64"]),
+    # true_topk's fused kernel past 12 workers re-reads its rows from L2
+    ("true_topk fused", True, ["--compressor", "true_topk", "--workers", "16,64"]),
+    ("clt_k top-2", False, ["--topm", "2", "--workers", "8"]),
+    ("bf16", False, ["--residue-dtype", "bf16", "--workers", "8,64"]),
+    ("fp8", False, ["--residue-dtype", "fp8", "--workers", "8,64"]),
+    ("fp8_ec", False, ["--residue-dtype", "fp8_ec", "--workers", "8,64"]),
+)
+# the sweeps run again on the CPU at 8 and 64 workers, for card against CPU
+HARNESS_VS_CPU = ("clt_k unfused", "clt_k fused")
+# record fields that must be equal on the card and the CPU
+HARNESS_EQUAL = ("nnz", "k", "comm_bytes", "comm_planned", "G", "n_active")
+# trajectory distances (relative, O(1e-2)) on the card against the CPU: the
+# worker means and norms are summed in other orders, and the fused kernel's
+# ĝ holds the plain version's to rtol 1e-6
+HARNESS_DIST_ATOL = 1e-6
+
+
+@contextlib.contextmanager
+def fused_env(on: bool):
+    """``SCALECOM_TORCH_FUSED`` set to 1 (or unset) inside the block, as a user
+    would set it around a run; the previous value comes back after."""
+    saved = os.environ.pop("SCALECOM_TORCH_FUSED", None)
+    if on:
+        os.environ["SCALECOM_TORCH_FUSED"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("SCALECOM_TORCH_FUSED", None)
+        if saved is not None:
+            os.environ["SCALECOM_TORCH_FUSED"] = saved
+
+
+def harness_phase(card_line: str) -> dict:
+    """``[harness]``: the fault harness on the card. (a) the launch preflight
+    at the paper cell's settings (8 workers, clt_k, chunk 64, fp32, every
+    scenario), its wall time; (b) the harness CLI's sweeps of
+    ``HARNESS_SWEEPS`` on the card, each passing every invariant; (c) the
+    clt_k sweeps at 8 and 64 workers run again on the CPU: records and
+    re-plans equal, distances within ``HARNESS_DIST_ATOL``. Returns the
+    kernel launches of (a) and (b), counted from 0."""
+    import tempfile
+
+    from repro_torch import kernels
+    from repro_torch.harness import cli
+    from repro_torch.harness.scenarios import run_scenario
+    from repro_torch.kernels import fused_reduce as frk
+    from repro_torch.launch.train import preflight
+
+    t_phase = time.perf_counter()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    preflight("all", 8, "clt_k", 64, None, "fp32", "cuda")
+    print(f"[harness] preflight (8 workers, clt_k, chunk 64, fp32, all 5 scenarios x 12 steps): "
+          f"{time.perf_counter() - t0:.2f} s wall on {card_line}")
+
+    payloads = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, fused, args in HARNESS_SWEEPS:
+            out = os.path.join(tmp, "scenarios.json")
+            before = kernels.launches()
+            t0 = time.perf_counter()
+            with fused_env(fused):
+                rc = cli.run_cli(["--device", "cuda", "--scenarios", "all", "--steps", "12",
+                                  "--out", out, "-q"] + args)
+            wall = time.perf_counter() - t0
+            with open(out) as f:
+                payload = json.load(f)
+            check(rc == 0 and payload["passed"],
+                  f"harness {label}: rc {rc}, violations {payload['violations'][:5]}")
+            res = payload["results"]
+            worst = max(r["final_distance"] / r["tolerance"] for r in res)
+            replans = sum(len(r["replans"]) for r in res)
+            curve = " ".join(f"n={int(r['workers'])}: clt_k {r['clt_k']:.3f} local_topk "
+                             f"{r['local_topk']:.3f} (model {r['local_topk_model']:.3f})"
+                             for r in payload["buildup"]["rows"])
+            ran = {k: n - before[k] for k, n in kernels.launches().items() if n > before[k]}
+            print(f"[harness] {label} ({' '.join(args)}): {len(res)} runs, every invariant held; "
+                  f"largest distance/tolerance {worst:.3f}; {replans} re-plans; build-up "
+                  f"{curve}; launches {ran}; {wall:.2f} s wall on {card_line}")
+            payloads[label] = payload
+    got = kernels.launches()
+    print(f"[harness] launches in the preflight and the sweeps: {got}; fused_reduce variants "
+          f"{frk.fused_reduce.variants}")
+    for name, n in got.items():
+        check(n > 0 or name == "chunk_gather", f"harness: {name} was never launched")
+
+    # (c) the same configurations on the CPU
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    worst_dist = 0.0
+    compared = 0
+    fused = {label: on for label, on, _ in HARNESS_SWEEPS}
+    for label in HARNESS_VS_CPU:
+        for card in payloads[label]["results"]:
+            if card["workers"] not in (8, 64):
+                continue
+            with fused_env(fused[label]):
+                cpu = run_scenario(card["name"], card["workers"], groups=card["groups"],
+                                   device="cpu").to_json()
+            what = f"harness card vs cpu, {label} {card['name']} n={card['workers']} " \
+                   f"groups={card['groups']}"
+            check(card["replans"] == cpu["replans"], f"{what}: re-plans differ")
+            check(len(card["records"]) == len(cpu["records"]), f"{what}: step counts differ")
+            for a, b in zip(card["records"], cpu["records"]):
+                check(all(a[k] == b[k] for k in HARNESS_EQUAL),
+                      f"{what}: step {a['t']} records differ: card {a}, cpu {b}")
+                worst_dist = max(worst_dist, abs(a["distance"] - b["distance"]))
+            compared += 1
+    check(worst_dist <= HARNESS_DIST_ATOL,
+          f"harness card vs cpu: a distance differs by {worst_dist:.3g} > {HARNESS_DIST_ATOL}")
+    check(not any(kernels.launches().values()), "harness: a CPU run launched a kernel")
+    print(f"[harness] card vs cpu: {compared} clt_k fp32 runs (unfused and fused, 8 and 64 "
+          f"workers, flat and groups): {', '.join(HARNESS_EQUAL)} and re-plans equal, distances "
+          f"within {worst_dist:.3g} (limit {HARNESS_DIST_ATOL}); cpu side "
+          f"{time.perf_counter() - t0:.2f} s wall")
+    print(f"[harness] phase {time.perf_counter() - t_phase:.2f} s wall on {card_line}")
+    return got
+
+
 def expected_launches(plans, fused: bool, steps: int) -> dict:
     """Kernel launches the reduce plan implies for ``steps`` reduces on the cuda backend."""
     from repro_torch.backends import FUSABLE_MODES
@@ -1650,6 +1788,7 @@ def main() -> None:
     from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
     from repro_torch.core.state import ScaleComState, residue_bytes, residue_signature
     from repro_torch.data import make_batches
+    from repro_torch.harness.invariants import check_buildup, check_comm_accounting
     from repro_torch.kernels import build, chunk_topk as ct, fused_reduce as frk
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer, schedule
@@ -1670,6 +1809,9 @@ def main() -> None:
 
     # -- 2. kernels against their plain versions -----------------------------
     results = kernel_phase(card_line)
+
+    # -- 2b. the fault harness: the preflight, the CLI's sweeps, card against CPU --
+    harness_launches = harness_phase(card_line)
 
     # -- 3. the main path at full width, unfused then fused ---------------------
     cfg = registry.arch("paper-transformer-base")
@@ -1710,6 +1852,14 @@ def main() -> None:
                   f"{h['grad_norm']:.4f} lr {h['lr']:.3f} {dt * 1e3:.1f} ms on {card_line}")
             check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
                   f"{label}: non-finite loss or grad norm at step {h['step']}")
+        # the harness's comm-bytes invariant on every compressed step at full width
+        planned = sum(p.bytes_payload for p in plans)
+        for h in history:
+            if loop.compressed_at(h["step"]):
+                v = check_comm_accounting(h["comm_bytes_per_worker"], planned)
+                check(v is None, f"{label}: step {h['step']}: {v}")
+        print(f"[harness:full-width] {label}: comm_bytes_per_worker == core.plan's "
+              f"{planned:,.1f} B on all {steps - warmup} compressed steps")
         want = expected_launches(plans, sc_cfg.fused, steps - warmup)
         print(f"[train:{label}] launches {got} (want {want}: {n_compressed} tensors x "
               f"{steps - warmup} compressed steps)")
@@ -1812,6 +1962,15 @@ def main() -> None:
         fused_c = reduce(cfg_of(name, True, "cuda"), label=f"{name} fused, cuda backend")
         check(kernels.launches()["fused_reduce"] == sum(not p.dense for p in flat_plans),
               f"{name}: fused reduce launches {kernels.launches()}")
+        # the harness's build-up invariant over the compressed tensors of one reduce
+        nnz = sum(int(torch.count_nonzero(g)) for p, g in zip(flat_plans, tree.leaves(fused_c[0]))
+                  if not p.dense)
+        k = sum(p.k for p in flat_plans if not p.dense)
+        v = check_buildup(nnz / k, name, workers, CHUNK)
+        check(v is None, f"{name} fused reduce from the trained state: {v}")
+        print(f"[harness:full-width] {name} fused reduce from the trained state: nnz(ghat)/k = "
+              f"{nnz:,}/{k:,} = {nnz / k:.6f} over {sum(not p.dense for p in flat_plans)} "
+              f"compressed tensors, within check_buildup")
         unfused_c = reduce(cfg_of(name, False, "cuda"), label=f"{name} unfused, cuda backend")
         if name == "clt_k":
             agree(fused_c, unfused_c, "clt_k fused cuda vs unfused cuda")
@@ -1964,6 +2123,7 @@ def main() -> None:
               f"({wall_ms:.1f} ms host clock)")
 
     for name in KERNELS:
+        path_launches[name] = path_launches.get(name, 0) + harness_launches[name]
         check(path_launches.get(name, 0) > 0, f"{name} was never launched on a path")
         results[name]["launches"] = path_launches[name]
     print(json.dumps({"kernels": [results[name] for name in KERNELS]}))

@@ -3,7 +3,8 @@ on synthetic data, simulating n workers on one device.
 
     PYTHONPATH=src python -m repro_torch.launch.train --workers 8 --steps 200 \
         --compressor clt_k --chunk 64 --beta 0.1 [--device cuda|cpu] \
-        [--trace-dir DIR [--metrics-every N]] [--checkpoint-dir DIR]
+        [--trace-dir DIR [--metrics-every N]] [--checkpoint-dir DIR] \
+        [--preflight-scenarios all|NAME,...]
 
 The port of ``repro.launch.train``. It runs on the CUDA card by default and
 raises if there is none; ``--device cpu`` runs the plain PyTorch versions of
@@ -15,8 +16,11 @@ buckets on the caller's stream. ``--trace-dir`` turns on the telemetry taps
 and the recorder (``DIR/trace.json`` and ``DIR/events.jsonl``, summarized
 by ``python -m repro_torch.obs.report``); ``--checkpoint-dir`` saves the
 train state at half the steps. Each worker's gradient comes from one
-batched pass over all workers. ``--preflight-scenarios`` (the fault
-harness) and ``--autotune`` wait (ROADMAP Queue 1).
+batched pass over all workers. ``--preflight-scenarios`` runs the fault
+harness (``repro_torch.harness``) at the run's workers, compressor, chunk,
+groups and residue dtype on the run's device before the model is built,
+and aborts the launch on any invariant violation (``preflight``).
+``--autotune`` waits (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -37,6 +41,33 @@ from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer, schedule
 from repro_torch.training import TrainLoop, init_train_state, run_training
+
+
+def preflight(names: str, workers: int, compressor: str, chunk: int, groups, residue_dtype: str,
+              device="cuda") -> None:
+    """Run the failure-scenario harness before a launch, as the reference's
+    ``--preflight-scenarios``: each scenario of ``names`` ("all" or a comma
+    list) at this topology on ``device``; any violation prints it and raises
+    ``SystemExit``, a topology the planner rejects raises its ValueError."""
+    from repro_torch.harness.scenarios import SCENARIOS, run_scenario
+
+    todo = (
+        list(SCENARIOS)
+        if names == "all"
+        else [s.strip() for s in names.split(",") if s.strip()]
+    )
+    for name in todo:
+        res = run_scenario(
+            name, workers, compressor=compressor, chunk=chunk, groups=groups,
+            residue_dtype=residue_dtype, device=device,
+        )
+        print(f"[launch.train] preflight {name}: "
+              f"dist={res.final_distance:.4f}/{res.tolerance:.4f} "
+              f"{'ok' if res.passed else 'VIOLATION'}")
+        if not res.passed:
+            for v in res.violations:
+                print(f"[launch.train]   {v}")
+            raise SystemExit(f"preflight scenario {name!r} failed")
 
 
 def main(argv=None):
@@ -66,6 +97,12 @@ def main(argv=None):
     ap.add_argument("--no-overlap", action="store_true",
                     help="run the buckets on the caller's stream instead of a side "
                          "CUDA stream (same numerics)")
+    ap.add_argument("--preflight-scenarios", default=None, metavar="NAMES",
+                    help="before training, run the failure-scenario harness "
+                         "(repro_torch.harness) at this worker count / compressor / "
+                         "chunk / groups / residue dtype on the run's device: "
+                         "comma-separated scenario names or 'all'. Any invariant "
+                         "violation (or a topology the planner rejects) aborts the launch")
     ap.add_argument("--trace-dir", default=None, metavar="DIR",
                     help="enable the telemetry subsystem (repro_torch.obs): metric taps on "
                          "the reduce (measured wire bytes, build-up, contraction gamma, "
@@ -90,6 +127,9 @@ def main(argv=None):
     cfg = registry.smoke(args.arch)
     print(f"[launch.train] torch {torch.__version__} on {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
+    if args.preflight_scenarios:
+        preflight(args.preflight_scenarios, args.workers, args.compressor, args.chunk,
+                  args.groups, args.residue_dtype, device)
 
     model = build_model(cfg, loss_chunk=64)
     # --bucket-mb: None -> "auto" ($SCALECOM_TORCH_BUCKET_MB), <= 0 ->

@@ -183,10 +183,13 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "want = ['repro_torch.checkpoint', 'repro_torch.checkpoint.checkpoint',\n"
         "        'repro_torch.obs.events', 'repro_torch.obs.provenance', 'repro_torch.obs.registry',\n"
-        "        'repro_torch.obs.report', 'repro_torch.obs.run', 'repro_torch.obs.tracing']\n"
+        "        'repro_torch.obs.report', 'repro_torch.obs.run', 'repro_torch.obs.tracing',\n"
+        "        'repro_torch.analysis.perfmodel', 'repro_torch.harness.__main__',\n"
+        "        'repro_torch.harness.cli', 'repro_torch.harness.injectors',\n"
+        "        'repro_torch.harness.invariants', 'repro_torch.harness.scenarios']\n"
         "missing = [m for m in want if m not in mods]\n"
         "print(len(mods), bad, missing)\n"
-        "sys.exit(1 if bad or missing or len(mods) < 38 else 0)\n"
+        "sys.exit(1 if bad or missing or len(mods) < 58 else 0)\n"
     )
     env = dict(os.environ, PYTHONPATH=SRC)
     out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
