@@ -43,10 +43,17 @@ Phases, each fatal on failure:
      (``HARNESS_SWEEPS``: every scenario, flat and hierarchical, 12 steps,
      with the build-up sweep; clt_k unfused and fused at 8-64 workers,
      true_topk fused at 16 and 64, top-2 at 8, each lossy codec at 8 and 64),
-     each passing every invariant; the clt_k sweeps at 8 and 64 workers run
-     again on the CPU, with equal records and re-plans and distances within
-     ``HARNESS_DIST_ATOL``. Their kernel launches count toward each
-     kernel's ``launches``;
+     each passing every invariant. Every reduce of the preflight and the
+     sweeps is held against the torch backend's composition on the card from
+     the same inputs (``ReduceShadow``: unfused bitwise; fused, residues
+     bitwise and ĝ to rtol 1e-6 on the same lanes, with a counted few near
+     ties for true_topk), and every sweep runs again through the CLI on the
+     CPU, with equal records, re-plans and build-up rows and distances
+     within ``HARNESS_DIST_ATOL`` (``HARNESS_CODEC_DIST_SHARE`` of a run's
+     tolerance with a lossy codec). The true_topk sweep's fused launches must
+     take both routes the library reports: staged (G <= 12) and the L2
+     re-read. Their kernel launches count toward each kernel's
+     ``launches``, and stand alone under ``harness_launches``;
   3. the main path: ``run_training`` trains paper-transformer-base at full
      width (6 layers, d 512, vocab 37000) with CLT-k, 8 workers of batch 4 x
      128 tokens, 2 dense warm-up steps then 3 compressed steps, once unfused
@@ -529,12 +536,17 @@ def kernel_phase(card_line: str):
           f"fused_reduce at the tok_embed shapes ran {frk.fused_reduce.variants}, want vec4 only")
     # true_topk's two vec4 designs, on both sides of the staging limit: 12 workers' rows
     # fit a staged block at chunk 64 (shared memory), 13 do not (the L2 re-read)
-    for workers, design in ((12, "staged in shared memory"), (13, "L2 re-read")):
+    for workers, route, design in ((12, "staged", "staged in shared memory"),
+                                   (13, "l2_reread", "L2 re-read")):
         mw = torch.randn(workers, R, CHUNK, device=dev, generator=gen)
         gw = torch.randn(workers, R, CHUNK, device=dev, generator=gen)
         run = lambda mw=mw, gw=gw: frk.fused_reduce(mw, gw, BETA, 1, "true_topk")  # noqa: E731
+        before = dict(frk.fused_reduce.routes)
         check(bitwise(run(), frk.fused_reduce_plain(mw, gw, BETA, 1, "true_topk")),
               f"fused_reduce true_topk at {workers} workers differs from plain")
+        took = {k: n - before[k] for k, n in frk.fused_reduce.routes.items() if n != before[k]}
+        check(took == {route: 1}, f"fused_reduce true_topk at {workers} workers took {took}, "
+                                  f"want the {design}")
         ms = device_ms(run, (counter("fused_reduce", "vec4"), 1), what=f"true_topk {workers}")
         b = bound(3 * workers * R * CHUNK * 4 + workers * R * 4 + R * 4 + R * CHUNK * 4, 0)[0]
         results["fused_reduce"][f"true_topk_{workers}_workers_ms"] = ms
@@ -1636,14 +1648,113 @@ HARNESS_SWEEPS = (
     ("fp8", False, ["--residue-dtype", "fp8", "--workers", "8,64"]),
     ("fp8_ec", False, ["--residue-dtype", "fp8_ec", "--workers", "8,64"]),
 )
-# the sweeps run again on the CPU at 8 and 64 workers, for card against CPU
-HARNESS_VS_CPU = ("clt_k unfused", "clt_k fused")
 # record fields that must be equal on the card and the CPU
-HARNESS_EQUAL = ("nnz", "k", "comm_bytes", "comm_planned", "G", "n_active")
+HARNESS_EQUAL = ("nnz", "k", "comm_bytes", "comm_planned", "buildup_ratio", "G", "n_active")
 # trajectory distances (relative, O(1e-2)) on the card against the CPU: the
 # worker means and norms are summed in other orders, and the fused kernel's
 # ĝ holds the plain version's to rtol 1e-6
 HARNESS_DIST_ATOL = 1e-6
+# with a lossy residue codec: m' is rounded to the codec's grid, and where a
+# group's fold (a worker mean, summed in another order on the CPU) moves m'
+# by an ulp an element rounds to the neighbouring code, so the distances
+# agree to this share of the run's own tolerance: the invariant's verdict
+# cannot depend on the device
+HARNESS_CODEC_DIST_SHARE = 0.01
+
+
+class ReduceShadow:
+    """Holds every ``scalecom_reduce`` the harness makes on the card against
+    the plain PyTorch composition (the torch backend) on the card, from
+    clones of the same inputs, as ``main``'s teacher-forced reduces do: the
+    step counter and comm bytes equal; unfused, ĝ and every residue tensor
+    bitwise; fused, the residues bitwise and ĝ to rtol 1e-6 / atol 1e-7 on
+    the same lanes (the worker mean summed in another order), in every
+    chunk row but those where the selection differs: none for clt_k, a
+    counted few near ties for true_topk (``flips``)."""
+
+    def __init__(self):
+        self.reduces = self.bitwise = 0
+        self.flips = self.rows = 0  # fused chunk rows selected differently, of all held
+
+    def flip_limit(self) -> int:
+        return max(8, self.rows // 10_000)
+
+    @contextlib.contextmanager
+    def on(self):
+        import torch
+
+        from repro_torch import kernels, tree
+        from repro_torch.backends import FUSABLE_MODES, resolve_fused
+        from repro_torch.harness import scenarios
+
+        real = scenarios.scalecom_reduce
+
+        def shadowed(grads_pw, state, cfg):
+            args = (tree.tree_map(torch.clone, grads_pw),
+                    dataclasses.replace(state, residues=tree.tree_map(torch.clone, state.residues)),
+                    dataclasses.replace(cfg, backend="torch"))
+            out = real(grads_pw, state, cfg)
+            before = kernels.launches()
+            plain = real(*args)
+            check(kernels.launches() == before, "harness: the torch backend launched a kernel")
+            comp = cfg.compressor
+            self.hold(out, plain, resolve_fused(cfg.fused) and comp.name in FUSABLE_MODES,
+                      comp.chunk, comp.name,
+                      f"reduce at t={state.t}, {comp.name}, {tree.leaves(grads_pw)[0].shape[0]} "
+                      f"workers, groups {cfg.groups}")
+            return out
+
+        scenarios.scalecom_reduce = shadowed
+        try:
+            yield self
+        finally:
+            scenarios.scalecom_reduce = real
+
+    def hold(self, card, plain, fused: bool, chunk: int, mode: str, what: str) -> None:
+        import torch
+
+        from repro_torch import tree
+
+        (ghat, state, stats), (w_ghat, w_state, w_stats) = card, plain
+        check(state.t == w_state.t, f"harness {what}: step counter {state.t} != {w_state.t}")
+        check(float(stats["comm_bytes_per_worker"]) == float(w_stats["comm_bytes_per_worker"]),
+              f"harness {what}: comm bytes differ from the plain composition's")
+        for mine, want, part in ((ghat, w_ghat, "ĝ"), (state.residues, w_state.residues, "residues")):
+            check([k for k, _ in tree.flatten_with_path(mine)]
+                  == [k for k, _ in tree.flatten_with_path(want)],
+                  f"harness {what}: the {part} tree differs from the plain composition's")
+            for a in tree.leaves(mine):
+                check(a.is_cuda, f"harness {what}: a {part} tensor is on {a.device}")
+        res, w_res = state.residues, w_state.residues
+        bitwise = all(torch.equal(a, b) for a, b in zip(tree.leaves(ghat), tree.leaves(w_ghat)))
+        bitwise &= all(torch.equal(a, b) for a, b in zip(tree.leaves(res), tree.leaves(w_res)))
+        self.reduces += 1
+        self.bitwise += bitwise
+        if bitwise:
+            return
+        check(fused, f"harness {what}: the unfused reduce differs from the plain composition's")
+        flipped = 0
+        for path, a in tree.flatten_with_path(ghat):
+            b = dict(tree.flatten_with_path(w_ghat))[path]
+            if path not in res:  # dense
+                check(close(a, b), f"harness {what}: dense ĝ {path} differs beyond rtol 1e-6")
+                continue
+            check(res[path].keys() == {"q"} and a.dtype == torch.float32,
+                  f"harness {what}: a fused reduce with residues {sorted(res[path])}")
+            pad = (-a.numel()) % chunk
+            ca = torch.nn.functional.pad(a.reshape(-1), (0, pad)).view(-1, chunk)
+            cb = torch.nn.functional.pad(b.reshape(-1), (0, pad)).view(-1, chunk)
+            qa, qb = res[path]["q"], w_res[path]["q"]
+            qa = torch.nn.functional.pad(qa.reshape(qa.shape[0], -1), (0, pad)).view(qa.shape[0], -1, chunk)
+            qb = torch.nn.functional.pad(qb.reshape(qb.shape[0], -1), (0, pad)).view(qb.shape[0], -1, chunk)
+            same = ((ca != 0) == (cb != 0)).all(-1) & (qa == qb).all(-1).all(0)
+            flipped += int((~same).sum())
+            self.rows += same.numel()
+            check(close(ca[same], cb[same]), f"harness {what}: ĝ {path} differs beyond rtol 1e-6 "
+                                             f"on the lanes both selected")
+        self.flips += flipped
+        check(mode == "true_topk" or flipped == 0,
+              f"harness {what}: {flipped} chunk rows select differently from the plain composition")
 
 
 @contextlib.contextmanager
@@ -1661,19 +1772,71 @@ def fused_env(on: bool):
             os.environ["SCALECOM_TORCH_FUSED"] = saved
 
 
-def harness_phase(card_line: str) -> dict:
+def harness_cli(device: str, fused: bool, args: list, tmp: str) -> tuple:
+    """One run of the harness CLI (every scenario, 12 steps, with the build-up
+    sweep) on ``device``, from an empty clean-twin cache: (payload, wall s)."""
+    from repro_torch.harness import cli, scenarios
+
+    scenarios._CLEAN_CACHE.clear()
+    out = os.path.join(tmp, f"scenarios_{device}.json")
+    t0 = time.perf_counter()
+    with fused_env(fused):
+        rc = cli.run_cli(["--device", device, "--scenarios", "all", "--steps", "12",
+                          "--out", out, "-q"] + args)
+    wall = time.perf_counter() - t0
+    with open(out) as f:
+        payload = json.load(f)
+    check(rc == 0 and payload["passed"],
+          f"harness {device} {' '.join(args)}: rc {rc}, violations {payload['violations'][:5]}")
+    return payload, wall
+
+
+def harness_vs_cpu(label: str, card: dict, cpu: dict) -> tuple:
+    """The card's harness payload against the CPU's at the same flags: per run
+    the re-plans and the records' ``HARNESS_EQUAL`` fields equal, distances
+    within ``HARNESS_DIST_ATOL`` (fp32 residues) or
+    ``HARNESS_CODEC_DIST_SHARE`` of the run's tolerance (a lossy codec); the
+    build-up rows equal. Returns the largest distance difference and its
+    largest share of a run's tolerance."""
+    worst = share = 0.0
+    check(len(card["results"]) == len(cpu["results"]), f"harness {label}: run counts differ")
+    for a, b in zip(card["results"], cpu["results"]):
+        what = f"harness card vs cpu, {label} {a['name']} n={a['workers']} groups={a['groups']}"
+        check((a["name"], a["workers"], a["groups"]) == (b["name"], b["workers"], b["groups"]),
+              f"{what}: the CPU ran {b['name']} n={b['workers']} groups={b['groups']}")
+        check(a["replans"] == b["replans"], f"{what}: re-plans differ")
+        check(len(a["records"]) == len(b["records"]), f"{what}: step counts differ")
+        limit = (HARNESS_DIST_ATOL if a["residue_dtype"] == "fp32"
+                 else HARNESS_CODEC_DIST_SHARE * a["tolerance"])
+        for ra, rb in zip(a["records"], b["records"]):
+            check(all(ra[k] == rb[k] for k in HARNESS_EQUAL),
+                  f"{what}: step {ra['t']} records differ: card {ra}, cpu {rb}")
+            diff = abs(ra["distance"] - rb["distance"])
+            check(diff <= limit, f"{what}: step {ra['t']} distance {ra['distance']:.6g} on the "
+                                 f"card, {rb['distance']:.6g} on the CPU (limit {limit:.3g})")
+            worst = max(worst, diff)
+            share = max(share, diff / a["tolerance"])
+    check(card["buildup"]["rows"] == cpu["buildup"]["rows"]
+          and card["buildup"]["violations"] == cpu["buildup"]["violations"],
+          f"harness {label}: build-up rows differ: card {card['buildup']['rows']}, "
+          f"cpu {cpu['buildup']['rows']}")
+    return worst, share
+
+
+def harness_phase(card_line: str) -> tuple:
     """``[harness]``: the fault harness on the card. (a) the launch preflight
     at the paper cell's settings (8 workers, clt_k, chunk 64, fp32, every
-    scenario), its wall time; (b) the harness CLI's sweeps of
-    ``HARNESS_SWEEPS`` on the card, each passing every invariant; (c) the
-    clt_k sweeps at 8 and 64 workers run again on the CPU: records and
-    re-plans equal, distances within ``HARNESS_DIST_ATOL``. Returns the
-    kernel launches of (a) and (b), counted from 0."""
+    scenario), its wall time, then once more with every reduce held against
+    the torch backend's (``ReduceShadow``); (b) the harness CLI's sweeps of
+    ``HARNESS_SWEEPS`` on the card, each passing every invariant, with every
+    reduce held against the torch backend's; (c) each sweep again through
+    the CLI on the CPU: records, re-plans and build-up rows equal, distances
+    as ``harness_vs_cpu`` says. Returns the kernel launches of the timed
+    preflight and the sweeps, counted from 0, and fused_reduce's launches by
+    route."""
     import tempfile
 
     from repro_torch import kernels
-    from repro_torch.harness import cli
-    from repro_torch.harness.scenarios import run_scenario
     from repro_torch.kernels import fused_reduce as frk
     from repro_torch.launch.train import preflight
 
@@ -1683,69 +1846,71 @@ def harness_phase(card_line: str) -> dict:
     preflight("all", 8, "clt_k", 64, None, "fp32", "cuda")
     print(f"[harness] preflight (8 workers, clt_k, chunk 64, fp32, all 5 scenarios x 12 steps): "
           f"{time.perf_counter() - t0:.2f} s wall on {card_line}")
+    timed = kernels.launches()
+    shadow = ReduceShadow()
+    with shadow.on():
+        preflight("all", 8, "clt_k", 64, None, "fp32", "cuda")
+    print(f"[harness] preflight again, each of its {shadow.reduces} reduces held against the "
+          f"torch backend's on the same inputs: {shadow.bitwise} bitwise")
+    kernels.reset_launches()  # the held run's launches are a comparison's
 
-    payloads = {}
+    cpu_s, worst_dist = 0.0, 0.0
+    routes = {}
     with tempfile.TemporaryDirectory() as tmp:
         for label, fused, args in HARNESS_SWEEPS:
-            out = os.path.join(tmp, "scenarios.json")
+            before, routes_before = kernels.launches(), dict(frk.fused_reduce.routes)
+            shadow = ReduceShadow()
+            with shadow.on():
+                card, wall = harness_cli("cuda", fused, args, tmp)
+            check(shadow.flips <= shadow.flip_limit(),
+                  f"harness {label}: {shadow.flips} of {shadow.rows} fused chunk rows select "
+                  f"differently from the plain composition (limit {shadow.flip_limit()})")
+            ran = {k: n - before[k] for k, n in kernels.launches().items() if n > before[k]}
+            routes[label] = {k: n - routes_before[k] for k, n in frk.fused_reduce.routes.items()}
             before = kernels.launches()
-            t0 = time.perf_counter()
-            with fused_env(fused):
-                rc = cli.run_cli(["--device", "cuda", "--scenarios", "all", "--steps", "12",
-                                  "--out", out, "-q"] + args)
-            wall = time.perf_counter() - t0
-            with open(out) as f:
-                payload = json.load(f)
-            check(rc == 0 and payload["passed"],
-                  f"harness {label}: rc {rc}, violations {payload['violations'][:5]}")
-            res = payload["results"]
+            cpu, cpu_wall = harness_cli("cpu", fused, args, tmp)
+            check(kernels.launches() == before, f"harness {label}: a CPU run launched a kernel")
+            cpu_s += cpu_wall
+            dist, share = harness_vs_cpu(label, card, cpu)
+            worst_dist = max(worst_dist, dist)
+            res = card["results"]
             worst = max(r["final_distance"] / r["tolerance"] for r in res)
             replans = sum(len(r["replans"]) for r in res)
             curve = " ".join(f"n={int(r['workers'])}: clt_k {r['clt_k']:.3f} local_topk "
                              f"{r['local_topk']:.3f} (model {r['local_topk_model']:.3f})"
-                             for r in payload["buildup"]["rows"])
-            ran = {k: n - before[k] for k, n in kernels.launches().items() if n > before[k]}
+                             for r in card["buildup"]["rows"])
             print(f"[harness] {label} ({' '.join(args)}): {len(res)} runs, every invariant held; "
                   f"largest distance/tolerance {worst:.3f}; {replans} re-plans; build-up "
-                  f"{curve}; launches {ran}; {wall:.2f} s wall on {card_line}")
-            payloads[label] = payload
-    got = kernels.launches()
-    print(f"[harness] launches in the preflight and the sweeps: {got}; fused_reduce variants "
-          f"{frk.fused_reduce.variants}")
-    for name, n in got.items():
-        check(n > 0 or name == "chunk_gather", f"harness: {name} was never launched")
-
-    # (c) the same configurations on the CPU
-    kernels.reset_launches()
-    t0 = time.perf_counter()
-    worst_dist = 0.0
-    compared = 0
-    fused = {label: on for label, on, _ in HARNESS_SWEEPS}
-    for label in HARNESS_VS_CPU:
-        for card in payloads[label]["results"]:
-            if card["workers"] not in (8, 64):
-                continue
-            with fused_env(fused[label]):
-                cpu = run_scenario(card["name"], card["workers"], groups=card["groups"],
-                                   device="cpu").to_json()
-            what = f"harness card vs cpu, {label} {card['name']} n={card['workers']} " \
-                   f"groups={card['groups']}"
-            check(card["replans"] == cpu["replans"], f"{what}: re-plans differ")
-            check(len(card["records"]) == len(cpu["records"]), f"{what}: step counts differ")
-            for a, b in zip(card["records"], cpu["records"]):
-                check(all(a[k] == b[k] for k in HARNESS_EQUAL),
-                      f"{what}: step {a['t']} records differ: card {a}, cpu {b}")
-                worst_dist = max(worst_dist, abs(a["distance"] - b["distance"]))
-            compared += 1
-    check(worst_dist <= HARNESS_DIST_ATOL,
-          f"harness card vs cpu: a distance differs by {worst_dist:.3g} > {HARNESS_DIST_ATOL}")
-    check(not any(kernels.launches().values()), "harness: a CPU run launched a kernel")
-    print(f"[harness] card vs cpu: {compared} clt_k fp32 runs (unfused and fused, 8 and 64 "
-          f"workers, flat and groups): {', '.join(HARNESS_EQUAL)} and re-plans equal, distances "
-          f"within {worst_dist:.3g} (limit {HARNESS_DIST_ATOL}); cpu side "
-          f"{time.perf_counter() - t0:.2f} s wall")
+                  f"{curve}; launches {ran}, fused_reduce by route {routes[label]}; "
+                  f"{wall:.2f} s wall on {card_line} with each of {shadow.reduces} reduces held "
+                  f"against the torch backend's ({shadow.bitwise} bitwise; fused: {shadow.flips} "
+                  f"of {shadow.rows} chunk rows selected differently, limit "
+                  f"{shadow.flip_limit() if shadow.rows else 0}); again on the CPU in "
+                  f"{cpu_wall:.2f} s: records, re-plans and build-up rows equal, distances within "
+                  f"{dist:.3g} ({share:.2g} of a run's tolerance)")
+    swept = kernels.launches()
+    got = {k: n + timed[k] for k, n in swept.items()}
+    missing = [k for k, n in got.items() if n == 0 and k != "chunk_gather"]
+    check(not missing, f"harness: {missing} never launched")
+    harness_routes = {k: sum(r[k] for r in routes.values()) for k in frk.ROUTES}
+    check(frk.fused_reduce.variants["scalar"] == 0
+          and sum(harness_routes.values()) == swept["fused_reduce"],
+          f"harness: fused_reduce ran {frk.fused_reduce.variants} in {swept['fused_reduce']} "
+          f"launches, routes {routes}")
+    tt = routes["true_topk fused"]
+    check(tt["staged"] > 0 and tt["l2_reread"] > 0,
+          f"harness: the true_topk sweep's fused launches took the routes {tt}, want both the "
+          f"staged one (G <= 12) and the L2 re-read (G > 12)")
+    check(routes["clt_k fused"]["staged"] == routes["clt_k fused"]["l2_reread"] == 0,
+          f"harness: clt_k fused launches took the routes {routes['clt_k fused']}")
+    print(f"[harness] launches in the timed preflight and the sweeps: {got}; fused_reduce "
+          f"variants {frk.fused_reduce.variants}, routes {harness_routes} (true_topk sweep: "
+          f"{tt['staged']} staged, {tt['l2_reread']} L2 re-read)")
+    print(f"[harness] card vs cpu: every sweep again on the CPU ({cpu_s:.2f} s wall), "
+          f"distances within {worst_dist:.3g} (limit {HARNESS_DIST_ATOL} with fp32 residues, "
+          f"{HARNESS_CODEC_DIST_SHARE} of a run's tolerance with a lossy codec)")
     print(f"[harness] phase {time.perf_counter() - t_phase:.2f} s wall on {card_line}")
-    return got
+    return got, harness_routes
 
 
 def expected_launches(plans, fused: bool, steps: int) -> dict:
@@ -1811,7 +1976,7 @@ def main() -> None:
     results = kernel_phase(card_line)
 
     # -- 2b. the fault harness: the preflight, the CLI's sweeps, card against CPU --
-    harness_launches = harness_phase(card_line)
+    harness_launches, harness_routes = harness_phase(card_line)
 
     # -- 3. the main path at full width, unfused then fused ---------------------
     cfg = registry.arch("paper-transformer-base")
@@ -2123,9 +2288,10 @@ def main() -> None:
               f"({wall_ms:.1f} ms host clock)")
 
     for name in KERNELS:
-        path_launches[name] = path_launches.get(name, 0) + harness_launches[name]
-        check(path_launches.get(name, 0) > 0, f"{name} was never launched on a path")
-        results[name]["launches"] = path_launches[name]
+        check(path_launches.get(name, 0) > 0, f"{name} was never launched on the main path")
+        results[name]["launches"] = path_launches[name] + harness_launches[name]
+        results[name]["harness_launches"] = harness_launches[name]
+    results["fused_reduce"]["harness_routes"] = harness_routes
     print(json.dumps({"kernels": [results[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                               "kind": torch.cuda.get_device_name(0),

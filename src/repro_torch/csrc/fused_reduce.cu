@@ -163,6 +163,9 @@ __global__ void fused_reduce_kernel(const float* __restrict__ m,
 }
 
 }  // namespace
+
+thread_local int fused_vec4_route = kRouteGrid;
+
 }  // namespace scalecom
 
 extern "C" {
@@ -181,12 +184,14 @@ int scalecom_fused_reduce(const float* m, const float* g, int32_t* idx,
 }
 
 // The vec4 variant at M = topm <= kVecMaxTopm. Needs chunk % 4 == 0 and
-// 16-byte-aligned m and g (the outputs are fresh tensors).
+// 16-byte-aligned m and g (the outputs are fresh tensors). Writes the route
+// the launch took to *route: 0 one grid (clt_k), 1 staged in shared memory,
+// 2 the L2 re-read (true_topk).
 int scalecom_fused_reduce_vec4(const float* m, const float* g, int32_t* idx,
                                float* vals, float* m_out, float* ghat,
                                int64_t rows, int64_t workers, int64_t chunk,
                                int64_t topm, int mode, int leader, float beta,
-                               void* stream) {
+                               void* stream, int32_t* route) {
   using namespace scalecom;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =
@@ -194,6 +199,7 @@ int scalecom_fused_reduce_vec4(const float* m, const float* g, int32_t* idx,
                                              topm, leader, beta, st)
                     : fused_vec4_true_topk(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
                                            topm, beta, st);
+  *route = fused_vec4_route;
   return static_cast<int>(rc);
 }
 

@@ -18,7 +18,16 @@ cudaError_t fused_vec4_true_topk(const float* m, const float* g, int32_t* idx, f
                                  float* m_out, float* ghat, int64_t rows, int64_t workers,
                                  int64_t chunk, int64_t topm, float beta, cudaStream_t st);
 
+// The route the last vec4 launch on this thread took (kRouteGrid,
+// kRouteStaged or kRouteReread), for the wrapper's counts; defined in
+// fused_reduce.cu.
+extern thread_local int fused_vec4_route;
+
 namespace {
+
+constexpr int kRouteGrid = 0;    // clt_k: one grid that fills the card
+constexpr int kRouteStaged = 1;  // true_topk, the rows staged in shared memory
+constexpr int kRouteReread = 2;  // true_topk, the rows read again from L2
 
 constexpr int kCltK = 0;  // mode: the index in repro_torch.kernels.fused_reduce.MODES
 constexpr int kFusedThreads = 256;      // 8 warps per block
@@ -288,6 +297,7 @@ cudaError_t launch_fused_vec4(const float* m, const float* g, int32_t* idx, floa
                               float* m_out, float* ghat, int64_t rows, int64_t workers,
                               int64_t chunk, int leader, float beta, cudaStream_t stream) {
   if constexpr (!kTrue) {
+    fused_vec4_route = kRouteGrid;
     return launch_vec4<L, M, false, false>(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
                                            leader, beta, kFusedThreads, 0, INT64_MAX, stream);
   } else {
@@ -296,6 +306,7 @@ cudaError_t launch_fused_vec4(const float* m, const float* g, int32_t* idx, floa
     const int64_t stage =
         steps * kBatch * 2 * static_cast<int64_t>(sizeof(float4)) * kStagedThreads;
     if (stage <= kStageBytes) {
+      fused_vec4_route = kRouteStaged;
       return launch_vec4<L, M, true, true>(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
                                            leader, beta, kStagedThreads, stage, INT64_MAX,
                                            stream);
@@ -310,6 +321,7 @@ cudaError_t launch_fused_vec4(const float* m, const float* g, int32_t* idx, floa
     constexpr int64_t kBlockRows = (kFusedThreads / kWarp) * (kWarp / L);
     int64_t cap = l2 / 2 / (kBlockRows * workers * chunk * 8);
     if (cap < sms) cap = sms;
+    fused_vec4_route = kRouteReread;
     return launch_vec4<L, M, true, false>(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
                                           leader, beta, kFusedThreads, 0, cap, stream);
   }

@@ -42,6 +42,7 @@ from repro_torch.harness.scenarios import (
     make_stream,
     run_buildup_sweep,
     run_scenario,
+    scenario_names,
 )
 
 __all__ = [
@@ -64,4 +65,5 @@ __all__ = [
     "make_stream",
     "run_buildup_sweep",
     "run_scenario",
+    "scenario_names",
 ]

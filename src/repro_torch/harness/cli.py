@@ -116,7 +116,9 @@ def run_cli(argv: Optional[List[str]] = None) -> int:
 
     from repro_torch.backends import resolve_fused
     from repro_torch.device import resolve_device
-    from repro_torch.harness.scenarios import SCENARIOS, run_buildup_sweep, run_scenario
+    from repro_torch.harness.scenarios import (
+        SCENARIOS, run_buildup_sweep, run_scenario, scenario_names,
+    )
     from repro_torch.obs.provenance import provenance
 
     if args.list:
@@ -124,11 +126,7 @@ def run_cli(argv: Optional[List[str]] = None) -> int:
             print(f"{spec.name:12s} {spec.description}")
         return 0
 
-    names = (
-        list(SCENARIOS)
-        if args.scenarios == "all"
-        else [s.strip() for s in args.scenarios.split(",") if s.strip()]
-    )
+    names = scenario_names(args.scenarios)
     unknown = [n for n in names if n not in SCENARIOS]
     if unknown:
         print(

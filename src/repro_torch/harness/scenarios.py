@@ -62,6 +62,7 @@ __all__ = [
     "elastic_groups",
     "elastic_replan",
     "make_stream",
+    "scenario_names",
     "run_scenario",
     "run_buildup_sweep",
 ]
@@ -246,6 +247,14 @@ SCENARIOS: Dict[str, ScenarioSpec] = {
         row_fault=True,
     ),
 }
+
+
+def scenario_names(spec: str) -> List[str]:
+    """The scenario names of ``spec``: "all" (every one of ``SCENARIOS``) or a
+    comma list, as ``--scenarios`` and ``--preflight-scenarios`` take them."""
+    if spec == "all":
+        return list(SCENARIOS)
+    return [s.strip() for s in spec.split(",") if s.strip()]
 
 
 # ---------------------------------------------------------------------------

@@ -64,7 +64,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _P,
     ),
     "scalecom_fused_reduce_vec4": (
-        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _P,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _P, _P,
     ),
 }
 

@@ -25,12 +25,14 @@ both bases are 16-byte aligned and top-m <= 8, as on the main path; "scalar"
 (one warp per row, 4-byte loads, one pass per pick: the first design) for
 any other width, base or top-m. Both are checked on the card.
 
-The wrapper launches on CUDA tensors (counting ``fused_reduce.launches`` and
-``fused_reduce.variants``) and runs the plain version on CPU tensors.
+The wrapper launches on CUDA tensors (counting ``fused_reduce.launches``,
+``fused_reduce.variants`` and, for vec4, ``fused_reduce.routes`` as the
+library reports the route it took) and runs the plain version on CPU tensors.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
@@ -39,10 +41,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.chunk_topk import VEC4_MAX_TOPM, chunk_scatter_plain, chunk_topm_plain
 from repro_torch.kernels.ef_update import ef_update_plain
 
-__all__ = ["MODES", "fused_variant", "fused_reduce", "fused_reduce_plain"]
+__all__ = ["MODES", "ROUTES", "fused_variant", "fused_reduce", "fused_reduce_plain"]
 
 # Selection modes of the fused kernel, by the integer the kernel takes
 MODES = ("clt_k", "true_topk")
+# Routes of a vec4 launch, by the integer the library reports: clt_k runs one
+# grid; true_topk stages its rows in shared memory where they fit (G <= 12 at
+# chunk <= 512), else reads them again from L2
+ROUTES = ("one_grid", "staged", "l2_reread")
 
 
 def fused_variant(chunk: int, m_ptr: int, g_ptr: int, topm: int = 1) -> str:
@@ -119,15 +125,22 @@ def fused_reduce(
     if rows:
         variant = fused_variant(chunk, m.data_ptr(), g.data_ptr(), topm)
         lib = build.library()
-        fn = lib.scalecom_fused_reduce_vec4 if variant == "vec4" else lib.scalecom_fused_reduce
-        rc = fn(m.data_ptr(), g.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+        args = (m.data_ptr(), g.data_ptr(), idx.data_ptr(), vals.data_ptr(),
                 m_new.data_ptr(), ghat.data_ptr(), rows, G, chunk, topm,
                 MODES.index(mode), int(leader), float(beta), build.stream_of(m))
+        if variant == "vec4":
+            route = ctypes.c_int32(-1)
+            rc = lib.scalecom_fused_reduce_vec4(*args, ctypes.byref(route))
+        else:
+            rc = lib.scalecom_fused_reduce(*args)
         build.check(rc, name)
         fused_reduce.launches += 1
         fused_reduce.variants[variant] += 1
+        if variant == "vec4":
+            fused_reduce.routes[ROUTES[route.value]] += 1
     return idx, vals, m_new, ghat
 
 
 fused_reduce.launches = 0
 fused_reduce.variants = {"vec4": 0, "scalar": 0}  # launches by variant
+fused_reduce.routes = dict.fromkeys(ROUTES, 0)  # vec4 launches by the route the library took

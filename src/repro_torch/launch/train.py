@@ -49,14 +49,9 @@ def preflight(names: str, workers: int, compressor: str, chunk: int, groups, res
     ``--preflight-scenarios``: each scenario of ``names`` ("all" or a comma
     list) at this topology on ``device``; any violation prints it and raises
     ``SystemExit``, a topology the planner rejects raises its ValueError."""
-    from repro_torch.harness.scenarios import SCENARIOS, run_scenario
+    from repro_torch.harness.scenarios import run_scenario, scenario_names
 
-    todo = (
-        list(SCENARIOS)
-        if names == "all"
-        else [s.strip() for s in names.split(",") if s.strip()]
-    )
-    for name in todo:
+    for name in scenario_names(names):
         res = run_scenario(
             name, workers, compressor=compressor, chunk=chunk, groups=groups,
             residue_dtype=residue_dtype, device=device,

@@ -99,6 +99,7 @@ def test_cpu_tensors_take_the_plain_version(mode, topm, base):
     got = frk.fused_reduce(m, g, BETA, topm, mode, 2)
     assert kernels.launches()["fused_reduce"] == 0
     assert frk.fused_reduce.variants == {"vec4": 0, "scalar": 0}
+    assert frk.fused_reduce.routes == dict.fromkeys(frk.ROUTES, 0)
     for a, b in zip(got, frk.fused_reduce_plain(m, g, BETA, topm, mode, 2)):
         assert a.dtype == b.dtype and torch.equal(a.view(torch.int32), b.view(torch.int32))
 

@@ -351,6 +351,15 @@ def test_cli_exits_1_on_a_violation(tmp_path, monkeypatch):
     assert any(json.loads(line)["type"] == "violation" for line in events.read_text().splitlines())
 
 
+@pytest.mark.parametrize("spec,want", [
+    ("all", list(tsc.SCENARIOS)),
+    ("drop, stale,", ["drop", "stale"]),
+    ("corrupt", ["corrupt"]),
+])
+def test_scenario_names(spec, want):
+    assert tsc.scenario_names(spec) == want
+
+
 def test_preflight_passes_then_trains(capsys):
     history = train_cli.main(["--device", "cpu", "--preflight-scenarios", "all", "--workers", "8",
                               "--steps", "2", "--warmup-steps", "1", "--local-batch", "2",
