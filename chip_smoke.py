@@ -62,7 +62,8 @@ Phases, each fatal on failure:
      update and scatter once per compressed tensor and step, every select
      and scatter in its vec4 variant; fused: one fused_reduce, in its vec4
      variant, and nothing else); every compressed step's comm bytes equal
-     the plan's (the harness's ``check_comm_accounting``);
+     the plan's (the harness's ``check_comm_accounting``) and its nnz(ĝ)/k,
+     counted as the optimizer receives ĝ, passes ``check_buildup``;
   4. teacher-forced reduce from the trained state: the unfused "cuda"
      backend equals the "torch" backend bit for bit (and from the state
      before the first compressed step); the fused cuda reduce equals the
@@ -113,7 +114,22 @@ Phases, each fatal on failure:
      fp8 run's state where the fp32 one would take more than ~30 s). Each
      run's launches are counted from 0 and held to the plan;
   8. one more fused compressed step under ``torch.profiler``: device busy
-     time, idle share and the kernels that take the most device time.
+     time, idle share and the kernels that take the most device time;
+  9. ``[arch]``, the decoder archs of the registry at full width, depth cut
+     (``ARCH_RUNS``): starcoder2-3b (RMSNorm / SwiGLU, GQA with 2 KV heads)
+     at 2 of 30 layers, 8 workers, unfused and then fused, and
+     phi3.5-moe-42b-a6.6b (16 experts, top-2) at 1 of 32 layers, 2
+     workers, fused; each trained by ``run_training`` for 2 dense and 3
+     compressed steps with its launches held to the plan, every select,
+     scatter and fused launch vec4, the comm-bytes and build-up invariants
+     on every compressed step and a finite loss; step ms and peak memory.
+     From each trained state one fused and one unfused reduce on the card,
+     timed beside its byte bound and held tensor by tensor against the
+     torch backend's composition (``hold_reduce``, ``ReduceShadow``'s
+     rules); for the MoE arch the batched per-worker pass against the loop
+     (``grads_phase``) and nnz(ĝ)/k of the expert tensors. These launches
+     stand under ``arch_launches`` in the JSON line and are not in
+     ``launches``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -1419,40 +1435,48 @@ def grad_errors(a: dict, b: dict, what: str, tol: dict = GRAD_TOL) -> tuple:
     return worst, worst_path
 
 
-def grads_phase(model, params, batch, workers: int, t_dense: float, card_line: str):
+def grads_phase(model, params, batch, workers: int, t_dense, card_line: str, tag: str = "[grads]"):
     """[grads]: the batched per-worker pass (the main path's) against the
-    loop of one autograd pass per worker, from the trained state; two calls
-    of the batched pass bit for bit; host ms of both beside dense_grads."""
+    loop of one autograd pass per worker, from the trained state: every
+    gradient to ``GRAD_TOL``, the loss and each aux of the model (``nll``,
+    the MoE losses) per worker to rtol 1e-6, the MoE drop shares exactly;
+    two calls of the batched pass bit for bit; host ms of both beside
+    dense_grads (``t_dense``, None: not timed). At most two gradient sets
+    are alive at once. Returns the batched pass's gradients."""
     import torch
 
     from repro_torch import tree
     from repro_torch.training.train_step import per_worker_grads, per_worker_grads_loop
 
-    (l_loop, n_loop, g_loop), t_loop = host_ms(
+    (l_loop, a_loop, g_loop), t_loop = host_ms(
         lambda: per_worker_grads_loop(model, params, batch, workers))
-    (l_b, n_b, g_b), t_b = host_ms(lambda: per_worker_grads(model, params, batch, workers))
+    (l_b, a_b, g_b), t_b = host_ms(lambda: per_worker_grads(model, params, batch, workers))
+    check(bool(torch.isclose(l_b, l_loop, rtol=1e-6, atol=0)) and list(a_b) == list(a_loop)
+          and all(bool(torch.allclose(a_b[k], a_loop[k], rtol=1e-6, atol=0)) for k in a_b)
+          and all(torch.equal(a_b[k], a_loop[k]) for k in a_b if k == "moe_dropped_frac"),
+          f"{tag} loss {float(l_b)} / aux {dict((k, v.tolist()) for k, v in a_b.items())} "
+          f"against the loop's {float(l_loop)} / {dict((k, v.tolist()) for k, v in a_loop.items())}")
+    worst, worst_path = grad_errors(g_b, g_loop, f"{tag} batched pass vs loop")
+    del g_loop
     (l_b2, _, g_b2), t_b2 = host_ms(lambda: per_worker_grads(model, params, batch, workers))
-    check(bool(torch.isclose(l_b, l_loop, rtol=1e-6, atol=0)) and
-          bool(torch.isclose(n_b, n_loop, rtol=1e-6, atol=0)),
-          f"[grads] loss {float(l_b)} / nll {float(n_b)} against the loop's {float(l_loop)} / "
-          f"{float(n_loop)}")
-    worst, worst_path = grad_errors(g_b, g_loop, "[grads] batched pass vs loop")
     differ = [p for (p, x), (_, y) in zip(tree.flatten_with_path(g_b),
                                           tree.flatten_with_path(g_b2)) if not bitwise(x, y)]
+    del g_b2
     # tok_embed's gradient accumulates rows by token index (index_put_ with
     # accumulate under vmap's batching rule): the first to differ if any does
     check(not differ and bool(torch.equal(l_b, l_b2)),
-          f"[grads] two calls of the batched pass differ in {differ}")
-    print(f"[grads] per_worker_grads, one batched pass ({workers} workers x 4 x 128 tokens) "
+          f"{tag} two calls of the batched pass differ in {differ}")
+    print(f"{tag} per_worker_grads, one batched pass ({workers} workers x 4 x 128 tokens) "
           f"against per_worker_grads_loop: every gradient within rtol {GRAD_TOL['rtol']} / atol "
           f"{GRAD_TOL['atol']}, largest max|a-b|/max|b| {worst:.3e} ({worst_path}); loss "
-          f"{float(l_b):.6f} vs {float(l_loop):.6f}")
-    print("[grads] two calls of the batched pass: bitwise equal in every gradient, "
+          f"{float(l_b):.6f} vs {float(l_loop):.6f}; aux {sorted(a_b)} per worker within rtol 1e-6"
+          + (", drop shares equal" if "moe_dropped_frac" in a_b else ""))
+    print(f"{tag} two calls of the batched pass: bitwise equal in every gradient, "
           "tok_embed's index-accumulate included")
-    print(f"[grads] host ms: batched pass {t_b:.1f} and {t_b2:.1f}, loop {t_loop:.1f}, "
-          f"dense_grads {t_dense:.1f} (the same {workers * 4} x 128 tokens folded) on "
-          f"{card_line}")
-    del g_loop, g_b, g_b2
+    print(f"{tag} host ms: batched pass {t_b:.1f} and {t_b2:.1f}, loop {t_loop:.1f}"
+          + (f", dense_grads {t_dense:.1f} (the same {workers * 4} x 128 tokens folded)"
+             if t_dense is not None else "") + f" on {card_line}")
+    return g_b
 
 
 def microbatch_phase(model, opt, sched, sc_cfg, params, batch, batches_fn, plans, workers: int,
@@ -1711,50 +1735,63 @@ class ReduceShadow:
             scenarios.scalecom_reduce = real
 
     def hold(self, card, plain, fused: bool, chunk: int, mode: str, what: str) -> None:
-        import torch
-
-        from repro_torch import tree
-
-        (ghat, state, stats), (w_ghat, w_state, w_stats) = card, plain
-        check(state.t == w_state.t, f"harness {what}: step counter {state.t} != {w_state.t}")
-        check(float(stats["comm_bytes_per_worker"]) == float(w_stats["comm_bytes_per_worker"]),
-              f"harness {what}: comm bytes differ from the plain composition's")
-        for mine, want, part in ((ghat, w_ghat, "ĝ"), (state.residues, w_state.residues, "residues")):
-            check([k for k, _ in tree.flatten_with_path(mine)]
-                  == [k for k, _ in tree.flatten_with_path(want)],
-                  f"harness {what}: the {part} tree differs from the plain composition's")
-            for a in tree.leaves(mine):
-                check(a.is_cuda, f"harness {what}: a {part} tensor is on {a.device}")
-        res, w_res = state.residues, w_state.residues
-        bitwise = all(torch.equal(a, b) for a, b in zip(tree.leaves(ghat), tree.leaves(w_ghat)))
-        bitwise &= all(torch.equal(a, b) for a, b in zip(tree.leaves(res), tree.leaves(w_res)))
+        same, flipped, rows = hold_reduce(card, plain, fused, chunk, mode, f"harness {what}")
         self.reduces += 1
-        self.bitwise += bitwise
-        if bitwise:
-            return
-        check(fused, f"harness {what}: the unfused reduce differs from the plain composition's")
-        flipped = 0
-        for path, a in tree.flatten_with_path(ghat):
-            b = dict(tree.flatten_with_path(w_ghat))[path]
-            if path not in res:  # dense
-                check(close(a, b), f"harness {what}: dense ĝ {path} differs beyond rtol 1e-6")
-                continue
-            check(res[path].keys() == {"q"} and a.dtype == torch.float32,
-                  f"harness {what}: a fused reduce with residues {sorted(res[path])}")
-            pad = (-a.numel()) % chunk
-            ca = torch.nn.functional.pad(a.reshape(-1), (0, pad)).view(-1, chunk)
-            cb = torch.nn.functional.pad(b.reshape(-1), (0, pad)).view(-1, chunk)
-            qa, qb = res[path]["q"], w_res[path]["q"]
-            qa = torch.nn.functional.pad(qa.reshape(qa.shape[0], -1), (0, pad)).view(qa.shape[0], -1, chunk)
-            qb = torch.nn.functional.pad(qb.reshape(qb.shape[0], -1), (0, pad)).view(qb.shape[0], -1, chunk)
-            same = ((ca != 0) == (cb != 0)).all(-1) & (qa == qb).all(-1).all(0)
-            flipped += int((~same).sum())
-            self.rows += same.numel()
-            check(close(ca[same], cb[same]), f"harness {what}: ĝ {path} differs beyond rtol 1e-6 "
-                                             f"on the lanes both selected")
+        self.bitwise += same
         self.flips += flipped
-        check(mode == "true_topk" or flipped == 0,
-              f"harness {what}: {flipped} chunk rows select differently from the plain composition")
+        self.rows += rows
+
+
+def hold_reduce(card, plain, fused: bool, chunk: int, mode: str, what: str) -> tuple:
+    """One card reduce (ĝ, state, stats) against the plain composition's from
+    clones of the same inputs, with ``ReduceShadow``'s rules: the step counter
+    and comm bytes equal, the trees alike and on the card; unfused, ĝ and
+    every residue tensor bitwise; fused, the residues bitwise and ĝ to rtol
+    1e-6 / atol 1e-7 on the same lanes in every chunk row but those selected
+    differently (none for clt_k). Returns (bitwise, chunk rows selected
+    differently, fused chunk rows held)."""
+    import torch
+
+    from repro_torch import tree
+
+    (ghat, state, stats), (w_ghat, w_state, w_stats) = card, plain
+    check(state.t == w_state.t, f"{what}: step counter {state.t} != {w_state.t}")
+    check(float(stats["comm_bytes_per_worker"]) == float(w_stats["comm_bytes_per_worker"]),
+          f"{what}: comm bytes differ from the plain composition's")
+    for mine, want, part in ((ghat, w_ghat, "ĝ"), (state.residues, w_state.residues, "residues")):
+        check([k for k, _ in tree.flatten_with_path(mine)]
+              == [k for k, _ in tree.flatten_with_path(want)],
+              f"{what}: the {part} tree differs from the plain composition's")
+        for a in tree.leaves(mine):
+            check(a.is_cuda, f"{what}: a {part} tensor is on {a.device}")
+    res, w_res = state.residues, w_state.residues
+    same = all(torch.equal(a, b) for a, b in zip(tree.leaves(ghat), tree.leaves(w_ghat)))
+    same &= all(torch.equal(a, b) for a, b in zip(tree.leaves(res), tree.leaves(w_res)))
+    if same:
+        return True, 0, 0
+    check(fused, f"{what}: the unfused reduce differs from the plain composition's")
+    flipped = rows = 0
+    for path, a in tree.flatten_with_path(ghat):
+        b = dict(tree.flatten_with_path(w_ghat))[path]
+        if path not in res:  # dense
+            check(close(a, b), f"{what}: dense ĝ {path} differs beyond rtol 1e-6")
+            continue
+        check(res[path].keys() == {"q"} and a.dtype == torch.float32,
+              f"{what}: a fused reduce with residues {sorted(res[path])}")
+        pad = (-a.numel()) % chunk
+        ca = torch.nn.functional.pad(a.reshape(-1), (0, pad)).view(-1, chunk)
+        cb = torch.nn.functional.pad(b.reshape(-1), (0, pad)).view(-1, chunk)
+        qa, qb = res[path]["q"], w_res[path]["q"]
+        qa = torch.nn.functional.pad(qa.reshape(qa.shape[0], -1), (0, pad)).view(qa.shape[0], -1, chunk)
+        qb = torch.nn.functional.pad(qb.reshape(qb.shape[0], -1), (0, pad)).view(qb.shape[0], -1, chunk)
+        same_rows = ((ca != 0) == (cb != 0)).all(-1) & (qa == qb).all(-1).all(0)
+        flipped += int((~same_rows).sum())
+        rows += same_rows.numel()
+        check(close(ca[same_rows], cb[same_rows]),
+              f"{what}: ĝ {path} differs beyond rtol 1e-6 on the lanes both selected")
+    check(mode == "true_topk" or flipped == 0,
+          f"{what}: {flipped} chunk rows select differently from the plain composition")
+    return False, flipped, rows
 
 
 @contextlib.contextmanager
@@ -1932,6 +1969,309 @@ def expected_launches(plans, fused: bool, steps: int) -> dict:
     return want
 
 
+# The [arch] phase: two decoder archs of the registry at full width, their
+# depth cut to fit one card: (id, layers kept, workers, fused settings run in
+# turn). starcoder2-3b at 2 layers is 569,392,128 parameters (2.12 GiB a
+# copy): 8 workers' gradients and residues take 17.0 GiB each, and a third
+# layer would add ~20 GiB. phi3.5-moe at 1 layer is 1,562,980,352 (5.82 GiB
+# a copy); at 4 workers it would need ~64 GiB before the pass's transients,
+# at 2 ~41 GiB.
+ARCH_RUNS = (
+    ("starcoder2-3b", 2, 8, (False, True)),
+    ("phi3.5-moe-42b-a6.6b", 1, 2, (True,)),
+)
+# every training run: dense warm-up steps, then compressed ones up to STEPS
+WARMUP, STEPS = 2, 5
+# the kernels a CLT-k reduce launches, unfused and fused: the arch path's
+ARCH_KERNELS = ("chunk_argmax", "chunk_scatter", "ef_update", "fused_reduce")
+
+
+def observed(opt, paths):
+    """``opt`` with the ĝ of each update counted first: per call one device
+    tensor of nnz(ĝ) per tensor of ``paths`` (the compressed ones), appended
+    to the returned list. The update itself is ``opt``'s."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.optim.optimizer import Optimizer
+
+    counts = []
+
+    def update(grads, state, params, lr):
+        flat = dict(tree.flatten_with_path(grads))
+        counts.append(torch.stack([torch.count_nonzero(flat[p]) for p in paths]))
+        return opt.update(grads, state, params, lr)
+
+    return Optimizer(opt.init, update), counts
+
+
+def leaf_trees(t, keys: tuple = ()) -> list:
+    """[(keystr path, a nested dict holding that one leaf)] of tree ``t``.
+    (A module-level recursion: a recursive closure would be a reference
+    cycle keeping every leaf alive until the garbage collector runs.)"""
+    from repro_torch import tree
+
+    if isinstance(t, dict):
+        return [x for k in sorted(t) for x in leaf_trees(t[k], keys + (k,))]
+    for k in reversed(keys):
+        t = {k: t}
+    return [(tree.keystr(keys), t)]
+
+
+@dataclasses.dataclass
+class TrainRun:
+    state: object
+    loop: object
+    batches: object  # the batch iterator, past the run's steps
+    plans: tuple
+    launches: dict
+    step_ms: list
+    nnz: object  # (steps, compressed tensors) nnz(ĝ) as the optimizer received ĝ, on the host
+
+
+def train_run(cfg, model, opt, sched, sc_cfg, workers: int, steps: int, label: str,
+              card_line: str, prefix: str) -> TrainRun:
+    """``run_training`` of ``model`` from random weights (seed 0) on synthetic
+    Markov tokens (seed 0, 4 x 128 a worker) for ``steps`` steps, the first
+    ``sc_cfg.warmup_steps`` dense. Its launches are counted from 0 and held
+    to the plan, every select, scatter and fused launch vec4; every
+    compressed step passes the harness's comm-bytes and build-up invariants
+    (nnz(ĝ) counted as the optimizer receives ĝ) with a finite loss. Prints
+    a line per step, each beginning with ``prefix``."""
+    import torch
+
+    from repro_torch import kernels, tree
+    from repro_torch.core.plan import plan_tensors
+    from repro_torch.core.state import residue_signature
+    from repro_torch.data import make_batches
+    from repro_torch.harness.invariants import check_buildup, check_comm_accounting
+    from repro_torch.kernels import chunk_topk as ct, fused_reduce as frk
+    from repro_torch.training import TrainLoop, init_train_state, run_training
+
+    t0 = time.perf_counter()
+    # held in a list that run_training empties: a name bound to the first
+    # state would keep its zero residues (17 GiB at starcoder2's 8 workers)
+    # alive through the run
+    first = [init_train_state(model, opt, sc_cfg, torch.Generator().manual_seed(0),
+                              n_workers=workers, device="cuda")]
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    plans = plan_tensors(
+        tuple((p, tuple(v.shape), workers) for p, v in tree.flatten_with_path(first[0].params)),
+        sc_cfg, residue_signature(first[0].sc_state.residues))
+    compressed = [p for p in plans if not p.dense]
+    print(f"{prefix} {cfg.name}: {cfg.param_count():,} parameters, {len(compressed)} of "
+          f"{len(plans)} tensors compressed; init {t_init:.1f} s")
+    watched, counts = observed(opt, [p.path for p in compressed])
+    loop = TrainLoop(model=model, optimizer=watched, schedule=sched, sc_cfg=sc_cfg,
+                     n_workers=workers, log_every=1)
+    batches = make_batches(cfg.vocab, workers, 4, 128, seed=0)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    state, history = run_training(loop, first.pop(), batches, steps, log=None)
+    torch.cuda.synchronize()
+    got = kernels.launches()
+    nnz = torch.stack(counts).cpu()
+    k_total = sum(p.k for p in compressed)
+    planned = sum(p.bytes_payload for p in plans)
+    n_compressed_steps = steps - sc_cfg.warmup_steps
+    per_step = [history[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
+                                         for a, b in zip(history, history[1:])]
+    ratios = []
+    for h, dt in zip(history, per_step):
+        i = h["step"]
+        check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
+              f"{label}: non-finite loss or grad norm at step {i}")
+        kind = "compressed" if loop.compressed_at(i) else "dense"
+        line = (f"{prefix} step {i} {kind}: loss {h['loss']:.4f} nll {h['nll']:.4f} gnorm "
+                f"{h['grad_norm']:.4f} lr {h['lr']:.3f} {dt * 1e3:.1f} ms")
+        if "moe_dropped_frac" in h:
+            line += (f"; moe_dropped_frac {h['moe_dropped_frac']:.6f} moe_lb_loss "
+                     f"{h['moe_lb_loss']:.6f} moe_z_loss {h['moe_z_loss']:.4f}")
+        if kind == "compressed":
+            v = check_comm_accounting(h["comm_bytes_per_worker"], planned)
+            check(v is None, f"{label}: step {i}: {v}")
+            ratios.append(int(nnz[i].sum()) / k_total)
+            v = check_buildup(ratios[-1], sc_cfg.compressor.name, workers, sc_cfg.compressor.chunk)
+            check(v is None, f"{label}: step {i}: {v}")
+            line += f"; nnz(ĝ)/k {ratios[-1]:.6f}"
+        print(f"{line} on {card_line}")
+    print(f"[harness:full-width] {label}: comm_bytes_per_worker == core.plan's {planned:,.1f} B "
+          f"and nnz(ĝ)/k (" + " / ".join(f"{r:.6f}" for r in ratios) + ") within check_buildup "
+          f"on all {n_compressed_steps} compressed steps")
+    want = expected_launches(plans, sc_cfg.fused, n_compressed_steps)
+    print(f"{prefix} launches {got} (want {want}: {len(compressed)} tensors x "
+          f"{n_compressed_steps} compressed steps)")
+    check(got == want, f"{label}: launches {got}, want {want}")
+    for wrapper in (ct.chunk_argmax, ct.chunk_scatter, frk.fused_reduce):
+        check(wrapper.variants == {"vec4": got[wrapper.__name__], "scalar": 0},
+              f"{label}: {wrapper.__name__} variants {wrapper.variants}, want vec4 only")
+    print(f"{prefix} every chunk_argmax, chunk_scatter and fused_reduce launch ran the vec4 "
+          f"variant ({got['chunk_argmax']}, {got['chunk_scatter']} and {got['fused_reduce']})")
+    return TrainRun(state, loop, batches, plans, got, [dt * 1e3 for dt in per_step], nnz)
+
+
+def reduce_bound(plans, workers: int) -> tuple:
+    """(bound ms, bytes) of one reduce: each worker's m and g read once and
+    m' and ĝ written once for a compressed tensor, the gradients read and
+    the mean written for a dense one."""
+    nbytes = 0
+    for p in plans:
+        n = math.prod(p.shape)
+        nbytes += 4 * ((workers + 1) * n if p.dense else (3 * workers + 1) * n)
+    return bound(nbytes, 0)[0], nbytes
+
+
+def arch_hold(label: str, gpw, sc_state, sc_cfg, plans, fused: bool, workers: int,
+              card_line: str) -> dict:
+    """A teacher-forced reduce on the card from the trained state (cuda
+    backend, ``fused`` or not), timed, and held tensor by tensor against the
+    torch backend's composition from the same inputs (``hold_reduce``; one
+    tensor's composition alive at a time); the comm bytes of the whole equal
+    the tensors' sum and nnz(ĝ)/k passes ``check_buildup``. The card's new
+    residues are parked in host memory meanwhile. Returns {path: nnz(ĝ)/k}
+    of the compressed tensors."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.core.scalecom import scalecom_reduce
+    from repro_torch.core.state import ScaleComState
+    from repro_torch.harness.invariants import check_buildup
+
+    cfg_c = dataclasses.replace(sc_cfg, fused=fused, backend="cuda")
+    cfg_t = dataclasses.replace(cfg_c, backend="torch")
+    n_compressed = sum(not p.dense for p in plans)
+    torch.cuda.reset_peak_memory_stats()
+    dev_ms = device_ms(lambda: scalecom_reduce(gpw, sc_state, cfg_c),
+                       (counter("fused_reduce" if fused else "ef_update"), n_compressed),
+                       reps=5, warmup=1, what=f"[arch] {label} reduce")
+    (ghat, new_state, stats), ms = host_ms(lambda: scalecom_reduce(gpw, sc_state, cfg_c))
+    # the card's new residues wait in host memory while the compositions run
+    # (starcoder2's are 17 GiB), and come back one tensor at a time
+    parked = {p: {k: v.cpu() for k, v in enc.items()} for p, enc in new_state.residues.items()}
+    t_new, gpw_device = new_state.t, tree.leaves(ghat)[0].device
+    del new_state
+    bound_ms, nbytes = reduce_bound(plans, workers)
+    by_plan = {p.path: p for p in plans}
+    card_ghat = dict(tree.flatten_with_path(ghat))
+    bitwise_n = flipped = rows = 0
+    comm = 0.0
+    ratios = {}
+    for path, one in leaf_trees(gpw):
+        res = {path: sc_state.residues[path]} if path in sc_state.residues else {}
+        plain = scalecom_reduce(one, ScaleComState(residues=res, t=sc_state.t), cfg_t)
+        comm += plain[2]["comm_bytes_per_worker"]
+        card = (tree.unflatten(one, [card_ghat[path]]),
+                ScaleComState(residues={p: {k: v.to(gpw_device) for k, v in parked.pop(p).items()}
+                                        for p in res}, t=t_new),
+                {"comm_bytes_per_worker": by_plan[path].bytes_payload})
+        same, f, r = hold_reduce(card, plain, fused, CHUNK, "clt_k", f"[arch] {label} {path}")
+        bitwise_n, flipped, rows = bitwise_n + same, flipped + f, rows + r
+        if not by_plan[path].dense:
+            ratios[path] = int(torch.count_nonzero(card_ghat[path])) / by_plan[path].k
+        del plain, card
+    check(comm == stats["comm_bytes_per_worker"],
+          f"[arch] {label}: comm bytes {stats['comm_bytes_per_worker']} against the tensors' "
+          f"{comm}")
+    nnz = sum(r * by_plan[p].k for p, r in ratios.items())
+    k = sum(by_plan[p].k for p in ratios)
+    v = check_buildup(nnz / k, "clt_k", workers, CHUNK)
+    check(v is None, f"[arch] {label} reduce from the trained state: {v}")
+    print(f"[arch] {label} reduce from the trained state, cuda backend: {dev_ms:.2f} device ms "
+          f"(5 calls back to back), {ms:.2f} ms host clock (the held call), against a bound of "
+          f"{bound_ms:.2f} ms ({nbytes / 1e9:.2f} GB over {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+          f"{bound_ms / dev_ms:.0%} of it; held tensor by tensor against the torch "
+          f"backend's composition: {bitwise_n} of {len(by_plan)} bitwise"
+          + (f", the rest residues bitwise and ĝ within rtol 1e-6, {flipped} of {rows} chunk "
+             f"rows selected differently" if bitwise_n < len(by_plan) else "")
+          + f"; comm bytes {comm:,.1f} B; nnz(ĝ)/k {nnz / k:.6f}; peak allocated "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card_line}")
+    del ghat, card_ghat
+    return ratios
+
+
+def arch_phase(card_line: str) -> dict:
+    """[arch]: the decoder archs of ``ARCH_RUNS`` at full width, depth cut,
+    trained by ``train_run`` (once per fused setting, the main path's
+    settings), then from the last run's trained state one fused and one
+    unfused reduce held against the torch backend's composition
+    (``arch_hold``); for an MoE arch also the batched per-worker pass against
+    the loop (``grads_phase``) and nnz(ĝ)/k of the expert tensors. Returns
+    the training runs' kernel launches, summed."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.scalecom import ScaleComConfig
+    from repro_torch.data import make_batches
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer, schedule
+    from repro_torch.training.train_step import per_worker_grads
+
+    t_phase = time.perf_counter()
+    launched = dict.fromkeys(KERNELS, 0)
+    opt = make_optimizer("sgdm")
+    sched = schedule.linear_warmup(schedule.constant(0.05), WARMUP)
+    base_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
+                              min_size=1024, warmup_steps=WARMUP)
+    for name, layers, workers, fused_runs in ARCH_RUNS:
+        full = registry.arch(name)
+        cfg = dataclasses.replace(full, n_layers=layers)
+        model = build_model(cfg, loss_chunk=64)
+        experts = (f", {cfg.n_experts} experts top-{cfg.moe_topk} capacity factor "
+                   f"{cfg.capacity_factor}" if cfg.n_experts else "")
+        print(f"[arch] {name}: {layers} of {full.n_layers} layers (d {cfg.d_model}, {cfg.n_heads} "
+              f"heads, {cfg.n_kv_heads} KV heads, hd {cfg.hd}, d_ff {cfg.d_ff}{experts}, vocab "
+              f"{cfg.vocab}, {cfg.norm}); {workers} workers x 4 x 128 tokens, CLT-k chunk "
+              f"{CHUNK} top-1, beta {BETA}, fp32 residues")
+        run = None
+        for fused in fused_runs:
+            del run
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            label = f"{name} {'fused' if fused else 'unfused'}"
+            run = train_run(cfg, model, opt, sched, dataclasses.replace(base_cfg, fused=fused),
+                            workers, STEPS, label, card_line, f"[arch] {label}")
+            print(f"[arch] {label}: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                  f"GiB on {card_line}")
+            launched = {k: n + run.launches[k] for k, n in launched.items()}
+            compressed = [p for p in run.plans if not p.dense]
+            for i, p in enumerate(compressed):
+                if "expert_" in p.path:
+                    print(f"[arch] {label} {p.path}: nnz(ĝ)/k per compressed step "
+                          + " / ".join(f"{int(run.nnz[s][i]) / p.k:.6f}"
+                                       for s in range(WARMUP, STEPS)))
+        state, plans = run.state, run.plans
+        del run
+        batch = {k: torch.as_tensor(v, device="cuda")
+                 for k, v in next(make_batches(cfg.vocab, workers, 4, 128, seed=1)).items()}
+        if cfg.n_experts:
+            gpw = grads_phase(model, state.params, batch, workers, None, card_line,
+                              tag=f"[arch] {name} [grads]")
+        else:
+            (_, _, gpw), t_pw = host_ms(lambda: per_worker_grads(model, state.params, batch,
+                                                                  workers))
+            print(f"[arch] {name} per_worker_grads from the trained state: {t_pw:.1f} ms host "
+                  f"clock on {card_line}")
+        sc_state = state.sc_state
+        del state  # the parameters and momentum
+        torch.cuda.empty_cache()
+        for fused in (True, False):
+            ratios = arch_hold(f"{name} {'fused' if fused else 'unfused'}", gpw, sc_state,
+                               base_cfg, plans, fused, workers, card_line)
+            if fused and cfg.n_experts:
+                print(f"[arch] {name} fused reduce from the trained state, expert tensors: "
+                      + "; ".join(f"{p} nnz(ĝ)/k {r:.6f}" for p, r in ratios.items()
+                                  if "expert_" in p or "router" in p))
+        del gpw, sc_state, batch
+        torch.cuda.empty_cache()
+    missing = [k for k in ARCH_KERNELS if launched[k] == 0]
+    check(not missing, f"[arch] {missing} never launched on the arch path")
+    print(f"[arch] launches of the training runs: {launched}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s wall on {card_line}")
+    return launched
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)  # a cut run still shows how far it got
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -1953,11 +2293,10 @@ def main() -> None:
     from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
     from repro_torch.core.state import ScaleComState, residue_bytes, residue_signature
     from repro_torch.data import make_batches
-    from repro_torch.harness.invariants import check_buildup, check_comm_accounting
-    from repro_torch.kernels import build, chunk_topk as ct, fused_reduce as frk
+    from repro_torch.harness.invariants import check_buildup
+    from repro_torch.kernels import build, chunk_topk as ct
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer, schedule
-    from repro_torch.training import TrainLoop, init_train_state, run_training
     from repro_torch.training.train_step import dense_grads, per_worker_grads
 
     # -- 1. card and versions ------------------------------------------------
@@ -1980,7 +2319,7 @@ def main() -> None:
 
     # -- 3. the main path at full width, unfused then fused ---------------------
     cfg = registry.arch("paper-transformer-base")
-    warmup, steps, workers = 2, 5, 8
+    warmup, steps, workers = WARMUP, STEPS, 8
     model = build_model(cfg, loss_chunk=64)
     base_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
                               min_size=1024, warmup_steps=warmup, fused=False)
@@ -1991,68 +2330,19 @@ def main() -> None:
     def batches_fn():
         return make_batches(cfg.vocab, workers, 4, 128, seed=0)
 
-    def train_run(sc_cfg, label):
-        state = init_train_state(model, opt, sc_cfg, torch.Generator().manual_seed(0),
-                                 n_workers=workers, device="cuda")
-        plans = plan_tensors(
-            tuple((p, tuple(v.shape), workers) for p, v in tree.flatten_with_path(state.params)),
-            sc_cfg, residue_signature(state.sc_state.residues))
-        n_compressed = sum(not p.dense for p in plans)
-        print(f"[train:{label}] {cfg.name}: {cfg.param_count():,} parameters, {n_compressed} of "
-              f"{len(plans)} tensors compressed")
-        loop = TrainLoop(model=model, optimizer=opt, schedule=sched, sc_cfg=sc_cfg,
-                         n_workers=workers, log_every=1)
-        batches = batches_fn()
-        torch.cuda.synchronize()
-        kernels.reset_launches()
-        state, history = run_training(loop, state, batches, steps, log=None)
-        torch.cuda.synchronize()
-        got = kernels.launches()
-        per_step = [history[0]["wall_s"]] + [b["wall_s"] - a["wall_s"]
-                                             for a, b in zip(history, history[1:])]
-        step_ms[label] = [dt * 1e3 for dt in per_step]
-        for h, dt in zip(history, per_step):
-            kind = "compressed" if loop.compressed_at(h["step"]) else "dense"
-            print(f"[train:{label}] step {h['step']} {kind}: loss {h['loss']:.4f} gnorm "
-                  f"{h['grad_norm']:.4f} lr {h['lr']:.3f} {dt * 1e3:.1f} ms on {card_line}")
-            check(math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]),
-                  f"{label}: non-finite loss or grad norm at step {h['step']}")
-        # the harness's comm-bytes invariant on every compressed step at full width
-        planned = sum(p.bytes_payload for p in plans)
-        for h in history:
-            if loop.compressed_at(h["step"]):
-                v = check_comm_accounting(h["comm_bytes_per_worker"], planned)
-                check(v is None, f"{label}: step {h['step']}: {v}")
-        print(f"[harness:full-width] {label}: comm_bytes_per_worker == core.plan's "
-              f"{planned:,.1f} B on all {steps - warmup} compressed steps")
-        want = expected_launches(plans, sc_cfg.fused, steps - warmup)
-        print(f"[train:{label}] launches {got} (want {want}: {n_compressed} tensors x "
-              f"{steps - warmup} compressed steps)")
-        check(got == want, f"{label}: launches {got} on the main path, want {want}")
-        check(ct.chunk_argmax.variants == {"vec4": got["chunk_argmax"], "scalar": 0},
-              f"{label}: chunk_argmax variants {ct.chunk_argmax.variants} on the main path, "
-              f"want vec4 only")
-        check(ct.chunk_scatter.variants == {"vec4": got["chunk_scatter"], "scalar": 0},
-              f"{label}: chunk_scatter variants {ct.chunk_scatter.variants} on the main path, "
-              f"want vec4 only")
-        check(frk.fused_reduce.variants == {"vec4": got["fused_reduce"], "scalar": 0},
-              f"{label}: fused_reduce variants {frk.fused_reduce.variants} on the main path, "
-              f"want vec4 only")
-        if got["fused_reduce"]:
-            print(f"[train:{label}] fused_reduce ran the vec4 variant on all "
-                  f"{got['fused_reduce']} launches (variants {frk.fused_reduce.variants})")
-        if got["chunk_argmax"]:
-            print(f"[train:{label}] chunk_argmax and chunk_scatter ran the vec4 variant on all "
-                  f"{got['chunk_argmax']} and {got['chunk_scatter']} launches "
-                  f"({got['chunk_scatter'] // (steps - warmup)} scatters per compressed step)")
-        path_launches.update({k: n for k, n in got.items() if n})
-        return state, loop, batches
+    def train(sc_cfg, label):
+        run = train_run(cfg, model, opt, sched, sc_cfg, workers, steps, label, card_line,
+                        f"[train:{label}]")
+        path_launches.update({k: n for k, n in run.launches.items() if n})
+        step_ms[label] = run.step_ms
+        return run
 
-    state, _, _ = train_run(base_cfg, "unfused")
-    del state
+    train(base_cfg, "unfused")
     torch.cuda.empty_cache()
     sc_cfg = dataclasses.replace(base_cfg, fused=True)
-    state, loop, batches = train_run(sc_cfg, "fused")
+    fused_run = train(sc_cfg, "fused")
+    state, loop, batches = fused_run.state, fused_run.loop, fused_run.batches
+    del fused_run
 
     # -- 4. teacher-forced reduce from the trained state -------------------------
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(batches).items()}
@@ -2232,7 +2522,7 @@ def main() -> None:
     states = {"fp32": trained}
     for name in ("fp32",) + LOSSY:
         if name != "fp32":
-            run, _, _ = train_run(dataclasses.replace(sc_cfg, residue_dtype=name), f"fused {name}")
+            run = train(dataclasses.replace(sc_cfg, residue_dtype=name), f"fused {name}").state
             states[name], params = run.sc_state, run.params
             if name == "fp8":
                 fp8_state = run  # for [checkpoint]
@@ -2287,10 +2577,17 @@ def main() -> None:
         print(f"[profile] device time not measured: torch.profiler recorded no device events "
               f"({wall_ms:.1f} ms host clock)")
 
+    # -- 9. the decoder archs at full width: starcoder2-3b and phi3.5-moe -----------
+    del state, loop, batches, batch, step_batch, metrics, prof, on_card, trained, before
+    del m_t, g_t, idx, ghat
+    torch.cuda.empty_cache()
+    arch_launches = arch_phase(card_line)
+
     for name in KERNELS:
         check(path_launches.get(name, 0) > 0, f"{name} was never launched on the main path")
         results[name]["launches"] = path_launches[name] + harness_launches[name]
         results[name]["harness_launches"] = harness_launches[name]
+        results[name]["arch_launches"] = arch_launches[name]
     results["fused_reduce"]["harness_routes"] = harness_routes
     print(json.dumps({"kernels": [results[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

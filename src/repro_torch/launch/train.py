@@ -1,7 +1,9 @@
-"""Training entry point: trains the paper transformer's smoke variant with ScaleCom
-on synthetic data, simulating n workers on one device.
+"""Training entry point: trains an architecture's smoke variant (``--arch``, one
+of ``repro_torch.configs.registry.ARCHS``) with ScaleCom on synthetic data,
+simulating n workers on one device.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --workers 8 --steps 200 \
+    PYTHONPATH=src python -m repro_torch.launch.train --arch starcoder2-3b \
+        --workers 8 --steps 200 \
         --compressor clt_k --chunk 64 --beta 0.1 [--device cuda|cpu] \
         [--trace-dir DIR [--metrics-every N]] [--checkpoint-dir DIR] \
         [--preflight-scenarios all|NAME,...]
@@ -67,7 +69,8 @@ def preflight(names: str, workers: int, compressor: str, chunk: int, groups, res
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="paper-transformer-base", choices=list(registry.ARCHS))
+    ap.add_argument("--arch", default="paper-transformer-base",
+                    help=f"architecture id; its SMOKE variant trains: {', '.join(registry.ARCHS)}")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--workers", type=int, default=8)
     ap.add_argument("--local-batch", type=int, default=4)
@@ -118,8 +121,8 @@ def main(argv=None):
         ap.error("--metrics-every requires --trace-dir (the similarity taps "
                  "need the telemetry run to land anywhere)")
 
+    cfg = registry.smoke(args.arch)  # an id the port lacks raises, naming the ported ones
     device = resolve_device(args.device)
-    cfg = registry.smoke(args.arch)
     print(f"[launch.train] torch {torch.__version__} on {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
     if args.preflight_scenarios:

@@ -1,4 +1,5 @@
-"""The dense paper transformer. ``build_model`` is the construction entry point."""
+"""The decoder-only transformers (dense and MoE). ``build_model`` is the construction
+entry point."""
 
 from repro_torch.models.transformer import Model, build_model
 

@@ -1,7 +1,7 @@
-"""Shared model pieces: parameter init, layernorm, RoPE, the GELU MLP,
-embeddings and the chunked cross-entropy.
+"""Shared model pieces: parameter init, layernorm and RMSNorm, RoPE, the GELU
+and SwiGLU MLPs, embeddings and the chunked cross-entropy.
 
-The port of the dense-path parts of ``repro.models.common``. Parameters are
+The port of the decoder parts of ``repro.models.common``. Parameters are
 plain nested dicts of tensors with the JAX package's names and stacked
 shapes, so a JAX parameter tree carries across (``models.convert``) and the
 residue keys match.
@@ -19,8 +19,13 @@ Tensor = torch.Tensor
 __all__ = [
     "ParamStore",
     "layernorm",
+    "rmsnorm",
+    "init_norm",
+    "apply_norm",
     "apply_rope",
     "gelu_mlp",
+    "init_swiglu",
+    "swiglu",
     "embed_tokens",
     "lm_logits",
     "chunked_xent",
@@ -72,13 +77,23 @@ def layernorm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tens
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
-def init_norm(store: ParamStore, prefix: str, d: int, stacked: int = 0):
+def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """fp32 RMSNorm (a scale, no bias), as the JAX package computes it."""
+    x = x.to(torch.float32)
+    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * scale
+
+
+def init_norm(cfg, store: ParamStore, prefix: str, d: int, stacked: int = 0):
+    """``cfg.norm``'s parameters: a scale, and for layernorm a bias."""
     store.ones(f"{prefix}_scale", (d,), stacked=stacked)
-    store.zeros(f"{prefix}_bias", (d,), stacked=stacked)
+    if cfg.norm == "layernorm":
+        store.zeros(f"{prefix}_bias", (d,), stacked=stacked)
 
 
-def apply_norm(x: Tensor, p: Dict[str, Tensor], prefix: str) -> Tensor:
-    return layernorm(x, p[f"{prefix}_scale"], p[f"{prefix}_bias"])
+def apply_norm(cfg, x: Tensor, p: Dict[str, Tensor], prefix: str) -> Tensor:
+    if cfg.norm == "layernorm":
+        return layernorm(x, p[f"{prefix}_scale"], p[f"{prefix}_bias"])
+    return rmsnorm(x, p[f"{prefix}_scale"])
 
 
 def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
@@ -103,6 +118,17 @@ def gelu_mlp(p: Dict[str, Tensor], x: Tensor) -> Tensor:
     """GELU MLP with biases; jax.nn.gelu's default is the tanh approximation."""
     h = F.gelu(x @ p["mlp_up"] + p["mlp_up_b"], approximate="tanh")
     return h @ p["mlp_down"] + p["mlp_down_b"]
+
+
+def init_swiglu(store: ParamStore, d: int, f: int, stacked: int = 0):
+    store.dense("mlp_gate", (d, f), stacked=stacked)
+    store.dense("mlp_up", (d, f), stacked=stacked)
+    store.dense("mlp_down", (f, d), stacked=stacked)
+
+
+def swiglu(p: Dict[str, Tensor], x: Tensor) -> Tensor:
+    """silu(x @ gate) * (x @ up) @ down, no biases."""
+    return (F.silu(x @ p["mlp_gate"]) * (x @ p["mlp_up"])) @ p["mlp_down"]
 
 
 def init_embeddings(cfg, store: ParamStore):

@@ -61,31 +61,25 @@ def _with_grad(params):
     return tree.tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
-def _worker_grads(model):
-    """(params, one worker's batch) -> (grads, (loss, nll)), for vmap."""
-    def loss(params, batch):
-        value, aux = model.loss(params, batch)
-        return value, aux["nll"]
-
-    return torch.func.grad_and_value(loss, has_aux=True)
-
-
 def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1):
-    """(mean worker loss, mean worker nll, {path: (n, *shape) gradients}).
+    """(mean worker loss, {aux: (n,) per-worker values}, {path: (n, *shape)
+    gradients}); the aux dict is the model's (``nll``, and the MoE losses).
 
     One vmapped pass over the workers per microbatch. With ``microbatches``
     M > 1, microbatch j is rows j*B/M .. (j+1)*B/M - 1 of every worker's
     batch; the gradients are summed in fp32 and divided by M, the loss is
-    the mean of the M passes' loss sums over n and nll the mean of their
-    worker means.
+    the mean of the M passes' loss sums over n, and each aux the mean of its
+    M per-worker values.
     """
     shapes = {k: tuple(v.shape) for k, v in batch.items()}
     if any(s[0] != n_workers for s in shapes.values()):
         raise ValueError(f"batch leaves {shapes} do not lead with {n_workers} workers")
-    batched = torch.func.vmap(_worker_grads(model), in_dims=(None, 0))
+    # (params, one worker's batch) -> (grads, (loss, aux)), mapped over the workers
+    batched = torch.func.vmap(torch.func.grad_and_value(model.loss, has_aux=True),
+                              in_dims=(None, 0))
     if microbatches == 1:
-        grads, (losses, nlls) = batched(params, batch)
-        return torch.sum(losses) / n_workers, torch.mean(nlls), grads
+        grads, (losses, auxs) = batched(params, batch)
+        return torch.sum(losses) / n_workers, auxs, grads
     B = next(iter(shapes.values()))[1]
     if B % microbatches:
         raise ValueError(f"per-worker batch {B} is not divisible by microbatches={microbatches}")
@@ -94,17 +88,18 @@ def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1
     acc = tree.tree_map(
         lambda p: torch.zeros((n_workers,) + tuple(p.shape), dtype=torch.float32,
                               device=p.device), params)
-    loss_sums, nlls = [], []
+    loss_sums, aux_passes = [], []
     for j in range(microbatches):
-        grads, (losses, nll) = batched(params, {k: v[:, j] for k, v in mbs.items()})
+        grads, (losses, auxs) = batched(params, {k: v[:, j] for k, v in mbs.items()})
         for a, g in zip(tree.leaves(acc), tree.leaves(grads)):
             a.add_(g.to(torch.float32))
         del grads
         loss_sums.append(torch.sum(losses))
-        nlls.append(torch.mean(nll))
+        aux_passes.append(auxs)
     for a in tree.leaves(acc):
         a.div_(microbatches)
-    return torch.mean(torch.stack(loss_sums)) / n_workers, torch.mean(torch.stack(nlls)), acc
+    auxs = {k: torch.mean(torch.stack([a[k] for a in aux_passes]), dim=0) for k in aux_passes[0]}
+    return torch.mean(torch.stack(loss_sums)) / n_workers, auxs, acc
 
 
 def per_worker_grads_loop(model, params, batch, n_workers: int):
@@ -115,23 +110,25 @@ def per_worker_grads_loop(model, params, batch, n_workers: int):
     stacked = [torch.empty((n_workers,) + tuple(p.shape), dtype=p.dtype, device=p.device)
                for p in flat]
     loss_sum = torch.zeros((), dtype=torch.float32, device=flat[0].device)
-    nll_sum = torch.zeros_like(loss_sum)
+    auxs = []
     for i in range(n_workers):
         loss, aux = model.loss(pg, {k: v[i] for k, v in batch.items()})
         for out, g in zip(stacked, torch.autograd.grad(loss, flat)):
             out[i].copy_(g)
         loss_sum += loss.detach()
-        nll_sum += aux["nll"].detach()
-    return loss_sum / n_workers, nll_sum / n_workers, tree.unflatten(params, stacked)
+        auxs.append({k: v.detach() for k, v in aux.items()})
+    return (loss_sum / n_workers, {k: torch.stack([a[k] for a in auxs]) for k in auxs[0]},
+            tree.unflatten(params, stacked))
 
 
 def dense_grads(model, params, batch):
-    """(loss, nll, grads) of the loss over the folded global batch."""
+    """(loss, aux, grads) of the loss over the folded global batch."""
     folded = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch.items()}
     pg = _with_grad(params)
     loss, aux = model.loss(pg, folded)
     grads = torch.autograd.grad(loss, tree.leaves(pg))
-    return loss.detach(), aux["nll"].detach(), tree.unflatten(params, list(grads))
+    return (loss.detach(), {k: v.detach() for k, v in aux.items()},
+            tree.unflatten(params, list(grads)))
 
 
 def build_train_step(
@@ -177,14 +174,14 @@ def build_train_step(
         device = tree.leaves(state.params)[0].device
         batch = _batch_on(batch, device)
         if mode == "scalecom":
-            loss, nll, gpw = per_worker_grads(model, state.params, batch, n_workers,
-                                              microbatches)
+            loss, auxs, gpw = per_worker_grads(model, state.params, batch, n_workers,
+                                               microbatches)
             ghat, sc_state, stats = scalecom_reduce(
                 gpw, state.sc_state, sc_cfg, compute_stats=compute_stats, buckets=buckets
             )
             del gpw
         else:
-            loss, nll, ghat = dense_grads(model, state.params, batch)
+            loss, auxs, ghat = dense_grads(model, state.params, batch)
             sc_state = ScaleComState(residues=state.sc_state.residues, t=state.sc_state.t + 1)
             stats = {}
 
@@ -195,7 +192,8 @@ def build_train_step(
 
         lr = schedule(state.step)
         params, opt_state = optimizer.update(ghat, state.opt_state, state.params, lr)
-        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "nll": nll, **stats}
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                   **{k: torch.mean(v) for k, v in auxs.items()}, **stats}
         return TrainState(params, opt_state, sc_state, state.step + 1), metrics
 
     return train_step

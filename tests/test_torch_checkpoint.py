@@ -3,7 +3,9 @@
 A ``TrainState`` (smoke width, 4 workers, sgdm; residues in each codec,
 fp32, bf16, fp8 and fp8_ec, filled with random bits, NaN and inf patterns
 included; step 7 and t 9) saved by one package restores in the other bit
-for bit, leaf by leaf, in both directions. The port's leaf keys are JAX's
+for bit, leaf by leaf, in both directions: the paper transformer in every
+codec, and the phi3.5-moe SMOKE state (stacked experts, the router, RMSNorm
+scales without biases) in fp32. The port's leaf keys are JAX's
 ``keystr`` paths of the whole state (``[<flat index 0>]['blocks']...``).
 """
 
@@ -33,8 +35,12 @@ from repro_torch.optim import make_optimizer, schedule
 from repro_torch.training import TrainLoop, TrainState, init_train_state, run_training
 
 ARCH = "paper-transformer-base"
+MOE = "phi3.5-moe-42b-a6.6b"
 N, CHUNK, MIN_SIZE = 4, 16, 512
 CODECS = ("fp32", "bf16", "fp8", "fp8_ec")
+# (arch, codec) per case; the paper transformer's cases keep their codec ids
+CASES = [(ARCH, c) for c in CODECS] + [(MOE, "fp32")]
+CASE_IDS = list(CODECS) + ["phi3.5-moe-fp32"]
 _UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32}
 
 
@@ -50,11 +56,11 @@ def _bits(x) -> np.ndarray:
     return a.view(_UINT[a.dtype.itemsize])
 
 
-def _jax_state(codec, seed=0):
+def _jax_state(codec, seed=0, arch=ARCH):
     """A JAX TrainState whose every leaf holds random bits."""
     rng = np.random.default_rng(seed)
     cfg = JCfg(compressor=JComp("clt_k", chunk=CHUNK), min_size=MIN_SIZE, residue_dtype=codec)
-    model = jbuild(jregistry.smoke(ARCH), compute_dtype="float32", loss_chunk=16)
+    model = jbuild(jregistry.smoke(arch), compute_dtype="float32", loss_chunk=16)
     js, _ = jinit(model, jmake_opt("sgdm"), cfg, jax.random.PRNGKey(seed), n_workers=N)
 
     def noise(x):
@@ -74,10 +80,10 @@ def _carry(js) -> TrainState:
                       sc_state=state_from_jax(js.sc_state, "cpu"), step=int(js.step))
 
 
-def _port_like(codec) -> TrainState:
+def _port_like(codec, arch=ARCH) -> TrainState:
     cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), min_size=MIN_SIZE,
                          residue_dtype=codec)
-    return init_train_state(build_model(registry.smoke(ARCH), loss_chunk=16),
+    return init_train_state(build_model(registry.smoke(arch), loss_chunk=16),
                             make_optimizer("sgdm"), cfg, torch.Generator().manual_seed(1),
                             n_workers=N, device="cpu")
 
@@ -91,21 +97,26 @@ def _assert_same_bits(port_state, jax_state):
         np.testing.assert_array_equal(_bits(t), _bits(j), err_msg=key)
 
 
-@pytest.fixture(scope="module", params=CODECS)
+@pytest.fixture(scope="module", params=CASES, ids=CASE_IDS)
 def states(request):
-    js = _jax_state(request.param)
-    return request.param, js, _carry(js)
+    arch, codec = request.param
+    js = _jax_state(codec, arch=arch)
+    return (arch, codec), js, _carry(js)
 
 
 def test_port_keys_are_jax_keystr_paths(states):
-    _, js, ts = states
+    (arch, _), js, ts = states
     keys = [k for k, _ in _flatten(ts)]
     assert keys == [jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_flatten_with_path(js)[0]]
     assert "[<flat index 0>]['blocks']['attn_wq']" in keys and keys[-1] == "[<flat index 3>]"
+    if arch == MOE:
+        assert "[<flat index 0>]['blocks']['expert_gate']" in keys
+        assert "[<flat index 2>][<flat index 0>][\"['blocks']['expert_down']\"]['q']" in keys
+        assert not any(k.endswith("_bias']") for k in keys)
 
 
 def test_port_checkpoint_restores_in_jax(states, tmp_path):
-    codec, js, ts = states
+    _, js, ts = states
     path = checkpoint.save(str(tmp_path), 7, ts)
     assert path.endswith("ckpt_00000007.npz") and jcheckpoint.latest_step(str(tmp_path)) == 7
     restored = jcheckpoint.restore(str(tmp_path), js)
@@ -113,10 +124,10 @@ def test_port_checkpoint_restores_in_jax(states, tmp_path):
 
 
 def test_jax_checkpoint_restores_in_the_port(states, tmp_path):
-    codec, js, ts = states
+    (arch, codec), js, ts = states
     jcheckpoint.save(str(tmp_path), 7, js)
     assert checkpoint.latest_step(str(tmp_path)) == 7
-    like = _port_like(codec)
+    like = _port_like(codec, arch)
     restored = checkpoint.restore(str(tmp_path), like)
     _assert_same_bits(restored, js)
     assert isinstance(restored.step, int) and restored.step == 7 and restored.sc_state.t == 9

@@ -104,32 +104,35 @@ def _assert_close(t, j, tol, what):
 
 
 def test_batched_pass_matches_the_loop(setup):
-    loss, nll, grads = _batched(setup)
-    l_loop, n_loop, g_loop = per_worker_grads_loop(setup["tmodel"], setup["params"],
+    loss, auxs, grads = _batched(setup)
+    l_loop, a_loop, g_loop = per_worker_grads_loop(setup["tmodel"], setup["params"],
                                                    setup["tbatch"], N)
     assert all(g.shape[0] == N for g in tree.leaves(grads))
+    assert list(auxs) == list(a_loop) == ["nll"] and auxs["nll"].shape == (N,)
     np.testing.assert_allclose(float(loss), float(l_loop), rtol=1e-6)
-    np.testing.assert_allclose(float(nll), float(n_loop), rtol=1e-6)
+    np.testing.assert_allclose(auxs["nll"].numpy(), a_loop["nll"].numpy(), rtol=1e-6)
     for (path, a), (_, b) in zip(tree.flatten_with_path(grads), tree.flatten_with_path(g_loop)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=path, **LOOP_TOL)
 
 
 @pytest.mark.parametrize("microbatches", [1, 2, 4])
 def test_batched_pass_matches_jax(setup, microbatches):
-    loss, nll, grads = _batched(setup, microbatches)
+    loss, auxs, grads = _batched(setup, microbatches)
     jloss, jnll, jgrads = _jax_result(setup, microbatches)
     np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
-    np.testing.assert_allclose(float(nll), float(jnll), rtol=1e-5)
+    np.testing.assert_allclose(float(torch.mean(auxs["nll"])), float(jnll), rtol=1e-5)
     _assert_close(grads, jgrads, JAX_TOL, f"microbatches={microbatches}")
 
 
 @pytest.mark.parametrize("microbatches", [2, 4])
 def test_microbatches_match_one_pass(setup, microbatches):
-    loss, nll, grads = _batched(setup, microbatches)
-    l1, n1, g1 = _batched(setup)
+    loss, auxs, grads = _batched(setup, microbatches)
+    l1, a1, g1 = _batched(setup)
     assert all(g.dtype == torch.float32 for g in tree.leaves(grads))
+    assert auxs["nll"].shape == (N,)
     np.testing.assert_allclose(float(loss), float(l1), rtol=1e-6)
-    np.testing.assert_allclose(float(nll), float(n1), rtol=1e-6)
+    np.testing.assert_allclose(float(torch.mean(auxs["nll"])), float(torch.mean(a1["nll"])),
+                               rtol=1e-6)
     for (path, a), (_, b) in zip(tree.flatten_with_path(grads), tree.flatten_with_path(g1)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), err_msg=path, rtol=1e-5, atol=1e-6)
 
