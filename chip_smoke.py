@@ -115,21 +115,29 @@ Phases, each fatal on failure:
      run's launches are counted from 0 and held to the plan;
   8. one more fused compressed step under ``torch.profiler``: device busy
      time, idle share and the kernels that take the most device time;
-  9. ``[arch]``, the decoder archs of the registry at full width, depth cut
-     (``ARCH_RUNS``): starcoder2-3b (RMSNorm / SwiGLU, GQA with 2 KV heads)
-     at 2 of 30 layers, 8 workers, unfused and then fused, and
-     phi3.5-moe-42b-a6.6b (16 experts, top-2) at 1 of 32 layers, 2
-     workers, fused; each trained by ``run_training`` for 2 dense and 3
-     compressed steps with its launches held to the plan, every select,
-     scatter and fused launch vec4, the comm-bytes and build-up invariants
-     on every compressed step and a finite loss; step ms and peak memory.
-     From each trained state one fused and one unfused reduce on the card,
-     timed beside its byte bound and held tensor by tensor against the
-     torch backend's composition (``hold_reduce``, ``ReduceShadow``'s
-     rules); for the MoE arch the batched per-worker pass against the loop
-     (``grads_phase``) and nnz(ĝ)/k of the expert tensors. These launches
-     stand under ``arch_launches`` in the JSON line and are not in
-     ``launches``.
+  9. ``[arch]``, the registry's model families at full width, depth cut
+     (``ARCH_RUNS``), their initial weights drawn on the card:
+     starcoder2-3b (RMSNorm / SwiGLU, GQA with 2 KV heads) at 2 of 30
+     layers, 8 workers, unfused and then fused; phi3.5-moe-42b-a6.6b (16
+     experts, top-2) at 1 of 32 layers, 2 workers, fused; rwkv6-3b (the
+     RWKV-6 time loop) at 2 of 32 layers, 8 workers, unfused and fused;
+     recurrentgemma-2b (RG-LRU and local attention; one stacked unit and
+     one un-stacked tail layer) at 4 of 26 layers, 2 workers of 1 x 2304
+     positions, fused; whisper-medium at 2 + 2 of 24 + 24 layers, 8
+     workers of 4 x 128 text positions over 1500 stub frames, fused; and
+     internvl2-26b at 1 of 48 layers, 2 workers of 4 x (256 stub vision +
+     128 text) positions, fused. Each trained by ``run_training`` for 2
+     dense and 3 compressed steps with its launches held to the plan,
+     every select, scatter and fused launch vec4, the comm-bytes and
+     build-up invariants on every compressed step and a finite loss; step
+     ms and peak memory. From each trained state a fused reduce (and for
+     starcoder2, phi3.5-moe and rwkv6 an unfused one) on the card, timed
+     beside its byte bound and held tensor by tensor against the torch
+     backend's composition (``hold_reduce``, ``ReduceShadow``'s rules);
+     for phi3.5-moe and rwkv6 the batched per-worker pass against the
+     loop (``grads_phase``) and for the MoE arch nnz(ĝ)/k of the expert
+     tensors. These launches stand under ``arch_launches`` in the JSON
+     line and are not in ``launches``.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -139,6 +147,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -1412,8 +1421,9 @@ GRAD_TOL = dict(rtol=1e-5, atol=1e-7)  # one batched pass and the loop order a f
 
 
 def grad_errors(a: dict, b: dict, what: str, tol: dict = GRAD_TOL) -> tuple:
-    """Hold two {path: (n, *shape)} gradient trees to ``tol``, leaf by leaf;
-    returns (the largest max|a-b| / max|b| of any leaf, that leaf)."""
+    """Hold two {path: (n, *shape)} gradient trees to ``tol``, leaf by leaf
+    (``atol_of_max``, if given, adds that share of the leaf's largest |b| to
+    ``atol``); returns (the largest max|a-b| / max|b| of any leaf, that leaf)."""
     import torch
 
     from repro_torch import tree
@@ -1427,18 +1437,20 @@ def grad_errors(a: dict, b: dict, what: str, tol: dict = GRAD_TOL) -> tuple:
         rel = float((x - y).abs().max() / y.abs().max().clamp_min(1e-30))
         if rel > worst:
             worst, worst_path = rel, path
-        if not torch.allclose(x, y, **tol):
-            bad = int((~torch.isclose(x, y, **tol)).sum())
-            fail(f"{what}: {path} differs beyond rtol {tol['rtol']} / atol {tol['atol']} at "
+        atol = tol["atol"] + tol.get("atol_of_max", 0.0) * float(y.abs().max())
+        if not torch.allclose(x, y, rtol=tol["rtol"], atol=atol):
+            bad = int((~torch.isclose(x, y, rtol=tol["rtol"], atol=atol)).sum())
+            fail(f"{what}: {path} differs beyond rtol {tol['rtol']} / atol {atol:.3e} at "
                  f"{bad} of {x.numel()} elements (max |a-b| {float((x - y).abs().max()):.3e}, "
                  f"max |b| {float(y.abs().max()):.3e})")
     return worst, worst_path
 
 
-def grads_phase(model, params, batch, workers: int, t_dense, card_line: str, tag: str = "[grads]"):
+def grads_phase(model, params, batch, workers: int, t_dense, card_line: str, tag: str = "[grads]",
+                tol: dict = GRAD_TOL):
     """[grads]: the batched per-worker pass (the main path's) against the
     loop of one autograd pass per worker, from the trained state: every
-    gradient to ``GRAD_TOL``, the loss and each aux of the model (``nll``,
+    gradient to ``tol``, the loss and each aux of the model (``nll``,
     the MoE losses) per worker to rtol 1e-6, the MoE drop shares exactly;
     two calls of the batched pass bit for bit; host ms of both beside
     dense_grads (``t_dense``, None: not timed). At most two gradient sets
@@ -1456,7 +1468,7 @@ def grads_phase(model, params, batch, workers: int, t_dense, card_line: str, tag
           and all(torch.equal(a_b[k], a_loop[k]) for k in a_b if k == "moe_dropped_frac"),
           f"{tag} loss {float(l_b)} / aux {dict((k, v.tolist()) for k, v in a_b.items())} "
           f"against the loop's {float(l_loop)} / {dict((k, v.tolist()) for k, v in a_loop.items())}")
-    worst, worst_path = grad_errors(g_b, g_loop, f"{tag} batched pass vs loop")
+    worst, worst_path = grad_errors(g_b, g_loop, f"{tag} batched pass vs loop", tol)
     del g_loop
     (l_b2, _, g_b2), t_b2 = host_ms(lambda: per_worker_grads(model, params, batch, workers))
     differ = [p for (p, x), (_, y) in zip(tree.flatten_with_path(g_b),
@@ -1466,15 +1478,18 @@ def grads_phase(model, params, batch, workers: int, t_dense, card_line: str, tag
     # accumulate under vmap's batching rule): the first to differ if any does
     check(not differ and bool(torch.equal(l_b, l_b2)),
           f"{tag} two calls of the batched pass differ in {differ}")
-    print(f"{tag} per_worker_grads, one batched pass ({workers} workers x 4 x 128 tokens) "
-          f"against per_worker_grads_loop: every gradient within rtol {GRAD_TOL['rtol']} / atol "
-          f"{GRAD_TOL['atol']}, largest max|a-b|/max|b| {worst:.3e} ({worst_path}); loss "
+    _, local_b, seq = batch["tokens"].shape
+    print(f"{tag} per_worker_grads, one batched pass ({workers} workers x {local_b} x {seq} "
+          f"tokens) against per_worker_grads_loop: every gradient within rtol {tol['rtol']} / "
+          f"atol {tol['atol']}"
+          + (f" + {tol['atol_of_max']} of its leaf's largest" if "atol_of_max" in tol else "")
+          + f", largest max|a-b|/max|b| {worst:.3e} ({worst_path}); loss "
           f"{float(l_b):.6f} vs {float(l_loop):.6f}; aux {sorted(a_b)} per worker within rtol 1e-6"
           + (", drop shares equal" if "moe_dropped_frac" in a_b else ""))
     print(f"{tag} two calls of the batched pass: bitwise equal in every gradient, "
           "tok_embed's index-accumulate included")
     print(f"{tag} host ms: batched pass {t_b:.1f} and {t_b2:.1f}, loop {t_loop:.1f}"
-          + (f", dense_grads {t_dense:.1f} (the same {workers * 4} x 128 tokens folded)"
+          + (f", dense_grads {t_dense:.1f} (the same {workers * local_b} x {seq} tokens folded)"
              if t_dense is not None else "") + f" on {card_line}")
     return g_b
 
@@ -1969,16 +1984,61 @@ def expected_launches(plans, fused: bool, steps: int) -> dict:
     return want
 
 
-# The [arch] phase: two decoder archs of the registry at full width, their
-# depth cut to fit one card: (id, layers kept, workers, fused settings run in
-# turn). starcoder2-3b at 2 layers is 569,392,128 parameters (2.12 GiB a
-# copy): 8 workers' gradients and residues take 17.0 GiB each, and a third
-# layer would add ~20 GiB. phi3.5-moe at 1 layer is 1,562,980,352 (5.82 GiB
-# a copy); at 4 workers it would need ~64 GiB before the pass's transients,
-# at 2 ~41 GiB.
+@dataclasses.dataclass(frozen=True)
+class ArchRun:
+    """One [arch] run: an id of the registry at full width, its depth cut to
+    fit one card (``cut``: the config fields replaced), trained once per
+    fused setting of ``fused_runs`` on ``local_batch`` x ``seq`` tokens a
+    worker (and the model's stub inputs); from the trained state one reduce
+    held per fused setting of ``holds``; with ``grads`` the batched
+    per-worker pass held against the loop."""
+
+    name: str
+    cut: dict
+    workers: int
+    fused_runs: tuple
+    holds: tuple = (True, False)
+    grads: bool = False
+    grad_tol: dict = dataclasses.field(default_factory=lambda: GRAD_TOL)
+    local_batch: int = 4
+    seq: int = 128
+
+
+# The [arch] phase: the registry's model families at full width, each cut in
+# depth to what one card holds. starcoder2-3b at 2 layers is 569,392,128
+# parameters (2.12 GiB a copy): 8 workers' gradients and residues take 17.0
+# GiB each, and a third layer would add ~20 GiB. phi3.5-moe at 1 layer is
+# 1,562,980,352 (5.82 GiB a copy); at 4 workers it would need ~64 GiB before
+# the pass's transients, at 2 ~41 GiB. rwkv6-3b at 2 layers is 509,934,080
+# (8 workers: 15.2 GiB each of gradients and residues, and its time loop
+# keeps the (4, 40, 64, 64) state of every step over 128 steps, 2 layers and
+# 8 workers, 5.0 GiB); it also trains unfused, so that the three unfused
+# kernels meet its 64-wide adapters. recurrentgemma-2b at 4 layers (one rec,
+# rec, attn unit and one un-stacked tail rec) is 1,659,440,640 (6.18 GiB a
+# copy) at 2 workers of 1 x 2304 positions, past its 2048-position window:
+# at 2560 it peaked at 76.4 GiB alone and ran out of memory after the main
+# path's phases. whisper-medium keeps its 1500 frames, and an encoder layer
+# keeps ~8.5 GB of activations over 8 workers x 4 (its (16, 1500, 1500)
+# softmax 4.6 GB): at 4 + 4 and 3 + 3 layers training ran out of memory, at
+# 2 + 2 (165,003,264 parameters) it peaks at ~64 GiB. internvl2-26b at 1
+# layer is 1,527,379,968 at 2 workers of 256 vision + 128 text positions.
 ARCH_RUNS = (
-    ("starcoder2-3b", 2, 8, (False, True)),
-    ("phi3.5-moe-42b-a6.6b", 1, 2, (True,)),
+    ArchRun("starcoder2-3b", dict(n_layers=2), 8, (False, True)),
+    ArchRun("phi3.5-moe-42b-a6.6b", dict(n_layers=1), 2, (True,), grads=True),
+    # RWKV's per-head group norm divides by sqrt(mean(y^2) + 1e-6): where a
+    # head's y_t nearly cancels (r_1·k_0 of 64 terms of ~1 summing to ~1e-4;
+    # y_0 = 0 from the bonus's zero init) it multiplies the gradient by up
+    # to 1000 and the rounding of the two passes' GEMMs by as much, and those
+    # few head-tokens set every time-mix leaf's largest gradient. On the card
+    # the batched pass and the loop stood up to 5.4e-3 of a leaf's largest
+    # value apart from the trained state, 1.3e-2 from the initial one (CPU,
+    # d 1024: 2.7e-5; ROADMAP Queue 3). A batching fault would be O(1).
+    ArchRun("rwkv6-3b", dict(n_layers=2), 8, (False, True), grads=True,
+            grad_tol=dict(rtol=1e-5, atol=1e-7, atol_of_max=2e-2)),
+    ArchRun("recurrentgemma-2b", dict(n_layers=4), 2, (True,), holds=(True,), local_batch=1,
+            seq=2304),
+    ArchRun("whisper-medium", dict(n_layers=2, encoder_layers=2), 8, (True,), holds=(True,)),
+    ArchRun("internvl2-26b", dict(n_layers=1), 2, (True,), holds=(True,)),
 )
 # every training run: dense warm-up steps, then compressed ones up to STEPS
 WARMUP, STEPS = 2, 5
@@ -2030,9 +2090,12 @@ class TrainRun:
 
 
 def train_run(cfg, model, opt, sched, sc_cfg, workers: int, steps: int, label: str,
-              card_line: str, prefix: str) -> TrainRun:
-    """``run_training`` of ``model`` from random weights (seed 0) on synthetic
-    Markov tokens (seed 0, 4 x 128 a worker) for ``steps`` steps, the first
+              card_line: str, prefix: str, local_batch: int = 4, seq: int = 128,
+              generator=None) -> TrainRun:
+    """``run_training`` of ``model`` from random weights (``generator``,
+    default a CPU one seeded 0) on synthetic Markov tokens (seed 0,
+    ``local_batch`` x ``seq`` a worker, and the model's stub vision or frame
+    embeddings) for ``steps`` steps, the first
     ``sc_cfg.warmup_steps`` dense. Its launches are counted from 0 and held
     to the plan, every select, scatter and fused launch vec4; every
     compressed step passes the harness's comm-bytes and build-up invariants
@@ -2043,7 +2106,7 @@ def train_run(cfg, model, opt, sched, sc_cfg, workers: int, steps: int, label: s
     from repro_torch import kernels, tree
     from repro_torch.core.plan import plan_tensors
     from repro_torch.core.state import residue_signature
-    from repro_torch.data import make_batches
+    from repro_torch.data import make_batches, model_inputs
     from repro_torch.harness.invariants import check_buildup, check_comm_accounting
     from repro_torch.kernels import chunk_topk as ct, fused_reduce as frk
     from repro_torch.training import TrainLoop, init_train_state, run_training
@@ -2052,8 +2115,9 @@ def train_run(cfg, model, opt, sched, sc_cfg, workers: int, steps: int, label: s
     # held in a list that run_training empties: a name bound to the first
     # state would keep its zero residues (17 GiB at starcoder2's 8 workers)
     # alive through the run
-    first = [init_train_state(model, opt, sc_cfg, torch.Generator().manual_seed(0),
-                              n_workers=workers, device="cuda")]
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    first = [init_train_state(model, opt, sc_cfg, generator, n_workers=workers, device="cuda")]
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     plans = plan_tensors(
@@ -2065,7 +2129,7 @@ def train_run(cfg, model, opt, sched, sc_cfg, workers: int, steps: int, label: s
     watched, counts = observed(opt, [p.path for p in compressed])
     loop = TrainLoop(model=model, optimizer=watched, schedule=sched, sc_cfg=sc_cfg,
                      n_workers=workers, log_every=1)
-    batches = make_batches(cfg.vocab, workers, 4, 128, seed=0)
+    batches = make_batches(cfg.vocab, workers, local_batch, seq, seed=0, **model_inputs(cfg))
     torch.cuda.synchronize()
     kernels.reset_launches()
     state, history = run_training(loop, first.pop(), batches, steps, log=None)
@@ -2190,20 +2254,43 @@ def arch_hold(label: str, gpw, sc_state, sc_cfg, plans, fused: bool, workers: in
     return ratios
 
 
+def describe(cfg) -> str:
+    """The shape of ``cfg`` that an [arch] line states, by family."""
+    if cfg.arch_type == "ssm":
+        return (f"d {cfg.d_model}, {cfg.d_model // cfg.ssm_head_dim} heads of "
+                f"{cfg.ssm_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, {cfg.norm}")
+    text = (f"d {cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, hd {cfg.hd}, "
+            f"d_ff {cfg.d_ff}")
+    if cfg.n_experts:
+        text += (f", {cfg.n_experts} experts top-{cfg.moe_topk} capacity factor "
+                 f"{cfg.capacity_factor}")
+    if cfg.arch_type == "hybrid":
+        text += (f", layers {'/'.join(cfg._layer_kinds())} (pattern "
+                 f"{'/'.join(cfg.hybrid_pattern)}), local window {cfg.local_window}, conv "
+                 f"{cfg.conv_width}")
+    if cfg.is_encdec:
+        text += f", {cfg.encoder_layers} encoder layers over {cfg.encoder_seq} stub frames"
+    if cfg.arch_type == "vlm":
+        text += f", {cfg.vision_tokens} stub vision tokens"
+    return text + f", vocab {cfg.vocab}, {cfg.norm}"
+
+
 def arch_phase(card_line: str) -> dict:
-    """[arch]: the decoder archs of ``ARCH_RUNS`` at full width, depth cut,
-    trained by ``train_run`` (once per fused setting, the main path's
-    settings), then from the last run's trained state one fused and one
-    unfused reduce held against the torch backend's composition
-    (``arch_hold``); for an MoE arch also the batched per-worker pass against
-    the loop (``grads_phase``) and nnz(ĝ)/k of the expert tensors. Returns
-    the training runs' kernel launches, summed."""
+    """[arch]: the archs of ``ARCH_RUNS`` at full width, depth cut, trained
+    by ``train_run`` (once per fused setting, the main path's settings;
+    initial weights drawn on the card), then from the last run's trained
+    state the reduces of ``holds`` held against the torch backend's
+    composition (``arch_hold``); with ``grads`` also the batched per-worker
+    pass against the loop (``grads_phase``, the residues parked in host
+    memory meanwhile), and for an MoE arch nnz(ĝ)/k of the expert tensors.
+    Returns the training runs' kernel launches, summed."""
     import torch
 
     from repro_torch.configs import registry
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.core.scalecom import ScaleComConfig
-    from repro_torch.data import make_batches
+    from repro_torch.core.state import ScaleComState
+    from repro_torch.data import make_batches, model_inputs
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer, schedule
     from repro_torch.training.train_step import per_worker_grads
@@ -2214,24 +2301,27 @@ def arch_phase(card_line: str) -> dict:
     sched = schedule.linear_warmup(schedule.constant(0.05), WARMUP)
     base_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
                               min_size=1024, warmup_steps=WARMUP)
-    for name, layers, workers, fused_runs in ARCH_RUNS:
+    for spec in ARCH_RUNS:
+        name, workers = spec.name, spec.workers
         full = registry.arch(name)
-        cfg = dataclasses.replace(full, n_layers=layers)
+        cfg = dataclasses.replace(full, **spec.cut)
         model = build_model(cfg, loss_chunk=64)
-        experts = (f", {cfg.n_experts} experts top-{cfg.moe_topk} capacity factor "
-                   f"{cfg.capacity_factor}" if cfg.n_experts else "")
-        print(f"[arch] {name}: {layers} of {full.n_layers} layers (d {cfg.d_model}, {cfg.n_heads} "
-              f"heads, {cfg.n_kv_heads} KV heads, hd {cfg.hd}, d_ff {cfg.d_ff}{experts}, vocab "
-              f"{cfg.vocab}, {cfg.norm}); {workers} workers x 4 x 128 tokens, CLT-k chunk "
-              f"{CHUNK} top-1, beta {BETA}, fp32 residues")
+        kept = " + ".join(f"{getattr(cfg, k)} of {getattr(full, k)}" for k in spec.cut)
+        print(f"[arch] {name}: {kept} layers ({describe(cfg)}); {workers} workers x "
+              f"{spec.local_batch} x {spec.seq} tokens, CLT-k chunk {CHUNK} top-1, beta {BETA}, "
+              f"fp32 residues")
+        print(f"[arch] {name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated before "
+              f"the run")
         run = None
-        for fused in fused_runs:
+        for fused in spec.fused_runs:
             del run
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             label = f"{name} {'fused' if fused else 'unfused'}"
             run = train_run(cfg, model, opt, sched, dataclasses.replace(base_cfg, fused=fused),
-                            workers, STEPS, label, card_line, f"[arch] {label}")
+                            workers, STEPS, label, card_line, f"[arch] {label}",
+                            spec.local_batch, spec.seq,
+                            torch.Generator(device="cuda").manual_seed(0))
             print(f"[arch] {label}: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
                   f"GiB on {card_line}")
             launched = {k: n + run.launches[k] for k, n in launched.items()}
@@ -2241,29 +2331,41 @@ def arch_phase(card_line: str) -> dict:
                     print(f"[arch] {label} {p.path}: nnz(ĝ)/k per compressed step "
                           + " / ".join(f"{int(run.nnz[s][i]) / p.k:.6f}"
                                        for s in range(WARMUP, STEPS)))
-        state, plans = run.state, run.plans
-        del run
-        batch = {k: torch.as_tensor(v, device="cuda")
-                 for k, v in next(make_batches(cfg.vocab, workers, 4, 128, seed=1)).items()}
-        if cfg.n_experts:
-            gpw = grads_phase(model, state.params, batch, workers, None, card_line,
-                              tag=f"[arch] {name} [grads]")
+        params, sc_state, plans = run.state.params, run.state.sc_state, run.plans
+        del run  # the momentum
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(make_batches(
+            cfg.vocab, workers, spec.local_batch, spec.seq, seed=1, **model_inputs(cfg))).items()}
+        if spec.grads:
+            # the residues wait in host memory while two gradient sets and
+            # the batched pass's saved activations are alive
+            parked = {p: {k: v.cpu() for k, v in enc.items()}
+                      for p, enc in sc_state.residues.items()}
+            t = sc_state.t
+            del sc_state
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gpw = grads_phase(model, params, batch, workers, None, card_line,
+                              tag=f"[arch] {name} [grads]", tol=spec.grad_tol)
+            print(f"[arch] {name} [grads] peak allocated "
+                  f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (residues parked) on "
+                  f"{card_line}")
+            sc_state = ScaleComState(residues={p: {k: v.cuda() for k, v in enc.items()}
+                                               for p, enc in parked.items()}, t=t)
+            del parked
         else:
-            (_, _, gpw), t_pw = host_ms(lambda: per_worker_grads(model, state.params, batch,
-                                                                  workers))
+            (_, _, gpw), t_pw = host_ms(lambda: per_worker_grads(model, params, batch, workers))
             print(f"[arch] {name} per_worker_grads from the trained state: {t_pw:.1f} ms host "
                   f"clock on {card_line}")
-        sc_state = state.sc_state
-        del state  # the parameters and momentum
+        del params, batch
         torch.cuda.empty_cache()
-        for fused in (True, False):
+        for fused in spec.holds:
             ratios = arch_hold(f"{name} {'fused' if fused else 'unfused'}", gpw, sc_state,
                                base_cfg, plans, fused, workers, card_line)
             if fused and cfg.n_experts:
                 print(f"[arch] {name} fused reduce from the trained state, expert tensors: "
                       + "; ".join(f"{p} nnz(ĝ)/k {r:.6f}" for p, r in ratios.items()
                                   if "expert_" in p or "router" in p))
-        del gpw, sc_state, batch
+        del gpw, sc_state
         torch.cuda.empty_cache()
     missing = [k for k in ARCH_KERNELS if launched[k] == 0]
     check(not missing, f"[arch] {missing} never launched on the arch path")
@@ -2276,6 +2378,10 @@ def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)  # a cut run still shows how far it got
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
         fail(f"no src/repro_torch beside {__file__}: run from a checkout of the repository")
+    # [arch]'s recurrentgemma-2b run takes most of the card's 79 GiB: the
+    # caching allocator's fixed segments left 5.5 GiB reserved but unusable
+    # beside 71.6 GiB allocated when it ran out; growable segments do not
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -2577,9 +2683,11 @@ def main() -> None:
         print(f"[profile] device time not measured: torch.profiler recorded no device events "
               f"({wall_ms:.1f} ms host clock)")
 
-    # -- 9. the decoder archs at full width: starcoder2-3b and phi3.5-moe -----------
+    # -- 9. the model families at full width (ARCH_RUNS) ----------------------------
     del state, loop, batches, batch, step_batch, metrics, prof, on_card, trained, before
     del m_t, g_t, idx, ghat
+    del reduce, agree  # reduce's default argument holds the trained residues
+    gc.collect()
     torch.cuda.empty_cache()
     arch_launches = arch_phase(card_line)
 

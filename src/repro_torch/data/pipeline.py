@@ -1,9 +1,8 @@
 """Data pipeline: the synthetic Markov corpus and worker-stacked batches.
 
-The port's own copy of ``repro.data.pipeline`` for the text-only path. It is
-numpy-only and draws in the same order, so its batches are bit-identical to
-the JAX package's for the same seed. Batches stay numpy; the train step moves
-them to the device.
+The port's own copy of ``repro.data.pipeline``. It is numpy-only and draws
+in the same order, so its batches are bit-identical to the JAX package's for
+the same seed. Batches stay numpy; the train step moves them to the device.
 
 Batches are emitted worker-stacked: {"tokens": (n_workers, local_B, S), ...};
 each worker draws a disjoint slice of one stream.
@@ -16,7 +15,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
-__all__ = ["SyntheticLM", "make_batches"]
+__all__ = ["SyntheticLM", "make_batches", "model_inputs"]
 
 
 @dataclasses.dataclass
@@ -45,6 +44,13 @@ class SyntheticLM:
         return out
 
 
+def model_inputs(cfg) -> Dict[str, int]:
+    """``make_batches``' keywords for ``cfg``'s inputs beside the tokens: a
+    VLM's vision prefix, an encoder-decoder's frames (none for the others)."""
+    return dict(vision_tokens=cfg.vision_tokens if cfg.arch_type == "vlm" else 0,
+                d_model=cfg.d_model, encoder_seq=cfg.encoder_seq if cfg.is_encdec else 0)
+
+
 def make_batches(
     vocab: int,
     n_workers: int,
@@ -52,18 +58,31 @@ def make_batches(
     seq_len: int,
     *,
     seed: int = 0,
+    vision_tokens: int = 0,
+    d_model: int = 0,
+    encoder_seq: int = 0,
     steps: Optional[int] = None,
 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Yields worker-stacked batches: tokens/labels (n, local_B, S) int32, mask ones."""
+    """Yields worker-stacked batches: tokens/labels (n, local_B, S) int32, mask
+    ones. A VLM's adds "vision" (n, local_B, vision_tokens, d_model), an
+    encoder-decoder's "frames" (n, local_B, encoder_seq, d_model): stub
+    embeddings drawn, in that order, from the step's generator after the tokens."""
     src = SyntheticLM(vocab, seed=seed)
     step = 0
     while steps is None or step < steps:
         batch_rng = np.random.default_rng((seed, step))
         toks = src.sample(batch_rng, n_workers * local_batch, seq_len)
         toks = toks.reshape(n_workers, local_batch, seq_len + 1)
-        yield {
+        out: Dict[str, np.ndarray] = {
             "tokens": toks[..., :-1],
             "labels": toks[..., 1:],
             "mask": np.ones((n_workers, local_batch, seq_len), np.float32),
         }
+        if vision_tokens:
+            out["vision"] = batch_rng.standard_normal(
+                (n_workers, local_batch, vision_tokens, d_model), dtype=np.float32)
+        if encoder_seq:
+            out["frames"] = batch_rng.standard_normal(
+                (n_workers, local_batch, encoder_seq, d_model), dtype=np.float32)
+        yield out
         step += 1

@@ -38,7 +38,7 @@ from repro_torch.backends import resolve_backend
 from repro_torch.configs import registry
 from repro_torch.core.compressors import CompressorConfig
 from repro_torch.core.scalecom import ScaleComConfig
-from repro_torch.data import make_batches
+from repro_torch.data import make_batches, model_inputs
 from repro_torch.device import resolve_device
 from repro_torch.models import build_model
 from repro_torch.optim import make_optimizer, schedule
@@ -121,7 +121,7 @@ def main(argv=None):
         ap.error("--metrics-every requires --trace-dir (the similarity taps "
                  "need the telemetry run to land anywhere)")
 
-    cfg = registry.smoke(args.arch)  # an id the port lacks raises, naming the ported ones
+    cfg = registry.smoke(args.arch)  # an unknown id raises, naming the registry's
     device = resolve_device(args.device)
     print(f"[launch.train] torch {torch.__version__} on {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
@@ -160,7 +160,8 @@ def main(argv=None):
                      n_workers=args.workers, checkpoint_dir=args.checkpoint_dir,
                      checkpoint_every=max(args.steps // 2, 1) if args.checkpoint_dir else 0,
                      log_every=args.log_every, buckets=buckets)
-    batches = make_batches(cfg.vocab, args.workers, args.local_batch, args.seq, seed=args.seed)
+    batches = make_batches(cfg.vocab, args.workers, args.local_batch, args.seq, seed=args.seed,
+                           **model_inputs(cfg))
     telemetry = None
     if args.trace_dir:
         telemetry = obs.TelemetryRun(

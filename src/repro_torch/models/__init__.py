@@ -1,5 +1,6 @@
-"""The decoder-only transformers (dense and MoE). ``build_model`` is the construction
-entry point."""
+"""The models of the registry: dense and MoE decoders, the RWKV-6 SSM, the
+RecurrentGemma hybrid, the Whisper encoder-decoder and the VLM decoder.
+``build_model`` is the construction entry point."""
 
 from repro_torch.models.transformer import Model, build_model
 

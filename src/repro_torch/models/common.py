@@ -1,7 +1,8 @@
-"""Shared model pieces: parameter init, layernorm and RMSNorm, RoPE, the GELU
-and SwiGLU MLPs, embeddings and the chunked cross-entropy.
+"""Shared model pieces: parameter init, layernorm and RMSNorm, RoPE and
+sinusoidal positions, the GELU and SwiGLU MLPs, embeddings and the chunked
+cross-entropy.
 
-The port of the decoder parts of ``repro.models.common``. Parameters are
+The port of the training parts of ``repro.models.common``. Parameters are
 plain nested dicts of tensors with the JAX package's names and stacked
 shapes, so a JAX parameter tree carries across (``models.convert``) and the
 residue keys match.
@@ -23,6 +24,7 @@ __all__ = [
     "init_norm",
     "apply_norm",
     "apply_rope",
+    "sinusoidal_positions",
     "gelu_mlp",
     "init_swiglu",
     "swiglu",
@@ -35,8 +37,9 @@ __all__ = [
 class ParamStore:
     """Collects parameters during init, drawing from one explicit generator.
 
-    Normal draws come from ``generator`` (a CPU ``torch.Generator``, so the
-    values do not depend on the device) and are then moved to ``device``.
+    Normal draws come from ``generator``, on the generator's device, and are
+    then moved to ``device``: a CPU generator gives the same values whatever
+    the device, a CUDA one draws on the card (no host draws to wait for).
     """
 
     def __init__(self, generator: torch.Generator, device: torch.device):
@@ -52,7 +55,8 @@ class ParamStore:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         s = scale if scale is not None else fan_in**-0.5
         full = self._full(shape, stacked)
-        w = torch.randn(full, generator=self.gen, dtype=torch.float32) * s
+        w = torch.randn(full, generator=self.gen, dtype=torch.float32,
+                        device=self.gen.device) * s
         self.params[name] = w.to(self.device)
 
     def zeros(self, name, shape, stacked: int = 0):
@@ -105,6 +109,15 @@ def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def sinusoidal_positions(seq: int, d: int, device=None) -> Tensor:
+    """(seq, d) fp32 table: sin of pos / 10000^(2i/d) in the first half, cos in
+    the second, computed in float32 as the reference does."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10_000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def init_gelu_mlp(store: ParamStore, d: int, f: int, stacked: int = 0):

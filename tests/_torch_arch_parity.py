@@ -1,6 +1,8 @@
-"""Shared checks of the port's decoder archs against the JAX package, for
-``test_torch_archs.py`` (the dense RMSNorm / SwiGLU decoders) and
-``test_torch_moe.py`` (the top-k MoE decoders).
+"""Shared checks of the port's archs against the JAX package, for
+``test_torch_archs.py`` (the dense RMSNorm / SwiGLU decoders),
+``test_torch_moe.py`` (the top-k MoE decoders), ``test_torch_recurrent.py``
+(the RWKV-6 SSM and the RecurrentGemma hybrid) and
+``test_torch_encdec_vlm.py`` (Whisper and InternVL2).
 
 Each check takes an arch id of both registries. JAX results are cached per
 case in the dicts the test modules' module-scoped fixtures hand in, so the
@@ -31,6 +33,7 @@ from repro_torch import tree
 from repro_torch.configs import registry
 from repro_torch.core.compressors import CompressorConfig
 from repro_torch.core.scalecom import ScaleComConfig
+from repro_torch.data import model_inputs
 from repro_torch.models import build_model
 from repro_torch.models.convert import params_from_jax, state_from_jax
 from repro_torch.optim import make_optimizer, schedule
@@ -97,37 +100,47 @@ def assert_param_tree_matches(name):
     return tflat
 
 
-def jax_params(jcfg, seed=0):
-    """JAX ``Model.init`` with every norm scale and bias perturbed, so none
-    is trivial."""
-    params, _ = jbuild(jcfg, compute_dtype="float32").init(jax.random.PRNGKey(seed))
+def perturb_constants(params, seed):
+    """``params`` (a JAX tree) as numpy, every leaf initialised to a constant
+    (norm scales and biases; RWKV's mixers, decay base and bonus; RG-LRU's
+    lambda) plus 0.1 x standard normal noise, so none is trivial."""
     rng = np.random.default_rng(seed)
 
-    def perturb(path, p):
-        name = jax.tree_util.keystr(path)
+    def perturb(p):
         p = _np(p)
-        if name.endswith("_scale']") or "_b" in name.split("'")[-2]:
+        if np.all(p == p.flat[0]):
             p = p + 0.1 * rng.standard_normal(p.shape).astype(np.float32)
         return p
 
-    return jax.tree_util.tree_map_with_path(perturb, params)
+    return jax.tree.map(perturb, params)
 
 
-def batch(vocab, seed=0):
+def jax_params(jcfg, seed=0):
+    """JAX ``Model.init`` with its constant leaves perturbed (``perturb_constants``)."""
+    params, _ = jbuild(jcfg, compute_dtype="float32").init(jax.random.PRNGKey(seed))
+    return perturb_constants(params, seed)
+
+
+def batch(cfg, seed=0, seq=S):
     rng = np.random.default_rng(seed)
-    return {"tokens": rng.integers(0, vocab, (B, S)).astype(np.int32),
-            "labels": rng.integers(0, vocab, (B, S)).astype(np.int32),
-            "mask": (rng.random((B, S)) > 0.3).astype(np.float32)}
+    out = {"tokens": rng.integers(0, cfg.vocab, (B, seq)).astype(np.int32),
+           "labels": rng.integers(0, cfg.vocab, (B, seq)).astype(np.int32),
+           "mask": (rng.random((B, seq)) > 0.3).astype(np.float32)}
+    if cfg.arch_type == "vlm":
+        out["vision"] = rng.standard_normal((B, cfg.vision_tokens, cfg.d_model), np.float32)
+    if cfg.is_encdec:
+        out["frames"] = rng.standard_normal((B, cfg.encoder_seq, cfg.d_model), np.float32)
+    return out
 
 
-def loss_and_grads_match_jax(name, cache, **overrides):
+def loss_and_grads_match_jax(name, cache, seq=S, **overrides):
     """From JAX-initialised params, the port's loss, every aux and every
-    gradient agree with ``jax.value_and_grad(model.loss)`` to ``TOL``.
-    Returns the port's aux dict."""
+    gradient agree with ``jax.value_and_grad(model.loss)`` to ``TOL``
+    (a batch of ``seq`` positions). Returns (the port's aux dict, JAX's)."""
     jcfg, tcfg = configs(name, "smoke", **overrides)
-    key = (name, tuple(sorted(overrides.items())))
+    key = (name, seq, tuple(sorted(overrides.items())))
     if key not in cache:
-        jp, b = jax_params(jcfg), batch(jcfg.vocab)
+        jp, b = jax_params(jcfg), batch(jcfg, seq=seq)
         jmodel = jbuild(jcfg, compute_dtype="float32", loss_chunk=LOSS_CHUNK)
         fn = jax.jit(jax.value_and_grad(jmodel.loss, has_aux=True))
         cache[key] = (jp, b, fn(jax.tree.map(jnp.asarray, jp), jax.tree.map(jnp.asarray, b)))
@@ -150,14 +163,15 @@ def loss_and_grads_match_jax(name, cache, **overrides):
     return {k: v.detach() for k, v in taux.items()}, {k: jaux[k] for k in jaux}
 
 
-def batched_pass_matches_the_loop(name, n=4, local_b=2, seq=32):
+def batched_pass_matches_the_loop(name, n=4, local_b=2, seq=32, tol=LOOP_TOL):
     """``per_worker_grads`` (one vmapped pass, every warning an error: a
-    vmap fallback warns) against ``per_worker_grads_loop``."""
+    vmap fallback warns) against ``per_worker_grads_loop``, every gradient
+    to ``tol``."""
     jcfg, tcfg = configs(name, "smoke")
     model = build_model(tcfg, loss_chunk=LOSS_CHUNK)
     params = params_from_jax(jax_params(jcfg), "cpu")
-    b = {k: torch.from_numpy(v)
-         for k, v in next(jmake_batches(tcfg.vocab, n, local_b, seq, seed=5)).items()}
+    b = {k: torch.from_numpy(v) for k, v in next(
+        jmake_batches(tcfg.vocab, n, local_b, seq, seed=5, **model_inputs(tcfg))).items()}
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         loss, auxs, grads = per_worker_grads(model, params, b, n)
@@ -169,7 +183,7 @@ def batched_pass_matches_the_loop(name, n=4, local_b=2, seq=32):
         np.testing.assert_allclose(auxs[k].numpy(), a_loop[k].numpy(), rtol=1e-6, err_msg=k)
     for (path, a), (_, c) in zip(tree.flatten_with_path(grads), tree.flatten_with_path(g_loop)):
         assert a.shape[0] == n
-        np.testing.assert_allclose(a.numpy(), c.numpy(), err_msg=path, **LOOP_TOL)
+        np.testing.assert_allclose(a.numpy(), c.numpy(), err_msg=path, **tol)
     return auxs
 
 
@@ -183,15 +197,16 @@ def _assert_tree_close(t, j, what):
 
 
 def one_compressed_step_matches_jax(name, *, chunk, min_size, layout, n=4, local_b=2, seq=32,
-                                    lr=0.05, probe=None):
+                                    lr=0.05, probe=None, **overrides):
     """From a mid-run state carried across (non-zero momentum and residues,
-    leader t mod n = 3), one compressed CLT-k step of the port agrees with
+    the parameters' constant leaves perturbed as ``jax_params`` does, leader
+    t mod n = 3), one compressed CLT-k step of the port agrees with
     JAX's ``train_step``: params, momentum, residues and every metric the
     reference reports, the model's aux losses included. ``probe(model,
     params, worker batch)`` runs on each worker's batch before the step (the
-    step updates the parameters in place). Returns (port metrics, JAX
-    metrics)."""
-    jcfg_m, tcfg_m = configs(name, "smoke")
+    step updates the parameters in place); ``overrides`` replace fields of
+    the SMOKE config. Returns (port metrics, JAX metrics)."""
+    jcfg_m, tcfg_m = configs(name, "smoke", **overrides)
     kw = dict(beta=0.1, min_size=min_size, warmup_steps=2, layout=layout)
     jcfg = JCfg(compressor=JComp("clt_k", chunk=chunk), backend="jnp", fused=False, **kw)
     tcfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=chunk), backend="torch",
@@ -200,6 +215,7 @@ def one_compressed_step_matches_jax(name, *, chunk, min_size, layout, n=4, local
     tmodel = build_model(tcfg_m, loss_chunk=LOSS_CHUNK)
     jopt, topt = jmake_opt("sgdm"), make_optimizer("sgdm")
     js, _ = jinit(jmodel, jopt, jcfg, jax.random.PRNGKey(0), n_workers=n)
+    js.params = jax.tree.map(jnp.asarray, perturb_constants(js.params, 0))
     rng = np.random.default_rng(1)
     noise = lambda x: jnp.asarray(0.01 * rng.standard_normal(x.shape).astype(np.float32))
     js.opt_state = {"m": jax.tree.map(noise, js.opt_state["m"])}
@@ -208,7 +224,7 @@ def one_compressed_step_matches_jax(name, *, chunk, min_size, layout, n=4, local
     ts = TrainState(params=params_from_jax(js.params, "cpu"),
                     opt_state={"m": params_from_jax(js.opt_state["m"], "cpu")},
                     sc_state=state_from_jax(js.sc_state, "cpu"), step=3)
-    b = next(jmake_batches(tcfg_m.vocab, n, local_b, seq, seed=2))
+    b = next(jmake_batches(tcfg_m.vocab, n, local_b, seq, seed=2, **model_inputs(tcfg_m)))
     if probe is not None:
         for i in range(n):
             probe(tmodel, ts.params, {k: torch.from_numpy(v[i]) for k, v in b.items()})

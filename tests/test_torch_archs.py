@@ -31,7 +31,6 @@ from repro_torch.models import common as tcommon
 from repro_torch.models.convert import params_from_jax
 
 DENSE = ("starcoder2-3b", "qwen2.5-14b", "phi3-medium-14b", "command-r-plus-104b")
-NOT_PORTED = ("rwkv6-3b", "recurrentgemma-2b", "whisper-medium", "internvl2-26b")
 
 
 @pytest.fixture(scope="module")
@@ -40,8 +39,8 @@ def jax_cache():
 
 
 def test_registry_holds_the_reference_ids_it_ports():
-    assert set(registry.ARCHS) | set(NOT_PORTED) == set(jregistry._MODULES)
-    assert len(registry.ARCHS) == 7
+    assert set(registry.ARCHS) == set(jregistry._MODULES)
+    assert len(registry.ARCHS) == 11
 
 
 @pytest.mark.parametrize("name", DENSE + ("paper-transformer-base",))
@@ -120,16 +119,10 @@ def test_cli_trains_starcoder2_smoke_on_the_cpu():
     assert all("comm_bytes_per_worker" in h for h in history[2:])
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_cli_names_the_ported_ids_for_an_arch_not_ported(name):
-    with pytest.raises(ValueError, match=r"not ported yet \(ROADMAP Queue 1 item 17\)") as err:
-        cli.main(["--arch", name, "--device", "cpu", "--steps", "1"])
-    assert all(repr(a) in str(err.value) for a in registry.ARCHS)
-
-
 def test_cli_keeps_its_message_for_an_unknown_arch():
-    with pytest.raises(ValueError, match=r"unknown arch 'gpt-2'; the port has \["):
+    with pytest.raises(ValueError, match=r"unknown arch 'gpt-2'; the port has \[") as err:
         cli.main(["--arch", "gpt-2", "--device", "cpu", "--steps", "1"])
+    assert all(repr(a) in str(err.value) for a in registry.ARCHS)
 
 
 @pytest.mark.parametrize("name", ["starcoder2-3b", "phi3.5-moe-42b-a6.6b"])

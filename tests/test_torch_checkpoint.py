@@ -4,10 +4,15 @@ A ``TrainState`` (smoke width, 4 workers, sgdm; residues in each codec,
 fp32, bf16, fp8 and fp8_ec, filled with random bits, NaN and inf patterns
 included; step 7 and t 9) saved by one package restores in the other bit
 for bit, leaf by leaf, in both directions: the paper transformer in every
-codec, and the phi3.5-moe SMOKE state (stacked experts, the router, RMSNorm
-scales without biases) in fp32. The port's leaf keys are JAX's
-``keystr`` paths of the whole state (``[<flat index 0>]['blocks']...``).
+codec, and in fp32 the phi3.5-moe SMOKE state (stacked experts, the router,
+RMSNorm scales without biases), the recurrentgemma one at 5 layers (stacked
+``units`` beside an un-stacked 2-layer ``tail``) and the whisper one
+(``encoder`` with its final norm inside, ``decoder`` with cross-attention).
+The port's leaf keys are JAX's ``keystr`` paths of the whole state
+(``[<flat index 0>]['blocks']...``).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -36,11 +41,15 @@ from repro_torch.training import TrainLoop, TrainState, init_train_state, run_tr
 
 ARCH = "paper-transformer-base"
 MOE = "phi3.5-moe-42b-a6.6b"
+HYBRID = "recurrentgemma-2b"
+WHISPER = "whisper-medium"
 N, CHUNK, MIN_SIZE = 4, 16, 512
 CODECS = ("fp32", "bf16", "fp8", "fp8_ec")
 # (arch, codec) per case; the paper transformer's cases keep their codec ids
-CASES = [(ARCH, c) for c in CODECS] + [(MOE, "fp32")]
-CASE_IDS = list(CODECS) + ["phi3.5-moe-fp32"]
+CASES = [(ARCH, c) for c in CODECS] + [(MOE, "fp32"), (HYBRID, "fp32"), (WHISPER, "fp32")]
+CASE_IDS = list(CODECS) + ["phi3.5-moe-fp32", "recurrentgemma-fp32", "whisper-fp32"]
+# SMOKE overrides: the hybrid at 5 layers, so its state has a tail
+OVERRIDES = {HYBRID: dict(n_layers=5)}
 _UINT = {1: np.uint8, 2: np.uint16, 4: np.uint32}
 
 
@@ -60,7 +69,8 @@ def _jax_state(codec, seed=0, arch=ARCH):
     """A JAX TrainState whose every leaf holds random bits."""
     rng = np.random.default_rng(seed)
     cfg = JCfg(compressor=JComp("clt_k", chunk=CHUNK), min_size=MIN_SIZE, residue_dtype=codec)
-    model = jbuild(jregistry.smoke(arch), compute_dtype="float32", loss_chunk=16)
+    jcfg = dataclasses.replace(jregistry.smoke(arch), **OVERRIDES.get(arch, {}))
+    model = jbuild(jcfg, compute_dtype="float32", loss_chunk=16)
     js, _ = jinit(model, jmake_opt("sgdm"), cfg, jax.random.PRNGKey(seed), n_workers=N)
 
     def noise(x):
@@ -83,7 +93,8 @@ def _carry(js) -> TrainState:
 def _port_like(codec, arch=ARCH) -> TrainState:
     cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), min_size=MIN_SIZE,
                          residue_dtype=codec)
-    return init_train_state(build_model(registry.smoke(arch), loss_chunk=16),
+    tcfg = dataclasses.replace(registry.smoke(arch), **OVERRIDES.get(arch, {}))
+    return init_train_state(build_model(tcfg, loss_chunk=16),
                             make_optimizer("sgdm"), cfg, torch.Generator().manual_seed(1),
                             n_workers=N, device="cpu")
 
@@ -108,7 +119,17 @@ def test_port_keys_are_jax_keystr_paths(states):
     (arch, _), js, ts = states
     keys = [k for k, _ in _flatten(ts)]
     assert keys == [jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_flatten_with_path(js)[0]]
-    assert "[<flat index 0>]['blocks']['attn_wq']" in keys and keys[-1] == "[<flat index 3>]"
+    assert keys[-1] == "[<flat index 3>]"
+    if arch in (ARCH, MOE):
+        assert "[<flat index 0>]['blocks']['attn_wq']" in keys
+    if arch == HYBRID:
+        assert "[<flat index 0>]['units']['u2_attn']['attn_wq']" in keys
+        assert "[<flat index 0>]['tail']['layer_1_rec']['rec_conv']" in keys
+        assert "[<flat index 2>][<flat index 0>][\"['tail']['layer_0_rec']['rec_in_x']\"]['q']" in keys
+    if arch == WHISPER:
+        assert "[<flat index 0>]['encoder']['ln_enc_final_bias']" in keys
+        assert "[<flat index 1>]['m']['decoder']['cross_wq']" in keys
+        assert "[<flat index 2>][<flat index 0>][\"['decoder']['cross_wv']\"]['q']" in keys
     if arch == MOE:
         assert "[<flat index 0>]['blocks']['expert_gate']" in keys
         assert "[<flat index 2>][<flat index 0>][\"['blocks']['expert_down']\"]['q']" in keys
