@@ -138,6 +138,22 @@ Phases, each fatal on failure:
      loop (``grads_phase``) and for the MoE arch nnz(ĝ)/k of the expert
      tensors. These launches stand under ``arch_launches`` in the JSON
      line and are not in ``launches``.
+  10. ``[serve]``, serving the registry's families at full width
+     (``SERVE_RUNS``), each one's weights drawn on the card and freed before
+     the next: paper-transformer-base (6 layers), starcoder2-3b (30),
+     rwkv6-3b (32), recurrentgemma-2b (26, a 2304-position prompt past its
+     2048-position window) and whisper-medium (24 + 24 over 1500 stub
+     frames) at full depth; phi3.5-moe-42b-a6.6b at 8 of 32 and
+     internvl2-26b at 24 of 48 layers (256 stub vision tokens), whose fp32
+     weights do not fit whole. 4 prompts of 64 tokens, 32 greedy tokens
+     through ``build_serve_fns`` and ``launch.serve.generate``, twice
+     (equal tokens): prefill ms (first call and warm), decode ms a token
+     and tokens/s against the decode step's weight-read bound, one decode
+     step under ``torch.profiler``, peak memory; prefill/decode
+     consistency (rtol = atol = 2e-3, MoE at its no-drop capacity
+     factor), the card against the CPU on the same weights cut in depth
+     (``SERVE_CPU_REL_TOL``), the recurrent states' size, and no ScaleCom
+     kernel launched.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2374,6 +2390,241 @@ def arch_phase(card_line: str) -> dict:
     return launched
 
 
+@dataclasses.dataclass(frozen=True)
+class ServeRun:
+    """One [serve] run: an id of the registry at full width, its depth cut
+    only where one card cannot hold its weights (``cut``, with ``why``),
+    serving ``batch`` prompts of ``prompt`` tokens and ``gen`` greedy tokens;
+    ``cpu_cut`` is the depth at which the card is held against the CPU."""
+
+    name: str
+    cpu_cut: dict
+    cut: dict = dataclasses.field(default_factory=dict)
+    why: str = ""
+    prompt: int = 64
+    batch: int = 4
+    gen: int = 32
+
+
+# The [serve] phase: serving needs no gradients, worker copies or residues,
+# so the four archs whose fp32 weights fit run at full depth. phi3.5-moe
+# (1.30 G parameters a layer, 167 GB in all) and internvl2-26b (0.39 G a
+# layer, 79 GB) do not fit one card: they keep ~43 GB of layers.
+SERVE_RUNS = (
+    ServeRun("paper-transformer-base", dict(n_layers=2)),
+    ServeRun("starcoder2-3b", dict(n_layers=2)),
+    ServeRun("rwkv6-3b", dict(n_layers=2)),
+    # 2304 prompt positions, past the 2048-position local window: the
+    # attention layers' caches wrap as rings
+    ServeRun("recurrentgemma-2b", dict(n_layers=3), prompt=2304),
+    ServeRun("whisper-medium", dict(n_layers=2, encoder_layers=2)),
+    ServeRun("phi3.5-moe-42b-a6.6b", dict(n_layers=1), dict(n_layers=8),
+             "1.30 G parameters a layer: 32 layers are 167 GB of fp32 weights, 8 are ~43 GB"),
+    ServeRun("internvl2-26b", dict(n_layers=1), dict(n_layers=24),
+             "0.39 G parameters a layer: 48 layers are 79 GB of fp32 weights, 24 are ~42 GB"),
+)
+# the reference's prefill/decode consistency tolerance (tests/test_models_smoke.py)
+SERVE_CONSISTENCY_TOL = dict(rtol=2e-3, atol=2e-3)
+# card against CPU: the largest logit difference over the largest |logit|
+# (fp32 both, GEMM sums in other orders)
+SERVE_CPU_REL_TOL = 1e-3
+SERVE_CPU_BATCH, SERVE_CPU_PROMPT, SERVE_CPU_STEPS = 2, 64, 4
+
+
+def cut_params(params, small) -> dict:
+    """The parameters of ``small`` (a config at a cut depth) out of the
+    full-depth ``params``: each stack's first layers (views), the rest as is."""
+    from repro_torch import tree
+
+    out = dict(params)
+    for key in ("blocks", "decoder"):
+        if key in params:
+            out[key] = tree.tree_map(lambda t: t[:small.n_layers], params[key])
+    if "encoder" in params:
+        out["encoder"] = {k: t if k.startswith("ln_enc_final") else t[:small.encoder_layers]
+                          for k, t in params["encoder"].items()}
+    if "units" in params:
+        n_units = small.n_layers // len(small.hybrid_pattern)
+        out["units"] = tree.tree_map(lambda t: t[:n_units], params["units"])
+        tail = small._layer_kinds()[n_units * len(small.hybrid_pattern):]
+        out["tail"] = {f"layer_{i}_{k}": params["tail"][f"layer_{i}_{k}"]
+                       for i, k in enumerate(tail)}
+    return out
+
+
+def decode_read_bytes(params, state, batch: int) -> tuple:
+    """(weight bytes, state bytes) one decode step must move: every weight it
+    applies read once (not the encoder's; of an untied embedding table only
+    the batch's rows), the decode state read once and its recurrent leaves
+    (all but the caches, of which a step writes one slot) written once."""
+    from repro_torch import tree
+
+    w = 0
+    for path, t in tree.flatten_with_path(params):
+        if path.startswith("['encoder']"):
+            continue
+        if path == "['tok_embed']" and "lm_head" in params:
+            w += batch * t.shape[1] * t.element_size()
+        else:
+            w += t.numel() * t.element_size()
+    s = 0
+    for path, t in tree.flatten_with_path(state):
+        n = t.numel() * t.element_size()
+        s += n if path.endswith(("['k']", "['v']", "['slot_pos']")) else 2 * n
+    return w, s
+
+
+def serve_phase(card_line: str) -> None:
+    """[serve]: each run of ``SERVE_RUNS`` at full width, its weights drawn on
+    the card and freed before the next: greedy serving through
+    ``build_serve_fns`` and ``launch.serve.generate`` twice (cold, then
+    warm: prefill ms and decode ms a token, tokens/s against the decode
+    step's weight-read bound, equal tokens both times), peak memory; the
+    prefill/decode consistency check (MoE at the no-drop capacity factor);
+    the card against the CPU at ``cpu_cut`` (prefill and
+    ``SERVE_CPU_STEPS`` teacher-forced decode steps); for the SSM and the
+    hybrid a decode state that does not grow with the context; one decode
+    step under ``torch.profiler`` (device busy time, idle share, device
+    operations). No ScaleCom kernel may launch."""
+    import numpy as np
+    import torch
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import kernels, tree
+    from repro_torch.configs import registry
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.training.serve import build_serve_fns
+
+    t_phase = time.perf_counter()
+    launched = kernels.launches()
+    for spec in SERVE_RUNS:
+        name, B, T = spec.name, spec.batch, spec.prompt
+        full = registry.arch(name)
+        cfg = dataclasses.replace(full, **spec.cut)
+        model = build_model(cfg)
+        depth = (f"{cfg.n_layers} of {full.n_layers}" if not cfg.is_encdec else
+                 f"{cfg.encoder_layers} + {cfg.n_layers} of {full.encoder_layers} + "
+                 f"{full.n_layers}")
+        free, _ = torch.cuda.mem_get_info()
+        print(f"[serve] {name}: {depth} layers{' (cut: ' + spec.why + ')' if spec.why else ''}; "
+              f"{describe(cfg)}; {cfg.param_count():,} parameters "
+              f"({cfg.param_count() * 4 / 2**30:.2f} GiB fp32); batch {B}, prompt {T}, gen "
+              f"{spec.gen}; {free / 2**30:.2f} GiB free before the run")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = model.init(gen, "cuda")
+        toks = SyntheticLM(cfg.vocab, seed=0).sample(np.random.default_rng(0), B, T)
+        toks = torch.from_numpy(toks).cuda()  # (B, T + 1)
+        extra = {}
+        if cfg.arch_type == "vlm":
+            extra["vision"] = torch.randn((B, cfg.vision_tokens, cfg.d_model), generator=gen,
+                                          device="cuda")
+        if cfg.is_encdec:
+            extra["frames"] = torch.randn((B, cfg.encoder_seq, cfg.d_model), generator=gen,
+                                          device="cuda")
+        ctx = T + (cfg.vision_tokens if cfg.arch_type == "vlm" else 0)
+        prefill_fn, decode_fn = build_serve_fns(model, seq_len=ctx + spec.gen)
+        batch = dict(extra, tokens=toks[:, :T])
+        runs = [generate(prefill_fn, decode_fn, params, batch, ctx, spec.gen,
+                         torch.cuda.synchronize) for _ in range(2)]
+        check(torch.equal(runs[0][0], runs[1][0]), f"[serve] {name}: two greedy runs differ")
+        (_, pre_cold, dec_cold), (tokens, pre_warm, dec_warm) = runs
+        check(tokens.shape == (B, spec.gen) and bool(
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()), f"[serve] {name}: tokens {tokens}")
+        peak = torch.cuda.max_memory_allocated()
+        _, state = prefill_fn(params, batch)
+        w_bytes, s_bytes = decode_read_bytes(params, state, B)
+        # one decode step under the profiler: device busy time, kernels launched
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, step_ms = host_ms(lambda: decode_fn(params, state, tokens[:, 0], ctx))
+        on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+        n_kernels = sum(e.count for e in on_card)
+        del state, prof, on_card
+        ms_tok = dec_warm / (spec.gen - 1) * 1e3
+        bound_ms = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
+        print(f"[serve] {name}: prefill {pre_cold * 1e3:.1f} ms first call, {pre_warm * 1e3:.1f} "
+              f"ms warm ({B} x {ctx} positions); decode {ms_tok:.3f} ms a token warm "
+              f"({dec_cold / (spec.gen - 1) * 1e3:.3f} cold), {B / ms_tok * 1e3:.1f} tokens/s; "
+              f"weight-read bound {bound_ms:.3f} ms ({w_bytes / 1e9:.3f} GB of weights + "
+              f"{s_bytes / 1e9:.4f} GB of state a step over {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
+              f"{bound_ms / ms_tok:.1%} of it; peak allocated {peak / 2**30:.2f} GiB on "
+              f"{card_line}")
+        print(f"[serve] {name}: one decode step under torch.profiler: {step_ms:.3f} ms host clock, "
+              + (f"{busy_ms:.3f} ms device busy (idle share {1 - busy_ms / step_ms:.3f}) in "
+                 f"{n_kernels} device operations" if busy_ms > 0 else
+                 "device time not measured (no device events recorded)") + f" on {card_line}")
+        print(f"[serve] {name}: greedy tokens of the first sequence {tokens[0, :16].tolist()}")
+
+        # prefill/decode consistency: decode of token T after prefill(tokens[:T])
+        # equals prefill(tokens[:T+1])'s last logits
+        cmodel = model if not cfg.n_experts else build_model(
+            dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)))
+        want, _ = cmodel.prefill(params, dict(extra, tokens=toks), ctx + 8)
+        _, state = cmodel.prefill(params, batch, ctx + 8)
+        got, state = cmodel.decode_step(params, state, toks[:, T], ctx)
+        err = max_abs_err(got, want)
+        ok = bool(torch.allclose(got, want, **SERVE_CONSISTENCY_TOL))
+        print(f"[serve] {name}: decode of token {T} after prefill of {T} against the prefill of "
+              f"{T + 1}{' (no-drop capacity factor ' + str(float(cfg.n_experts)) + ')' if cfg.n_experts else ''}: "
+              f"max abs err {err:.3e}, largest |logit| {float(want.abs().max()):.3f} (rtol = atol "
+              f"= 2e-3) {'ok' if ok else 'FAILED'}")
+        check(ok, f"[serve] {name}: prefill/decode consistency off by {err:.3e}")
+        del want, got, state
+
+        if cfg.arch_type in ("ssm", "hybrid"):
+            n = [sum(x.numel() for x in tree.leaves(model.init_decode_state(B, seq, "cuda")))
+                 for seq in (ctx, 16 * ctx)]
+            ok = n[0] == n[1] if cfg.arch_type == "ssm" else n[1] <= n[0] * 40
+            print(f"[serve] {name}: decode state {n[0]:,} elements at a {ctx}-position context, "
+                  f"{n[1]:,} at {16 * ctx} {'ok' if ok else 'FAILED'}")
+            check(ok, f"[serve] {name}: the decode state grows with the context")
+
+        # the card against the CPU, the same weights cut to cpu_cut
+        small = dataclasses.replace(full, **spec.cpu_cut)
+        smodel = build_model(small)
+        card_p = cut_params(params, small)
+        cpu_p = tree.tree_map(lambda t: t.cpu(), card_p)
+        b2, n2 = SERVE_CPU_BATCH, SERVE_CPU_PROMPT
+        t2 = torch.from_numpy(SyntheticLM(cfg.vocab, seed=1).sample(
+            np.random.default_rng(1), b2, n2 + SERVE_CPU_STEPS - 1))  # (b2, n2 + steps)
+        ctx2 = n2 + (cfg.vision_tokens if cfg.arch_type == "vlm" else 0)
+        outs, secs = {}, {}
+        for dev, p in (("cuda", card_p), ("cpu", cpu_p)):
+            t0 = time.perf_counter()
+            b = {k: v[:b2].to(dev) for k, v in extra.items()}
+            tk = t2.to(dev)  # teacher-forced: the prompt, then the next tokens
+            logits, st = smodel.prefill(p, dict(b, tokens=tk[:, :n2]), ctx2 + SERVE_CPU_STEPS)
+            outs[dev] = [logits.cpu()]
+            for i in range(SERVE_CPU_STEPS):
+                logits, st = smodel.decode_step(p, st, tk[:, n2 + i], ctx2 + i)
+                outs[dev].append(logits.cpu())
+            secs[dev] = time.perf_counter() - t0
+        worst = max(max_abs_err(a, c) / float(c.abs().max())
+                    for a, c in zip(outs["cuda"], outs["cpu"]))
+        ok = worst <= SERVE_CPU_REL_TOL
+        cut_depth = ", ".join(f"{k} {v}" for k, v in spec.cpu_cut.items())
+        print(f"[serve] {name}: card against the CPU at {cut_depth}, {b2} x {n2} prompt "
+              f"positions + {SERVE_CPU_STEPS} decode steps: largest logit difference "
+              f"{worst:.3e} of the largest |logit| (tolerance {SERVE_CPU_REL_TOL:g}) "
+              f"{'ok' if ok else 'FAILED'}; CPU {secs['cpu']:.1f} s")
+        check(ok, f"[serve] {name}: card and CPU logits differ by {worst:.3e} of the largest")
+        del params, card_p, cpu_p, outs, tokens, runs, batch, extra, toks, model, cmodel
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(kernels.launches() == launched,
+          f"[serve] ScaleCom kernels launched while serving: {kernels.launches()} after "
+          f"{launched}")
+    print(f"[serve] no ScaleCom kernel launched in the phase ({launched} before and after); "
+          f"phase {time.perf_counter() - t_phase:.1f} s wall on {card_line}")
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)  # a cut run still shows how far it got
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2690,6 +2941,9 @@ def main() -> None:
     gc.collect()
     torch.cuda.empty_cache()
     arch_launches = arch_phase(card_line)
+
+    # -- 10. serving every family at full width (SERVE_RUNS) ------------------------
+    serve_phase(card_line)
 
     for name in KERNELS:
         check(path_launches.get(name, 0) > 0, f"{name} was never launched on the main path")

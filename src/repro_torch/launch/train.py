@@ -121,7 +121,9 @@ def main(argv=None):
         ap.error("--metrics-every requires --trace-dir (the similarity taps "
                  "need the telemetry run to land anywhere)")
 
-    cfg = registry.smoke(args.arch)  # an unknown id raises, naming the registry's
+    if args.arch not in registry.ARCHS:  # as the reference: exit naming the ids
+        raise SystemExit(f"unknown arch {args.arch}; choices: {list(registry.ARCHS)}")
+    cfg = registry.smoke(args.arch)
     device = resolve_device(args.device)
     print(f"[launch.train] torch {torch.__version__} on {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))

@@ -1,20 +1,31 @@
-"""Grouped-query attention for training: the port of
-``repro.models.attention`` (``init_attention``, ``_project_qkv``,
-``attention_core``, ``attention_train``): causal or not, windowed or not,
+"""Grouped-query attention: the port of ``repro.models.attention``.
+Training and encoding (``attention_train``): causal or not, windowed or not,
 self-attention with RoPE or without, and cross-attention over an encoder's
-output (never causal, never rotated).
+output (never causal, never rotated). Serving: ``init_cache``,
+``attention_prefill`` (the full prompt, filling a cache) and
+``attention_decode`` (one token against the cache).
 
 Attention is plain einsum + masked softmax, masked with ``NEG_INF`` exactly
-as ``attention_core`` does. The JAX package scans query chunks to bound
-memory at long sequence; at the port's training lengths the full
-(B, heads, S, T) score tensor fits, so it is computed at once. The port
-pads no query chunk and keeps no cache, so every position is a real one
-(>= 0) and only the causal and window conditions mask.
+as the reference does. The reference scans 512-query chunks under
+``jax.checkpoint`` (and its model rematerialises each layer), so the
+(B, heads, S, T) score tensor never exists whole; the port does neither and
+computes the whole score tensor at once, which is what cuts the depth and
+length of ``chip_smoke.py``'s ``[arch]`` training runs (ROADMAP item 17a).
+Every query and key position of ``attention_core`` is a real one (>= 0):
+only the causal and window conditions mask there.
+
+Cache layout, the reference's: {"k": (B, C, KV, hd), "v": (B, C, KV, hd),
+"slot_pos": (C,) int32}, where ``slot_pos[j]`` is the absolute position held
+in slot j (-1 = empty). Position p goes to slot p % C, so a cache of the
+whole context holds position j in slot j and a window cache is a ring.
+Decode masks by ``slot_pos``: empty slots (< 0), later positions and those
+outside the window. Prefill and decode write the cache in place (a decode
+step copies one token's K/V per layer, not the cache).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -24,7 +35,8 @@ Tensor = torch.Tensor
 
 NEG_INF = -1e30
 
-__all__ = ["NEG_INF", "init_attention", "attention_core", "attention_train"]
+__all__ = ["NEG_INF", "init_attention", "attention_core", "attention_train", "init_cache",
+           "attention_prefill", "attention_decode"]
 
 
 def init_attention(cfg, store: common.ParamStore, stacked: int = 0, prefix: str = "attn"):
@@ -93,3 +105,67 @@ def attention_train(cfg, p, x: Tensor, positions: Tensor, *, causal: bool = True
                          window=window)
     B, S = x.shape[:2]
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p[f"{prefix}_wo"]
+
+
+def init_cache(cfg, batch: int, capacity: int, device=None) -> Dict[str, Tensor]:
+    """An empty cache of ``capacity`` slots (``slot_pos`` -1)."""
+    kv = (batch, capacity, cfg.n_kv_heads, cfg.hd)
+    return {"k": torch.zeros(kv, dtype=torch.float32, device=device),
+            "v": torch.zeros(kv, dtype=torch.float32, device=device),
+            "slot_pos": torch.full((capacity,), -1, dtype=torch.int32, device=device)}
+
+
+def attention_prefill(cfg, p, x: Tensor, positions: Tensor, cache: Dict[str, Tensor], *,
+                      window: Optional[int] = None, rope: bool = True,
+                      prefix: str = "attn") -> Tensor:
+    """Full-sequence causal attention over the prompt x (B, S, D), writing the
+    last min(C, S) positions' K/V into ``cache`` (capacity C) in place, at
+    slots position % C."""
+    q, k, v = _project_qkv(cfg, p, x, x, positions, positions, rope, prefix)
+    out = attention_core(q, k, v, positions, positions, causal=True, window=window)
+    B, S = x.shape[:2]
+    C = cache["k"].shape[1]
+    keep = min(C, S)
+    pos_tail = positions[S - keep:].to(torch.int64)
+    slots = torch.remainder(pos_tail, C)
+    cache["k"].index_copy_(1, slots, k[:, S - keep:])
+    cache["v"].index_copy_(1, slots, v[:, S - keep:])
+    cache["slot_pos"].index_copy_(0, slots, pos_tail.to(torch.int32))
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p[f"{prefix}_wo"]
+
+
+def attention_decode(cfg, p, x: Tensor, pos: int, cache: Dict[str, Tensor], *,
+                     window: Optional[int] = None, update_cache: bool = True,
+                     rope: bool = True, causal: bool = True, prefix: str = "attn") -> Tensor:
+    """One token x (B, 1, D) at absolute position ``pos`` (a Python int).
+
+    With ``update_cache`` its K/V go into slot pos % C in place first; with
+    ``update_cache=False`` (cross-attention) the cache is read only and
+    ``causal=False`` attends to every filled slot (the encoder's memory)."""
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    if update_cache:
+        q, k_new, v_new = _project_qkv(cfg, p, x, x, pos_t, pos_t, rope, prefix)
+        slot = pos % cache["k"].shape[1]
+        cache["k"][:, slot] = k_new[:, 0]
+        cache["v"][:, slot] = v_new[:, 0]
+        cache["slot_pos"][slot] = pos
+    else:
+        q = x @ p[f"{prefix}_wq"]
+        if cfg.qkv_bias:
+            q = q + p[f"{prefix}_bq"]
+        q = q.reshape(B, 1, H, hd)
+        if rope:
+            q = common.apply_rope(q, pos_t, cfg.rope_theta)
+    k, v, spos = cache["k"], cache["v"], cache["slot_pos"]
+    qg = q.reshape(B, 1, KV, H // KV, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k).to(torch.float32) * hd**-0.5
+    valid = spos >= 0
+    if causal:
+        valid = valid & (spos <= pos)
+    if window is not None:
+        valid = valid & ((pos - spos) < window)
+    w = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", w, v).reshape(B, 1, H * hd)
+    return o @ p[f"{prefix}_wo"]

@@ -2,7 +2,7 @@
 sinusoidal positions, the GELU and SwiGLU MLPs, embeddings and the chunked
 cross-entropy.
 
-The port of the training parts of ``repro.models.common``. Parameters are
+The port of ``repro.models.common``. Parameters are
 plain nested dicts of tensors with the JAX package's names and stacked
 shapes, so a JAX parameter tree carries across (``models.convert``) and the
 residue keys match.
@@ -25,6 +25,7 @@ __all__ = [
     "apply_norm",
     "apply_rope",
     "sinusoidal_positions",
+    "sinusoidal_positions_at",
     "gelu_mlp",
     "init_swiglu",
     "swiglu",
@@ -118,6 +119,16 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> Tensor:
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
     ang = pos / torch.pow(10_000.0, dim / d)
     return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def sinusoidal_positions_at(pos: int, d: int, device=None) -> Tensor:
+    """Row ``pos`` of ``sinusoidal_positions`` as (1, 1, d), bit for bit: the
+    same float32 ops on one position. The position is filled on the device,
+    so a decode step copies nothing from the host."""
+    p = torch.full((1, 1), pos, dtype=torch.float32, device=device)
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = p / torch.pow(10_000.0, dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[None]
 
 
 def init_gelu_mlp(store: ParamStore, d: int, f: int, stacked: int = 0):

@@ -1,4 +1,5 @@
-"""Carry parameters and ScaleCom residues across from the JAX package, and back.
+"""Carry parameters, decode states and ScaleCom residues across from the JAX
+package, and back.
 
 The tests make both packages compute the same thing by initializing on the
 JAX side and converting: the trees hold the same key strings and stacked
@@ -20,7 +21,8 @@ from repro_torch import tree
 from repro_torch.core.state import ScaleComState
 from repro_torch.device import resolve_device
 
-__all__ = ["params_from_jax", "state_from_jax", "residue_bits"]
+__all__ = ["params_from_jax", "decode_state_from_jax", "decode_state_to_numpy",
+           "state_from_jax", "residue_bits"]
 
 # numpy dtype name -> (its bits as a numpy dtype, the torch dtype they view as)
 _BY_BITS = {
@@ -43,6 +45,19 @@ def params_from_jax(params, device: Union[str, torch.device] = "cuda"):
     """A nested dict of arrays -> the same nested dict of tensors on ``device``."""
     dev = resolve_device(device)
     return tree.tree_map(lambda x: _tensor(x, dev), params)
+
+
+def decode_state_from_jax(state, device: Union[str, torch.device] = "cuda"):
+    """A ``Model.prefill`` / ``decode_step`` state of the JAX package (nested
+    dicts, the hybrid's ``tail`` a list) -> the port's, each leaf a tensor of
+    its own on ``device`` (``slot_pos`` stays int32)."""
+    return params_from_jax(state, device)
+
+
+def decode_state_to_numpy(state):
+    """The port's decode state -> the same tree of numpy arrays, for comparison
+    with the JAX package's (``jax.tree_util.keystr`` paths equal ``tree``'s)."""
+    return tree.tree_map(lambda t: t.detach().cpu().numpy(), state)
 
 
 def state_from_jax(state, device: Union[str, torch.device] = "cuda") -> ScaleComState:

@@ -1,6 +1,8 @@
 """RG-LRU recurrent blocks of RecurrentGemma / Griffin (arXiv:2402.19427).
 
-The port of ``repro.models.rglru``'s training path. Recurrent block
+The port of ``repro.models.rglru``. One function serves training, prefill
+and decode: ``rglru_block`` carries the hidden state ``h`` and the conv's
+last W-1 inputs through any length, one token (S = 1) included. Recurrent block
 (Griffin fig. 2):
 
     x -> [linear -> gelu]                              (gate branch)

@@ -1,6 +1,8 @@
 """RWKV-6 "Finch" blocks (arXiv:2404.05892): attention-free, data-dependent decay.
 
-The port of ``repro.models.rwkv``'s training path. Time mix:
+The port of ``repro.models.rwkv``: the block over a sequence
+(``rwkv_block_train``, also prefill's) and over one token
+(``rwkv_block_decode``, a decode step's). Time mix:
 
   * token shift with data-dependent interpolation (ddlerp) through five
     low-rank adapters (r, k, v, g, w), ``LORA_R`` wide;
@@ -30,7 +32,7 @@ from repro_torch.models import common
 Tensor = torch.Tensor
 
 __all__ = ["LORA_R", "init_rwkv_block", "time_mix", "channel_mix", "rwkv_block_train",
-           "init_rwkv_state"]
+           "rwkv_block_decode", "init_rwkv_state"]
 
 LORA_R = 64  # low-rank adapter width for ddlerp and the decay
 
@@ -124,6 +126,11 @@ def rwkv_block_train(cfg, p, x: Tensor, state) -> Tuple[Tensor, Dict]:
     x = x + h
     h, cm_prev = channel_mix(cfg, p, common.apply_norm(cfg, x, p, "ln_cm"), state["cm_x_prev"])
     return x + h, {"tm": new_tm, "cm_x_prev": cm_prev}
+
+
+def rwkv_block_decode(cfg, p, x: Tensor, state) -> Tuple[Tensor, Dict]:
+    """One token x (B, 1, D): the block at S = 1, as the reference's."""
+    return rwkv_block_train(cfg, p, x, state)
 
 
 def init_rwkv_state(cfg, batch: int, device=None) -> Dict:

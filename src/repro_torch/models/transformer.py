@@ -1,6 +1,8 @@
-"""Every architecture of the registry as one ``Model``: ``Model.init`` and ``Model.loss``.
+"""Every architecture of the registry as one ``Model``: training
+(``Model.init``, ``Model.loss``) and serving (``init_decode_state``,
+``prefill``, ``decode_step``).
 
-The port of the training path of ``repro.models.transformer``:
+The port of ``repro.models.transformer``:
 
   * the uniform stacks under ``params["blocks"]``: the paper transformer
     (layernorm, GELU MLP with biases), the RMSNorm / SwiGLU dense decoders,
@@ -19,8 +21,20 @@ The port of the training path of ``repro.models.transformer``:
 
 Block parameters are stacked on a leading layer axis like the JAX
 ``ParamStore`` layout; a Python loop over layers takes the place of
-``lax.scan``. Activation checkpointing is not needed at the port's sizes.
-Decode is not ported (ROADMAP Queue 1 item 17).
+``lax.scan``. The reference rematerialises each layer body
+(``jax.checkpoint``) and q-chunks attention; the port does neither, so a
+training pass keeps every layer's activations and whole score tensors,
+which is what cuts ``chip_smoke.py``'s ``[arch]`` depths (ROADMAP item 17a).
+
+Serving keeps the reference's decode state, key for key and shape for
+shape: ``{"kv"}`` (dense, MoE, VLM: caches stacked on the layer axis),
+``{"ssm"}`` (RWKV-6 states stacked), ``{"units", "tail"}`` (the hybrid:
+RG-LRU states and window caches stacked per unit position, a list for the
+tail) and ``{"self", "cross"}`` (the encoder-decoder's self caches and the
+cross caches built from the encoder). Every stacked leaf is a tensor of its
+own (the reference's ``broadcast_to`` would be one shared view here), and
+prefill and decode write it in place, layer by layer; both run under
+``torch.inference_mode``. A decode step's ``pos`` is a Python int.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ from typing import Dict, Optional, Tuple, Union
 
 import torch
 
+from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -99,9 +114,23 @@ def _block_train(cfg, p, x, positions, kind, *, window, enc_out=None,
     return _apply_mlp(cfg, p, x), {}
 
 
-def _layer(stacked: Dict[str, Tensor], i: int) -> Dict[str, Tensor]:
-    """Layer ``i`` of a stack of layer-stacked parameters."""
-    return {k: v[i] for k, v in stacked.items()}
+def _layer(stacked: Dict, i: int) -> Dict:
+    """Layer ``i`` of a tree of layer-stacked tensors (views: a write into
+    one goes into the stack)."""
+    return tree.tree_map(lambda v: v[i], stacked)
+
+
+def _stack(n: int, one: Dict) -> Dict:
+    """``one`` stacked ``n`` times on a new leading axis, each leaf a new
+    tensor: the reference's ``broadcast_to``, made real so that each layer
+    writes its own slots."""
+    return tree.tree_map(
+        lambda x: x.expand((n,) + x.shape).clone(memory_format=torch.contiguous_format), one)
+
+
+def _copy_into(dst: Dict, src: Dict) -> None:
+    """Write the tree ``src`` into the tree of tensors (or views) ``dst``."""
+    tree.tree_map(lambda d, s: d.copy_(s), dst, src)
 
 
 def _hybrid_units(cfg) -> Tuple[int, Tuple[str, ...]]:
@@ -116,6 +145,7 @@ class Model:
 
     cfg: ArchConfig
     loss_chunk: int = 512
+    decode_window: Optional[int] = None  # caps the dense decoders' caches to a ring (long_500k)
 
     def init(self, generator: torch.Generator,
              device: Union[str, torch.device] = "cuda") -> Dict:
@@ -220,6 +250,173 @@ class Model:
         aux_total["nll"] = nll
         return total, aux_total
 
+    # ---------------- serving ----------------
 
-def build_model(cfg: ArchConfig, *, loss_chunk: int = 512) -> Model:
-    return Model(cfg=cfg, loss_chunk=loss_chunk)
+    def _cache_capacity(self, seq_len: int, kind: str) -> int:
+        window = self.decode_window or self._window(kind)
+        return seq_len if window is None else min(seq_len, window)
+
+    def _self_caches(self, batch: int, seq_len: int, device) -> Dict:
+        """The encoder-decoder's stacked self-attention caches."""
+        cap = self._cache_capacity(seq_len, "attn")
+        return _stack(self.cfg.n_layers, attn.init_cache(self.cfg, batch, cap, device))
+
+    @torch.inference_mode()
+    def init_decode_state(self, batch: int, seq_len: int,
+                          device: Union[str, torch.device] = "cuda") -> Dict:
+        """Empty decode state for a ``seq_len`` context on ``device``."""
+        cfg = self.cfg
+        dev = resolve_device(device)
+        if cfg.is_encdec:
+            cross = attn.init_cache(cfg, batch, cfg.encoder_seq, dev)
+            return {"self": self._self_caches(batch, seq_len, dev),
+                    "cross": _stack(cfg.n_layers, cross)}
+        if cfg.arch_type == "ssm":
+            return {"ssm": _stack(cfg.n_layers, rwkv.init_rwkv_state(cfg, batch, dev))}
+        if cfg.arch_type == "hybrid":
+            n_units, tail_kinds = _hybrid_units(cfg)
+
+            def one(kind):
+                if kind == "rec":
+                    return rglru.init_rglru_state(cfg, batch, dev)
+                return attn.init_cache(cfg, batch, self._cache_capacity(seq_len, kind), dev)
+
+            return {"units": {f"u{pos}_{kind}": _stack(n_units, one(kind))
+                              for pos, kind in enumerate(cfg.hybrid_pattern)},
+                    "tail": [one(kind) for kind in tail_kinds]}
+        cap = self._cache_capacity(seq_len, cfg._layer_kinds()[0])
+        return {"kv": _stack(cfg.n_layers, attn.init_cache(cfg, batch, cap, dev))}
+
+    def _serve_layers(self, params, x: Tensor, state: Dict, *, positions: Optional[Tensor] = None,
+                      pos: Optional[int] = None) -> Tensor:
+        """The layers over a prompt at ``positions`` (prefill) or over one
+        token at ``pos`` (a decode step), writing ``state`` in place."""
+        cfg = self.cfg
+        decoding = pos is not None
+
+        def self_attn(pl, xn, cache, window, rope=True):
+            if decoding:
+                return attn.attention_decode(cfg, pl, xn, pos, cache, window=window, rope=rope)
+            return attn.attention_prefill(cfg, pl, xn, positions, cache, window=window, rope=rope)
+
+        def recurrent(block, pl, x, st):
+            x, new = block(cfg, pl, x, st)
+            _copy_into(st, new)
+            return x
+
+        if cfg.is_encdec:
+            # as the reference: prefill windows with sliding_window, decode with
+            # decode_window or sliding_window; no RoPE (sinusoidal positions)
+            window = (self.decode_window or cfg.sliding_window) if decoding else cfg.sliding_window
+            for i in range(cfg.n_layers):
+                pl, cross = _layer(params["decoder"], i), _layer(state["cross"], i)
+                x = x + self_attn(pl, common.apply_norm(cfg, x, pl, "ln_attn"),
+                                  _layer(state["self"], i), window, rope=False)
+                xn = common.apply_norm(cfg, x, pl, "ln_cross")
+                if decoding:
+                    h = attn.attention_decode(cfg, pl, xn, pos, cross, update_cache=False,
+                                              rope=False, causal=False, prefix="cross")
+                else:
+                    h = _cross_read(cfg, pl, xn, positions, cross)
+                x = _apply_mlp(cfg, pl, x + h)
+        elif cfg.arch_type == "ssm":
+            block = rwkv.rwkv_block_decode if decoding else rwkv.rwkv_block_train
+            for i in range(cfg.n_layers):
+                x = recurrent(block, _layer(params["blocks"], i), x, _layer(state["ssm"], i))
+        elif cfg.arch_type == "hybrid":
+            n_units, tail_kinds = _hybrid_units(cfg)
+
+            def layer(pl, x, st, kind):
+                if kind == "rec":
+                    return _apply_mlp(cfg, pl, recurrent(rglru.rglru_block, pl, x, st))
+                # the window is local_window, the cache _cache_capacity's
+                h = self_attn(pl, common.apply_norm(cfg, x, pl, "ln_attn"), st, self._window(kind))
+                return _apply_mlp(cfg, pl, x + h)
+
+            for u in range(n_units):
+                for p_, kind in enumerate(cfg.hybrid_pattern):
+                    key = f"u{p_}_{kind}"
+                    x = layer(_layer(params["units"][key], u), x,
+                              _layer(state["units"][key], u), kind)
+            for i, kind in enumerate(tail_kinds):
+                x = layer(params["tail"][f"layer_{i}_{kind}"], x, state["tail"][i], kind)
+        else:
+            kind = cfg._layer_kinds()[0]
+            window = self.decode_window or self._window(kind)
+            for i in range(cfg.n_layers):
+                pl = _layer(params["blocks"], i)
+                x = x + self_attn(pl, common.apply_norm(cfg, x, pl, "ln_attn"),
+                                  _layer(state["kv"], i), window)
+                if kind == "moe":
+                    h, _ = moe.moe_ffn(cfg, pl, common.apply_norm(cfg, x, pl, "ln_mlp"))
+                    x = x + h
+                else:
+                    x = _apply_mlp(cfg, pl, x)
+        return x
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, seq_len: int) -> Tuple[Tensor, Dict]:
+        """Run the prompt ``batch["tokens"]`` (B, S) (with a VLM's ``vision``,
+        an encoder-decoder's ``frames``) and return the last position's
+        logits (B, V) and the decode state for a ``seq_len`` context."""
+        cfg = self.cfg
+        x = common.embed_tokens(params, batch["tokens"])
+        B, dev = x.shape[0], x.device
+        if cfg.arch_type == "vlm":
+            x = torch.cat([batch["vision"].to(torch.float32), x], dim=1)
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
+        if cfg.is_encdec:
+            enc_out, enc_pos = self._encode(params, batch["frames"])
+            x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, dev)
+            state = {"self": self._self_caches(B, seq_len, dev),
+                     "cross": _build_cross_caches(cfg, params["decoder"], enc_out, enc_pos)}
+        else:
+            state = self.init_decode_state(B, seq_len, dev)
+        x = self._serve_layers(params, x, state, positions=positions)
+        x = common.apply_norm(cfg, x, params, "ln_final")
+        return common.lm_logits(params, x[:, -1:, :])[:, 0, :], state
+
+    @torch.inference_mode()
+    def decode_step(self, params, state: Dict, token: Tensor, pos: int) -> Tuple[Tensor, Dict]:
+        """One token (B,) at absolute position ``pos`` (a Python int): the
+        logits (B, V) and ``state``, written in place."""
+        cfg = self.cfg
+        x = common.embed_tokens(params, token[:, None])  # (B, 1, D)
+        if cfg.is_encdec:
+            x = x + common.sinusoidal_positions_at(pos, cfg.d_model, x.device)
+        x = self._serve_layers(params, x, state, pos=pos)
+        x = common.apply_norm(cfg, x, params, "ln_final")
+        return common.lm_logits(params, x)[:, 0, :], state
+
+
+def _build_cross_caches(cfg, dec_params, enc_out: Tensor, enc_pos: Tensor) -> Dict:
+    """Each decoder layer's cross K/V of the encoder output, stacked on the
+    layer axis (the slots hold the encoder positions)."""
+    B, T = enc_out.shape[:2]
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        pl = _layer(dec_params, i)
+        k, v = enc_out @ pl["cross_wk"], enc_out @ pl["cross_wv"]
+        if cfg.qkv_bias:
+            k, v = k + pl["cross_bk"], v + pl["cross_bv"]
+        ks.append(k.reshape(B, T, KV, hd))
+        vs.append(v.reshape(B, T, KV, hd))
+    return {"k": torch.stack(ks), "v": torch.stack(vs),
+            "slot_pos": _stack(cfg.n_layers, enc_pos.to(torch.int32))}
+
+
+def _cross_read(cfg, pl, xn: Tensor, positions: Tensor, crossc: Dict) -> Tensor:
+    """Full-sequence cross-attention against a layer's cross cache."""
+    B, S, _ = xn.shape
+    q = xn @ pl["cross_wq"]
+    if cfg.qkv_bias:
+        q = q + pl["cross_bq"]
+    out = attn.attention_core(q.reshape(B, S, cfg.n_heads, cfg.hd), crossc["k"], crossc["v"],
+                              positions, crossc["slot_pos"], causal=False, window=None)
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ pl["cross_wo"]
+
+
+def build_model(cfg: ArchConfig, *, loss_chunk: int = 512,
+                decode_window: Optional[int] = None) -> Model:
+    return Model(cfg=cfg, loss_chunk=loss_chunk, decode_window=decode_window)

@@ -120,7 +120,7 @@ def test_cli_trains_starcoder2_smoke_on_the_cpu():
 
 
 def test_cli_keeps_its_message_for_an_unknown_arch():
-    with pytest.raises(ValueError, match=r"unknown arch 'gpt-2'; the port has \[") as err:
+    with pytest.raises(SystemExit, match=r"unknown arch gpt-2; choices: \[") as err:
         cli.main(["--arch", "gpt-2", "--device", "cpu", "--steps", "1"])
     assert all(repr(a) in str(err.value) for a in registry.ARCHS)
 
