@@ -154,6 +154,32 @@ Phases, each fatal on failure:
      factor), the card against the CPU on the same weights cut in depth
      (``SERVE_CPU_REL_TOL``), the recurrent states' size, and no ScaleCom
      kernel launched.
+  11. ``[ring]``, real collectives (``repro_torch.distributed.ring``):
+     ``RING_WORLD`` = 8 spawned processes on the one card, joined by gloo
+     through a ``file://`` store (NCCL puts one rank on a card; gloo's
+     broadcast and all_reduce take CUDA tensors through host memory), the
+     kernel library built before they start. (a) On 4 of them the
+     tok_embed tensor's ring reduce at t = 0..3 (each rank leads once):
+     the cuda ring bitwise its torch-backend ring, offsets and m' bitwise
+     the single-process stacked cuda reduce of the same rows, ĝ within
+     ``TOL``; device ms of the leader's select, ef_update and the scatter
+     on one rank's row against their byte bounds (one rank at a time), host
+     ms of the broadcast and the all_reduce. (b) On all 8 the main path's
+     training through ``build_train_step(group=...)``, one worker per rank:
+     paper-transformer-base at full width, 4 x 128 tokens a rank, 2 dense +
+     3 compressed steps; after each step rank 0 runs the stacked step from
+     the same state and the ranks' own gradients (recomputed there, digests
+     equal) and holds ĝ, params and the loss within ``TOL``; the params
+     bitwise identical on every rank and every residue row bitwise the
+     stacked step's (by 64-bit digests, ``digest``); the counted payload
+     bytes, averaged over the ranks, the plan's; launches per rank (the
+     leader's chunk_argmax, every rank's ef_update and chunk_scatter, all
+     vec4); step ms (max and median over ranks) with the gradient pass and
+     the collectives inside it, the dense warm-up's all-reduce, the
+     reduce's kernels of one step on one rank (device ms) and peak memory
+     by rank. A rank that fails, or a phase past ``RING_TIMEOUT_S``, fails
+     the script. These launches stand under ``ring_launches`` in the JSON
+     line.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -2625,6 +2651,621 @@ def serve_phase(card_line: str) -> None:
           f"phase {time.perf_counter() - t_phase:.1f} s wall on {card_line}")
 
 
+# The [ring] phase: real collectives. NCCL puts one rank on a card and the
+# machine has one, so the ranks share it over gloo, whose all_reduce and
+# broadcast take CUDA tensors (staged through host memory).
+RING_BACKEND = "gloo"
+RING_WORLD = 8  # (b): one rank per worker of the main path
+RING_REDUCE_RANKS = 4  # (a): the tok_embed reduce, each rank leading once
+RING_TIMEOUT_S = 300  # every collective's (init_process_group) and the phase's
+RING_COLLECTIVE_REPS = 5
+
+
+def digest(x) -> list:
+    """Two 64-bit sums of the bit patterns of a float32 tensor under fixed
+    odd weights, one per element position (int64 arithmetic wraps): equal
+    tensors give equal digests, and a difference anywhere changes them
+    except with a chance of about 2^-64. How ranks compare tensors bit for
+    bit without sending them."""
+    import torch
+
+    bits = x.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    i = torch.arange(bits.numel(), dtype=torch.int64, device=x.device)
+    return [int(torch.sum(bits * ((i * a + b) | 1))) for a, b in
+            ((0x5851F42D4C957F2D, 0x14057B7EF767814F), (0x2545F4914F6CDD1D, 0x1B03738712FAD5C9))]
+
+
+def exchange(row: list, rank: int, world: int) -> list:
+    """Every rank's ``row`` of ints, on every rank: one all_reduce of a CPU
+    int64 table in which each rank fills its own row."""
+    import torch
+    import torch.distributed as dist
+
+    table = torch.zeros((world, len(row)), dtype=torch.int64)
+    table[rank] = torch.tensor(row, dtype=torch.int64)
+    dist.all_reduce(table)
+    return table.tolist()
+
+
+class CollectiveClock:
+    """Host ms of every ``torch.distributed`` broadcast and all_reduce this
+    process makes inside ``with clock:``, each between two device syncs (the
+    collectives block the host anyway), by kind: "offsets" (broadcast),
+    "metrics" (an all_reduce of at most 16 elements) and "values" (every
+    other all_reduce: the k values, the dense gradients)."""
+
+    def __init__(self):
+        self.ms = {"offsets": 0.0, "values": 0.0, "metrics": 0.0}
+        self.calls = dict.fromkeys(self.ms, 0)
+
+    def _timed(self, fn, kind_of):
+        import torch
+
+        def call(tensor, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tensor, *args, **kwargs)
+            torch.cuda.synchronize()
+            kind = kind_of(tensor)
+            self.ms[kind] += (time.perf_counter() - t0) * 1e3
+            self.calls[kind] += 1
+            return out
+
+        return call
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._real = dist.broadcast, dist.all_reduce
+        dist.broadcast = self._timed(dist.broadcast, lambda t: "offsets")
+        dist.all_reduce = self._timed(dist.all_reduce,
+                                      lambda t: "metrics" if t.numel() <= 16 else "values")
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.broadcast, dist.all_reduce = self._real
+        return False
+
+
+def reorder_bound(vals, idx, backend):
+    """Elementwise bound on how far two worker means of ``vals`` ((n,
+    rows) per-chunk values) may differ when their sums are taken in two
+    orders, scattered as ĝ is: each recursive fp32 sum of n terms lies
+    within gamma_{n-1} * sum |v| of the exact one (gamma_k = k u / (1 - k u),
+    u = 2^-24), and each division by n rounds once more. Unit-scale values
+    that cancel break rtol 1e-6 / atol 1e-7, which worker means of gradients
+    (a few 1e-3) keep."""
+    n = vals.shape[0]
+    u = 2.0 ** -24
+    gamma = (n - 1) * u / (1 - (n - 1) * u)
+    slack = (2 * gamma * vals.abs().sum(0) + 2 * u * vals.sum(0).abs()) / n
+    return backend.scatter(slack, idx, CHUNK, P)
+
+
+def ring_reduce_rank(rank: int, group) -> dict:
+    """(a) on one of ``RING_REDUCE_RANKS`` ranks: the tok_embed tensor's ring
+    reduce at t = 0..3 on the card, the CUDA backend against the torch
+    backend (offsets, m' and ĝ bitwise) and against the single-process
+    stacked CUDA reduce of the same rows (``scalecom_reduce``: offsets and
+    m' bitwise, ĝ within ``TOL``); then, one rank after another, the
+    device ms of the three kernels on this rank's row and, all together,
+    the host ms of each collective."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.backends import resolve_backend
+    from repro_torch.core.compressors import CompressorConfig, select_indices
+    from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
+    from repro_torch.core.state import ScaleComState
+    from repro_torch.distributed import clt_ring_reduce
+
+    n = group.size()
+    comp = CompressorConfig("clt_k", chunk=CHUNK)
+    # every rank draws all n rows on the card from the same seeds
+    rows = []
+    for r in range(n):
+        gen = torch.Generator(device="cuda").manual_seed(1000 + r)
+        rows.append((torch.randn(P, generator=gen, device="cuda"),
+                     torch.randn(P, generator=gen, device="cuda")))
+    g4 = torch.stack([g for g, _ in rows])
+    m4 = torch.stack([m for _, m in rows])
+    del rows
+    g, m = g4[rank].clone(), m4[rank].clone()
+    cuda_be = resolve_backend("cuda")
+    stacked_cfg = ScaleComConfig(compressor=comp, beta=BETA, min_size=1, backend="cuda",
+                                 fused=False, layout="flat")
+    captured = []
+    real_broadcast = dist.broadcast
+
+    def spy(tensor, *args, **kwargs):
+        out = real_broadcast(tensor, *args, **kwargs)
+        captured.append(tensor)
+        return out
+
+    err, outside_tol = 0.0, 0
+    dist.broadcast = spy
+    for t in range(n):
+        got = {}
+        for backend in ("cuda", "torch"):
+            captured.clear()
+            ghat, m_new = clt_ring_reduce(g, m, t, comp, BETA, group, backend)
+            got[backend] = (captured[0], ghat, m_new)
+        check(all(bitwise(a, b) for a, b in zip(got["cuda"], got["torch"])),
+              f"[ring] rank {rank} t={t}: the cuda ring differs from the torch ring")
+        ghat_s, st, _ = scalecom_reduce({"w": g4}, ScaleComState({"['w']": {"q": m4}}, t),
+                                        stacked_cfg)
+        idx_s = select_indices(m4 + g4, t, comp, cuda_be)
+        idx, ghat, m_new = got["cuda"]
+        check(bitwise(idx, idx_s) and bitwise(m_new, st.residues["['w']"]["q"][rank]),
+              f"[ring] rank {rank} t={t}: offsets or m' differ from the stacked cuda reduce")
+        slack = reorder_bound(cuda_be.ef_update(m4, g4, idx_s, BETA, CHUNK)[1], idx_s, cuda_be)
+        diff = (ghat - ghat_s["w"]).abs()
+        check(bool((diff <= slack).all()),
+              f"[ring] rank {rank} t={t}: ghat differs from the stacked reduce beyond the "
+              f"rounding of a {n}-term sum in another order")
+        err = max(err, float(diff.max()))
+        outside_tol += int((~torch.isclose(ghat, ghat_s["w"], **TOL)).sum())
+        del got, ghat_s, st, idx_s, slack, diff
+    dist.broadcast = real_broadcast
+
+    # device ms of the kernels on this rank's row, one rank after another
+    ef = m + g
+    idx = cuda_be.select_indices(ef, CHUNK)
+    _, vals = cuda_be.ef_update(m, g, idx, BETA, CHUNK)
+    times = {}
+    for r in range(n):
+        if r == rank:
+            times = {
+                "select": device_ms(lambda: cuda_be.select_indices(ef, CHUNK),
+                                    (counter("chunk_argmax", "vec4"), 1), what="[ring] select"),
+                "ef_update": device_ms(lambda: cuda_be.ef_update(m, g, idx, BETA, CHUNK),
+                                       (counter("ef_update"), 1), what="[ring] ef_update"),
+                "scatter": device_ms(lambda: cuda_be.scatter(vals, idx, CHUNK, P),
+                                     (counter("chunk_scatter", "vec4"), 1),
+                                     what="[ring] scatter"),
+            }
+        dist.barrier(group=group)
+    # host ms of each collective, all ranks together
+    coll = {"offsets": [], "values": []}
+    leader_rank = dist.get_process_group_ranks(group)[0]
+    for _ in range(RING_COLLECTIVE_REPS):
+        buf = idx.clone()
+        _, ms = host_ms(lambda: dist.broadcast(buf, src=leader_rank, group=group))
+        coll["offsets"].append(ms)
+        buf = vals.clone()
+        _, ms = host_ms(lambda: dist.all_reduce(buf, group=group))
+        coll["values"].append(ms)
+    return {"max_abs_err": err, "outside_tol": outside_tol, "device_ms": times,
+            "collective_ms": {k: statistics.median(v) for k, v in coll.items()},
+            "payload": (idx.numel() * 4, vals.numel() * 4)}
+
+
+def ring_train_rank(rank: int, world: int) -> dict:
+    """(b) on one of ``RING_WORLD`` ranks: paper-transformer-base at full
+    width through ``build_train_step(group=...)``, one worker per rank, the
+    main path's settings, 2 dense + 3 compressed steps. Each step is timed
+    (host clock; the gradient pass and the collectives inside it between
+    device syncs) with the kernels' launches counted; then rank 0 runs the
+    single-process stacked step from the same state and the same gradients
+    (each worker's pass again, which must give the rank's bits) and holds ĝ
+    and the params within ``TOL``; every rank's params, residues and
+    gradients are held bitwise, by digest, against rank 0's and the stacked
+    step's; the counted payload bytes against the plan's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels, tree
+    from repro_torch.configs import registry
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.scalecom import ScaleComConfig
+    from repro_torch.data import make_batches
+    from repro_torch.distributed import ring
+    from repro_torch.kernels import chunk_topk as ct
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer, schedule
+    from repro_torch.optim.optimizer import Optimizer
+    from repro_torch.training import build_train_step, init_train_state, shard_train_state
+    from repro_torch.training import train_step as ts
+
+    group = dist.group.WORLD
+    cfg = registry.arch("paper-transformer-base")
+    model = build_model(cfg, loss_chunk=64)
+    sc_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
+                            min_size=1024, warmup_steps=WARMUP, fused=False)
+    base_opt = make_optimizer("sgdm")
+    sched = schedule.linear_warmup(schedule.constant(0.05), WARMUP)
+    ghats = []  # the ĝ each update receives (rank 0 holds it against the stacked step)
+
+    def update(grads, state, params, lr):
+        if rank == 0:
+            ghats.append(grads)
+        return base_opt.update(grads, state, params, lr)
+
+    opt = Optimizer(base_opt.init, update)
+    full = init_train_state(model, opt, sc_cfg, torch.Generator().manual_seed(0),
+                            n_workers=world, device="cuda")
+    state = shard_train_state(full, rank, world)
+    ref_residues = full.sc_state.residues if rank == 0 else None
+    del full
+    fns = {mode: build_train_step(model, opt, sched, sc_cfg, n_workers=world, mode=mode,
+                                  group=group) for mode in ("dense", "scalecom")}
+    # the gradient pass inside the step, timed between device syncs; its
+    # result kept for the digests
+    grads_ms, own_grads = [0.0], []
+
+    def timed(fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            grads_ms[0] += (time.perf_counter() - t0) * 1e3
+            own_grads.append(out[2])
+            return out
+        return call
+
+    plain_grads = ts.per_worker_grads, ts.dense_grads
+    ts.per_worker_grads, ts.dense_grads = timed(ts.per_worker_grads), timed(ts.dense_grads)
+    batches = make_batches(cfg.vocab, world, 4, 128, seed=0)
+    launches = dict.fromkeys(kernels.launches(), 0)
+    variants = {"chunk_argmax": 0, "chunk_scatter": 0}
+    steps, checks = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(STEPS):
+        mode = "scalecom" if i >= WARMUP else "dense"
+        batch_np = next(batches)
+        before = (tree.tree_map(torch.clone, state.params),
+                  tree.tree_map(torch.clone, state.opt_state)) if rank == 0 else None
+        t_sc = state.sc_state.t
+        ghats.clear()
+        own_grads.clear()
+        grads_ms[0] = 0.0
+        ring.reset_sent()
+        c0, v0 = kernels.launches(), (ct.chunk_argmax.variants["vec4"],
+                                      ct.chunk_scatter.variants["vec4"])
+        dist.barrier()
+        clock = CollectiveClock()
+        with clock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = fns[mode](state, batch_np)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+        c1 = kernels.launches()
+        for k in launches:
+            launches[k] += c1[k] - c0[k]
+        variants["chunk_argmax"] += ct.chunk_argmax.variants["vec4"] - v0[0]
+        variants["chunk_scatter"] += ct.chunk_scatter.variants["vec4"] - v0[1]
+        check(math.isfinite(loss), f"[ring] rank {rank} step {i}: loss {loss}")
+        sent = sum(ring.sent.values())
+        steps.append({"mode": mode, "step_ms": step_ms, "grads_ms": grads_ms[0],
+                      "collective_ms": dict(clock.ms), "collective_calls": dict(clock.calls),
+                      "loss": loss, "sent": sent,
+                      "comm_bytes_per_worker": metrics.get("comm_bytes_per_worker"),
+                      "comm_bytes_dense": metrics.get("comm_bytes_dense")})
+        # digests: params (identical on every rank), this rank's residue row
+        # and its own gradients (in leaf order)
+        paths = sorted(state.sc_state.residues)
+        row = ([d for p in tree.leaves(state.params) for d in digest(p)]
+               + [d for p in paths for d in digest(state.sc_state.residues[p]["q"][0])]
+               + [d for x in tree.leaves(own_grads[0]) for d in digest(x)] + [sent])
+        table = exchange(row, rank, world)
+        if rank == 0:
+            checks.append(ring_stacked_hold(i, mode, model, base_opt, sched, sc_cfg, before,
+                                            batch_np, state, metrics, ghats[0], ref_residues,
+                                            t_sc, table, paths, plain_grads))
+            ref_residues = checks[-1].pop("residues")
+        last_grads = own_grads[0]
+        del before
+    ts.per_worker_grads, ts.dense_grads = plain_grads
+    peak = torch.cuda.max_memory_allocated()
+    # the reduce's kernels of one compressed step at this rank's shapes, on
+    # rank 0 alone while the others wait
+    kernel_ms = ring_kernel_times(state.sc_state.residues, last_grads) if rank == 0 else None
+    dist.barrier()
+    return {"steps": steps, "launches": launches, "variants": variants, "peak": peak,
+            "checks": checks, "kernel_ms": kernel_ms, "n_compressed": len(paths),
+            "leaders": [t % world for t in range(WARMUP, STEPS)]}
+
+
+def ring_stacked_hold(i: int, mode: str, model, opt, sched, sc_cfg, before, batch_np, state,
+                      metrics, ghat, ref_residues, t: int, table: list, paths: list,
+                      grads_fns) -> dict:
+    """Rank 0 after step ``i``: the single-process stacked step from the state
+    before it (``before``: params and optimizer state; ``ref_residues``: every
+    worker's residue rows; ``t``) and the ranks' own gradients, recomputed
+    here worker by worker (each rank's digests must match); then rank 0's ĝ
+    and params within ``TOL`` of the stacked step's, the loss within it, the
+    params bitwise identical on every rank, every rank's residue row bitwise
+    the stacked step's and the mean counted payload the plan's (all by the
+    digests and counts in ``table``). Returns the errors, and the stacked
+    step's residues for the next step under "residues"."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.core.scalecom import scalecom_reduce
+    from repro_torch.core.state import ScaleComState
+
+    world = len(table)
+    params0, opt0 = before
+    per_worker_grads, dense_grads = grads_fns
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch_np.items()}
+    leaves, losses = [], []
+    n_par, n_res = 2 * len(tree.leaves(params0)), 2 * len(paths)
+    for w in range(world):
+        one = {k: v[w:w + 1] for k, v in batch.items()}
+        if mode == "scalecom":
+            loss, _, g = per_worker_grads(model, params0, one, 1)
+        else:
+            loss, _, g = dense_grads(model, params0, one)
+        check(table[w][n_par + n_res:-1] == [d for x in tree.leaves(g) for d in digest(x)],
+              f"[ring] step {i}: rank {w}'s gradients differ from the same pass on rank 0")
+        leaves.append(tree.leaves(g))
+        losses.append(loss)
+        del g
+    if mode == "scalecom":
+        gpw = tree.unflatten(params0, [torch.cat(xs) for xs in zip(*leaves)])
+        del leaves
+        ghat_ref, ref_state, stats = scalecom_reduce(gpw, ScaleComState(ref_residues, t), sc_cfg)
+        del gpw
+        residues = ref_state.residues
+        planned = stats["comm_bytes_per_worker"]
+        check(metrics["comm_bytes_per_worker"] == planned,
+              f"[ring] step {i}: comm_bytes_per_worker {metrics['comm_bytes_per_worker']} "
+              f"against the stacked reduce's {planned}")
+    else:
+        ghat_ref = tree.unflatten(params0, [torch.mean(torch.stack(xs), 0) for xs in zip(*leaves)])
+        del leaves
+        residues = ref_residues
+        planned = sum(4.0 * p.numel() for p in tree.leaves(params0))
+    loss_ref = torch.stack(losses).sum() / world
+    ghat_err = max(max_abs_err(a, b) for a, b in zip(tree.leaves(ghat), tree.leaves(ghat_ref)))
+    check(all(close(a, b) for a, b in zip(tree.leaves(ghat), tree.leaves(ghat_ref))),
+          f"[ring] step {i}: rank 0's ghat differs from the stacked step's beyond rtol 1e-6")
+    opt.update(ghat_ref, opt0, params0, sched(i))  # params0 is now the stacked step's
+    params_err = max(max_abs_err(a, b) for a, b in
+                     zip(tree.leaves(state.params), tree.leaves(params0)))
+    check(all(close(a, b) for a, b in zip(tree.leaves(state.params), tree.leaves(params0))),
+          f"[ring] step {i}: rank 0's params differ from the stacked step's beyond rtol 1e-6")
+    loss_err = abs(float(metrics["loss"]) - float(loss_ref))
+    check(close(torch.as_tensor(metrics["loss"]), loss_ref),
+          f"[ring] step {i}: loss {float(metrics['loss'])} against the stacked {float(loss_ref)}")
+    check(all(row[:n_par] == table[0][:n_par] for row in table),
+          f"[ring] step {i}: the params differ between ranks")
+    for w in range(world):
+        want = [d for p in paths for d in digest(residues[p]["q"][w])]
+        check(table[w][n_par:n_par + n_res] == want,
+              f"[ring] step {i}: rank {w}'s residues differ from the stacked step's row {w}")
+    sent_mean = sum(row[-1] for row in table) / world
+    check(sent_mean == planned, f"[ring] step {i}: the ranks counted {sent_mean} B a rank on "
+          f"average, the plan bills {planned}")
+    return {"step": i, "mode": mode, "ghat_err": ghat_err, "params_err": params_err,
+            "loss_err": loss_err, "sent_mean": sent_mean, "planned": planned,
+            "sent": [row[-1] for row in table], "residues": residues}
+
+
+def ring_kernel_times(residues: dict, grads) -> dict:
+    """Device ms of one compressed step's ring kernels at one rank's shapes
+    (the 17 compressed tensors of ``residues``, their gradients ``grads``):
+    the leader's select, and every rank's ef_update and scatter, each summed
+    over the tensors, beside their byte bounds."""
+    from repro_torch import tree
+    from repro_torch.backends import resolve_backend
+    from repro_torch.core.chunked import num_chunks
+
+    be = resolve_backend("cuda")
+    by_path = dict(tree.flatten_with_path(grads))
+    items = []
+    for path, enc in sorted(residues.items()):
+        m, g = enc["q"][0], by_path[path].reshape(-1)
+        ef = m + g
+        idx = be.select_indices(ef, CHUNK)
+        _, vals = be.ef_update(m, g, idx, BETA, CHUNK)
+        items.append((m, g, ef, idx, vals))
+    n = len(items)
+    size = sum(m.numel() for m, *_ in items)
+    rows = sum(num_chunks(m.numel(), CHUNK) for m, *_ in items)
+    ms = {
+        "select": device_ms(lambda: [be.select_indices(ef, CHUNK) for _, _, ef, _, _ in items],
+                            (counter("chunk_argmax"), n), what="[ring] select x17"),
+        "ef_update": device_ms(lambda: [be.ef_update(m, g, idx, BETA, CHUNK)
+                                        for m, g, _, idx, _ in items],
+                               (counter("ef_update"), n), what="[ring] ef_update x17"),
+        "scatter": device_ms(lambda: [be.scatter(vals, idx, CHUNK, m.numel())
+                                      for m, _, _, idx, vals in items],
+                             (counter("chunk_scatter"), n), what="[ring] scatter x17"),
+    }
+    nbytes = {"select": 4 * size + 8 * rows, "ef_update": 12 * size + 8 * rows,
+              "scatter": 4 * rows * CHUNK + 8 * rows}
+    return {"ms": ms, "bound": {k: bound(v, 0)[0] for k, v in nbytes.items()},
+            "tensors": n, "elements": size}
+
+
+def ring_rank(rank: int, world: int, store: str, conn) -> None:
+    """One spawned rank of ``ring_phase``: joins the gloo group through the
+    ``file://`` store, runs (a) on the first ``RING_REDUCE_RANKS`` ranks and
+    (b) on all, and sends its results to the parent. Any failure exits
+    non-zero."""
+    sys.path.insert(0, SRC)
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(RING_BACKEND, init_method=f"file://{store}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=RING_TIMEOUT_S))
+    ready = time.time()
+    reduce_group = dist.new_group(list(range(RING_REDUCE_RANKS)))
+    out = {"ready": ready}
+    if rank < RING_REDUCE_RANKS:
+        out["reduce"] = ring_reduce_rank(rank, reduce_group)
+    dist.barrier()
+    torch.cuda.empty_cache()
+    out["train"] = ring_train_rank(rank, world)
+    conn.send(out)
+    conn.close()
+    dist.destroy_process_group()
+
+
+def ring_phase(card_line: str) -> dict:
+    """[ring]: ``RING_WORLD`` spawned ranks, each a process on the card,
+    joined by gloo through a ``file://`` store in a temporary directory (the
+    kernel library is built before they start, so no rank runs nvcc): (a)
+    on ``RING_REDUCE_RANKS`` of them the tok_embed ring reduce
+    (``ring_reduce_rank``), (b) on all of them the main path's training, one
+    worker per rank (``ring_train_rank``). Each rank checks its part and
+    exits non-zero on a failure; a rank that fails, or a phase that outlasts
+    ``RING_TIMEOUT_S``, fails the script. Prints what the ranks measured and
+    returns the kernels' launches summed over the ranks in (b)."""
+    import multiprocessing
+    import statistics as st
+    import tempfile
+    from multiprocessing import connection
+
+    import torch
+
+    from repro_torch.kernels import build
+
+    t_phase = time.perf_counter()
+    build.library()
+    print(f"[ring] backend {RING_BACKEND}: the machine has one card and NCCL puts one rank on a "
+          f"card, so {RING_WORLD} ranks share it through gloo, whose broadcast and all_reduce "
+          f"take CUDA tensors and stage them through host memory; the collective times below "
+          f"are that staging and loopback TCP between processes on one host, not a network's")
+    torch.cuda.empty_cache()
+    ctx = multiprocessing.get_context("spawn")
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pipes = [ctx.Pipe(duplex=False) for _ in range(RING_WORLD)]
+        procs = [ctx.Process(target=ring_rank,
+                             args=(r, RING_WORLD, os.path.join(tmp, "store"), pipes[r][1]))
+                 for r in range(RING_WORLD)]
+        t_spawn = time.time()
+        deadline = time.monotonic() + RING_TIMEOUT_S
+        try:
+            for p in procs:
+                p.start()
+            for _, send_end in pipes:
+                send_end.close()
+            while len(results) < RING_WORLD:
+                left = deadline - time.monotonic()
+                pending = [r for r in range(RING_WORLD) if r not in results]
+                check(left > 0, f"[ring] ranks {pending} did not finish within "
+                                f"{RING_TIMEOUT_S} s")
+                connection.wait([pipes[r][0] for r in pending] + [procs[r].sentinel
+                                                                  for r in pending], left)
+                for r in pending:
+                    if pipes[r][0].poll():  # a result, or the end of a rank that died
+                        procs[r].join(10)
+                    check(procs[r].exitcode in (None, 0),
+                          f"[ring] rank {r} failed (exit code {procs[r].exitcode})")
+                    if pipes[r][0].poll():
+                        results[r] = pipes[r][0].recv()
+            for r, p in enumerate(procs):
+                p.join(max(1.0, deadline - time.monotonic()))
+                check(p.exitcode == 0, f"[ring] rank {r} exit code {p.exitcode}")
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+    ready = max(res["ready"] for res in results.values()) - t_spawn
+
+    # (a) the tok_embed ring reduce
+    red = [results[r]["reduce"] for r in range(RING_REDUCE_RANKS)]
+    nbytes = {"select": 4 * P + 8 * R, "ef_update": 12 * P + 8 * R, "scatter": 4 * P + 8 * R}
+    print(f"[ring:reduce] {RING_REDUCE_RANKS} ranks ready {ready:.1f} s after the spawn; the "
+          f"tok_embed tensor ({P:,} elements a rank, chunk {CHUNK}, beta {BETA}) at t = 0.."
+          f"{RING_REDUCE_RANKS - 1}, each rank leading once: on every rank the cuda ring == the "
+          f"torch ring (offsets, ghat, m'), bitwise; offsets and m' == the single-process "
+          f"stacked cuda reduce of the same {RING_REDUCE_RANKS} rows, bitwise; ghat within the "
+          f"rounding of a {RING_REDUCE_RANKS}-term fp32 sum in another order (max abs err "
+          f"{max(x['max_abs_err'] for x in red):.3e}; {sum(x['outside_tol'] for x in red):,} of "
+          f"{RING_REDUCE_RANKS * RING_REDUCE_RANKS * R:,} selected values outside rtol 1e-6 / "
+          f"atol 1e-7, where the unit-scale values cancel)")
+    for part, name in (("select", "chunk_argmax (the leader only)"), ("ef_update", "ef_update"),
+                       ("scatter", "chunk_scatter")):
+        ms = [x["device_ms"][part] for x in red]
+        b = bound(nbytes[part], 0)[0]
+        print(f"[ring:reduce] {name}, one rank's row, device ms by rank "
+              + " / ".join(f"{v:.4f}" for v in ms) + f"; bound {b:.4f} ms "
+              f"({nbytes[part] / 1e6:.1f} MB), {b / st.median(ms):.0%} of it at the median, "
+              f"one rank at a time on {card_line}")
+    off, val = red[0]["payload"]
+    for kind, what in (("offsets", f"broadcast of the {off:,} B of offsets"),
+                       ("values", f"all_reduce of the {val:,} B of values")):
+        ms = [x["collective_ms"][kind] for x in red]
+        print(f"[ring:reduce] {what}, host ms by rank (median of {RING_COLLECTIVE_REPS}, "
+              f"between device syncs) " + " / ".join(f"{v:.3f}" for v in ms)
+              + f" ({RING_BACKEND}, {RING_REDUCE_RANKS} ranks on one card) on {card_line}")
+
+    # (b) training, one worker per rank
+    tr = [results[r]["train"] for r in range(RING_WORLD)]
+    checks = tr[0]["checks"]
+    for i in range(STEPS):
+        rows = [x["steps"][i] for x in tr]
+        c = checks[i]
+        step = [x["step_ms"] for x in rows]
+        coll = [sum(x["collective_ms"].values()) for x in rows]
+        calls = rows[0]["collective_calls"]
+        print(f"[ring:train] step {i} {rows[0]['mode']}: loss {rows[0]['loss']:.4f}; step ms "
+              f"max {max(step):.1f} median {st.median(step):.1f} over {RING_WORLD} ranks; "
+              f"inside it (median over ranks) the gradient pass {st.median(x['grads_ms'] for x in rows):.1f} "
+              f"ms, collectives {st.median(coll):.1f} ms host clock ({calls['offsets']} broadcasts, "
+              f"{calls['values']} gradient all_reduces, {calls['metrics']} metric all_reduce); "
+              f"held against the single-process stacked step from the same state and gradients: "
+              f"ghat max abs err {c['ghat_err']:.3e}, params {c['params_err']:.3e}, loss "
+              f"{c['loss_err']:.3e} (rtol 1e-6 / atol 1e-7), residues bitwise on every rank, "
+              f"params bitwise identical across ranks; on {card_line}")
+    dense = [c for c in checks if c["mode"] == "dense"]
+    comp = [c for c in checks if c["mode"] == "scalecom"]
+    per_rank = comp[0]["sent"]
+    print(f"[ring:train] payload per compressed step: the ranks counted "
+          + " / ".join(f"{b:,}" for b in per_rank) + f" B (the leader's with its offsets), "
+          f"{comp[0]['sent_mean']:,.1f} B a rank on average == the plan's comm_bytes_per_worker "
+          f"{comp[0]['planned']:,.1f} B on all {len(comp)} compressed steps; dense steps "
+          f"{dense[0]['planned']:,.0f} B a rank; compressed / dense = 1 / "
+          f"{dense[0]['planned'] / comp[0]['planned']:.1f}")
+    d_coll = [st.median(x["steps"][c["step"]]["collective_ms"]["values"] for x in tr)
+              for c in dense]
+    print(f"[ring:train] dense warm-up all-reduce ({dense[0]['planned'] / 1e6:.1f} MB a rank in "
+          f"{tr[0]['steps'][0]['collective_calls']['values']} all_reduces), host ms median over "
+          f"ranks by step " + " / ".join(f"{v:.1f}" for v in d_coll) + f" on {card_line}")
+    # launches per rank: the leader selects, every rank updates and scatters
+    n_c, leaders = tr[0]["n_compressed"], tr[0]["leaders"]
+    ring_launches = dict.fromkeys(KERNELS, 0)
+    for r, x in enumerate(tr):
+        want = dict.fromkeys(x["launches"], 0)
+        want.update(chunk_argmax=n_c * leaders.count(r), ef_update=n_c * len(leaders),
+                    chunk_scatter=n_c * len(leaders))
+        check(x["launches"] == want, f"[ring] rank {r}: launches {x['launches']}, want {want}")
+        check(x["variants"] == {"chunk_argmax": want["chunk_argmax"],
+                                "chunk_scatter": want["chunk_scatter"]},
+              f"[ring] rank {r}: vec4 launches {x['variants']}, want every one")
+        for k in ring_launches:
+            ring_launches[k] += x["launches"][k]
+    print(f"[ring:train] launches per rank over the {len(leaders)} compressed steps (leaders "
+          f"ranks {leaders}): " + "; ".join(
+              f"rank {r} " + ", ".join(f"{k} {v}" for k, v in x["launches"].items() if v)
+              for r, x in enumerate(tr)) + f"; all vec4; summed {ring_launches}")
+    km = tr[0]["kernel_ms"]
+    print(f"[ring:train] the reduce's kernels of one compressed step at one rank's shapes "
+          f"({km['tensors']} tensors, {km['elements']:,} elements), device ms: "
+          + ", ".join(f"{k} {v:.4f} (bound {km['bound'][k]:.4f})" for k, v in km["ms"].items())
+          + f"; the leader {sum(km['ms'].values()):.4f}, any other rank "
+          f"{km['ms']['ef_update'] + km['ms']['scatter']:.4f}; on rank 0 alone on {card_line}")
+    print(f"[ring] peak allocated GiB by rank "
+          + " / ".join(f"{x['peak'] / 2**30:.2f}" for x in tr)
+          + f" (rank 0 also holds the stacked step); phase {time.perf_counter() - t_phase:.1f} s "
+          f"wall on {card_line}")
+    return ring_launches
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)  # a cut run still shows how far it got
     if not os.path.isdir(os.path.join(SRC, "repro_torch")):
@@ -2945,11 +3586,17 @@ def main() -> None:
     # -- 10. serving every family at full width (SERVE_RUNS) ------------------------
     serve_phase(card_line)
 
+    # -- 11. real collectives: the ring reduce and one worker per rank -----------------
+    ring_launches = ring_phase(card_line)
+
+    for name in ("chunk_argmax", "ef_update", "chunk_scatter"):
+        check(ring_launches[name] > 0, f"{name} was never launched on the ring path")
     for name in KERNELS:
         check(path_launches.get(name, 0) > 0, f"{name} was never launched on the main path")
         results[name]["launches"] = path_launches[name] + harness_launches[name]
         results[name]["harness_launches"] = harness_launches[name]
         results[name]["arch_launches"] = arch_launches[name]
+        results[name]["ring_launches"] = ring_launches[name]
     results["fused_reduce"]["harness_routes"] = harness_routes
     print(json.dumps({"kernels": [results[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

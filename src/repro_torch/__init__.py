@@ -2,7 +2,8 @@
 
 The JAX package ``repro`` is the reference; this package mirrors its module
 layout (``configs``, ``data``, ``core``, ``kernels``, ``backends``,
-``models``, ``optim``, ``training``, ``launch``) with PyTorch inside. It
+``models``, ``optim``, ``training``, ``distributed``, ``launch``) with
+PyTorch inside. It
 imports ``torch`` and never ``jax`` or anything of ``repro``.
 
 Entry points run on the card (``device="cuda"``) unless the caller asks for

@@ -17,6 +17,15 @@ The port of ``repro.training.train_step``. Two variants:
     loss over the folded global batch, gradients reduced by the mean that
     the folding implies.
 
+With ``group`` (a ``torch.distributed`` process group, the counterpart of
+the reference's ``worker_axis``) each rank of the group is one ScaleCom
+worker: it takes its row of the global batch and its own gradient, and the
+reduce runs through real collectives (``repro_torch.distributed.ring``): a
+clt_k tensor through ``clt_ring_reduce``, a dense one (and every gradient of
+the dense mode) through an all-reduce and a division by n. The residues are
+this rank's row (``shard_train_state``); params and optimizer state are
+replicated and stay bitwise identical across ranks.
+
 Batches arrive worker-stacked, as numpy arrays or tensors
 ({"tokens": (n, B, S), ...}), and are moved to the parameters' device here.
 """
@@ -27,15 +36,20 @@ import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree
+from repro_torch.backends import resolve_backend, resolve_fused
+from repro_torch.core import overlap
+from repro_torch.core.plan import plan_tensors
 from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
 from repro_torch.core.state import ScaleComState, init_state
+from repro_torch.distributed.ring import all_reduce_mean, clt_ring_reduce
 from repro_torch.optim.optimizer import Optimizer
 
 __all__ = [
-    "TrainState", "build_train_step", "init_train_state", "global_norm", "per_worker_grads",
-    "per_worker_grads_loop", "dense_grads",
+    "TrainState", "build_train_step", "init_train_state", "shard_train_state", "global_norm",
+    "per_worker_grads", "per_worker_grads_loop", "dense_grads",
 ]
 
 
@@ -56,6 +70,14 @@ def _batch_on(batch, device: torch.device):
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
+def _check_lead(batch, n_workers: int) -> Dict:
+    """The batch leaves' shapes; raises unless each leads with ``n_workers``."""
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    if any(s[0] != n_workers for s in shapes.values()):
+        raise ValueError(f"batch leaves {shapes} do not lead with {n_workers} workers")
+    return shapes
+
+
 def _with_grad(params):
     """Leaf tensors sharing the parameters' storage, with autograd on."""
     return tree.tree_map(lambda p: p.detach().requires_grad_(True), params)
@@ -71,9 +93,7 @@ def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1
     the mean of the M passes' loss sums over n, and each aux the mean of its
     M per-worker values.
     """
-    shapes = {k: tuple(v.shape) for k, v in batch.items()}
-    if any(s[0] != n_workers for s in shapes.values()):
-        raise ValueError(f"batch leaves {shapes} do not lead with {n_workers} workers")
+    shapes = _check_lead(batch, n_workers)
     # (params, one worker's batch) -> (grads, (loss, aux)), mapped over the workers
     batched = torch.func.vmap(torch.func.grad_and_value(model.loss, has_aux=True),
                               in_dims=(None, 0))
@@ -131,6 +151,80 @@ def dense_grads(model, params, batch):
             tree.unflatten(params, list(grads)))
 
 
+# what a group step runs, named by every refusal of what it does not
+GROUP_SUPPORTED = ("compressor clt_k (chunked) or none, residue_dtype fp32, unfused, "
+                   "unbucketed, no compute_stats or telemetry, groups None")
+
+
+def _require_group_support(sc_cfg: ScaleComConfig, compute_stats: bool, buckets: Any) -> None:
+    """Raise ValueError, naming ``GROUP_SUPPORTED``, for what of this
+    configuration a group step does not run. Reads $SCALECOM_TORCH_FUSED
+    and $SCALECOM_TORCH_BUCKET_MB for their "auto"."""
+    comp = sc_cfg.compressor
+    if comp.name not in ("clt_k", "none") or comp.exact:
+        refused = f"compressor {comp.name!r}" + (" with exact=True" if comp.exact else "")
+    elif sc_cfg.residue_dtype != "fp32":
+        refused = f"residue_dtype {sc_cfg.residue_dtype!r} (a lossy residue codec)"
+    elif resolve_fused(sc_cfg.fused):
+        refused = "the fused reduce (its worker mean is inside one launch)"
+    elif isinstance(buckets, (tuple, list)) or overlap.resolve_bucket_bytes(
+            buckets, sc_cfg.bucket_bytes) is not None:
+        refused = f"buckets={buckets!r}"
+    elif compute_stats or sc_cfg.telemetry:
+        refused = "compute_stats or telemetry"
+    elif sc_cfg.groups is not None:
+        refused = f"groups={sc_cfg.groups}"
+    else:
+        return
+    raise ValueError(f"a train step over a process group does not run {refused}; "
+                     f"it runs {GROUP_SUPPORTED}")
+
+
+def _group_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, group):
+    """Algorithm 1 over this rank's (1, *shape) gradients with real
+    collectives: the plan (``core.plan.plan_tensors`` at n = group.size()
+    workers) sends a compressed tensor through ``clt_ring_reduce`` and a
+    dense one through ``all_reduce_mean``. Returns (ghat, new_state, stats),
+    stats holding the plan's ``comm_bytes_per_worker`` and
+    ``comm_bytes_dense`` as the stacked reduce's do."""
+    n = group.size()
+    flat = tree.flatten_with_path(grads)
+    # bare residue paths: the rows are this rank's, checked below
+    plans = plan_tensors(tuple((p, tuple(g.shape[1:]), n) for p, g in flat), sc_cfg,
+                         frozenset(sc_state.residues))
+    backend = resolve_backend(sc_cfg.backend, flat[0][1].device)
+    new_residues = dict(sc_state.residues)
+    ghat_leaves = []
+    for plan, (path, g) in zip(plans, flat):
+        gw = g.to(torch.float32)
+        if plan.dense:
+            ghat_leaves.append(all_reduce_mean(gw[0], group).reshape(plan.shape).to(g.dtype))
+            continue
+        q = sc_state.residues[path]["q"]
+        if tuple(q.shape) != (1,) + plan.storage:
+            raise ValueError(
+                f"residue {path!r} holds {tuple(q.shape)}, want this rank's row "
+                f"{(1,) + plan.storage} (shard_train_state)")
+        ghat, m_new = clt_ring_reduce(gw.reshape(plan.work), q.reshape(plan.work), sc_state.t,
+                                      plan.comp, sc_cfg.beta, group, backend)
+        new_residues[path] = {"q": m_new.reshape((1,) + plan.storage)}
+        ghat_leaves.append(ghat.reshape(plan.shape).to(g.dtype))
+    stats = {"comm_bytes_per_worker": sum(p.bytes_payload for p in plans),
+             "comm_bytes_dense": sum(p.bytes_dense for p in plans)}
+    return (tree.unflatten(grads, ghat_leaves),
+            ScaleComState(residues=new_residues, t=sc_state.t + 1), stats)
+
+
+def _group_mean(loss: torch.Tensor, auxs: Dict, group) -> Tuple[torch.Tensor, Dict]:
+    """The loss and each aux averaged over the group's ranks, in one
+    all-reduce (a metric, not gradient payload: not counted)."""
+    keys = list(auxs)
+    both = torch.stack([loss.reshape(())] + [torch.mean(auxs[k]) for k in keys])
+    dist.all_reduce(both, op=dist.ReduceOp.SUM, group=group)
+    both = both / group.size()
+    return both[0], {k: both[i + 1] for i, k in enumerate(keys)}
+
+
 def build_train_step(
     model,
     optimizer: Optimizer,
@@ -143,6 +237,7 @@ def build_train_step(
     grad_clip: Optional[float] = None,
     compute_stats: bool = False,
     buckets: Any = None,
+    group=None,
 ) -> Callable[[TrainState, Any], Tuple[TrainState, Dict[str, Any]]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
@@ -160,11 +255,26 @@ def build_train_step(
     ``repro_torch.optim``) and returns a new ``TrainState`` holding them.
     Metric values are 0-d tensors (or floats) left on the device: reading
     one waits for the step to finish.
+
+    ``group``: a ``torch.distributed`` process group whose ranks are the
+    ``n_workers`` ScaleCom workers, one each (``n_workers`` must equal
+    ``group.size()``). Each rank passes the same global batch and the state
+    ``shard_train_state`` gave it, trains on its row and gets ĝ through the
+    collectives of ``repro_torch.distributed.ring``; the loss and aux
+    metrics are averaged over the ranks, so they equal the stacked step's.
+    A configuration outside ``GROUP_SUPPORTED`` raises ValueError.
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
+    if group is not None:
+        if n_workers != group.size():
+            raise ValueError(
+                f"a train step over a process group runs one worker per rank: n_workers "
+                f"({n_workers}) must equal group.size() ({group.size()})")
+        _require_group_support(sc_cfg, compute_stats, buckets)
+        rank = dist.get_rank(group)
     # The JAX package trains in full fp32 (compute_dtype="float32"); TF32
     # would keep about three decimal digits in the card's matmuls.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -173,7 +283,15 @@ def build_train_step(
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         device = tree.leaves(state.params)[0].device
         batch = _batch_on(batch, device)
-        if mode == "scalecom":
+        if group is not None:
+            _require_group_support(sc_cfg, compute_stats, buckets)  # "auto" reads env now
+            _check_lead(batch, n_workers)
+            batch = {k: v[rank:rank + 1] for k, v in batch.items()}
+        if mode == "scalecom" and group is not None:
+            loss, auxs, gpw = per_worker_grads(model, state.params, batch, 1, microbatches)
+            ghat, sc_state, stats = _group_reduce(gpw, state.sc_state, sc_cfg, group)
+            del gpw
+        elif mode == "scalecom":
             loss, auxs, gpw = per_worker_grads(model, state.params, batch, n_workers,
                                                microbatches)
             ghat, sc_state, stats = scalecom_reduce(
@@ -182,8 +300,12 @@ def build_train_step(
             del gpw
         else:
             loss, auxs, ghat = dense_grads(model, state.params, batch)
+            if group is not None:
+                ghat = tree.tree_map(lambda g: all_reduce_mean(g, group), ghat)
             sc_state = ScaleComState(residues=state.sc_state.residues, t=state.sc_state.t + 1)
             stats = {}
+        if group is not None:
+            loss, auxs = _group_mean(loss, auxs, group)
 
         gnorm = global_norm(ghat)
         if grad_clip is not None:
@@ -210,3 +332,22 @@ def init_train_state(model, optimizer: Optimizer, sc_cfg: ScaleComConfig,
         sc_cfg.layout,
     )
     return TrainState(params, optimizer.init(params), sc_state, 0)
+
+
+def shard_train_state(state: TrainState, rank: int, world: int) -> TrainState:
+    """Rank ``rank``'s share of a worker-stacked TrainState over ``world``
+    ranks: its own row of every residue, and copies of the replicated params
+    and optimizer state (so a step on the share leaves ``state`` as it was).
+    The step counter and ScaleCom ``t`` carry over."""
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} is not in [0, {world})")
+    residues = {}
+    for path, enc in state.sc_state.residues.items():
+        if set(enc) != {"q"} or enc["q"].shape[0] != world:
+            raise ValueError(
+                f"residue {path!r} must be fp32 rows of {world} workers, got "
+                f"{ {k: tuple(v.shape) for k, v in enc.items()} }")
+        residues[path] = {"q": enc["q"][rank:rank + 1].clone()}
+    copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
+    return TrainState(tree.tree_map(copy, state.params), tree.tree_map(copy, state.opt_state),
+                      ScaleComState(residues=residues, t=state.sc_state.t), state.step)

@@ -186,7 +186,8 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "        'repro_torch.obs.report', 'repro_torch.obs.run', 'repro_torch.obs.tracing',\n"
         "        'repro_torch.analysis.perfmodel', 'repro_torch.harness.__main__',\n"
         "        'repro_torch.harness.cli', 'repro_torch.harness.injectors',\n"
-        "        'repro_torch.harness.invariants', 'repro_torch.harness.scenarios']\n"
+        "        'repro_torch.harness.invariants', 'repro_torch.harness.scenarios',\n"
+        "        'repro_torch.distributed', 'repro_torch.distributed.ring']\n"
         "missing = [m for m in want if m not in mods]\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 58 else 0)\n"
