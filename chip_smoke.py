@@ -2044,29 +2044,38 @@ class ArchRun:
     grad_tol: dict = dataclasses.field(default_factory=lambda: GRAD_TOL)
     local_batch: int = 4
     seq: int = 128
+    before: str = ""  # the peak of the un-rematerialised port at its cut, for comparison
 
 
 # The [arch] phase: the registry's model families at full width, each cut in
-# depth to what one card holds. starcoder2-3b at 2 layers is 569,392,128
-# parameters (2.12 GiB a copy): 8 workers' gradients and residues take 17.0
-# GiB each, and a third layer would add ~20 GiB. phi3.5-moe at 1 layer is
-# 1,562,980,352 (5.82 GiB a copy); at 4 workers it would need ~64 GiB before
-# the pass's transients, at 2 ~41 GiB. rwkv6-3b at 2 layers is 509,934,080
-# (8 workers: 15.2 GiB each of gradients and residues, and its time loop
-# keeps the (4, 40, 64, 64) state of every step over 128 steps, 2 layers and
-# 8 workers, 5.0 GiB); it also trains unfused, so that the three unfused
-# kernels meet its 64-wide adapters. recurrentgemma-2b at 4 layers (one rec,
-# rec, attn unit and one un-stacked tail rec) is 1,659,440,640 (6.18 GiB a
-# copy) at 2 workers of 1 x 2304 positions, past its 2048-position window:
-# at 2560 it peaked at 76.4 GiB alone and ran out of memory after the main
-# path's phases. whisper-medium keeps its 1500 frames, and an encoder layer
-# keeps ~8.5 GB of activations over 8 workers x 4 (its (16, 1500, 1500)
-# softmax 4.6 GB): at 4 + 4 and 3 + 3 layers training ran out of memory, at
-# 2 + 2 (165,003,264 parameters) it peaks at ~64 GiB. internvl2-26b at 1
-# layer is 1,527,379,968 at 2 workers of 256 vision + 128 text positions.
+# depth to the deepest that trains on one card with remat (Model.remat, the
+# reference's memory strategy) after the main path's phases, which leave
+# 2.50 GiB allocated. With remat a pass keeps each layer's inputs and one
+# layer's recompute, so the state sets most cuts: parameters, momentum, the
+# workers' gradients and residues, and the reduce's new residues beside the
+# old, ~28 copies of the parameters at 8 workers and ~9 at 2. starcoder2-3b
+# at 3 layers is 703,091,712 parameters (2.62 GiB a copy): the unfused run
+# peaks at 75.4 GiB in the reduce, with or without remat; a 4th layer (0.50
+# GiB a copy more) ran out of memory. phi3.5-moe at 1 layer is 1,562,980,352
+# (5.82 GiB a copy) at 2 workers; a 2nd layer (10.67 GiB a copy) ran out.
+# rwkv6-3b at 4 layers is 684,321,280 (8 workers: 2.55 GiB a copy), peaking
+# at 74.1 GiB unfused; at 5 it ran out: state, not its time loop's per-step
+# states, which remat keeps for one layer at a time; it also trains
+# unfused, so that the three unfused kernels meet its 64-wide adapters.
+# recurrentgemma-2b at 10 layers (3 rec, rec, attn units and one un-stacked
+# tail rec) is 2,173,335,040 (8.10 GiB a copy) at 2 workers of 1 x 2304
+# positions, past its 2048-position window: 72.9 GiB alone. whisper-medium
+# at 20 + 20 layers (694,020,096, 2.59 GiB a copy) keeps its 1500 frames at
+# 8 workers x 4: 70.1 GiB alone; full depth, 24 + 24, ran out (without
+# remat 3 + 3 ran out). internvl2-26b at 2 layers is 1,917,462,528 at 2
+# workers of 256 vision + 128 text positions. The next cut of these three
+# trained alone (tools/arch_cuts.py) at 76.0, 76.0 and 77.6 GiB: with the
+# 2.50 GiB the main path leaves, 78.5, 78.5 and 80.1 of the card's 79.18.
 ARCH_RUNS = (
-    ArchRun("starcoder2-3b", dict(n_layers=2), 8, (False, True)),
-    ArchRun("phi3.5-moe-42b-a6.6b", dict(n_layers=1), 2, (True,), grads=True),
+    ArchRun("starcoder2-3b", dict(n_layers=3), 8, (False, True),
+            before="64.42 GiB unfused, 59.85 GiB fused at 2 layers"),
+    ArchRun("phi3.5-moe-42b-a6.6b", dict(n_layers=1), 2, (True,), grads=True,
+            before="54.93 GiB at 1 layer"),
     # RWKV's per-head group norm divides by sqrt(mean(y^2) + 1e-6): where a
     # head's y_t nearly cancels (r_1·k_0 of 64 terms of ~1 summing to ~1e-4;
     # y_0 = 0 from the bonus's zero init) it multiplies the gradient by up
@@ -2075,12 +2084,15 @@ ARCH_RUNS = (
     # the batched pass and the loop stood up to 5.4e-3 of a leaf's largest
     # value apart from the trained state, 1.3e-2 from the initial one (CPU,
     # d 1024: 2.7e-5; ROADMAP Queue 3). A batching fault would be O(1).
-    ArchRun("rwkv6-3b", dict(n_layers=2), 8, (False, True), grads=True,
-            grad_tol=dict(rtol=1e-5, atol=1e-7, atol_of_max=2e-2)),
-    ArchRun("recurrentgemma-2b", dict(n_layers=4), 2, (True,), holds=(True,), local_batch=1,
-            seq=2304),
-    ArchRun("whisper-medium", dict(n_layers=2, encoder_layers=2), 8, (True,), holds=(True,)),
-    ArchRun("internvl2-26b", dict(n_layers=1), 2, (True,), holds=(True,)),
+    ArchRun("rwkv6-3b", dict(n_layers=4), 8, (False, True), grads=True,
+            grad_tol=dict(rtol=1e-5, atol=1e-7, atol_of_max=2e-2),
+            before="62.02 GiB at 2 layers"),
+    ArchRun("recurrentgemma-2b", dict(n_layers=10), 2, (True,), holds=(True,), local_batch=1,
+            seq=2304, before="75.25 GiB at 4 layers"),
+    ArchRun("whisper-medium", dict(n_layers=20, encoder_layers=20), 8, (True,), holds=(True,),
+            before="66.73 GiB at 2 + 2 layers"),
+    ArchRun("internvl2-26b", dict(n_layers=2), 2, (True,), holds=(True,),
+            before="53.86 GiB at 1 layer"),
 )
 # every training run: dense warm-up steps, then compressed ones up to STEPS
 WARMUP, STEPS = 2, 5
@@ -2365,7 +2377,7 @@ def arch_phase(card_line: str) -> dict:
                             spec.local_batch, spec.seq,
                             torch.Generator(device="cuda").manual_seed(0))
             print(f"[arch] {label}: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-                  f"GiB on {card_line}")
+                  f"GiB (without remat: {spec.before}) on {card_line}")
             launched = {k: n + run.launches[k] for k, n in launched.items()}
             compressed = [p for p in run.plans if not p.dense]
             for i, p in enumerate(compressed):
@@ -2414,6 +2426,100 @@ def arch_phase(card_line: str) -> dict:
     print(f"[arch] launches of the training runs: {launched}; phase "
           f"{time.perf_counter() - t_phase:.1f} s wall on {card_line}")
     return launched
+
+
+@dataclasses.dataclass(frozen=True)
+class RematRun:
+    """One [remat] A/B: an id of the registry at full width, depth cut
+    (``cut``), its batched per-worker pass with ``remat=False`` and with
+    ``remat=True`` on the same weights and batch; with ``max_share`` the
+    rematerialised peak may be at most that share of the other."""
+
+    name: str
+    cut: dict
+    workers: int
+    local_batch: int = 4
+    seq: int = 128
+    max_share: float = 1.0
+
+
+# The [remat] phase: the two archs whose activations, not their state, set
+# the depth of their [arch] run: whisper-medium's encoder keeps a (16, 1500,
+# 1500) softmax a layer and sequence, recurrentgemma-2b's cross-entropy
+# (vocab 256,000) keeps 2 x 2304 x 256,000 fp32 logits without remat.
+REMAT_RUNS = (
+    RematRun("whisper-medium", dict(n_layers=2, encoder_layers=2), 8, max_share=0.5),
+    RematRun("recurrentgemma-2b", dict(n_layers=4), 2, local_batch=1, seq=2304),
+)
+
+
+def remat_phase(card_line: str) -> None:
+    """[remat]: for each of ``REMAT_RUNS``, ``per_worker_grads`` without and
+    with remat from one set of weights (drawn on the card) and one batch:
+    peak allocated memory of each pass (the other's gradients parked in
+    host memory, so both start from the same allocation), host ms of a
+    second call, and the two gradient sets, losses and aux held to
+    ``GRAD_TOL`` (the same ops on the same inputs: zero is expected)."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.data import make_batches, model_inputs
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import per_worker_grads
+
+    for spec in REMAT_RUNS:
+        full = registry.arch(spec.name)
+        cfg = dataclasses.replace(full, **spec.cut)
+        kept = " + ".join(f"{getattr(cfg, k)} of {getattr(full, k)}" for k in spec.cut)
+        params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(make_batches(
+            cfg.vocab, spec.workers, spec.local_batch, spec.seq, seed=1,
+            **model_inputs(cfg))).items()}
+        out, peak, ms = {}, {}, {}
+        for remat in (False, True):
+            model = build_model(cfg, loss_chunk=64, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            loss, aux, grads = per_worker_grads(model, params, batch, spec.workers)
+            torch.cuda.synchronize()
+            peak[remat] = (base, torch.cuda.max_memory_allocated())
+            # the second call's gradients are dropped at once: kept, they would
+            # sit under the next pass's peak
+            ms[remat] = host_ms(lambda: per_worker_grads(model, params, batch, spec.workers))[1]
+            if not remat:  # parked: the next pass starts from the same allocation
+                grads = tree.tree_map(lambda g: g.cpu(), grads)
+            out[remat] = (loss, aux, grads)
+            del loss, aux, grads
+        (l0, a0, g0), (l1, a1, g1) = out[False], out[True]
+        g0 = tree.tree_map(lambda g: g.cuda(), g0)
+        worst, worst_path = grad_errors(g1, g0, f"[remat] {spec.name} remat vs no remat")
+        same = all(bitwise(x, y) for x, y in zip(tree.leaves(g1), tree.leaves(g0)))
+        check(bool(torch.isclose(l1, l0, rtol=GRAD_TOL["rtol"], atol=0)) and sorted(a1) ==
+              sorted(a0) and all(bool(torch.allclose(a1[k], a0[k], rtol=GRAD_TOL["rtol"], atol=0))
+                                 for k in a0),
+              f"[remat] {spec.name}: loss {float(l1)} / aux {sorted(a1)} against {float(l0)} / "
+              f"{sorted(a0)} without remat")
+        share = (peak[True][1] - peak[True][0]) / (peak[False][1] - peak[False][0])
+        print(f"[remat] {spec.name}: {kept} layers, {spec.workers} workers x {spec.local_batch} "
+              f"x {spec.seq} tokens ({describe(cfg)}); per_worker_grads without remat: peak "
+              f"{peak[False][1] / 2**30:.2f} GiB, {ms[False]:.1f} ms host; with remat: peak "
+              f"{peak[True][1] / 2**30:.2f} GiB, {ms[True]:.1f} ms host ({peak[False][0] / 2**30:.2f} "
+              f"and {peak[True][0] / 2**30:.2f} GiB allocated before the passes; the pass's own "
+              f"growth with remat {share:.3f} of the one without) on {card_line}")
+        print(f"[remat] {spec.name}: gradients with remat against without: "
+              + ("bitwise equal" if same else
+                 f"within rtol {GRAD_TOL['rtol']} / atol {GRAD_TOL['atol']}")
+              + f", largest max|a-b|/max|b| {worst:.3e} ({worst_path}); loss {float(l1):.6f} vs "
+              f"{float(l0):.6f}")
+        check(peak[True][1] < peak[False][1] and
+              peak[True][1] <= spec.max_share * peak[False][1],
+              f"[remat] {spec.name}: peak {peak[True][1] / 2**30:.2f} GiB with remat, "
+              f"{peak[False][1] / 2**30:.2f} without (at most {spec.max_share} of it)")
+        del params, batch, out, g0, g1, a0, a1, l0, l1
+        torch.cuda.empty_cache()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -3575,12 +3681,14 @@ def main() -> None:
         print(f"[profile] device time not measured: torch.profiler recorded no device events "
               f"({wall_ms:.1f} ms host clock)")
 
-    # -- 9. the model families at full width (ARCH_RUNS) ----------------------------
+    # -- 9. remat against no remat (REMAT_RUNS), the model families at full width
+    # (ARCH_RUNS) ----------------------------------------------------------------
     del state, loop, batches, batch, step_batch, metrics, prof, on_card, trained, before
     del m_t, g_t, idx, ghat
     del reduce, agree  # reduce's default argument holds the trained residues
     gc.collect()
     torch.cuda.empty_cache()
+    remat_phase(card_line)
     arch_launches = arch_phase(card_line)
 
     # -- 10. serving every family at full width (SERVE_RUNS) ------------------------

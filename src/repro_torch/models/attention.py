@@ -5,14 +5,18 @@ output (never causal, never rotated). Serving: ``init_cache``,
 ``attention_prefill`` (the full prompt, filling a cache) and
 ``attention_decode`` (one token against the cache).
 
-Attention is plain einsum + masked softmax, masked with ``NEG_INF`` exactly
-as the reference does. The reference scans 512-query chunks under
-``jax.checkpoint`` (and its model rematerialises each layer), so the
-(B, heads, S, T) score tensor never exists whole; the port does neither and
-computes the whole score tensor at once, which is what cuts the depth and
-length of ``chip_smoke.py``'s ``[arch]`` training runs (ROADMAP item 17a).
-Every query and key position of ``attention_core`` is a real one (>= 0):
-only the causal and window conditions mask there.
+Attention is einsum + masked softmax, masked with ``NEG_INF`` exactly as
+the reference does. ``attention_core`` scans the queries in chunks of
+``q_chunk`` = 512 (the reference's default), so at most one chunk's
+(B, heads, q_chunk, T) scores exist at a time; in training each chunk's
+body is rematerialised (``common.remat``, the reference's
+``jax.checkpoint``), so the backward recomputes a chunk's scores instead
+of keeping (B, heads, S, T). Prefill runs the same chunks under
+``torch.inference_mode`` without remat. The reference pads the last chunk
+with position -1 and masks it; the port slices it short, which gives the
+real rows the same values. Every query and key position of
+``attention_core`` is a real one (>= 0): only the causal and window
+conditions mask there.
 
 Cache layout, the reference's: {"k": (B, C, KV, hd), "v": (B, C, KV, hd),
 "slot_pos": (C,) int32}, where ``slot_pos[j]`` is the absolute position held
@@ -70,39 +74,54 @@ def _project_qkv(cfg, p, x, kv_x, positions, kv_positions, rope, prefix):
 
 
 def attention_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
-                   *, causal: bool, window: Optional[int]) -> Tensor:
+                   *, causal: bool, window: Optional[int], q_chunk: int = 512,
+                   remat: bool = True) -> Tensor:
     """q: (B, S, H, hd); k/v: (B, T, KV, hd); absolute positions (S,)/(T,),
-    none negative. Returns (B, S, H, hd)."""
-    B, S, H, hd = q.shape
+    none negative. Returns (B, S, H, hd).
+
+    Scans the queries in chunks of ``q_chunk`` (the last one sliced short),
+    so at most a (B, heads, q_chunk, T) score tensor exists at a time. With
+    ``remat`` each chunk's body is rematerialised (``common.remat``), so the
+    backward recomputes a chunk's scores instead of keeping all of them."""
+    S, H, hd = q.shape[1:]
     KV = k.shape[2]
-    qg = q.reshape(B, S, KV, H // KV, hd)
-    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k).to(torch.float32) * hd**-0.5
-    mask = None
-    if causal:
-        mask = k_pos[None, :] <= q_pos[:, None]
-    if window is not None:
-        near = (q_pos[:, None] - k_pos[None, :]) < window
-        mask = near if mask is None else mask & near
-    if mask is not None:  # unmasked (an encoder's), no (B, heads, S, T) copy is made
-        s = torch.where(mask, s, NEG_INF)
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqt,btkd->bqkgd", w, v)
-    return o.reshape(B, S, H, hd)
+    q_chunk = min(q_chunk, S)
+
+    def body(qc, k, v, qp, k_pos):
+        b, c = qc.shape[:2]
+        qg = qc.reshape(b, c, KV, H // KV, hd)
+        s = torch.einsum("bqkgd,btkd->bkgqt", qg, k).to(torch.float32) * hd**-0.5
+        mask = None
+        if causal:
+            mask = k_pos[None, :] <= qp[:, None]
+        if window is not None:
+            near = (qp[:, None] - k_pos[None, :]) < window
+            mask = near if mask is None else mask & near
+        if mask is not None:  # unmasked (an encoder's), no (B, heads, c, T) copy is made
+            s = torch.where(mask, s, NEG_INF)
+        w = torch.softmax(s, dim=-1)
+        return torch.einsum("bkgqt,btkd->bqkgd", w, v).reshape(b, c, H, hd)
+
+    step = common.remat(body) if remat else body
+    outs = [step(q[:, s0:s0 + q_chunk], k, v, q_pos[s0:s0 + q_chunk], k_pos)
+            for s0 in range(0, S, q_chunk)]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
 def attention_train(cfg, p, x: Tensor, positions: Tensor, *, causal: bool = True,
                     window: Optional[int] = None, kv_x: Optional[Tensor] = None,
                     kv_positions: Optional[Tensor] = None, rope: bool = True,
-                    prefix: str = "attn") -> Tensor:
+                    prefix: str = "attn", remat: bool = True) -> Tensor:
     """Full-sequence attention (training, encoding). positions: (S,). With
     ``kv_x`` (B, T, D) and ``kv_positions`` (T,) it is cross-attention: K and V
-    come from ``kv_x``, and it is never causal and never rotated."""
+    come from ``kv_x``, and it is never causal and never rotated. ``remat``
+    rematerialises each query chunk (``attention_core``)."""
     cross = kv_x is not None
     kv_src = kv_x if cross else x
     kv_pos = kv_positions if cross else positions
     q, k, v = _project_qkv(cfg, p, x, kv_src, positions, kv_pos, rope and not cross, prefix)
     out = attention_core(q, k, v, positions, kv_pos, causal=causal and not cross,
-                         window=window)
+                         window=window, remat=remat)
     B, S = x.shape[:2]
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p[f"{prefix}_wo"]
 
@@ -120,9 +139,11 @@ def attention_prefill(cfg, p, x: Tensor, positions: Tensor, cache: Dict[str, Ten
                       prefix: str = "attn") -> Tensor:
     """Full-sequence causal attention over the prompt x (B, S, D), writing the
     last min(C, S) positions' K/V into ``cache`` (capacity C) in place, at
-    slots position % C."""
+    slots position % C. It runs under ``torch.inference_mode``: the query
+    chunks alone bound its scores, with nothing to rematerialise."""
     q, k, v = _project_qkv(cfg, p, x, x, positions, positions, rope, prefix)
-    out = attention_core(q, k, v, positions, positions, causal=True, window=window)
+    out = attention_core(q, k, v, positions, positions, causal=True, window=window,
+                         remat=False)
     B, S = x.shape[:2]
     C = cache["k"].shape[1]
     keep = min(C, S)

@@ -1,19 +1,33 @@
 """Shared model pieces: parameter init, layernorm and RMSNorm, RoPE and
-sinusoidal positions, the GELU and SwiGLU MLPs, embeddings and the chunked
-cross-entropy.
+sinusoidal positions, the GELU and SwiGLU MLPs, embeddings, the chunked
+cross-entropy and ``remat``, the port's ``jax.checkpoint``.
 
 The port of ``repro.models.common``. Parameters are
 plain nested dicts of tensors with the JAX package's names and stacked
 shapes, so a JAX parameter tree carries across (``models.convert``) and the
 residue keys match.
+
+``remat(fn)`` is ``fn`` whose backward recomputes it: a
+``torch.autograd.Function`` that saves only its tensor inputs and, in its
+backward, runs ``fn`` again under ``torch.func.vjp``. Its vmap rule is
+generated, so it works under ``torch.func.vmap(grad_and_value(...))`` (the
+batched per-worker pass) as under ``torch.autograd.grad``, and nested (a
+rematerialised attention chunk inside a rematerialised layer). Its
+cotangents are returned detached: ``torch.func.grad`` runs the backward
+with create_graph, and a cotangent's history would keep every layer's
+recomputed activations to the end of the backward. So gradients of
+gradients do not pass it. ``torch.utils.checkpoint`` does not work under
+``torch.func.grad``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch import tree
 
 Tensor = torch.Tensor
 
@@ -32,6 +46,7 @@ __all__ = [
     "embed_tokens",
     "lm_logits",
     "chunked_xent",
+    "remat",
 ]
 
 
@@ -170,15 +185,101 @@ def lm_logits(p, x: Tensor) -> Tensor:
     return x @ w
 
 
-def chunked_xent(p, h: Tensor, labels: Tensor, mask: Tensor, chunk: int) -> Tensor:
+class _Remat(torch.autograd.Function):
+    """``run(*tensors) -> tuple of tensors``, saving only the input tensors;
+    the backward recomputes ``run`` under ``torch.func.vjp``."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(run, *inputs):
+        return run(*inputs)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.run = inputs[0]
+        ctx.save_for_backward(*inputs[1:])
+
+    @staticmethod
+    def backward(ctx, *cotangents):
+        inputs = ctx.saved_tensors
+        wrt = [i for i, need in enumerate(ctx.needs_input_grad[1:]) if need]
+
+        def run_wrt(*diff):
+            args = list(inputs)
+            for i, t in zip(wrt, diff):
+                args[i] = t
+            return ctx.run(*args)
+
+        outputs, vjp_fn = torch.func.vjp(run_wrt, *(inputs[i] for i in wrt))
+        # an output whose cotangent is None (unused) counts as zero
+        cts = tuple(torch.zeros_like(o) if c is None else c
+                    for o, c in zip(outputs, cotangents))
+        grads = [None] * len(inputs)
+        # detached (see the module docstring); the backward still runs in the
+        # caller's grad mode, so its kernels are the plain pass's (run under
+        # no_grad, the batched pass's gradients were not bitwise the plain ones)
+        for i, g in zip(wrt, vjp_fn(cts)):
+            grads[i] = g.detach()
+        return (None, *grads)
+
+
+def remat(fn: Callable) -> Callable:
+    """``fn``, rematerialised: the port of ``jax.checkpoint``.
+
+    ``fn`` takes trees (dicts and lists of tensors, tensors, other values)
+    and returns a tensor or a dict or list of tensors. The call saves only
+    the tensors among its arguments; the backward runs ``fn`` on them again
+    and returns the cotangent of each that needs one (integer tensors such
+    as positions need none). The values and gradients are those of ``fn``
+    itself: the same ops run on the same inputs."""
+
+    def call(*args):
+        leaves = tree.leaves(list(args))
+        where = [i for i, a in enumerate(leaves) if isinstance(a, Tensor)]
+        others = [None if isinstance(a, Tensor) else a for a in leaves]
+        like = tree.tree_map(lambda _: None, list(args))  # the structure, no tensor kept
+        shape = []
+
+        def run(*tensors):
+            full = list(others)
+            for i, t in zip(where, tensors):
+                full[i] = t
+            out = fn(*tree.unflatten(like, full))
+            shape[:] = [tree.tree_map(lambda _: None, out)]
+            return tuple(tree.leaves(out))
+
+        outs = _Remat.apply(run, *(leaves[i] for i in where))
+        return tree.unflatten(shape[0], list(outs))
+
+    return call
+
+
+_remat = remat  # chunked_xent's keyword shadows the name
+
+
+def chunked_xent(p, h: Tensor, labels: Tensor, mask: Tensor, chunk: int,
+                 remat: bool = True) -> Tensor:
     """Mean token cross-entropy over sequence chunks of ``chunk`` positions,
-    so only (B, chunk, V) logits exist at a time. Divides by sum(mask)."""
+    so only (B, chunk, V) logits exist at a time. Divides by sum(mask).
+
+    With ``remat`` (the reference's ``jax.checkpoint`` of the chunk body)
+    the backward recomputes each chunk's logits, so it too holds one
+    chunk's at a time; without it autograd keeps every chunk's."""
     S = h.shape[1]
     chunk = min(chunk, S)
+    tied = "lm_head" not in p
+    head = p["tok_embed"] if tied else p["lm_head"]
+
+    def body(w, hx, lx, mx):
+        logits = (hx @ (w.T if tied else w)).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
+        return torch.sum((logz - gold) * mx)
+
+    step = _remat(body) if remat else body
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for s0 in range(0, S, chunk):
-        logits = lm_logits(p, h[:, s0 : s0 + chunk]).to(torch.float32)
-        logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, labels[:, s0 : s0 + chunk, None].long())[..., 0]
-        total = total + torch.sum((logz - gold) * mask[:, s0 : s0 + chunk])
+        sl = slice(s0, s0 + chunk)
+        total = total + step(head, h[:, sl], labels[:, sl], mask[:, sl])
     return total / torch.clamp(torch.sum(mask), min=1.0)

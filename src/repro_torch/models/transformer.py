@@ -21,10 +21,16 @@ The port of ``repro.models.transformer``:
 
 Block parameters are stacked on a leading layer axis like the JAX
 ``ParamStore`` layout; a Python loop over layers takes the place of
-``lax.scan``. The reference rematerialises each layer body
-(``jax.checkpoint``) and q-chunks attention; the port does neither, so a
-training pass keeps every layer's activations and whole score tensors,
-which is what cuts ``chip_smoke.py``'s ``[arch]`` depths (ROADMAP item 17a).
+``lax.scan``. Training keeps the reference's memory strategy: with
+``Model.remat`` (on by default, as the reference's ``RunConfig.remat``)
+each layer of a uniform stack, each encoder and decoder layer and each
+whole hybrid unit is rematerialised (``common.remat``, the reference's
+``jax.checkpoint``; the hybrid's tail layers are not, as there), so the
+backward keeps each layer's inputs and recomputes one layer at a time.
+Inside a layer attention scans 512-query chunks and the cross-entropy
+``loss_chunk`` positions, each chunk rematerialised too. ``remat=False``
+runs the same ops and keeps every activation; the tests hold the two
+against each other bit for bit.
 
 Serving keeps the reference's decode state, key for key and shape for
 shape: ``{"kv"}`` (dense, MoE, VLM: caches stacked on the layer axis),
@@ -91,8 +97,9 @@ def _apply_mlp(cfg, p, x):
 
 
 def _block_train(cfg, p, x, positions, kind, *, window, enc_out=None,
-                 enc_pos=None) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """One block forward. Returns (x, aux); aux is empty but for MoE."""
+                 enc_pos=None, remat=True) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """One block forward. Returns (x, aux); aux is empty but for MoE.
+    ``remat`` rematerialises attention's query chunks."""
     if kind == "ssm":
         state = rwkv.init_rwkv_state(cfg, x.shape[0], x.device)
         x, _ = rwkv.rwkv_block_train(cfg, p, x, state)
@@ -103,11 +110,12 @@ def _block_train(cfg, p, x, positions, kind, *, window, enc_out=None,
         return _apply_mlp(cfg, p, x), {}
     xn = common.apply_norm(cfg, x, p, "ln_attn")
     x = x + attn.attention_train(cfg, p, xn, positions, causal=kind != "enc", window=window,
-                                 rope=kind not in ("enc", "encdec_dec"))  # enc-dec: sinusoidal
+                                 rope=kind not in ("enc", "encdec_dec"),  # enc-dec: sinusoidal
+                                 remat=remat)
     if kind == "encdec_dec":
         xn = common.apply_norm(cfg, x, p, "ln_cross")
         x = x + attn.attention_train(cfg, p, xn, positions, kv_x=enc_out, kv_positions=enc_pos,
-                                     prefix="cross")
+                                     prefix="cross", remat=remat)
     if kind == "moe":
         h, aux = moe.moe_ffn(cfg, p, common.apply_norm(cfg, x, p, "ln_mlp"))
         return x + h, aux
@@ -146,6 +154,7 @@ class Model:
     cfg: ArchConfig
     loss_chunk: int = 512
     decode_window: Optional[int] = None  # caps the dense decoders' caches to a ring (long_500k)
+    remat: bool = True  # the reference's RunConfig.remat; False keeps every activation (tests)
 
     def init(self, generator: torch.Generator,
              device: Union[str, torch.device] = "cuda") -> Dict:
@@ -192,6 +201,12 @@ class Model:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         return x, positions, labels, mask
 
+    def _step(self, body):
+        """``body`` as one layer of a training pass: rematerialised
+        (``common.remat``, the reference's ``jax.checkpoint``) with
+        ``remat``, else as it is."""
+        return common.remat(body) if self.remat else body
+
     def _encode(self, params, frames: Tensor) -> Tuple[Tensor, Tensor]:
         """The Whisper encoder over stub frame embeddings. frames: (B, T, D)."""
         cfg = self.cfg
@@ -200,8 +215,10 @@ class Model:
         pos = torch.arange(T, dtype=torch.int32, device=frames.device)
         ep = params["encoder"]
         layers = {k: v for k, v in ep.items() if not k.startswith("ln_enc_final")}
+        step = self._step(lambda pl, x, pos: _block_train(cfg, pl, x, pos, "enc", window=None,
+                                                          remat=self.remat)[0])
         for i in range(cfg.encoder_layers):
-            x, _ = _block_train(cfg, _layer(layers, i), x, pos, "enc", window=None)
+            x = step(_layer(layers, i), x, pos)
         return common.apply_norm(cfg, x, ep, "ln_enc_final"), pos
 
     def loss(self, params, batch) -> Tuple[Tensor, Dict[str, Tensor]]:
@@ -209,8 +226,13 @@ class Model:
         VLM's ``vision`` (B, Tv, D), an encoder-decoder's ``frames`` (B, T, D)),
         plus ``MOE_LB_COEF`` x the load-balance loss and ``MOE_Z_COEF`` x the
         router z-loss for MoE; the aux dict holds ``nll`` and each MoE aux
-        averaged over the layers."""
+        averaged over the layers.
+
+        With ``remat`` each layer (each whole hybrid unit; the hybrid's tail
+        layers are not) is rematerialised, as are attention's query chunks
+        and the cross-entropy's chunks, where the reference checkpoints."""
         cfg = self.cfg
+        remat = self.remat
         auxs = []
         if cfg.is_encdec:
             enc_out, enc_pos = self._encode(params, batch["frames"])
@@ -218,31 +240,43 @@ class Model:
             x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
             positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
             labels, mask = batch["labels"], batch["mask"].to(torch.float32)
+            step = self._step(lambda pl, x, positions, enc_out, enc_pos: _block_train(
+                cfg, pl, x, positions, "encdec_dec", window=cfg.sliding_window, enc_out=enc_out,
+                enc_pos=enc_pos, remat=remat)[0])
             for i in range(cfg.n_layers):
-                x, _ = _block_train(cfg, _layer(params["decoder"], i), x, positions,
-                                    "encdec_dec", window=cfg.sliding_window, enc_out=enc_out,
-                                    enc_pos=enc_pos)
+                # each layer reads enc_out through a view of its own, so its K and V
+                # cotangents are summed before they join the other layers', with
+                # remat or without (and as the reference's scan sums them)
+                x = step(_layer(params["decoder"], i), x, positions, enc_out.view_as(enc_out),
+                         enc_pos)
         else:
             x, positions, labels, mask = self._embed_inputs(params, batch)
             if cfg.arch_type == "hybrid":
                 n_units, tail_kinds = _hybrid_units(cfg)
-                for u in range(n_units):
+
+                def unit(up, x, positions):
                     for pos, kind in enumerate(cfg.hybrid_pattern):
-                        x, _ = _block_train(cfg, _layer(params["units"][f"u{pos}_{kind}"], u),
-                                            x, positions, kind, window=self._window(kind))
+                        x, _ = _block_train(cfg, up[f"u{pos}_{kind}"], x, positions, kind,
+                                            window=self._window(kind), remat=remat)
+                    return x
+
+                step = self._step(unit)
+                for u in range(n_units):
+                    x = step(_layer(params["units"], u), x, positions)
                 for i, kind in enumerate(tail_kinds):
                     x, _ = _block_train(cfg, params["tail"][f"layer_{i}_{kind}"], x, positions,
-                                        kind, window=self._window(kind))
+                                        kind, window=self._window(kind), remat=remat)
             else:
                 kind = cfg._layer_kinds()[0]
+                step = self._step(lambda pl, x, positions: list(_block_train(
+                    cfg, pl, x, positions, kind, window=self._window(kind), remat=remat)))
                 for i in range(cfg.n_layers):
-                    x, aux = _block_train(cfg, _layer(params["blocks"], i), x, positions, kind,
-                                          window=self._window(kind))
+                    x, aux = step(_layer(params["blocks"], i), x, positions)
                     auxs.append(aux)
         aux_total = {k: torch.mean(torch.stack([a[k] for a in auxs])) for k in
                      (auxs[0] if auxs else ())}
         x = common.apply_norm(cfg, x, params, "ln_final")
-        nll = common.chunked_xent(params, x, labels, mask, self.loss_chunk)
+        nll = common.chunked_xent(params, x, labels, mask, self.loss_chunk, remat=remat)
         total = nll
         if "moe_lb_loss" in aux_total:
             total = total + MOE_LB_COEF * aux_total["moe_lb_loss"]
@@ -413,10 +447,11 @@ def _cross_read(cfg, pl, xn: Tensor, positions: Tensor, crossc: Dict) -> Tensor:
     if cfg.qkv_bias:
         q = q + pl["cross_bq"]
     out = attn.attention_core(q.reshape(B, S, cfg.n_heads, cfg.hd), crossc["k"], crossc["v"],
-                              positions, crossc["slot_pos"], causal=False, window=None)
+                              positions, crossc["slot_pos"], causal=False, window=None,
+                              remat=False)
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ pl["cross_wo"]
 
 
 def build_model(cfg: ArchConfig, *, loss_chunk: int = 512,
-                decode_window: Optional[int] = None) -> Model:
-    return Model(cfg=cfg, loss_chunk=loss_chunk, decode_window=decode_window)
+                decode_window: Optional[int] = None, remat: bool = True) -> Model:
+    return Model(cfg=cfg, loss_chunk=loss_chunk, decode_window=decode_window, remat=remat)

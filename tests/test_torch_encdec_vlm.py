@@ -69,8 +69,10 @@ def test_param_count_is_the_jax_abstract_init(name):
     (WHISPER, None, 811_579_392, 1_012_434_944),
     (WHISPER, 4, 223_782_912, None),
     (WHISPER, 2, 165_003_264, None),
+    (WHISPER, 20, 694_020_096, None),
     (VLM, None, 19_861_260_288, 19_861_254_144),
     (VLM, 1, 1_527_379_968, None),
+    (VLM, 2, 1_917_462_528, None),
 ])
 def test_full_width_counts(name, layers, want, reference):
     """The counts ``chip_smoke.py`` ``[arch]`` and ROADMAP Queue 3 cite

@@ -86,8 +86,10 @@ def test_param_count_is_the_jax_abstract_init(name):
 @pytest.mark.parametrize("name,layers,want,reference", [
     (RWKV, None, 3_125_742_080, 2_915_205_120),
     (RWKV, 2, 509_934_080, None),
+    (RWKV, 4, 684_321_280, None),
     (HYBRID, None, 3_549_841_920, 3_195_991_040),
     (HYBRID, 4, 1_659_440_640, None),
+    (HYBRID, 10, 2_173_335_040, None),
 ])
 def test_full_width_counts(name, layers, want, reference):
     """The counts ``chip_smoke.py`` ``[arch]`` and ROADMAP Queue 3 cite; the
