@@ -98,6 +98,24 @@ Phases, each fatal on failure:
      host sync fails the run, with ĝ and residues bitwise equal to
      telemetry off; ``[path]`` lines for ef_update and fused_reduce (both
      variants) over the 17 tensors of one step; the fused reduces' variants;
+     ``measured_bucket_timeline`` at the default 25 MB buckets (each
+     bucket's reduce alone, the full bucketed reduce) beside the modeled
+     overlap timeline;
+  6b. ``[autotune]``, the launch-geometry autotuner on the main path
+     (``autotune_phase``). The autotuner's cache is pinned to an empty file
+     under a temporary directory from the start of the run, so every other
+     phase launches the default block size (``train_run`` checks it), and
+     this phase removes what it writes. It sweeps the block sizes
+     (``CANDIDATE_THREADS``) of the vec4 select at top-1, ef_update and the
+     fused reduce's clt_k route over the paper model's parameters
+     (``autotune_params``) and at the three tok_embed launches; holds every
+     size bitwise against the default size and the plain version at the
+     tok_embed shapes (timed beside the bound), at small odd shapes full of
+     ties and NaNs and past a small size's grid; runs the reduce from the
+     trained state unfused and fused with the tuned cache (bitwise the
+     untuned reduce, each launch at the cache's size, ``count_launches`` 1
+     fused and 3 unfused for one tensor, ``[path]`` device ms with and
+     without the cache); and runs ``launch.train --autotune`` at SMOKE width;
   7. the rest of the training path as the CLI runs it, at full width:
      ``[grads]`` holds the batched per-worker pass (one ``torch.func.vmap``
      pass over the 8 workers, which every training run above goes through)
@@ -196,6 +214,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -204,8 +223,6 @@ SRC = os.path.join(ROOT, "src")
 # H100 SXM data sheet: 3.35 TB/s of HBM3, 67 TFLOP/s fp32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# a spin of this many cycles lasts at least 1 ms on a card clocked up to 2 GHz
-SPIN_CYCLES_PER_MS = 2_000_000
 CSRC = "src/repro_torch/csrc/"
 KERNELS = {  # name: (source of the kernel timed, the Pallas body it replaces)
     "chunk_argmax": ("chunk_select.cuh", "src/repro/kernels/chunk_topk.py:65"),
@@ -257,46 +274,20 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn, launched=None, reps: int = 20, warmup: int = 3, what: str = "") -> float:
     """Device ms per call of ``fn``: ``reps`` calls queued while the card is
-    held in a spin kernel, timed between one pair of CUDA events. The card
-    runs them back to back from its queue, so the time holds the kernels and
-    the gaps between queued launches but no host dispatch. If the card
-    reached the timed calls before the host had queued them all (the host
-    was slow, or the driver's launch queue filled: a plain version launches
-    a hundred kernels or more per call), it tries again with a longer hold
-    and a quarter of the calls, down to one, and fails if that does not
-    help. With ``launched`` = (a launch counter, launches per call), it fails
-    unless the timed calls launched exactly that many kernels per call.
-    ``what`` names the calls in those failures."""
-    import torch
+    held in a spin kernel, timed between one pair of CUDA events
+    (``repro_torch.backends.autotune.device_ms``, the autotuner's timer). The
+    card runs them back to back from its queue, so the time holds the kernels
+    and the gaps between queued launches but no host dispatch. A hold that
+    ran out before the host had queued the calls is retried longer with a
+    quarter of the calls. With ``launched`` = (a launch counter, launches per
+    call), it fails unless the timed calls launched exactly that many kernels
+    per call. ``what`` names the calls in those failures."""
+    from repro_torch.backends import autotune
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        fn()
-    hold_ms = 2 * (time.perf_counter() - t0) * 1e3 + 1  # twice the time it took to queue them
-    torch.cuda.synchronize()
-    for _ in range(5):
-        before = launched[0]() if launched else 0
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int(hold_ms * SPIN_CYCLES_PER_MS))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        ahead = not start.query()  # the card was still held when the last call was queued
-        torch.cuda.synchronize()
-        if launched:
-            got = launched[0]() - before
-            check(got == reps * launched[1],
-                  f"{what}: {reps} timed calls launched {got} kernels, want "
-                  f"{reps * launched[1]}")
-        if ahead:
-            return start.elapsed_time(end) / reps
-        hold_ms, reps = 2 * hold_ms, max(1, reps // 4)
-    fail(f"{what}: the host did not queue {reps} call(s) within a {hold_ms / 2:.1f} ms hold "
-         f"(a host sync in the calls?)")
+    try:
+        return autotune.device_ms(fn, reps, warmup, launched, what)
+    except RuntimeError as e:
+        fail(str(e))
 
 
 def counter(name: str, variant: str | None = None):
@@ -1156,6 +1147,32 @@ def codec_card_vs_cpu(m, t: int) -> None:
           f"2^-120..2^60: bitwise")
 
 
+def codec_table_card() -> None:
+    """``python -m repro_torch.analysis.report --codecs`` on the card (its
+    default device): every codec's per-step roundtrip error a contraction
+    under the bound the CPU tests hold it to, the drift under ten times it."""
+    import io
+
+    from repro_torch.analysis import report
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        report.main(["--codecs"])
+    table = out.getvalue().strip()
+    bounds = {"fp32": 1e-12, "bf16": 6e-3, "fp8": 6e-2, "fp8_ec": 5e-4}
+    rows = {}
+    for line in table.splitlines()[4:]:
+        cells = [c.strip() for c in line.strip("|").split("|")]
+        rows[cells[0]] = [float(c) for c in cells[1:]]
+    check(list(rows) == list(bounds), f"[codec] the --codecs table's rows: {list(rows)}")
+    for name, (worst, last, drift) in rows.items():
+        check(0 <= last <= worst < bounds[name] and drift < max(10 * bounds[name], 1e-12),
+              f"[codec] --codecs on the card, {name}: worst {worst}, last {last}, drift {drift}")
+    print("[codec] python -m repro_torch.analysis.report --codecs on the card, every codec "
+          "within its bound:")
+    print(table)
+
+
 def codec_reduces(gpw, state, cfg, name: str, card_line: str) -> None:
     """Teacher-forced from a codec's trained state: unfused cuda == torch
     backend (ĝ and residues bitwise: the same draws on one card); fused cuda
@@ -1274,13 +1291,17 @@ def bucket_phase(gpw, state, cfg, workers: int, card_line: str) -> None:
     """Bucketed reduces (25 MB and 4 MB, overlap on and off, unfused and
     fused) against the unbucketed one: ĝ and residues bitwise, two calls
     back to back each (the side stream's tensors are handed back to the
-    caller's stream). The number of buckets, host ms and device ms."""
+    caller's stream). The number of buckets, host ms and device ms. Then
+    ``measured_bucket_timeline`` at the default 25 MB: each bucket's reduce
+    alone and the full bucketed reduce, beside the modeled timeline."""
     from repro_torch import tree
+    import torch
+
     from repro_torch.core.plan import plan_buckets, plan_tensors
     from repro_torch.core.scalecom import scalecom_reduce
     from repro_torch.core.state import residue_signature
-
     from repro_torch.kernels import fused_reduce as frk
+    from repro_torch.obs.tracing import measured_bucket_timeline
 
     plans = plan_tensors(tuple((p, tuple(g.shape[1:]), workers)
                                for p, g in tree.flatten_with_path(gpw)), cfg,
@@ -1315,6 +1336,25 @@ def bucket_phase(gpw, state, cfg, workers: int, card_line: str) -> None:
             print(f"[bucket] fused reduces, unbucketed and bucketed: fused_reduce launches by "
                   f"variant {ran}")
         del ref
+    # the measured timeline at the default 25 MB buckets, beside the modeled one
+    tl = measured_bucket_timeline(gpw, dataclasses.replace(cfg, fused=False, backend="cuda"),
+                                  buckets=True)
+    spans = tl["tracer"].spans
+    check(tl["device_kind"] == torch.cuda.get_device_name(0) and len(tl["buckets"]) > 1
+          and [s.name for s in spans] == ["plan"] + [f"bucket[{r['bucket']}]" for r in tl["buckets"]]
+          + ["reduce/full"] and all(s.dur_us > 0 for s in spans) and tl["modeled"] is not None,
+          f"[bucket] measured_bucket_timeline: {[(s.name, s.dur_us) for s in spans]}")
+    print(f"[bucket] measured_bucket_timeline, unfused, {cfg.bucket_bytes >> 20} MB buckets: plan "
+          f"{spans[0].dur_us / 1e3:.3f} ms; " + "; ".join(
+              f"bucket[{r['bucket']}] {r['bytes_dense'] / 2**20:.2f} MB dense, "
+              f"{r['bytes_payload'] / 2**20:.3f} MB payload: {r['measured_us'] / 1e3:.3f} ms"
+              for r in tl["buckets"])
+          + f"; buckets summed {sum(r['measured_us'] for r in tl['buckets']) / 1e3:.3f} ms, the "
+          f"full bucketed reduce {tl['full_us'] / 1e3:.3f} ms (host clock around synced calls) "
+          f"on {card_line}")
+    print(f"[bucket] modeled (analysis.perfmodel.overlap_report of reference_transformer_perf, "
+          f"scalecom, {cfg.bucket_bytes >> 20} MB): "
+          + ", ".join(f"{k} {v:.6g}" for k, v in tl["modeled"].items()))
 
 
 def telemetry_phase(gpw, state, cfg, card_line: str) -> None:
@@ -1425,11 +1465,352 @@ def path_update(plans, workers: int, card_line: str, results: dict) -> None:
     del calls
 
 
+AUTOTUNE_ITERS = 20  # calls queued per candidate in the sweep (the reference times 3)
+AUTOTUNE_ODD_ROWS = (1, 3, 33, 255, 1031)  # small odd row counts, every block size
+AUTOTUNE_ODD_CHUNKS = (4, 8, 64, 128)  # lanes per row 1, 2, 4 and 8
+
+
+@contextlib.contextmanager
+def autotune_cache(path: str):
+    """The launch cache read from ``path`` inside the with-block; the
+    in-process mirror is dropped on the way in and out."""
+    from repro_torch.backends import autotune as at
+
+    old = os.environ["SCALECOM_TORCH_AUTOTUNE_CACHE"]
+    os.environ["SCALECOM_TORCH_AUTOTUNE_CACHE"] = path
+    at.clear_cache()
+    try:
+        yield
+    finally:
+        os.environ["SCALECOM_TORCH_AUTOTUNE_CACHE"] = old
+        at.clear_cache()
+
+
+# the tuned launches: op (the autotuner's name) -> kernel
+TUNED = {"select": "chunk_argmax", "ef_update": "ef_update", "fused_reduce": "fused_reduce"}
+
+
+def tuned_wrappers() -> dict:
+    """op -> the kernel wrapper of each tuned launch (its ``threads`` counts)."""
+    from repro_torch import kernels
+
+    by_name = {k.__name__: k for k in kernels.KERNELS}
+    return {op: by_name[name] for op, name in TUNED.items()}
+
+
+def tuned_bound(op: str, rows: int, workers: int) -> float:
+    """bound_ms of one tuned launch as the main path makes it over a stack of
+    ``workers`` x ``rows`` chunk rows of CHUNK: the select over all of them
+    (read, (idx, val) written), ef_update over them with one shared index
+    row set (m, g and idx read; m' and vals written), the fused clt_k top-1
+    reduce on the stack (m and g read; idx, vals, m' and ghat written)."""
+    elems = workers * rows * CHUNK
+    if op == "select":
+        return bound(elems * 4 + workers * rows * 8, 2 * elems)[0]
+    if op == "ef_update":
+        return bound(3 * elems * 4 + rows * 4 + workers * rows * 4, 5 * elems)[0]
+    return bound(3 * elems * 4 + workers * rows * 4 + rows * 4 + rows * CHUNK * 4, 7 * elems)[0]
+
+
+def autotune_holds(tok_winner: dict, results: dict, card_line: str) -> None:
+    """``[autotune]`` (b): every block size of each tuned kernel bitwise its
+    default size and its plain version at the tok_embed shapes, timed
+    (device ms and share of the bound beside the sweep's winner,
+    ``tok_winner`` by op, and the default, into ``results``); at small odd
+    shapes full of ties, -0, inf and NaN payloads (the fused reduce over 1,
+    3 and 8 workers); and, where the card has room, the select and
+    ef_update past the 2^20-block grid of the small sizes."""
+    import torch
+
+    from repro_torch.kernels import build, chunk_topk as ct, ef_update as efk, fused_reduce as frk
+
+    default, cands = build.DEFAULT_THREADS, build.CANDIDATE_THREADS
+    tuned = tuned_wrappers()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn(G * R, CHUNK, device="cuda", generator=gen)
+    x[::997] = torch.randint(-3, 4, x[::997].shape, device="cuda", generator=gen).float()
+    m = torch.randn(G * R, CHUNK, device="cuda", generator=gen)
+    g = torch.randn(G * R, CHUNK, device="cuda", generator=gen)
+    idx = ct.chunk_argmax_plain(x[:R])[0]
+    m3, g3 = m.view(G, R, CHUNK), g.view(G, R, CHUNK)
+    calls = {
+        "select": (lambda t: ct.chunk_argmax(x, threads=t), lambda: ct.chunk_argmax_plain(x)),
+        "ef_update": (lambda t: efk.ef_update(m, g, idx, BETA, threads=t),
+                      lambda: efk.ef_update_plain(m, g, idx, BETA)),
+        "fused_reduce": (lambda t: frk.fused_reduce(m3, g3, BETA, 1, "clt_k", 3, threads=t),
+                         lambda: frk.fused_reduce_plain(m3, g3, BETA, 1, "clt_k", 3)),
+    }
+    for op, (run, plain) in calls.items():
+        b = tuned_bound(op, R, G)
+        want, ref = plain(), run(default)
+        check(bitwise(ref, want), f"[autotune] {op} at the tok_embed shapes: the default "
+                                  f"geometry differs from plain")
+        ms = {}
+        for t in cands:
+            check(bitwise(run(t), ref), f"[autotune] {op} at {t} threads, tok_embed shapes: "
+                                        f"differs from the default geometry")
+            ms[t] = device_ms(lambda t=t: run(t), (lambda t=t: tuned[op].threads[t], 1),
+                              what=f"{op} at {t} threads")
+        win = tok_winner[op]
+        name = TUNED[op]
+        results[name].update(tuned_threads=win, tuned_ms=ms[win], default_threads_ms=ms[default],
+                             threads_ms=ms)
+        print(f"[autotune] {name} at the tok_embed shapes, every block size bitwise the default "
+              f"and plain; device ms " + ", ".join(f"{t}: {v:.4f}" for t, v in ms.items())
+              + f"; the sweep's winner {win}: {ms[win]:.4f} ms, {b / ms[win]:.0%} of the bound, "
+              f"against the default's {ms[default]:.4f} ms, {b / ms[default]:.0%} (bound {b:.4f} "
+              f"ms) on {card_line}")
+    del x, m, g, m3, g3, idx, calls
+
+    n = 0
+    for rows in AUTOTUNE_ODD_ROWS:
+        for chunk in AUTOTUNE_ODD_CHUNKS:
+            xs = tied_nan(rows, chunk, gen)
+            ms_, gs_ = tied_nan(3 * rows, chunk, gen), tied_nan(3 * rows, chunk, gen)
+            ids = torch.randint(0, chunk, (rows,), device="cuda", generator=gen, dtype=torch.int32)
+            mg = tied_nan(2 * 8 * rows, chunk, gen).view(2, 8, rows, chunk)
+            cases = [("select", lambda t: ct.chunk_argmax(xs, threads=t),
+                      ct.chunk_argmax_plain(xs)),
+                     ("ef_update", lambda t: efk.ef_update(ms_, gs_, ids, BETA, threads=t),
+                      efk.ef_update_plain(ms_, gs_, ids, BETA))]
+            for w in (1, 3, 8):
+                cases.append(("fused_reduce", lambda t, w=w: frk.fused_reduce(
+                    mg[0, :w], mg[1, :w], BETA, 1, "clt_k", w - 1, threads=t),
+                    frk.fused_reduce_plain(mg[0, :w].contiguous(), mg[1, :w].contiguous(), BETA,
+                                           1, "clt_k", w - 1)))
+            for op, run, want in cases:
+                for t in cands:
+                    before = tuned[op].threads[t]
+                    check(bitwise(run(t), want) and tuned[op].threads[t] == before + 1,
+                          f"[autotune] {op} at {t} threads, ({rows}, {chunk}): differs from "
+                          f"plain, or did not launch at that size")
+                    n += 1
+    # past the 2^20-block grid a small block size takes at the tok_embed shapes: the
+    # select's grid-stride loop at 64 threads (16 rows a block), ef_update's up to 512
+    rows = (1 << 20) * 16 + 1001
+    free, _ = torch.cuda.mem_get_info()
+    if free > 8 * rows * CHUNK * 4:
+        xb = torch.randn(rows, CHUNK, device="cuda", generator=gen)
+        want = ct.chunk_argmax_plain(xb)
+        for t in cands:
+            check(bitwise(ct.chunk_argmax(xb, threads=t), want),
+                  f"[autotune] chunk_argmax at {t} threads over {rows:,} rows differs from plain")
+        gb = torch.randn(rows, CHUNK, device="cuda", generator=gen)
+        ib = want[0]
+        del want
+        want = efk.ef_update_plain(xb, gb, ib, BETA)
+        for t in cands:
+            check(bitwise(efk.ef_update(xb, gb, ib, BETA, threads=t), want),
+                  f"[autotune] ef_update at {t} threads over {rows:,} rows differs from plain")
+        n += 2 * len(cands)
+        del xb, gb, ib, want
+        big = f"and {rows:,} rows (select and ef_update)"
+    else:
+        big = f"({rows:,} rows not run: {free / 2**30:.1f} GiB free)"
+    torch.cuda.synchronize()
+    print(f"[autotune] {n} small and large cases, every block size {cands}: rows "
+          f"{AUTOTUNE_ODD_ROWS}, chunk {AUTOTUNE_ODD_CHUNKS}, the fused reduce over 1, 3 and 8 "
+          f"workers, ties, -0, inf, NaN payloads, {big}: bitwise equal to plain")
+
+
+
+def autotune_phase(params, gpw, trained, base_cfg, plans, workers: int, card_line: str,
+                   results: dict) -> None:
+    """``[autotune]``: the launch-geometry autotuner on the main path at full
+    width. The cache was pinned empty at the start of the run, so every
+    phase before this one launched the default block size; this one removes
+    the cache file when it ends.
+
+    (a) ``autotune_params`` over the paper model's parameters at the run's
+    worker count, as ``--autotune`` runs it (every op and launch-rows
+    bucket; the only writer of the cache the rest of the phase reads): one
+    line per op and bucket with each candidate's device ms, the winner and
+    the bound. (b) Every candidate of each tuned kernel
+    bitwise its default geometry and its plain version at the tok_embed
+    shapes (device ms and share of the bound of each), at small odd row
+    counts full of ties, -0, inf and NaN, and at a select / ef_update shape
+    past the 2^20-block grid of the small sizes. (c) The compressed step's
+    reduce (unfused and fused, from the trained state) with the tuned cache:
+    ĝ and every residue bitwise the untuned reduce's, each tuned launch at
+    the block size the cache gives its rows, ``count_launches`` 1 fused and 3
+    unfused for one tensor, and the ``[path]`` device ms with and without the
+    tuned cache. (d) ``python -m repro_torch.launch.train --autotune`` at
+    SMOKE width, 3 steps: the cache holds entries keyed by the card's name."""
+    import torch
+
+    from repro_torch import kernels, obs
+    from repro_torch.backends import autotune as at
+    from repro_torch.backends.introspect import count_launches
+    from repro_torch.core.scalecom import scalecom_reduce
+    from repro_torch.core.state import ScaleComState
+    from repro_torch.kernels import build, chunk_topk as ct, ef_update as efk, fused_reduce as frk
+    from repro_torch.launch import train as train_cli
+
+    t_phase = time.perf_counter()
+    card = torch.cuda.get_device_name(0)
+    cache = at.cache_path()
+    check(not os.path.exists(cache), f"[autotune] the pinned cache {cache} exists before the phase")
+    default, cands = build.DEFAULT_THREADS, build.CANDIDATE_THREADS
+    tuned = tuned_wrappers()
+    cfgs = {label: dataclasses.replace(base_cfg, fused=fused, backend="cuda")
+            for label, fused in (("unfused", False), ("fused", True))}
+    kernels.reset_launches()
+    untuned = {label: scalecom_reduce(gpw, trained, c) for label, c in cfgs.items()}
+    for op, k in tuned.items():
+        check(all(n == 0 for t, n in k.threads.items() if t != default) and k.threads[default] > 0,
+              f"[autotune] untuned {op} launches by block size {k.threads}, want {default} only")
+
+    # -- (a) the sweep ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    timings = {}
+    wins = at.autotune_params(params, CHUNK, min_size=base_cfg.min_size, workers=workers,
+                              iters=AUTOTUNE_ITERS, timings=timings)
+    sweep_s = time.perf_counter() - t0
+    check(len(timings) == len(wins), f"[autotune] {len(timings)} sweeps timed, {len(wins)} won")
+    check(all(w in cands for w in wins.values()), f"[autotune] winners {wins}")
+    tok_winner = {}
+    for k, (key, times) in zip(wins, timings.items()):
+        op, rows = k.split("|")[0], int(k.split("|n")[1]) // CHUNK  # rows a worker
+        check(key == at._key(op, CHUNK, workers * rows, "cuda") and key.startswith(card + "|"),
+              f"[autotune] cache key {key} for {op} over {workers} x {rows} rows")
+        win = min(times, key=times.get)
+        tok = key == at._key(op, CHUNK, G * R, "cuda")  # the bucket of the tok_embed launch
+        if tok:
+            tok_winner[op] = win
+        b = tuned_bound(op, rows, workers)
+        print(f"[autotune] {op}{' (tok_embed bucket)' if tok else ''} over {workers} x {rows:,} "
+              f"rows (key {key.split('|', 1)[1]}): "
+              + ", ".join(f"{t}: {ms:.4f}" for t, ms in times.items())
+              + f" device ms; winner {win} ({times[win]:.4f} ms, {b / times[win]:.0%} of the "
+              f"bound), default {default} ({times[default]:.4f} ms, {b / times[default]:.0%}); "
+              f"bound {b:.4f} ms on {card_line}")
+    check(set(tok_winner) == set(TUNED), f"[autotune] no sweep at the tok_embed launch's key: "
+                                         f"{sorted(timings)}")
+    print(f"[autotune] sweep: {len(wins)} (op, rows) sweeps, {AUTOTUNE_ITERS} queued calls a "
+          f"candidate, {sweep_s:.1f} s; winners {sorted(set(wins.values()))}")
+
+    # -- (b) every candidate bitwise, at the tok_embed shapes and small odd ones
+    autotune_holds(tok_winner, results, card_line)
+
+    # -- (c) the compressed step's reduce with the tuned cache ---------------------------
+    entries = at._load()
+    missed = [(op, p.path) for p in plans if not p.dense for op in TUNED
+              if at._key(op, CHUNK, p.groups * p.n_chunks, "cuda") not in entries]
+    check(not missed, f"[autotune] tuned launches the sweep wrote no entry for: {missed}")
+    print(f"[autotune] every tuned launch of the compressed step ({len(TUNED)} ops x "
+          f"{sum(not p.dense for p in plans)} tensors) reads an entry the sweep wrote")
+    for label, c in cfgs.items():
+        kernels.reset_launches()
+        out = scalecom_reduce(gpw, trained, c)
+        same_reduce(out, untuned[label], f"[autotune] {label} reduce with the tuned cache")
+        want = {op: dict.fromkeys(cands, 0) for op in tuned}
+        for p in plans:
+            if not p.dense:
+                for op in (("fused_reduce",) if c.fused else ("select", "ef_update")):
+                    want[op][at.best_threads(op, workers * p.n_chunks, CHUNK)] += 1
+        ops = ("fused_reduce",) if c.fused else ("select", "ef_update")
+        for op in ops:
+            check(tuned[op].threads == want[op], f"[autotune] {label} {op} launches by block "
+                                                 f"size {tuned[op].threads}, want {want[op]}")
+        print(f"[autotune] {label} reduce from the trained state with the tuned cache: ghat and "
+              f"residues bitwise the untuned reduce's; launches by block size "
+              + "; ".join(f"{TUNED[op]} {dict((t, v) for t, v in want[op].items() if v)}"
+                          for op in ops)
+              + ", each the cache's size for its rows")
+    del out, untuned
+    path = "['tok_embed']"
+    one = ScaleComState(residues={path: trained.residues[path]}, t=trained.t)
+    for label, c in cfgs.items():
+        got = count_launches(scalecom_reduce, {"tok_embed": gpw["tok_embed"]}, one, c)
+        want = ({"fused_reduce": 1} if c.fused
+                else {"chunk_argmax": 1, "ef_update": 1, "chunk_scatter": 1})
+        check({k: v for k, v in got.items() if v} == want,
+              f"[autotune] count_launches of one tensor's {label} reduce: {got}")
+    print("[autotune] count_launches of the tok_embed reduce: 1 launch fused (fused_reduce), 3 "
+          "unfused (chunk_argmax, ef_update, chunk_scatter)")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    chosen = [p for p in plans if not p.dense]
+    tensors = [(torch.randn(workers, p.n_chunks, CHUNK, device="cuda", generator=gen),
+                torch.randn(workers, p.n_chunks, CHUNK, device="cuda", generator=gen))
+               for p in chosen]
+
+    def size(op, rows, cached):
+        return at.best_threads(op, rows, CHUNK) if cached else default
+
+    def unfused_step(cached):
+        for mm, gg in tensors:
+            rows = mm.shape[0] * mm.shape[1]
+            i = ct.chunk_argmax(mm.view(-1, CHUNK),
+                                threads=size("select", rows, cached))[0][:mm.shape[1]]
+            efk.ef_update(mm.view(-1, CHUNK), gg.view(-1, CHUNK), i, BETA,
+                          threads=size("ef_update", rows, cached))
+
+    def fused_step(cached):
+        for mm, gg in tensors:
+            frk.fused_reduce(mm, gg, BETA, 1, "clt_k", 3,
+                             threads=size("fused_reduce", mm.shape[0] * mm.shape[1], cached))
+
+    for label, step, counted in (("chunk_argmax + ef_update", unfused_step, counter("ef_update")),
+                                 ("fused_reduce", fused_step, counter("fused_reduce"))):
+        with_cache = device_ms(lambda: step(True), (counted, len(chosen)), reps=10,
+                               what=f"[autotune] {label} path, tuned")
+        without = device_ms(lambda: step(False), (counted, len(chosen)), reps=10,
+                            what=f"[autotune] {label} path, default")
+        print(f"[path] {label} over the {len(chosen)} tensors one compressed step gives it: "
+              f"device ms {with_cache:.4f} per step with the tuned cache, {without:.4f} at the "
+              f"default {default} threads on {card_line}")
+    del tensors
+    for label, c in cfgs.items():
+        tuned_ms = device_ms(lambda: scalecom_reduce(gpw, trained, c), reps=2,
+                             what=f"{label} reduce, tuned")
+        with autotune_cache(cache + ".empty"):
+            plain_ms = device_ms(lambda: scalecom_reduce(gpw, trained, c), reps=2,
+                                 what=f"{label} reduce, untuned")
+        print(f"[path] {label} reduce from the trained state: {tuned_ms:.3f} device ms with the "
+              f"tuned cache, {plain_ms:.3f} without on {card_line}")
+
+    # -- (d) the CLI on the card, from an empty cache -----------------------------------------
+    os.remove(cache)
+    at.clear_cache()
+    logger = obs.get_logger()
+    handlers, level = list(logger.handlers), logger.level
+    t0 = time.perf_counter()
+    try:
+        history = train_cli.main(["--autotune", "--workers", "8", "--steps", "3",
+                                  "--warmup-steps", "1", "--log-every", "1"])
+    finally:  # the CLI turns console logging on for the rest of the process
+        logger.handlers[:] = handlers
+        logger.setLevel(level)
+    cli_s = time.perf_counter() - t0
+    check(len(history) == 3 and all(math.isfinite(h["loss"]) for h in history),
+          f"[autotune] --autotune CLI: history {history}")
+    with open(cache) as f:
+        entries = json.load(f)
+    check(all(k.startswith(card + "|") and v in cands for k, v in entries.items())
+          and {k.split("|")[1] for k in entries} == set(tuned),
+          f"[autotune] the cache after --autotune: {entries}")
+    print(f"[autotune] python -m repro_torch.launch.train --autotune (SMOKE width, 8 workers, 3 "
+          f"steps): {cli_s:.1f} s, final loss {history[-1]['loss']:.4f}; the cache holds "
+          f"{len(entries)} entries, every one keyed by '{card}': "
+          + ", ".join(f"{k.split('|', 1)[1]}={v}" for k, v in sorted(entries.items())))
+    os.remove(cache)
+    at.clear_cache()
+    check(at.best_threads("select", G * R, CHUNK) == default, "[autotune] the cache outlived its phase")
+    print(f"[autotune] phase {time.perf_counter() - t_phase:.1f} s; the cache file removed, every "
+          f"later phase launches the default {default} threads")
+
+
 def print_ptxas(log: str) -> None:
     """Registers and spills per kernel from ptxas -v; a kernel template's
     instantiations (the vec4 select and scatter, one per lanes-per-row and
     top-m; the vec4 fused reduce, also per mode and design) summed into one
-    line per template and mode."""
+    line per template, mode and block size. The block size is the last
+    template argument of the tuned kernels (``kThreads`` of the vec4 select
+    and fused reduce, ``kRows`` warps of ef_update); the default size's lines
+    read as they did when it was a constant, a build from before then
+    included."""
+    import re
+
     entries, name = [], None
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -1440,23 +1821,35 @@ def print_ptxas(log: str) -> None:
         elif "Used" in ln and "registers" in ln and entries and entries[-1][0] == name:
             entries[-1][1] = int(ln.split("Used")[1].split()[0])
             name = None
-    fused = "fused_reduce_vec4_kernel"  # template <L, M, true_topk, staged>, mangled
-    groups = [(t, lambda n, t=t: t in n)
-              for t in ("chunk_select_vec4_kernel", "chunk_scatter_vec4_kernel")]
-    groups += [(f"{fused} {what}", lambda n, args=args: fused in n and f"{args}EEvPK" in n)
-               for what, args in (("clt_k", "Lb0ELb0E"), ("true_topk staged", "Lb1ELb1E"),
-                                  ("true_topk L2 re-read", "Lb1ELb0E"))]
+    default = 256
+    modes = {("0", "0"): "clt_k", ("1", "1"): "true_topk staged", ("1", "0"): "true_topk L2 re-read"}
+    labels = ["chunk_select_vec4_kernel", "chunk_scatter_vec4_kernel"]
+    labels += [f"fused_reduce_vec4_kernel {m}" for m in modes.values()]
+    groups = {}  # (label, threads) -> [(registers, spills)]
     for n, regs, spills in entries:
-        if not any(match(n) for _, match in groups):
+        found = re.search(r"kernelI((?:L[ib]\d+E)+)E", n)  # template arguments, mangled
+        args = re.findall(r"L[ib](\d+)E", found.group(1)) if found else []
+        if "chunk_select_vec4_kernel" in n or "chunk_scatter_vec4_kernel" in n:
+            label = labels[0] if "select" in n else labels[1]
+            threads = int(args[2]) if len(args) == 3 else default
+        elif "fused_reduce_vec4_kernel" in n:
+            label = f"fused_reduce_vec4_kernel {modes[args[2], args[3]]}"
+            threads = int(args[4]) if len(args) == 5 else default
+        else:
             short = next((k for k in KERNELS if f"{k}_kernel" in n), n)
+            threads = int(args[0]) * 32 if short == "ef_update" and args else default
             kind = " (scalar)" if short in VARIANTS else ""
-            print(f"[build] {short}{kind}: {regs} registers, {spills} bytes spilled")
-    for label, match in groups:
-        group = [e for e in entries if match(e[0])]
-        if group:
-            regs = [e[1] for e in group]
-            print(f"[build] {label}, {len(group)} instantiations: {min(regs)}-{max(regs)} "
-                  f"registers, {sum(e[2] for e in group)} bytes spilled")
+            at = f" at {threads} threads" if threads != default else ""
+            print(f"[build] {short}{kind}{at}: {regs} registers, {spills} bytes spilled")
+            continue
+        groups.setdefault((label, threads), []).append((regs, spills))
+    for (label, threads), group in sorted(
+            groups.items(), key=lambda kv: (labels.index(kv[0][0]), kv[0][1] != default,
+                                            kv[0][1])):
+        regs = [r for r, _ in group]
+        at = f" at {threads} threads" if threads != default else ""
+        print(f"[build] {label}{at}, {len(group)} instantiations: {min(regs)}-{max(regs)} "
+              f"registers, {sum(s for _, s in group)} bytes spilled")
 
 
 GRAD_TOL = dict(rtol=1e-5, atol=1e-7)  # one batched pass and the loop order a few sums differently
@@ -2162,7 +2555,7 @@ def train_run(cfg, model, opt, sched, sc_cfg, workers: int, steps: int, label: s
     from repro_torch.core.state import residue_signature
     from repro_torch.data import make_batches, model_inputs
     from repro_torch.harness.invariants import check_buildup, check_comm_accounting
-    from repro_torch.kernels import chunk_topk as ct, fused_reduce as frk
+    from repro_torch.kernels import build, chunk_topk as ct, ef_update as efk, fused_reduce as frk
     from repro_torch.training import TrainLoop, init_train_state, run_training
 
     t0 = time.perf_counter()
@@ -2224,8 +2617,13 @@ def train_run(cfg, model, opt, sched, sc_cfg, workers: int, steps: int, label: s
     for wrapper in (ct.chunk_argmax, ct.chunk_scatter, frk.fused_reduce):
         check(wrapper.variants == {"vec4": got[wrapper.__name__], "scalar": 0},
               f"{label}: {wrapper.__name__} variants {wrapper.variants}, want vec4 only")
+    # the autotuner's cache is empty outside [autotune]: the default block size
+    for wrapper in (ct.chunk_argmax, efk.ef_update, frk.fused_reduce):
+        check(wrapper.threads[build.DEFAULT_THREADS] == sum(wrapper.threads.values()),
+              f"{label}: {wrapper.__name__} launches by block size {wrapper.threads}")
     print(f"{prefix} every chunk_argmax, chunk_scatter and fused_reduce launch ran the vec4 "
-          f"variant ({got['chunk_argmax']}, {got['chunk_scatter']} and {got['fused_reduce']})")
+          f"variant ({got['chunk_argmax']}, {got['chunk_scatter']} and {got['fused_reduce']}), "
+          f"every tuned launch the default {build.DEFAULT_THREADS} threads")
     return TrainRun(state, loop, batches, plans, got, [dt * 1e3 for dt in per_step], nnz)
 
 
@@ -3380,6 +3778,11 @@ def main() -> None:
     # caching allocator's fixed segments left 5.5 GiB reserved but unusable
     # beside 71.6 GiB allocated when it ran out; growable segments do not
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # the autotuner's launch cache, empty until [autotune] (which removes what it
+    # writes): no cache in the home directory or from an earlier run decides a
+    # block size; the directory goes when the script exits
+    cache_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_autotune_")
+    os.environ["SCALECOM_TORCH_AUTOTUNE_CACHE"] = os.path.join(cache_dir.name, "autotune.json")
     import torch
 
     if not torch.cuda.is_available():
@@ -3643,11 +4046,15 @@ def main() -> None:
                           name, card_line)
             codec_times(states[name], flat_plans, name, card_line)
     codec_card_vs_cpu(m_t, trained.t)
+    codec_table_card()
     remap_checks(states, workers)
     del states
     bucket_phase(gpw, trained, base_cfg, workers, card_line)
     telemetry_phase(gpw, trained, base_cfg, card_line)
     path_update(flat_plans, workers, card_line, results)
+
+    # -- 6b. the launch-geometry autotuner on the main path -----------------------------
+    autotune_phase(state.params, gpw, trained, base_cfg, flat_plans, workers, card_line, results)
     print(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del gpw, ef, vals_x, idx_x, dense_x, m_new, vals, want_m, want_vals
     torch.cuda.empty_cache()

@@ -20,6 +20,13 @@ are a trailing run of the data's (the leader's set against worker-stacked
 data) is passed as it is, and the kernels read index row ``r % idx_rows``;
 any other broadcast is materialized. It is plain Python the CPU tests reach;
 on CPU tensors the kernel wrappers run their plain versions.
+
+It also picks the block size of the three launches the autotuner tunes (the
+vec4 select at top-1, ef_update, the vec4 fused reduce's clt_k route at
+top-1): the launch cache's size for the launch's rows
+(``autotune.best_threads``, the default 256 on a miss), as the reference's
+``PallasBackend._block`` picks a tile height. The kernels know nothing of
+the cache.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.backends import autotune
 from repro_torch.backends.base import KernelBackend, register_backend
 from repro_torch.core.chunked import num_chunks, pad_to_chunks
 from repro_torch.kernels import chunk_topk
@@ -62,6 +70,13 @@ def _index_rows(idx: torch.Tensor, lead: Tuple[int, ...], ncr: int, tail) -> tor
     return idx.reshape((-1,) + tuple(tail)).contiguous()
 
 
+def _threads(op: str, x: torch.Tensor, rows: int, chunk: int, tuned: bool = True):
+    """The launch cache's block size for a tuned launch of ``op`` over
+    ``rows`` chunk rows on the card, else None (the wrapper's fixed geometry,
+    or its plain version on the CPU)."""
+    return autotune.best_threads(op, rows, chunk, x.device) if tuned and x.is_cuda else None
+
+
 class CudaBackend(KernelBackend):
     name = "cuda"
 
@@ -69,7 +84,10 @@ class CudaBackend(KernelBackend):
         xp = pad_to_chunks(x, chunk)
         out_shape = x.shape[:-1] + (xp.shape[-1] // chunk,) + _tail(topm)
         if topm == 1:
-            idx, val = chunk_topk.chunk_argmax(_rows(xp, chunk))
+            rows = _rows(xp, chunk)
+            vec4 = chunk_topk.select_variant(chunk, rows.data_ptr()) == "vec4"
+            idx, val = chunk_topk.chunk_argmax(
+                rows, threads=_threads("select", rows, rows.shape[0], chunk, vec4))
         else:
             idx, val = chunk_topk.chunk_topm(_rows(xp, chunk), topm)
         return idx.reshape(out_shape), val.reshape(out_shape)
@@ -100,8 +118,10 @@ class CudaBackend(KernelBackend):
         mp, gp = pad_to_chunks(m, chunk), pad_to_chunks(g, chunk)
         ncr, tail = mp.shape[-1] // chunk, _tail(topm)
         lead = tuple(m.shape[:-1])
+        m2 = _rows(mp, chunk)
         m_new, vals = ef_kernel.ef_update(
-            _rows(mp, chunk), _rows(gp, chunk), _index_rows(idx, lead, ncr, tail), beta,
+            m2, _rows(gp, chunk), _index_rows(idx, lead, ncr, tail), beta,
+            threads=_threads("ef_update", m2, m2.shape[0], chunk),
         )
         return m_new.reshape(mp.shape)[..., :n], vals.reshape(lead + (ncr,) + tail)
 
@@ -112,9 +132,12 @@ class CudaBackend(KernelBackend):
         mp, gp = pad_to_chunks(m, chunk), pad_to_chunks(g, chunk)
         G, lead = m.shape[0], tuple(m.shape[1:-1])
         ncr, tail = mp.shape[-1] // chunk, _tail(topm)
+        m3, g3 = mp.reshape(G, -1, chunk).contiguous(), gp.reshape(G, -1, chunk).contiguous()
+        tuned = (mode == "clt_k" and topm == 1
+                 and fr_kernel.fused_variant(chunk, m3.data_ptr(), g3.data_ptr(), topm) == "vec4")
         idx, vals, m_new, ghat = fr_kernel.fused_reduce(
-            mp.reshape(G, -1, chunk).contiguous(), gp.reshape(G, -1, chunk).contiguous(),
-            beta, topm, mode, leader,
+            m3, g3, beta, topm, mode, leader,
+            threads=_threads("fused_reduce", m3, G * m3.shape[1], chunk, tuned),
         )
         return (
             idx.reshape(lead + (ncr,) + tail),

@@ -13,7 +13,7 @@ from typing import Dict
 
 from repro_torch.configs.base import ArchConfig
 
-__all__ = ["ARCHS", "arch", "smoke"]
+__all__ = ["ARCHS", "all_archs", "arch", "smoke"]
 
 _MODULES: Dict[str, str] = {
     "phi3.5-moe-42b-a6.6b": "repro_torch.configs.phi3_5_moe_42b",
@@ -46,3 +46,8 @@ def arch(name: str) -> ArchConfig:
 def smoke(name: str) -> ArchConfig:
     """The reduced configuration the CPU tests and the default CLI use."""
     return _module(name).SMOKE
+
+
+def all_archs() -> Dict[str, ArchConfig]:
+    """Every id's full-width configuration."""
+    return {k: arch(k) for k in _MODULES}

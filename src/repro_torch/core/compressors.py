@@ -37,6 +37,7 @@ __all__ = [
     "CompressorConfig",
     "COMPRESSORS",
     "compress",
+    "compression_rate",
     "exact_k",
     "leader_pick",
     "random_draw",
@@ -72,6 +73,14 @@ class CompressorConfig:
                 f"topm must be in [1, chunk]; got topm={self.topm} "
                 f"chunk={self.chunk} (compression rate = chunk/topm)"
             )
+
+    @property
+    def rate(self) -> float:
+        return self.chunk / self.topm
+
+
+def compression_rate(cfg: CompressorConfig) -> float:
+    return cfg.rate
 
 
 def leader_pick(stacked: torch.Tensor, leader: int) -> torch.Tensor:

@@ -10,9 +10,11 @@ integrate beta * g.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["lowpass_update"]
+__all__ = ["lowpass_update", "beta_band"]
 
 
 def lowpass_update(
@@ -20,3 +22,12 @@ def lowpass_update(
 ) -> torch.Tensor:
     """One low-pass-filtered residue update (Eq. 5), each op rounded separately."""
     return m + beta * (g - ghat_own)
+
+
+def beta_band(gamma: float) -> tuple[float, float]:
+    """Admissible (lo, hi) band for the discounting factor beta given the
+    contraction coefficient gamma (Theorem 1, Eq. 9)."""
+    s = math.sqrt(max(0.0, 1.0 - gamma * gamma))
+    lo = (1.0 + gamma - s) / (2.0 * (1.0 + gamma))
+    hi = (1.0 + gamma + s) / (2.0 * (1.0 + gamma))
+    return lo, hi

@@ -48,6 +48,7 @@ from typing import Dict, Tuple, Union
 import torch
 
 from repro_torch import tree
+from repro_torch.device import resolve_device
 
 __all__ = [
     "ResidueCodec",
@@ -424,22 +425,26 @@ def remap_state(state: ScaleComState, old_n: int, new_n: int,
 
 
 def codec_roundtrip_error(name: str, *, n: int = 4, size: int = 2048, steps: int = 5,
-                          step_scale: float = 0.2, seed: int = 0) -> Dict[str, float]:
+                          step_scale: float = 0.2, seed: int = 0,
+                          device="cuda") -> Dict[str, float]:
     """encode o decode error of one codec over an EF-like accumulation loop
-    (the decoded value feeds the next step, as in the reduce), on the CPU.
+    (the decoded value feeds the next step, as in the reduce), on ``device``
+    (the card unless ``device="cpu"``; raises without CUDA otherwise).
 
     Returns the worst and last per-step relative roundtrip error and the
     drift of the quantized accumulator against an exact fp32 shadow. The
-    steps are drawn from ``seed`` with a torch generator and encoded with
-    ``codec_key("<roundtrip>", t)``, so the numbers are the port's own.
+    steps are drawn from ``seed`` with a torch generator on ``device`` and
+    encoded with ``codec_key("<roundtrip>", t)``, so the numbers are the
+    port's own (the card and the CPU draw different bits).
     """
     codec = require_codec(name)
-    gen = torch.Generator().manual_seed(seed)
-    m = torch.zeros((n, size))
-    shadow = torch.zeros((n, size))
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    m = torch.zeros((n, size), device=dev)
+    shadow = torch.zeros((n, size), device=dev)
     worst = last = 0.0
     for t in range(steps):
-        g = step_scale * torch.randn((n, size), generator=gen)
+        g = step_scale * torch.randn((n, size), generator=gen, device=dev)
         target = m + g
         shadow = shadow + g
         m = codec.decode(codec.encode(target, (size,), key=codec_key("<roundtrip>", t)), (size,))

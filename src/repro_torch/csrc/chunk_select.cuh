@@ -54,7 +54,7 @@ namespace scalecom {
 namespace {
 
 constexpr int kVecMaxTopm = 8;      // register lists up to this many picks
-constexpr int kSelectThreads = 256;  // 8 warps per block
+constexpr int kSelectThreads = kDefaultThreads;  // 8 warps per block
 constexpr int kBatch = 4;            // float4 loads a lane issues before comparing
 
 // |v| ranked for the scan of one lane: 1 + its bit pattern, with every NaN
@@ -166,9 +166,9 @@ __device__ __forceinline__ void merge_row_lanes(TopList<M>& t) {
 // Per row of x (rows, 4 * vecs), the top M offsets by beats() into idx
 // (rows, M) int32 and the values there into val (rows, M). Warps walk groups
 // of 32 / L rows grid-stride; row offsets are int64 (a worker-stacked tensor
-// can pass 2^31 elements).
-template <int L, int M>
-__global__ void __launch_bounds__(kSelectThreads)
+// can pass 2^31 elements). kThreads is the block size it is launched with.
+template <int L, int M, int kThreads>
+__global__ void __launch_bounds__(kThreads)
 chunk_select_vec4_kernel(const float4* __restrict__ x, int32_t* __restrict__ idx,
                          float* __restrict__ val, int64_t rows, int vecs) {
   constexpr int kRowsPerWarp = kWarp / L;
@@ -214,27 +214,28 @@ inline int select_lanes(int64_t vecs) {
   return lanes;
 }
 
-template <int L, int M>
+template <int L, int M, int kThreads>
 cudaError_t launch_select_vec4(const float* x, int32_t* idx, float* val,
                                int64_t rows, int64_t chunk, cudaStream_t stream) {
-  constexpr int64_t kBlockRows = (kSelectThreads / kWarp) * (kWarp / L);
+  constexpr int64_t kBlockRows = (kThreads / kWarp) * (kWarp / L);
   int64_t blocks = (rows + kBlockRows - 1) / kBlockRows;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  chunk_select_vec4_kernel<L, M><<<static_cast<unsigned>(blocks), kSelectThreads, 0, stream>>>(
+  chunk_select_vec4_kernel<L, M, kThreads><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       reinterpret_cast<const float4*>(x), idx, val, rows, static_cast<int>(chunk / 4));
   return cudaGetLastError();
 }
 
-template <int M>
+// kThreads: kSelectThreads, or a TunedThreads size at M = 1 (chunk_argmax).
+template <int M, int kThreads = kSelectThreads>
 cudaError_t select_vec4_lanes(const float* x, int32_t* idx, float* val,
                               int64_t rows, int64_t chunk, cudaStream_t stream) {
   switch (select_lanes(chunk / 4)) {
-    case 1: return launch_select_vec4<1, M>(x, idx, val, rows, chunk, stream);
-    case 2: return launch_select_vec4<2, M>(x, idx, val, rows, chunk, stream);
-    case 4: return launch_select_vec4<4, M>(x, idx, val, rows, chunk, stream);
-    case 8: return launch_select_vec4<8, M>(x, idx, val, rows, chunk, stream);
-    case 16: return launch_select_vec4<16, M>(x, idx, val, rows, chunk, stream);
-    default: return launch_select_vec4<32, M>(x, idx, val, rows, chunk, stream);
+    case 1: return launch_select_vec4<1, M, kThreads>(x, idx, val, rows, chunk, stream);
+    case 2: return launch_select_vec4<2, M, kThreads>(x, idx, val, rows, chunk, stream);
+    case 4: return launch_select_vec4<4, M, kThreads>(x, idx, val, rows, chunk, stream);
+    case 8: return launch_select_vec4<8, M, kThreads>(x, idx, val, rows, chunk, stream);
+    case 16: return launch_select_vec4<16, M, kThreads>(x, idx, val, rows, chunk, stream);
+    default: return launch_select_vec4<32, M, kThreads>(x, idx, val, rows, chunk, stream);
   }
 }
 

@@ -15,6 +15,8 @@
 
 #include <climits>
 #include <cstdint>
+#include <type_traits>
+#include <utility>
 
 namespace scalecom {
 
@@ -22,6 +24,33 @@ constexpr int kWarp = 32;
 constexpr int kRowsPerBlock = 8;           // warps per block: 256 threads
 constexpr int64_t kMaxBlocks = 1 << 20;    // grid-stride beyond this
 constexpr unsigned kFullMask = 0xffffffffu;
+
+// The block sizes a tuned launch may take (the vec4 select at top-1,
+// ef_update, the vec4 fused reduce's clt_k route at top-1), the counterpart of
+// the reference autotuner's tile heights: repro_torch/kernels/build.py:
+// CANDIDATE_THREADS. A launch given 0 takes kDefaultThreads. Rows are
+// independent in all three kernels and each row is handled by a fixed set of
+// lanes, so every size gives the same bits; only the time changes. Each size
+// is its own template instantiation with its own __launch_bounds__, so the
+// default one compiles as it did when the size was a constant.
+using TunedThreads = std::integer_sequence<int, 64, 128, 256, 512, 1024>;
+constexpr int kDefaultThreads = 256;
+static_assert(kDefaultThreads == kRowsPerBlock * kWarp, "ef_update's default is one warp a row");
+
+// launch(std::integral_constant<int, T>{}) for the T of TunedThreads equal
+// to `threads` (0: kDefaultThreads); cudaErrorInvalidValue for any other.
+template <typename Launch, int... T>
+cudaError_t with_threads_in(int threads, Launch&& launch, std::integer_sequence<int, T...>) {
+  if (threads == 0) threads = kDefaultThreads;
+  cudaError_t rc = cudaErrorInvalidValue;
+  (void)((threads == T && ((rc = launch(std::integral_constant<int, T>{})), true)) || ...);
+  return rc;
+}
+
+template <typename Launch>
+cudaError_t with_threads(int threads, Launch&& launch) {
+  return with_threads_in(threads, launch, TunedThreads{});
+}
 
 inline int64_t blocks_for(int64_t rows) {
   const int64_t b = (rows + kRowsPerBlock - 1) / kRowsPerBlock;

@@ -184,21 +184,31 @@ int scalecom_fused_reduce(const float* m, const float* g, int32_t* idx,
 }
 
 // The vec4 variant at M = topm <= kVecMaxTopm. Needs chunk % 4 == 0 and
-// 16-byte-aligned m and g (the outputs are fresh tensors). Writes the route
+// 16-byte-aligned m and g (the outputs are fresh tensors). clt_k at top-1
+// runs in blocks of `threads` threads (a TunedThreads size, 0 for the
+// default); every other mode and top-m keeps its fixed geometry and takes
+// only 0; any other value returns cudaErrorInvalidValue. Writes the route
 // the launch took to *route: 0 one grid (clt_k), 1 staged in shared memory,
 // 2 the L2 re-read (true_topk).
 int scalecom_fused_reduce_vec4(const float* m, const float* g, int32_t* idx,
                                float* vals, float* m_out, float* ghat,
                                int64_t rows, int64_t workers, int64_t chunk,
                                int64_t topm, int mode, int leader, float beta,
-                               void* stream, int32_t* route) {
+                               int threads, void* stream, int32_t* route) {
   using namespace scalecom;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc =
-      mode == kCltK ? fused_vec4_topm<false>(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
-                                             topm, leader, beta, st)
-                    : fused_vec4_true_topk(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
-                                           topm, beta, st);
+  cudaError_t rc = cudaErrorInvalidValue;
+  if (mode == kCltK && topm == 1) {
+    rc = with_threads(threads, [&](auto t) {
+      return fused_vec4_lanes<1, false, decltype(t)::value>(m, g, idx, vals, m_out, ghat, rows,
+                                                             workers, chunk, leader, beta, st);
+    });
+  } else if (threads == 0) {
+    rc = mode == kCltK ? fused_vec4_topm<false>(m, g, idx, vals, m_out, ghat, rows, workers,
+                                                chunk, topm, leader, beta, st)
+                       : fused_vec4_true_topk(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
+                                              topm, beta, st);
+  }
   *route = fused_vec4_route;
   return static_cast<int>(rc);
 }

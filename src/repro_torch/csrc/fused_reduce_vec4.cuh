@@ -30,7 +30,7 @@ constexpr int kRouteStaged = 1;  // true_topk, the rows staged in shared memory
 constexpr int kRouteReread = 2;  // true_topk, the rows read again from L2
 
 constexpr int kCltK = 0;  // mode: the index in repro_torch.kernels.fused_reduce.MODES
-constexpr int kFusedThreads = 256;      // 8 warps per block
+constexpr int kFusedThreads = kDefaultThreads;  // 8 warps per block
 constexpr int kStagedThreads = 128;     // a staged true_topk block: 4 warps, 32 rows at chunk 64
 constexpr int kStageBytes = 200 << 10;  // the most shared memory a staged block takes
 
@@ -81,9 +81,9 @@ __device__ __forceinline__ float ghat_at(int c, const int32_t (&pick)[M], const 
 // batch) step of the row is copied to shared memory first, and the select
 // and the update read that copy; else they load from device memory (L2).
 // Lane `sub` of a row owns the float4s b * kSpan + k * L + sub of it (batch
-// b, slot k < kBatch).
-template <int L, int M, bool kTrue, bool kStaged>
-__global__ void __launch_bounds__(kFusedThreads, 1)
+// b, slot k < kBatch). kThreads bounds the block size it is launched with.
+template <int L, int M, bool kTrue, bool kStaged, int kThreads = kFusedThreads>
+__global__ void __launch_bounds__(kThreads, 1)
 fused_reduce_vec4_kernel(const float4* __restrict__ m, const float4* __restrict__ g,
                          int32_t* __restrict__ idx, float* __restrict__ vals,
                          float4* __restrict__ m_out, float4* __restrict__ ghat,
@@ -262,19 +262,25 @@ fused_reduce_vec4_kernel(const float4* __restrict__ m, const float4* __restrict_
 }
 
 // One vec4 instance over a grid that fills the card once (at most `cap`
-// blocks), with `smem` bytes of dynamic shared memory per block.
-template <int L, int M, bool kTrue, bool kStaged>
+// blocks) in blocks of `threads` <= kThreads threads, with `smem` bytes of
+// dynamic shared memory per block.
+template <int L, int M, bool kTrue, bool kStaged, int kThreads = kFusedThreads>
 cudaError_t launch_vec4(const float* m, const float* g, int32_t* idx, float* vals, float* m_out,
                         float* ghat, int64_t rows, int64_t workers, int64_t chunk, int leader,
                         float beta, int threads, size_t smem, int64_t cap, cudaStream_t stream) {
-  const auto kernel = fused_reduce_vec4_kernel<L, M, kTrue, kStaged>;
-  static int64_t fill = 0;  // cached for the last smem size
+  const auto kernel = fused_reduce_vec4_kernel<L, M, kTrue, kStaged, kThreads>;
+  // the grid that fills the card, cached for the last (threads, smem): a
+  // block size timed on another size's grid would still be right, but timed
+  // wrong
+  static int64_t fill = 0;
+  static int fill_threads = 0;
   static size_t fill_smem = 0;
   if (!fill && kStaged) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kStageBytes);
   }
-  if (!fill || smem != fill_smem) {
+  if (!fill || threads != fill_threads || smem != fill_smem) {
     fill = card_blocks(kernel, threads, smem);
+    fill_threads = threads;
     fill_smem = smem;
   }
   const int64_t block_rows = threads / kWarp * (kWarp / L);
@@ -288,19 +294,22 @@ cudaError_t launch_vec4(const float* m, const float* g, int32_t* idx, float* val
   return cudaGetLastError();
 }
 
-// clt_k: one grid that fills the card. true_topk: staged in shared memory
-// where a block's rows fit in kStageBytes (G <= 12 at chunk <= 512), else
-// the L2 re-read, with the rows in flight within half the L2 (and at least
-// one block per SM).
-template <int L, int M, bool kTrue>
+// clt_k: one grid that fills the card, in blocks of kThreads threads (a
+// TunedThreads size at M = 1, else kFusedThreads). true_topk: staged in
+// shared memory where a block's rows fit in kStageBytes (G <= 12 at chunk <=
+// 512), else the L2 re-read, with the rows in flight within half the L2 (and
+// at least one block per SM); both at their fixed geometry.
+template <int L, int M, bool kTrue, int kThreads = kFusedThreads>
 cudaError_t launch_fused_vec4(const float* m, const float* g, int32_t* idx, float* vals,
                               float* m_out, float* ghat, int64_t rows, int64_t workers,
                               int64_t chunk, int leader, float beta, cudaStream_t stream) {
   if constexpr (!kTrue) {
     fused_vec4_route = kRouteGrid;
-    return launch_vec4<L, M, false, false>(m, g, idx, vals, m_out, ghat, rows, workers, chunk,
-                                           leader, beta, kFusedThreads, 0, INT64_MAX, stream);
+    return launch_vec4<L, M, false, false, kThreads>(m, g, idx, vals, m_out, ghat, rows, workers,
+                                                     chunk, leader, beta, kThreads, 0, INT64_MAX,
+                                                     stream);
   } else {
+    static_assert(kThreads == kFusedThreads, "true_topk keeps its fixed geometry");
     constexpr int64_t kSpan = kBatch * L;
     const int64_t steps = workers * ((chunk / 4 + kSpan - 1) / kSpan);
     const int64_t stage =
@@ -327,13 +336,13 @@ cudaError_t launch_fused_vec4(const float* m, const float* g, int32_t* idx, floa
   }
 }
 
-template <int M, bool kTrue>
+template <int M, bool kTrue, int kThreads = kFusedThreads>
 cudaError_t fused_vec4_lanes(const float* m, const float* g, int32_t* idx, float* vals,
                              float* m_out, float* ghat, int64_t rows, int64_t workers,
                              int64_t chunk, int leader, float beta, cudaStream_t st) {
-#define SCALECOM_FUSED_VEC4(L)                                                             \
-  launch_fused_vec4<L, M, kTrue>(m, g, idx, vals, m_out, ghat, rows, workers, chunk, leader, \
-                                 beta, st)
+#define SCALECOM_FUSED_VEC4(L)                                                         \
+  launch_fused_vec4<L, M, kTrue, kThreads>(m, g, idx, vals, m_out, ghat, rows, workers, \
+                                           chunk, leader, beta, st)
   switch (select_lanes(chunk / 4)) {
     case 1: return SCALECOM_FUSED_VEC4(1);
     case 2: return SCALECOM_FUSED_VEC4(2);

@@ -18,7 +18,8 @@
 //
 // ef_update keeps the first design (csrc/common.cuh): one warp owns one
 // chunk row at a time and its 32 lanes stride over the row, so every
-// warp-wide 4-byte load is one 128-byte transaction.
+// warp-wide 4-byte load is one 128-byte transaction. Its block holds kRows
+// warps (blockDim.y), one of the TunedThreads sizes over 32: 8 by default.
 //
 // chunk_argmax has two variants, picked in Python from shape and alignment
 // (repro_torch/kernels/chunk_topk.py:select_variant): "vec4"
@@ -97,7 +98,9 @@ __global__ void chunk_argmax_kernel(const float* __restrict__ x,
 // index row r % idx_rows, so one shared (R,) index set serves all G workers
 // without being materialized G times. beta is a runtime float. The update
 // rounds each operation separately (no FMA contraction), so m' is bitwise
-// equal to the plain PyTorch version on the card.
+// equal to the plain PyTorch version on the card. A block is (32, kRows)
+// threads: kRows warps, a row each at a time.
+template <int kRows>
 __global__ void ef_update_kernel(const float* __restrict__ m,
                                  const float* __restrict__ g,
                                  const int32_t* __restrict__ idx,
@@ -106,8 +109,8 @@ __global__ void ef_update_kernel(const float* __restrict__ m,
                                  int64_t idx_rows, int chunk, int topm,
                                  float beta) {
   const int lane = threadIdx.x;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRowsPerBlock;
-  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kRowsPerBlock + threadIdx.y;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kRows;
+  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kRows + threadIdx.y;
        r < rows; r += stride) {
     const int32_t* ir = idx + (r % idx_rows) * topm;
     float* vr = vals + r * topm;
@@ -273,26 +276,35 @@ int scalecom_chunk_argmax(const float* x, int32_t* idx, float* val,
 }
 
 // The vec4 variant: the same function through csrc/chunk_select.cuh at M = 1
-// (idx and val are (rows,), the layout of (rows, 1)). Needs chunk % 4 == 0
-// and a 16-byte-aligned x.
+// (idx and val are (rows,), the layout of (rows, 1)), in blocks of `threads`
+// threads (a TunedThreads size, 0 for the default; any other value returns
+// cudaErrorInvalidValue). Needs chunk % 4 == 0 and a 16-byte-aligned x.
 int scalecom_chunk_argmax_vec4(const float* x, int32_t* idx, float* val,
-                               int64_t rows, int64_t chunk, void* stream) {
+                               int64_t rows, int64_t chunk, int threads, void* stream) {
   using namespace scalecom;
-  return static_cast<int>(select_vec4_lanes<1>(x, idx, val, rows, chunk,
-                                               static_cast<cudaStream_t>(stream)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_threads(threads, [&](auto t) {
+    return select_vec4_lanes<1, decltype(t)::value>(x, idx, val, rows, chunk, st);
+  }));
 }
 
+// In blocks of `threads` threads, threads / 32 rows each (a TunedThreads
+// size, 0 for the default; any other value returns cudaErrorInvalidValue).
 int scalecom_ef_update(const float* m, const float* g, const int32_t* idx,
                        float* m_out, float* vals, int64_t rows,
                        int64_t idx_rows, int64_t chunk, int64_t topm,
-                       float beta, void* stream) {
+                       float beta, int threads, void* stream) {
   using namespace scalecom;
-  const dim3 block(kWarp, kRowsPerBlock);
-  const dim3 grid(static_cast<unsigned>(blocks_for(rows)));
-  ef_update_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      m, g, idx, m_out, vals, rows, idx_rows, static_cast<int>(chunk),
-      static_cast<int>(topm), beta);
-  return static_cast<int>(cudaGetLastError());
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(with_threads(threads, [&](auto t) {
+    constexpr int kRows = decltype(t)::value / kWarp;
+    int64_t blocks = (rows + kRows - 1) / kRows;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    ef_update_kernel<kRows><<<static_cast<unsigned>(blocks), dim3(kWarp, kRows), 0, st>>>(
+        m, g, idx, m_out, vals, rows, idx_rows, static_cast<int>(chunk),
+        static_cast<int>(topm), beta);
+    return cudaGetLastError();
+  }));
 }
 
 int scalecom_chunk_scatter(const float* vals, const int32_t* idx, float* out,

@@ -19,13 +19,13 @@ KERNELS = (
 
 
 def reset_launches() -> None:
-    """Set every kernel wrapper's launch count (and per-variant and per-route counts) to 0."""
+    """Set every kernel wrapper's launch count (and per-variant, per-route and
+    per-block-size counts) to 0."""
     for k in KERNELS:
         k.launches = 0
-        if hasattr(k, "variants"):
-            k.variants = dict.fromkeys(k.variants, 0)
-        if hasattr(k, "routes"):
-            k.routes = dict.fromkeys(k.routes, 0)
+        for counts in ("variants", "routes", "threads"):
+            if hasattr(k, counts):
+                setattr(k, counts, dict.fromkeys(getattr(k, counts), 0))
 
 
 def launches() -> dict:

@@ -13,7 +13,13 @@ checkout builds from its own sources and a changed source never loads a
 stale library. The sources expose a plain C interface; the library is loaded
 with ``ctypes`` and every function gets explicit ``argtypes`` (pointers and
 the stream as ``c_void_p``, counts as ``c_int64``, beta as ``c_float``, the
-fused reduce's mode and leader as ``c_int``).
+fused reduce's mode and leader and a tuned launch's block size as ``c_int``).
+
+Three launches take their block size as an argument: the vec4 select at
+top-1 (``chunk_argmax``), ``ef_update`` and the vec4 fused reduce's clt_k
+route at top-1. ``CANDIDATE_THREADS`` are the sizes the library was built for
+(``TunedThreads`` in ``csrc/common.cuh``), ``DEFAULT_THREADS`` the size each
+took when it was a constant; ``threads_arg`` checks a size asked for.
 
 Nothing here runs at import time, and nothing is skipped: without CUDA, an
 sm_90 card or ``nvcc`` the build raises.
@@ -35,8 +41,8 @@ import torch
 from repro_torch.device import require_sm90
 
 __all__ = [
-    "library", "build_info", "check", "on_card", "stream_of", "require",
-    "CSRC", "NVCC_FLAGS",
+    "library", "build_info", "check", "on_card", "stream_of", "require", "threads_arg",
+    "CSRC", "NVCC_FLAGS", "CANDIDATE_THREADS", "DEFAULT_THREADS",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
@@ -47,24 +53,28 @@ NVCC_FLAGS = (
 )
 _LIB_NAME = "libscalecom_kernels.so"
 
+# block sizes of a tuned launch: csrc/common.cuh:TunedThreads, kDefaultThreads
+CANDIDATE_THREADS = (64, 128, 256, 512, 1024)
+DEFAULT_THREADS = 256
+
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _F32 = ctypes.c_float
 _I32 = ctypes.c_int
 _SIGNATURES = {
     "scalecom_chunk_argmax": (_P, _P, _P, _I64, _I64, _P),
-    "scalecom_chunk_argmax_vec4": (_P, _P, _P, _I64, _I64, _P),
+    "scalecom_chunk_argmax_vec4": (_P, _P, _P, _I64, _I64, _I32, _P),
     "scalecom_chunk_topm": (_P, _P, _P, _I64, _I64, _I64, _P),
     "scalecom_chunk_topm_vec4": (_P, _P, _P, _I64, _I64, _I64, _P),
     "scalecom_chunk_gather": (_P, _P, _P, _I64, _I64, _I64, _I64, _P),
-    "scalecom_ef_update": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F32, _P),
+    "scalecom_ef_update": (_P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _F32, _I32, _P),
     "scalecom_chunk_scatter": (_P, _P, _P, _I64, _I64, _I64, _P),
     "scalecom_chunk_scatter_vec4": (_P, _P, _P, _I64, _I64, _I64, _P),
     "scalecom_fused_reduce": (
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _P,
     ),
     "scalecom_fused_reduce_vec4": (
-        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _P, _P,
+        _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _I32, _P, _P,
     ),
 }
 
@@ -174,3 +184,10 @@ def require(cond: bool, kernel: str, what: str) -> None:
     """Raise ValueError naming the kernel when an input check fails."""
     if not cond:
         raise ValueError(f"{kernel}: {what}")
+
+
+def threads_arg(threads, kernel: str) -> None:
+    """Raise ValueError unless ``threads`` is None (the default size)
+    or one of ``CANDIDATE_THREADS``; no other size falls back to the default."""
+    require(threads is None or (type(threads) is int and threads in CANDIDATE_THREADS), kernel,
+            f"threads must be one of {CANDIDATE_THREADS}, got {threads!r}")

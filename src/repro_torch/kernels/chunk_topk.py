@@ -38,6 +38,13 @@ stores, several rows' (idx, vals) loaded before any store) for chunk % 4 == 0
 and top-m <= 8, as on the main path; "scalar" (one warp per row, 4-byte
 stores) otherwise. All variants are checked on the card.
 
+The vec4 ``chunk_argmax`` launches in blocks of ``threads`` threads, one of
+``build.CANDIDATE_THREADS``; left None, the default 256. The caller picks
+the size (the CUDA backend reads it from the launch cache,
+``repro_torch.backends.autotune``). Every size gives the same bits.
+``chunk_argmax.threads`` counts its vec4 launches by size. The other kernels
+and the scalar variants keep their fixed geometry.
+
 A wrapper given CUDA tensors launches the kernel, counts the launch in its
 ``launches`` attribute, and raises if the launch fails. Given CPU tensors it
 runs the plain PyTorch version in this module; that is the CPU test path,
@@ -99,10 +106,12 @@ def chunk_argmax_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return idx.to(torch.int32), val
 
 
-def chunk_argmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row magnitude arg-max of a contiguous fp32 ``(rows, chunk)`` tensor."""
+def chunk_argmax(x: torch.Tensor, threads=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row magnitude arg-max of a contiguous fp32 ``(rows, chunk)`` tensor;
+    the vec4 kernel in blocks of ``threads`` (None: the default)."""
     name = "chunk_argmax"
     _check_rows(x, name)
+    build.threads_arg(threads, name)
     if not build.on_card(name, x):
         return chunk_argmax_plain(x)
     rows, chunk = x.shape
@@ -111,16 +120,26 @@ def chunk_argmax(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if rows:
         variant = select_variant(chunk, x.data_ptr())
         lib = build.library()
-        fn = lib.scalecom_chunk_argmax_vec4 if variant == "vec4" else lib.scalecom_chunk_argmax
-        rc = fn(x.data_ptr(), idx.data_ptr(), val.data_ptr(), rows, chunk, build.stream_of(x))
+        if variant == "vec4":
+            t = threads or build.DEFAULT_THREADS
+            rc = lib.scalecom_chunk_argmax_vec4(x.data_ptr(), idx.data_ptr(), val.data_ptr(),
+                                                rows, chunk, t, build.stream_of(x))
+        else:
+            build.require(threads is None, name,
+                          "threads sets the vec4 variant's block size; the scalar one is fixed")
+            rc = lib.scalecom_chunk_argmax(x.data_ptr(), idx.data_ptr(), val.data_ptr(), rows,
+                                           chunk, build.stream_of(x))
         build.check(rc, name)
         chunk_argmax.launches += 1
         chunk_argmax.variants[variant] += 1
+        if variant == "vec4":
+            chunk_argmax.threads[t] += 1
     return idx, val
 
 
 chunk_argmax.launches = 0
 chunk_argmax.variants = {"vec4": 0, "scalar": 0}  # launches by variant
+chunk_argmax.threads = dict.fromkeys(build.CANDIDATE_THREADS, 0)  # vec4 launches by block size
 
 
 def chunk_topm_plain(x: torch.Tensor, topm: int) -> Tuple[torch.Tensor, torch.Tensor]:

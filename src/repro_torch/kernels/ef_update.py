@@ -15,8 +15,14 @@ The kernel rounds each operation separately, so on the card m' is bitwise
 equal to the plain version below. Bound: device-memory bytes (see
 ``csrc/scalecom_kernels.cu``).
 
-The wrapper launches on CUDA tensors (counting ``ef_update.launches``) and
-runs the plain version on CPU tensors.
+The kernel launches in blocks of ``threads`` threads (``threads / 32`` rows
+each), one of ``build.CANDIDATE_THREADS``; left None, the default 256. The
+caller picks the size (the CUDA backend reads it from the launch cache,
+``repro_torch.backends.autotune``). Every size gives the same bits.
+
+The wrapper launches on CUDA tensors (counting ``ef_update.launches``, and
+``ef_update.threads`` by block size) and runs the plain version on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -48,10 +54,12 @@ def ef_update_plain(
 
 
 def ef_update(
-    m: torch.Tensor, g: torch.Tensor, idx: torch.Tensor, beta: float
+    m: torch.Tensor, g: torch.Tensor, idx: torch.Tensor, beta: float, threads=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused Eq. 5 over contiguous fp32 ``(rows, chunk)`` m and g."""
+    """Fused Eq. 5 over contiguous fp32 ``(rows, chunk)`` m and g, in blocks
+    of ``threads`` (None: the default)."""
     name = "ef_update"
+    build.threads_arg(threads, name)
     build.require(m.dim() == 2 and g.shape == m.shape, name,
                   f"m/g must share a (rows, chunk) shape, got {tuple(m.shape)} / {tuple(g.shape)}")
     build.require(m.dtype == torch.float32 and g.dtype == torch.float32, name,
@@ -72,14 +80,17 @@ def ef_update(
     vals = torch.empty((rows,) if idx.dim() == 1 else (rows, topm),
                        dtype=torch.float32, device=m.device)
     if rows:
+        t = threads or build.DEFAULT_THREADS
         rc = build.library().scalecom_ef_update(
             m.data_ptr(), g.data_ptr(), idx.data_ptr(), m_new.data_ptr(),
-            vals.data_ptr(), rows, idx_rows, chunk, topm, float(beta),
+            vals.data_ptr(), rows, idx_rows, chunk, topm, float(beta), t,
             build.stream_of(m),
         )
         build.check(rc, name)
         ef_update.launches += 1
+        ef_update.threads[t] += 1
     return m_new, vals
 
 
 ef_update.launches = 0
+ef_update.threads = dict.fromkeys(build.CANDIDATE_THREADS, 0)  # launches by block size

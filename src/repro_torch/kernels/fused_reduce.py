@@ -25,9 +25,17 @@ both bases are 16-byte aligned and top-m <= 8, as on the main path; "scalar"
 (one warp per row, 4-byte loads, one pass per pick: the first design) for
 any other width, base or top-m. Both are checked on the card.
 
+The vec4 variant's clt_k route at top-1, the main path's, launches in
+blocks of ``threads`` threads, one of ``build.CANDIDATE_THREADS``; left
+None, the default 256. The caller picks the size (the CUDA backend reads it
+from the launch cache, ``repro_torch.backends.autotune``, keyed by G x
+rows). Every size gives the same bits. The other routes, top-m and the scalar variant keep their
+fixed geometry.
+
 The wrapper launches on CUDA tensors (counting ``fused_reduce.launches``,
-``fused_reduce.variants`` and, for vec4, ``fused_reduce.routes`` as the
-library reports the route it took) and runs the plain version on CPU tensors.
+``fused_reduce.variants``, for vec4 ``fused_reduce.routes`` as the library
+reports the route it took, and for the tuned route ``fused_reduce.threads``
+by block size) and runs the plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -91,16 +99,18 @@ def fused_reduce_plain(
 
 def fused_reduce(
     m: torch.Tensor, g: torch.Tensor, beta: float, topm: int = 1,
-    mode: str = "clt_k", leader: Optional[int] = None,
+    mode: str = "clt_k", leader: Optional[int] = None, threads=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Select, Eq. 5 update and ghat scatter over contiguous fp32 ``(G, rows, chunk)`` m and g.
 
     Returns ``(idx, vals, m', ghat)``: idx int32 ``(rows,)`` for topm == 1,
     else ``(rows, topm)``; vals ``(G,) + idx.shape``; m' like m; ghat
     ``(rows, chunk)``. ``leader`` (0 <= leader < G) is required for clt_k and
-    ignored for true_topk.
+    ignored for true_topk. ``threads``: the block size of the vec4 clt_k
+    top-1 launch (None: the default).
     """
     name = "fused_reduce"
+    build.threads_arg(threads, name)
     build.require(m.dim() == 3 and g.shape == m.shape and m.shape[0] > 0 and m.shape[2] > 0,
                   name, f"m/g must share a (G, rows, chunk) shape, got "
                   f"{tuple(m.shape)} / {tuple(g.shape)}")
@@ -124,23 +134,33 @@ def fused_reduce(
     ghat = torch.empty((rows, chunk), dtype=torch.float32, device=m.device)
     if rows:
         variant = fused_variant(chunk, m.data_ptr(), g.data_ptr(), topm)
+        tuned = variant == "vec4" and mode == "clt_k" and topm == 1
+        build.require(tuned or threads is None, name,
+                      "threads sets the block size of the vec4 clt_k top-1 launch only")
         lib = build.library()
         args = (m.data_ptr(), g.data_ptr(), idx.data_ptr(), vals.data_ptr(),
                 m_new.data_ptr(), ghat.data_ptr(), rows, G, chunk, topm,
-                MODES.index(mode), int(leader), float(beta), build.stream_of(m))
+                MODES.index(mode), int(leader), float(beta))
         if variant == "vec4":
+            t = 0
+            if tuned:
+                t = threads or build.DEFAULT_THREADS
             route = ctypes.c_int32(-1)
-            rc = lib.scalecom_fused_reduce_vec4(*args, ctypes.byref(route))
+            rc = lib.scalecom_fused_reduce_vec4(*args, t, build.stream_of(m),
+                                                ctypes.byref(route))
         else:
-            rc = lib.scalecom_fused_reduce(*args)
+            rc = lib.scalecom_fused_reduce(*args, build.stream_of(m))
         build.check(rc, name)
         fused_reduce.launches += 1
         fused_reduce.variants[variant] += 1
         if variant == "vec4":
             fused_reduce.routes[ROUTES[route.value]] += 1
+        if tuned:
+            fused_reduce.threads[t] += 1
     return idx, vals, m_new, ghat
 
 
 fused_reduce.launches = 0
 fused_reduce.variants = {"vec4": 0, "scalar": 0}  # launches by variant
 fused_reduce.routes = dict.fromkeys(ROUTES, 0)  # vec4 launches by the route the library took
+fused_reduce.threads = dict.fromkeys(build.CANDIDATE_THREADS, 0)  # clt_k top-1 vec4 launches by block size

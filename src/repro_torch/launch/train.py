@@ -6,7 +6,7 @@ simulating n workers on one device.
         --workers 8 --steps 200 \
         --compressor clt_k --chunk 64 --beta 0.1 [--device cuda|cpu] \
         [--trace-dir DIR [--metrics-every N]] [--checkpoint-dir DIR] \
-        [--preflight-scenarios all|NAME,...]
+        [--preflight-scenarios all|NAME,...] [--autotune]
 
 The port of ``repro.launch.train``. It runs on the CUDA card by default and
 raises if there is none; ``--device cpu`` runs the plain PyTorch versions of
@@ -22,7 +22,13 @@ batched pass over all workers. ``--preflight-scenarios`` runs the fault
 harness (``repro_torch.harness``) at the run's workers, compressor, chunk,
 groups and residue dtype on the run's device before the model is built,
 and aborts the launch on any invariant violation (``preflight``).
-``--autotune`` waits (ROADMAP Queue 1).
+``--autotune`` sweeps the block sizes of the select, ef_update and fused
+reduce kernels over the model's tensor sizes, stacked over the run's
+ScaleCom workers (``--groups`` when set) as the reduce launches them, on the card before training and keeps
+the winners in the launch cache (``repro_torch.backends.autotune``,
+``$SCALECOM_TORCH_AUTOTUNE_CACHE``), which the CUDA backend reads for each
+tuned launch; with the torch backend (``--device cpu``) it is skipped,
+since nothing reads the cache there.
 """
 
 from __future__ import annotations
@@ -88,6 +94,10 @@ def main(argv=None):
     ap.add_argument("--backend", default="auto", choices=["auto", "torch", "cuda"],
                     help="kernel backend for the chunked reduce ops (auto: "
                          "$SCALECOM_TORCH_BACKEND, else the device decides)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="sweep the CUDA kernels' block sizes for this model's tensor "
+                         "sizes and keep the winners in the launch cache before training "
+                         "(see repro_torch.backends.autotune)")
     ap.add_argument("--bucket-mb", type=float, default=None,
                     help="bucketed reduce: pack tensors into ~this many MB per launch "
                          "bucket (core.overlap). Default: $SCALECOM_TORCH_BUCKET_MB if "
@@ -158,6 +168,17 @@ def main(argv=None):
     sched = schedule.linear_warmup(schedule.constant(args.lr), args.warmup_steps)
     state = init_train_state(model, opt, sc_cfg, torch.Generator().manual_seed(args.seed),
                              n_workers=args.workers, device=device)
+    backend_name = resolve_backend(args.backend, device).name
+    if args.autotune and backend_name == "cuda":
+        from repro_torch.backends import autotune
+
+        wins = autotune.autotune_params(state.params, args.chunk, min_size=sc_cfg.min_size,
+                                        workers=args.groups or args.workers, device=device)
+        for key, best in wins.items():
+            print(f"[launch.train] autotune {key}: threads={best} -> {autotune.cache_path()}")
+    elif args.autotune:
+        print(f"[launch.train] --autotune skipped: backend={backend_name} never consults "
+              f"the CUDA launch cache")
     loop = TrainLoop(model=model, optimizer=opt, schedule=sched, sc_cfg=sc_cfg,
                      n_workers=args.workers, checkpoint_dir=args.checkpoint_dir,
                      checkpoint_every=max(args.steps // 2, 1) if args.checkpoint_dir else 0,
@@ -168,7 +189,7 @@ def main(argv=None):
     if args.trace_dir:
         telemetry = obs.TelemetryRun(
             args.trace_dir,
-            backend_name=resolve_backend(args.backend, device).name,
+            backend_name=backend_name,
             extra_provenance={"arch": args.arch, "compressor": args.compressor,
                               "workers": args.workers},
         )

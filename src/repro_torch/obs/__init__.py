@@ -15,8 +15,8 @@
 on the ``repro_torch`` logger root, which the training loop routes through
 (quiet by default, no handlers; the launch CLI turns the console on).
 
-The reference's ``measured_bucket_timeline`` waits for
-``analysis/perfmodel.py`` (ROADMAP Queue 1). Nothing here imports torch
+``tracing.measured_bucket_timeline`` times the bucketed reduce bucket by
+bucket beside the performance model's timeline. Nothing here imports torch
 when the package is imported, so the report runs where torch is not
 installed.
 """

@@ -14,8 +14,9 @@ Export formats:
   * ``to_events()``      plain dicts for the JSON-lines event log
     (repro_torch.obs.events), one ``{"type": "span", ...}`` record per span.
 
-The reference's ``measured_bucket_timeline`` needs ``analysis/perfmodel.py``
-and is not ported yet.
+``measured_bucket_timeline`` times the bucketed reduce bucket by bucket and
+sets the result beside the performance model's overlap timeline
+(``analysis.perfmodel.overlap_report``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import os
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional
 
-__all__ = ["Span", "Tracer"]
+__all__ = ["Span", "Tracer", "measured_bucket_timeline"]
 
 
 @dataclasses.dataclass
@@ -122,3 +123,103 @@ class Tracer:
             }
             for s in self.spans
         ]
+
+
+def measured_bucket_timeline(
+    grads_pw: Any,
+    cfg: Any,
+    *,
+    buckets: Any = True,
+    tracer: Optional[Tracer] = None,
+) -> Dict[str, Any]:
+    """Measure the bucketed reduce per bucket and return spans + model.
+
+    grads_pw: worker-stacked gradient tree ((n, *shape) leaves); cfg: a
+    ScaleComConfig. Resolves the same bucket schedule the real launch uses,
+    then times (a) the plan stage, (b) each bucket's reduce in isolation,
+    over that bucket's tensors from zero residues, and (c) the full bucketed
+    reduce, each on the host clock around a call (after one untimed call)
+    whose end is waited for with ``torch.cuda.synchronize`` on the card, so
+    a span covers the device's work, not its dispatch. Spans land on the
+    given or a new Tracer (bucket i on tid i + 1); the return holds them,
+    the bucket rows, the full reduce's time, the modeled timeline of
+    ``analysis.perfmodel.overlap_report`` (None unbucketed) and the device
+    kind (the card's name, or "cpu").
+
+    Imports are call-time: ``repro_torch.obs`` imports no torch, so that its
+    report runs where torch is not installed.
+    """
+    import torch
+
+    from repro_torch import tree as tree_util
+    from repro_torch.analysis import perfmodel
+    from repro_torch.core import overlap
+    from repro_torch.core.plan import plan_tensors
+    from repro_torch.core.scalecom import scalecom_reduce
+    from repro_torch.core.state import init_state, residue_signature
+
+    tracer = tracer or Tracer()
+    flat = tree_util.flatten_with_path(grads_pw)
+    n = flat[0][1].shape[0]
+    device = flat[0][1].device
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    def fresh_state(leaves):
+        return init_state(leaves, cfg.n_workers(n), cfg.residue_dtype, cfg.min_size, cfg.layout)
+
+    state = fresh_state(tree_util.tree_map(lambda g: g[0], grads_pw))
+    with tracer.span("plan", n_tensors=len(flat)):
+        plans = plan_tensors(
+            tuple((path, tuple(g.shape[1:]), g.shape[0]) for path, g in flat),
+            cfg,
+            residue_signature(state.residues),
+        )
+    schedule = overlap.resolve_buckets(buckets, cfg, plans) or ()
+
+    def timed_reduce(grads, st, spec):
+        scalecom_reduce(grads, st, cfg, buckets=spec)
+        sync()
+        t0 = tracer.now_us()
+        scalecom_reduce(grads, st, cfg, buckets=spec)
+        sync()
+        return tracer.now_us() - t0
+
+    bucket_rows = []
+    for b in schedule:
+        sub = {f"leaf{i}": flat[i][1] for i in b.leaf_ids}
+        sub_state = fresh_state({k: v[0] for k, v in sub.items()})
+        with tracer.span(
+            f"bucket[{b.index}]",
+            tid=b.index + 1,
+            bytes_dense=b.bytes_dense,
+            bytes_payload=b.bytes_payload,
+            n_leaves=len(b.leaf_ids),
+        ) as s:
+            s.args["reduce_us"] = timed_reduce(sub, sub_state, False)
+        bucket_rows.append({
+            "bucket": b.index,
+            "bytes_dense": b.bytes_dense,
+            "bytes_payload": b.bytes_payload,
+            "measured_us": s.args["reduce_us"],
+        })
+
+    with tracer.span("reduce/full", bucketed=bool(schedule)) as s:
+        s.args["reduce_us"] = timed_reduce(grads_pw, state, buckets)
+
+    bucket_bytes = overlap.resolve_bucket_bytes(buckets, cfg.bucket_bytes)
+    scheme = "local_topk" if cfg.compressor.name == "local_topk" else "scalecom"
+    modeled = (
+        perfmodel.overlap_report(perfmodel.reference_transformer_perf(), scheme, bucket_bytes)
+        if bucket_bytes
+        else None
+    )
+    return {
+        "tracer": tracer,
+        "buckets": bucket_rows,
+        "full_us": s.args["reduce_us"],
+        "modeled": modeled,
+        "device_kind": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+    }

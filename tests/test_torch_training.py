@@ -187,7 +187,9 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         "        'repro_torch.analysis.perfmodel', 'repro_torch.harness.__main__',\n"
         "        'repro_torch.harness.cli', 'repro_torch.harness.injectors',\n"
         "        'repro_torch.harness.invariants', 'repro_torch.harness.scenarios',\n"
-        "        'repro_torch.distributed', 'repro_torch.distributed.ring']\n"
+        "        'repro_torch.distributed', 'repro_torch.distributed.ring',\n"
+        "        'repro_torch.backends.autotune', 'repro_torch.backends.introspect',\n"
+        "        'repro_torch.analysis.report']\n"
         "missing = [m for m in want if m not in mods]\n"
         "print(len(mods), bad, missing)\n"
         "sys.exit(1 if bad or missing or len(mods) < 58 else 0)\n"
