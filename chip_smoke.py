@@ -175,9 +175,9 @@ Phases, each fatal on failure:
   11. ``[ring]``, real collectives (``repro_torch.distributed.ring``):
      ``RING_WORLD`` = 8 spawned processes on the one card, joined by gloo
      through a ``file://`` store (NCCL puts one rank on a card; gloo's
-     broadcast and all_reduce take CUDA tensors through host memory), the
-     kernel library built before they start. (a) On 4 of them the
-     tok_embed tensor's ring reduce at t = 0..3 (each rank leads once):
+     broadcast, all_reduce and all_gather take CUDA tensors through host
+     memory), the kernel library built before they start. (a) On 4 of them
+     the tok_embed tensor's ring reduce at t = 0..3 (each rank leading once):
      the cuda ring bitwise its torch-backend ring, offsets and m' bitwise
      the single-process stacked cuda reduce of the same rows, ĝ within
      ``TOL``; device ms of the leader's select, ef_update and the scatter
@@ -187,17 +187,30 @@ Phases, each fatal on failure:
      paper-transformer-base at full width, 4 x 128 tokens a rank, 2 dense +
      3 compressed steps; after each step rank 0 runs the stacked step from
      the same state and the ranks' own gradients (recomputed there, digests
-     equal) and holds ĝ, params and the loss within ``TOL``; the params
-     bitwise identical on every rank and every residue row bitwise the
-     stacked step's (by 64-bit digests, ``digest``); the counted payload
-     bytes, averaged over the ranks, the plan's; launches per rank (the
-     leader's chunk_argmax, every rank's ef_update and chunk_scatter, all
-     vec4); step ms (max and median over ranks) with the gradient pass and
-     the collectives inside it, the dense warm-up's all-reduce, the
-     reduce's kernels of one step on one rank (device ms) and peak memory
-     by rank. A rank that fails, or a phase past ``RING_TIMEOUT_S``, fails
-     the script. These launches stand under ``ring_launches`` in the JSON
-     line.
+     equal) and holds ĝ, params and the loss within ``TOL``, rank 0's
+     offsets bitwise the stacked reduce's; the params bitwise identical on
+     every rank and every residue row bitwise the stacked step's (by 64-bit
+     digests, ``digest``); the counted payload bytes, averaged over the
+     ranks, the plan's; launches per rank (the leader's chunk_argmax, every
+     rank's ef_update and chunk_scatter, all vec4); step ms (max and median
+     over ranks) with the gradient pass and the collectives inside it, the
+     dense warm-up's all-reduce, the reduce's kernels of one step on one
+     rank (device ms) and peak memory by rank. Then ``RING_RUNS``, each 1
+     dense + 2 compressed steps in the same spawn, held the same way:
+     ``[ring:compressors]`` true_topk, local_topk and random_k (fp32),
+     ``[ring:codecs]`` clt_k with bf16, fp8 and fp8_ec residues and
+     ``[ring:pod2]`` clt_k, fp8, ``groups=2`` (2 groups of 4 ranks, the
+     reference's pod2 setting) with ``compute_stats``: every field of every
+     residue row bitwise the stacked step's row (under groups its group's,
+     the replicas bitwise each other), true_topk's offsets bitwise outside
+     the chunks whose top two in the stacked worker-mean EF lie within the
+     rounding of an 8-term sum (counted, printed), contraction gamma within
+     ``GAMMA_RTOL``, the payload the plan's with the oracle, intra-group and
+     stats bytes beside it; per run step ms, collectives' host ms by kind,
+     the reduce's kernels' device ms on rank 0, the dither draw's device ms
+     and bytes (bf16, fp8_ec) and peak memory by rank. A rank that fails,
+     or a phase past ``RING_PHASE_S``, fails the script. These launches
+     stand under ``ring_launches`` in the JSON line.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -3161,19 +3174,61 @@ def serve_phase(card_line: str) -> None:
 RING_BACKEND = "gloo"
 RING_WORLD = 8  # (b): one rank per worker of the main path
 RING_REDUCE_RANKS = 4  # (a): the tok_embed reduce, each rank leading once
-RING_TIMEOUT_S = 300  # every collective's (init_process_group) and the phase's
+RING_TIMEOUT_S = 300  # every collective's (init_process_group)
+RING_PHASE_S = 600  # the whole phase's, the spawn to the last rank's result
 RING_COLLECTIVE_REPS = 5
+GAMMA_RTOL = 1e-5  # contraction gamma over the ranks against the stacked reduce's
+
+
+@dataclasses.dataclass(frozen=True)
+class RingRun:
+    """One training run of ``[ring]`` over ``RING_WORLD`` ranks: the main
+    path's model and batch, ``warmup`` dense steps and then compressed ones
+    up to ``steps``, with this compressor, residue codec, ``groups`` (G
+    groups of ``RING_WORLD / G`` ranks) and ``compute_stats``."""
+
+    label: str
+    compressor: str = "clt_k"
+    codec: str = "fp32"
+    groups: int | None = None
+    stats: bool = False
+    warmup: int = 1
+    steps: int = 3
+
+    @property
+    def name(self) -> str:
+        return (f"{self.compressor}, {self.codec} residues"
+                + (f", groups={self.groups}" if self.groups else "")
+                + (", compute_stats" if self.stats else ""))
+
+
+# (b), the main path's settings, and the runs of the other configurations the
+# group step runs (the reference's pod2 setting last: fp8, 2 groups of 4)
+RING_TRAIN = RingRun("train", warmup=2, steps=5)
+RING_RUNS = (
+    RingRun("compressors", "true_topk"),
+    RingRun("compressors", "local_topk"),
+    RingRun("compressors", "random_k"),
+    RingRun("codecs", codec="bf16"),
+    RingRun("codecs", codec="fp8"),
+    RingRun("codecs", codec="fp8_ec"),
+    RingRun("pod2", codec="fp8", groups=2, stats=True),
+)
+# the byte counts a rank sends along in ``exchange``, after its digests
+SENT_KEYS = ("payload", "oracle", "intra", "stats")
+_BITS = {4: "int32", 2: "int16", 1: "uint8"}
 
 
 def digest(x) -> list:
-    """Two 64-bit sums of the bit patterns of a float32 tensor under fixed
-    odd weights, one per element position (int64 arithmetic wraps): equal
-    tensors give equal digests, and a difference anywhere changes them
-    except with a chance of about 2^-64. How ranks compare tensors bit for
-    bit without sending them."""
+    """Two 64-bit sums of the bit patterns of a tensor (its elements' bits
+    as integers) under fixed odd weights, one per element position (int64
+    arithmetic wraps): equal tensors give equal digests, and a difference
+    anywhere changes them except with a chance of about 2^-64. How ranks
+    compare tensors bit for bit without sending them."""
     import torch
 
-    bits = x.contiguous().view(torch.int32).reshape(-1).to(torch.int64)
+    bits = x.contiguous().view(getattr(torch, _BITS[x.element_size()])).reshape(-1)
+    bits = bits.to(torch.int64)
     i = torch.arange(bits.numel(), dtype=torch.int64, device=x.device)
     return [int(torch.sum(bits * ((i * a + b) | 1))) for a, b in
             ((0x5851F42D4C957F2D, 0x14057B7EF767814F), (0x2545F4914F6CDD1D, 0x1B03738712FAD5C9))]
@@ -3192,25 +3247,35 @@ def exchange(row: list, rank: int, world: int) -> list:
 
 
 class CollectiveClock:
-    """Host ms of every ``torch.distributed`` broadcast and all_reduce this
-    process makes inside ``with clock:``, each between two device syncs (the
-    collectives block the host anyway), by kind: "offsets" (broadcast),
-    "metrics" (an all_reduce of at most 16 elements) and "values" (every
-    other all_reduce: the k values, the dense gradients)."""
+    """Host ms of every ``torch.distributed`` broadcast, all_reduce and
+    all_gather this process makes inside ``with clock:``, each between two
+    device syncs (the collectives block the host anyway), by kind:
+    "offsets" (a broadcast), else the ``ring.sent`` key the ring counted
+    for it just before ("values", "dense", "indices", "oracle", "intra",
+    "stats"), else "metrics" (the loss and aux all_reduce)."""
+
+    KINDS = ("offsets", "values", "dense", "indices", "oracle", "intra", "stats", "metrics")
 
     def __init__(self):
-        self.ms = {"offsets": 0.0, "values": 0.0, "metrics": 0.0}
-        self.calls = dict.fromkeys(self.ms, 0)
+        self.ms = dict.fromkeys(self.KINDS, 0.0)
+        self.calls = dict.fromkeys(self.KINDS, 0)
 
-    def _timed(self, fn, kind_of):
+    def _kind(self, default):
+        from repro_torch.distributed import ring
+
+        moved = [k for k, v in ring.sent.items() if v != self._seen[k]]
+        self._seen = dict(ring.sent)
+        return default or (moved[-1] if moved else "metrics")
+
+    def _timed(self, fn, default=None):
         import torch
 
-        def call(tensor, *args, **kwargs):
+        def call(*args, **kwargs):
+            kind = self._kind(default)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(tensor, *args, **kwargs)
+            out = fn(*args, **kwargs)
             torch.cuda.synchronize()
-            kind = kind_of(tensor)
             self.ms[kind] += (time.perf_counter() - t0) * 1e3
             self.calls[kind] += 1
             return out
@@ -3220,16 +3285,44 @@ class CollectiveClock:
     def __enter__(self):
         import torch.distributed as dist
 
-        self._real = dist.broadcast, dist.all_reduce
-        dist.broadcast = self._timed(dist.broadcast, lambda t: "offsets")
-        dist.all_reduce = self._timed(dist.all_reduce,
-                                      lambda t: "metrics" if t.numel() <= 16 else "values")
+        from repro_torch.distributed import ring
+
+        self._seen = dict(ring.sent)
+        self._real = dist.broadcast, dist.all_reduce, dist.all_gather
+        dist.broadcast = self._timed(dist.broadcast, "offsets")
+        dist.all_reduce = self._timed(dist.all_reduce)
+        dist.all_gather = self._timed(dist.all_gather)
         return self
 
     def __exit__(self, *exc):
         import torch.distributed as dist
 
-        dist.broadcast, dist.all_reduce = self._real
+        dist.broadcast, dist.all_reduce, dist.all_gather = self._real
+        return False
+
+
+class OffsetSpy:
+    """Inside ``with spy:``, a clone of the offsets of every ``ef_update``
+    of the CUDA backend in this process, in call order (the ring's: this
+    rank's offsets; the stacked reduce's: shared, or one row per worker)."""
+
+    def __enter__(self):
+        from repro_torch.backends.cuda_backend import CudaBackend
+
+        self.offsets, self._real = [], CudaBackend.ef_update
+        real, offsets = self._real, self.offsets
+
+        def ef_update(backend, m, g, idx, *args, **kwargs):
+            offsets.append(idx.clone())
+            return real(backend, m, g, idx, *args, **kwargs)
+
+        CudaBackend.ef_update = ef_update
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.backends.cuda_backend import CudaBackend
+
+        CudaBackend.ef_update = self._real
         return False
 
 
@@ -3346,17 +3439,39 @@ def ring_reduce_rank(rank: int, group) -> dict:
             "payload": (idx.numel() * 4, vals.numel() * 4)}
 
 
-def ring_train_rank(rank: int, world: int) -> dict:
-    """(b) on one of ``RING_WORLD`` ranks: paper-transformer-base at full
-    width through ``build_train_step(group=...)``, one worker per rank, the
-    main path's settings, 2 dense + 3 compressed steps. Each step is timed
-    (host clock; the gradient pass and the collectives inside it between
+def ring_leaders(run: RingRun, world: int) -> list:
+    """Per compressed step of ``run``, the ranks that select: the leader
+    (clt_k, true_topk), the leader group's ranks (with ``groups``), every
+    rank (local_topk) or none (random_k)."""
+    out = []
+    for t in range(run.warmup, run.steps):
+        if run.compressor == "local_topk":
+            out.append(list(range(world)))
+        elif run.compressor == "random_k":
+            out.append([])
+        elif run.groups:
+            size = world // run.groups
+            out.append(list(range(t % run.groups * size, (t % run.groups + 1) * size)))
+        else:
+            out.append([t % world])
+    return out
+
+
+def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
+    """A ``RingRun`` on one of ``RING_WORLD`` ranks: paper-transformer-base at
+    full width through ``build_train_step(group=...)``, one worker per rank,
+    4 x 128 tokens a rank, chunk 64, beta 0.1. Each step is timed (host
+    clock; the gradient pass and each kind of collective inside it between
     device syncs) with the kernels' launches counted; then rank 0 runs the
     single-process stacked step from the same state and the same gradients
-    (each worker's pass again, which must give the rank's bits) and holds ĝ
-    and the params within ``TOL``; every rank's params, residues and
-    gradients are held bitwise, by digest, against rank 0's and the stacked
-    step's; the counted payload bytes against the plan's."""
+    (each worker's pass again, which must give the rank's bits) and holds
+    it (``ring_stacked_hold``): ĝ, the params and the loss within ``TOL``,
+    its offsets bitwise rank 0's, every rank's params bitwise identical,
+    every rank's residue row (every field; its group's row) bitwise the
+    stacked step's, the counted payload the plan's, contraction gamma
+    within ``GAMMA_RTOL``. Rank 0 then times the reduce's kernels of one
+    step at its shapes and, for a stochastically rounding codec, the
+    dither draw."""
     import torch
     import torch.distributed as dist
 
@@ -3376,10 +3491,11 @@ def ring_train_rank(rank: int, world: int) -> dict:
     group = dist.group.WORLD
     cfg = registry.arch("paper-transformer-base")
     model = build_model(cfg, loss_chunk=64)
-    sc_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
-                            min_size=1024, warmup_steps=WARMUP, fused=False)
+    sc_cfg = ScaleComConfig(compressor=CompressorConfig(run.compressor, chunk=CHUNK), beta=BETA,
+                            min_size=1024, residue_dtype=run.codec, groups=run.groups,
+                            warmup_steps=run.warmup, fused=False)
     base_opt = make_optimizer("sgdm")
-    sched = schedule.linear_warmup(schedule.constant(0.05), WARMUP)
+    sched = schedule.linear_warmup(schedule.constant(0.05), run.warmup)
     ghats = []  # the ĝ each update receives (rank 0 holds it against the stacked step)
 
     def update(grads, state, params, lr):
@@ -3390,11 +3506,12 @@ def ring_train_rank(rank: int, world: int) -> dict:
     opt = Optimizer(base_opt.init, update)
     full = init_train_state(model, opt, sc_cfg, torch.Generator().manual_seed(0),
                             n_workers=world, device="cuda")
-    state = shard_train_state(full, rank, world)
+    state = shard_train_state(full, rank, world, run.groups)
     ref_residues = full.sc_state.residues if rank == 0 else None
     del full
     fns = {mode: build_train_step(model, opt, sched, sc_cfg, n_workers=world, mode=mode,
-                                  group=group) for mode in ("dense", "scalecom")}
+                                  group=group, compute_stats=run.stats)
+           for mode in ("dense", "scalecom")}
     # the gradient pass inside the step, timed between device syncs; its
     # result kept for the digests
     grads_ms, own_grads = [0.0], []
@@ -3418,8 +3535,8 @@ def ring_train_rank(rank: int, world: int) -> dict:
     steps, checks = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(STEPS):
-        mode = "scalecom" if i >= WARMUP else "dense"
+    for i in range(run.steps):
+        mode = "scalecom" if i >= run.warmup else "dense"
         batch_np = next(batches)
         before = (tree.tree_map(torch.clone, state.params),
                   tree.tree_map(torch.clone, state.opt_state)) if rank == 0 else None
@@ -3431,8 +3548,7 @@ def ring_train_rank(rank: int, world: int) -> dict:
         c0, v0 = kernels.launches(), (ct.chunk_argmax.variants["vec4"],
                                       ct.chunk_scatter.variants["vec4"])
         dist.barrier()
-        clock = CollectiveClock()
-        with clock:
+        with CollectiveClock() as clock, OffsetSpy() as spy:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             state, metrics = fns[mode](state, batch_np)
@@ -3444,48 +3560,99 @@ def ring_train_rank(rank: int, world: int) -> dict:
             launches[k] += c1[k] - c0[k]
         variants["chunk_argmax"] += ct.chunk_argmax.variants["vec4"] - v0[0]
         variants["chunk_scatter"] += ct.chunk_scatter.variants["vec4"] - v0[1]
-        check(math.isfinite(loss), f"[ring] rank {rank} step {i}: loss {loss}")
-        sent = sum(ring.sent.values())
+        check(math.isfinite(loss), f"[ring:{run.label}] {run.name}: rank {rank} step {i}: "
+                                   f"loss {loss}")
+        sent = [ring.payload_sent()] + [ring.sent[k] for k in SENT_KEYS[1:]]
         steps.append({"mode": mode, "step_ms": step_ms, "grads_ms": grads_ms[0],
                       "collective_ms": dict(clock.ms), "collective_calls": dict(clock.calls),
                       "loss": loss, "sent": sent,
                       "comm_bytes_per_worker": metrics.get("comm_bytes_per_worker"),
                       "comm_bytes_dense": metrics.get("comm_bytes_dense")})
-        # digests: params (identical on every rank), this rank's residue row
-        # and its own gradients (in leaf order)
+        # digests: params (identical on every rank), every field of this
+        # rank's residue row and its own gradients (in leaf order)
         paths = sorted(state.sc_state.residues)
         row = ([d for p in tree.leaves(state.params) for d in digest(p)]
-               + [d for p in paths for d in digest(state.sc_state.residues[p]["q"][0])]
-               + [d for x in tree.leaves(own_grads[0]) for d in digest(x)] + [sent])
+               + [d for p in paths for f in sorted(state.sc_state.residues[p])
+                  for d in digest(state.sc_state.residues[p][f][0])]
+               + [d for x in tree.leaves(own_grads[0]) for d in digest(x)] + sent)
         table = exchange(row, rank, world)
         if rank == 0:
-            checks.append(ring_stacked_hold(i, mode, model, base_opt, sched, sc_cfg, before,
+            checks.append(ring_stacked_hold(i, mode, run, model, base_opt, sched, sc_cfg, before,
                                             batch_np, state, metrics, ghats[0], ref_residues,
-                                            t_sc, table, paths, plain_grads))
+                                            t_sc, table, paths, plain_grads, spy.offsets))
             ref_residues = checks[-1].pop("residues")
         last_grads = own_grads[0]
-        del before
+        del before, spy
     ts.per_worker_grads, ts.dense_grads = plain_grads
     peak = torch.cuda.max_memory_allocated()
     # the reduce's kernels of one compressed step at this rank's shapes, on
     # rank 0 alone while the others wait
-    kernel_ms = ring_kernel_times(state.sc_state.residues, last_grads) if rank == 0 else None
+    kernel_ms = dither = None
+    if rank == 0:
+        kernel_ms = ring_kernel_times(state.sc_state.residues, last_grads, run, world)
+        dither = ring_dither_times(state.sc_state.residues, sc_cfg, run, world)
     dist.barrier()
     return {"steps": steps, "launches": launches, "variants": variants, "peak": peak,
-            "checks": checks, "kernel_ms": kernel_ms, "n_compressed": len(paths),
-            "leaders": [t % world for t in range(WARMUP, STEPS)]}
+            "checks": checks, "kernel_ms": kernel_ms, "dither": dither,
+            "n_compressed": len(paths), "leaders": ring_leaders(run, world)}
 
 
-def ring_stacked_hold(i: int, mode: str, model, opt, sched, sc_cfg, before, batch_np, state,
-                      metrics, ghat, ref_residues, t: int, table: list, paths: list,
-                      grads_fns) -> dict:
-    """Rank 0 after step ``i``: the single-process stacked step from the state
-    before it (``before``: params and optimizer state; ``ref_residues``: every
-    worker's residue rows; ``t``) and the ranks' own gradients, recomputed
-    here worker by worker (each rank's digests must match); then rank 0's ĝ
-    and params within ``TOL`` of the stacked step's, the loss within it, the
-    params bitwise identical on every rank, every rank's residue row bitwise
-    the stacked step's and the mean counted payload the plan's (all by the
+@contextlib.contextmanager
+def offsets_held(ring_offsets: list, near: list, n: int):
+    """Inside, the stacked reduce's true_topk selection is held against the
+    ring's offsets (``ring_offsets``, one per compressed tensor in leaf
+    order, popped) and then replaced by them: a chunk may differ only where
+    the stacked worker-mean EF's magnitudes at the two offsets lie within
+    the rounding of an n-term fp32 sum in two orders (counted into
+    ``near``); any other difference fails."""
+    import torch
+
+    from repro_torch.core import scalecom as sc_mod
+
+    real = sc_mod.select_indices
+
+    def select(ef, t, comp, backend):
+        idx = real(ef, t, comp, backend)
+        got = ring_offsets.pop(0)
+        check(comp.topm == 1 and got.shape == idx.shape,
+              f"[ring] true_topk held at top-1 only: offsets {tuple(got.shape)} against "
+              f"{tuple(idx.shape)}")
+        diff = torch.nonzero(idx != got).reshape(-1)
+        if diff.numel():
+            u = 2.0 ** -24
+            gamma = (n - 1) * u / (1 - (n - 1) * u)
+            a = torch.mean(ef, dim=0).abs().reshape(-1)
+            slack = ((2 * gamma * ef.abs().sum(0) + 2 * u * ef.sum(0).abs()) / n).reshape(-1)
+            pos_s = diff * comp.chunk + idx[diff].long()
+            pos_r = diff * comp.chunk + got[diff].long()
+            far = int(((a[pos_s] - a[pos_r]).abs() > slack[pos_s] + slack[pos_r]).sum())
+            check(far == 0, f"[ring] true_topk: {far} of {diff.numel()} chunks whose offsets "
+                            f"differ from the stacked reduce's are no near tie")
+        near.append(int(diff.numel()))
+        return got
+
+    sc_mod.select_indices = select
+    try:
+        yield
+    finally:
+        sc_mod.select_indices = real
+
+
+def ring_stacked_hold(i: int, mode: str, run: RingRun, model, opt, sched, sc_cfg, before,
+                      batch_np, state, metrics, ghat, ref_residues, t: int, table: list,
+                      paths: list, grads_fns, ring_offsets: list) -> dict:
+    """Rank 0 after step ``i`` of ``run``: the single-process stacked step
+    from the state before it (``before``: params and optimizer state;
+    ``ref_residues``: every worker's, or group's, residue rows; ``t``) and
+    the ranks' own gradients, recomputed here worker by worker (each rank's
+    digests must match); then rank 0's ĝ and params within ``TOL`` of the
+    stacked step's, the loss within it, the offsets rank 0's ring used
+    (``ring_offsets``) bitwise the stacked reduce's (for true_topk up to
+    counted near ties, whose chunks the stacked reduce then takes from the
+    ring), the params bitwise identical on every rank, every rank's
+    residue row bitwise the stacked step's row (its group's: the replicas
+    of a group's row bitwise each other), contraction gamma within
+    ``GAMMA_RTOL`` and the mean counted payload the plan's (all by the
     digests and counts in ``table``). Returns the errors, and the stacked
     step's residues for the next step under "residues"."""
     import torch
@@ -3499,28 +3666,48 @@ def ring_stacked_hold(i: int, mode: str, model, opt, sched, sc_cfg, before, batc
     per_worker_grads, dense_grads = grads_fns
     batch = {k: torch.as_tensor(v, device="cuda") for k, v in batch_np.items()}
     leaves, losses = [], []
-    n_par, n_res = 2 * len(tree.leaves(params0)), 2 * len(paths)
+    n_par = 2 * len(tree.leaves(params0))
+    n_res = 2 * sum(len(ref_residues[p]) for p in paths)
+    tag = f"[ring:{run.label}] {run.name}: step {i}"
     for w in range(world):
         one = {k: v[w:w + 1] for k, v in batch.items()}
         if mode == "scalecom":
             loss, _, g = per_worker_grads(model, params0, one, 1)
         else:
             loss, _, g = dense_grads(model, params0, one)
-        check(table[w][n_par + n_res:-1] == [d for x in tree.leaves(g) for d in digest(x)],
-              f"[ring] step {i}: rank {w}'s gradients differ from the same pass on rank 0")
+        check(table[w][n_par + n_res:-len(SENT_KEYS)] == [d for x in tree.leaves(g)
+                                                           for d in digest(x)],
+              f"{tag}: rank {w}'s gradients differ from the same pass on rank 0")
         leaves.append(tree.leaves(g))
         losses.append(loss)
         del g
+    near, gamma_err = [], None
     if mode == "scalecom":
         gpw = tree.unflatten(params0, [torch.cat(xs) for xs in zip(*leaves)])
         del leaves
-        ghat_ref, ref_state, stats = scalecom_reduce(gpw, ScaleComState(ref_residues, t), sc_cfg)
+        held = (offsets_held(list(ring_offsets), near, world)
+                if run.compressor == "true_topk" else contextlib.nullcontext())
+        with held, OffsetSpy() as spy:
+            ghat_ref, ref_state, stats = scalecom_reduce(gpw, ScaleComState(ref_residues, t),
+                                                         sc_cfg, compute_stats=run.stats)
         del gpw
+        check(len(spy.offsets) == len(ring_offsets) == len(paths),
+              f"{tag}: {len(ring_offsets)} ring and {len(spy.offsets)} stacked ef_updates, "
+              f"want {len(paths)}")
+        for j, (mine, theirs) in enumerate(zip(ring_offsets, spy.offsets)):
+            want = theirs[0] if run.compressor == "local_topk" else theirs
+            check(bitwise(mine, want), f"{tag}: rank 0's offsets of compressed tensor {j} "
+                                       f"differ from the stacked reduce's")
         residues = ref_state.residues
         planned = stats["comm_bytes_per_worker"]
         check(metrics["comm_bytes_per_worker"] == planned,
-              f"[ring] step {i}: comm_bytes_per_worker {metrics['comm_bytes_per_worker']} "
+              f"{tag}: comm_bytes_per_worker {metrics['comm_bytes_per_worker']} "
               f"against the stacked reduce's {planned}")
+        if run.stats:
+            got, want = metrics["contraction_gamma"], stats["contraction_gamma"]
+            gamma_err = abs(float(got) - float(want)) / abs(float(want))
+            check(gamma_err <= GAMMA_RTOL, f"{tag}: contraction_gamma {float(got)} against "
+                                           f"the stacked {float(want)}")
     else:
         ghat_ref = tree.unflatten(params0, [torch.mean(torch.stack(xs), 0) for xs in zip(*leaves)])
         del leaves
@@ -3529,71 +3716,107 @@ def ring_stacked_hold(i: int, mode: str, model, opt, sched, sc_cfg, before, batc
     loss_ref = torch.stack(losses).sum() / world
     ghat_err = max(max_abs_err(a, b) for a, b in zip(tree.leaves(ghat), tree.leaves(ghat_ref)))
     check(all(close(a, b) for a, b in zip(tree.leaves(ghat), tree.leaves(ghat_ref))),
-          f"[ring] step {i}: rank 0's ghat differs from the stacked step's beyond rtol 1e-6")
+          f"{tag}: rank 0's ghat differs from the stacked step's beyond rtol 1e-6")
     opt.update(ghat_ref, opt0, params0, sched(i))  # params0 is now the stacked step's
     params_err = max(max_abs_err(a, b) for a, b in
                      zip(tree.leaves(state.params), tree.leaves(params0)))
     check(all(close(a, b) for a, b in zip(tree.leaves(state.params), tree.leaves(params0))),
-          f"[ring] step {i}: rank 0's params differ from the stacked step's beyond rtol 1e-6")
+          f"{tag}: rank 0's params differ from the stacked step's beyond rtol 1e-6")
     loss_err = abs(float(metrics["loss"]) - float(loss_ref))
     check(close(torch.as_tensor(metrics["loss"]), loss_ref),
-          f"[ring] step {i}: loss {float(metrics['loss'])} against the stacked {float(loss_ref)}")
+          f"{tag}: loss {float(metrics['loss'])} against the stacked {float(loss_ref)}")
     check(all(row[:n_par] == table[0][:n_par] for row in table),
-          f"[ring] step {i}: the params differ between ranks")
+          f"{tag}: the params differ between ranks")
+    size = world // (run.groups or world)
     for w in range(world):
-        want = [d for p in paths for d in digest(residues[p]["q"][w])]
+        want = [d for p in paths for f in sorted(residues[p])
+                for d in digest(residues[p][f][w // size])]
         check(table[w][n_par:n_par + n_res] == want,
-              f"[ring] step {i}: rank {w}'s residues differ from the stacked step's row {w}")
-    sent_mean = sum(row[-1] for row in table) / world
-    check(sent_mean == planned, f"[ring] step {i}: the ranks counted {sent_mean} B a rank on "
-          f"average, the plan bills {planned}")
+              f"{tag}: rank {w}'s residues differ from the stacked step's row {w // size}")
+    sent = [row[-len(SENT_KEYS):] for row in table]
+    sent_mean = sum(x[0] for x in sent) / world
+    check(sent_mean == planned, f"{tag}: the ranks counted {sent_mean} B a rank on average, "
+                                f"the plan bills {planned}")
     return {"step": i, "mode": mode, "ghat_err": ghat_err, "params_err": params_err,
             "loss_err": loss_err, "sent_mean": sent_mean, "planned": planned,
-            "sent": [row[-1] for row in table], "residues": residues}
+            "sent": [x[0] for x in sent],
+            "extra": {k: sum(x[j] for x in sent) / world
+                      for j, k in enumerate(SENT_KEYS) if j},
+            "near_ties": near, "gamma_err": gamma_err, "residues": residues}
 
 
-def ring_kernel_times(residues: dict, grads) -> dict:
+def ring_kernel_times(residues: dict, grads, run: RingRun, world: int) -> dict:
     """Device ms of one compressed step's ring kernels at one rank's shapes
-    (the 17 compressed tensors of ``residues``, their gradients ``grads``):
-    the leader's select, and every rank's ef_update and scatter, each summed
-    over the tensors, beside their byte bounds."""
+    (the 17 compressed tensors of ``residues``, decoded, and their gradients
+    ``grads``): the select (the leader's, or every rank's for local_topk;
+    none for random_k), and every rank's ef_update and scatter (local_topk
+    scatters the ``world`` gathered rows), each summed over the tensors,
+    beside their byte bounds."""
     from repro_torch import tree
     from repro_torch.backends import resolve_backend
     from repro_torch.core.chunked import num_chunks
+    from repro_torch.core.state import require_codec
 
     be = resolve_backend("cuda")
+    codec = require_codec(run.codec)
     by_path = dict(tree.flatten_with_path(grads))
+    lanes = world if run.compressor == "local_topk" else 1
     items = []
     for path, enc in sorted(residues.items()):
-        m, g = enc["q"][0], by_path[path].reshape(-1)
+        g = by_path[path].reshape(-1)
+        m = codec.decode(enc, (g.numel(),))[0]
         ef = m + g
         idx = be.select_indices(ef, CHUNK)
         _, vals = be.ef_update(m, g, idx, BETA, CHUNK)
+        if lanes > 1:
+            idx, vals = idx.expand(lanes, -1).contiguous(), vals.expand(lanes, -1).contiguous()
         items.append((m, g, ef, idx, vals))
     n = len(items)
     size = sum(m.numel() for m, *_ in items)
     rows = sum(num_chunks(m.numel(), CHUNK) for m, *_ in items)
-    ms = {
-        "select": device_ms(lambda: [be.select_indices(ef, CHUNK) for _, _, ef, _, _ in items],
-                            (counter("chunk_argmax"), n), what="[ring] select x17"),
-        "ef_update": device_ms(lambda: [be.ef_update(m, g, idx, BETA, CHUNK)
-                                        for m, g, _, idx, _ in items],
-                               (counter("ef_update"), n), what="[ring] ef_update x17"),
-        "scatter": device_ms(lambda: [be.scatter(vals, idx, CHUNK, m.numel())
-                                      for m, _, _, idx, vals in items],
-                             (counter("chunk_scatter"), n), what="[ring] scatter x17"),
-    }
+    ms = {}
+    if run.compressor != "random_k":
+        ms["select"] = device_ms(lambda: [be.select_indices(ef, CHUNK) for _, _, ef, _, _ in items],
+                                 (counter("chunk_argmax"), n), what="[ring] select x17")
+    ms["ef_update"] = device_ms(lambda: [be.ef_update(m, g, idx[0] if lanes > 1 else idx, BETA,
+                                                      CHUNK) for m, g, _, idx, _ in items],
+                                (counter("ef_update"), n), what="[ring] ef_update x17")
+    ms["scatter"] = device_ms(lambda: [be.scatter(vals, idx, CHUNK, m.numel())
+                                       for m, _, _, idx, vals in items],
+                              (counter("chunk_scatter"), n), what="[ring] scatter x17")
     nbytes = {"select": 4 * size + 8 * rows, "ef_update": 12 * size + 8 * rows,
-              "scatter": 4 * rows * CHUNK + 8 * rows}
-    return {"ms": ms, "bound": {k: bound(v, 0)[0] for k, v in nbytes.items()},
+              "scatter": lanes * (4 * rows * CHUNK + 8 * rows)}
+    return {"ms": ms, "bound": {k: bound(nbytes[k], 0)[0] for k in ms},
             "tensors": n, "elements": size}
+
+
+def ring_dither_times(residues: dict, sc_cfg, run: RingRun, world: int):
+    """Device ms and bytes of one step's stochastic-rounding draws on one
+    rank (``train_step._row_dither`` for each compressed tensor: the whole
+    (G, ...) stack drawn, this rank's row kept); None for a codec that
+    rounds to nearest."""
+    from repro_torch.core.state import require_codec
+    from repro_torch.training import train_step as ts
+
+    codec = require_codec(run.codec)
+    G = run.groups or world
+    storages = [(p, (int(enc["q"].shape[-1]),)) for p, enc in sorted(residues.items())]
+    # the stored trailing size (padded for fp8_ec) draws the same shape
+    draws = [ts._row_dither(codec, p, 0, G, 0, st, device="cuda") for p, st in storages]
+    if draws[0] is None:
+        return None
+    sizes = [d.numel() for d in draws]
+    ms = device_ms(lambda: [ts._row_dither(codec, p, 0, G, 0, st, device="cuda")
+                            for p, st in storages], what="[ring] dither draws")
+    nbytes = 4 * G * sum(sizes)
+    return {"ms": ms, "bytes": nbytes, "row_bytes": 4 * sum(sizes), "bound": bound(nbytes, 0)[0]}
 
 
 def ring_rank(rank: int, world: int, store: str, conn) -> None:
     """One spawned rank of ``ring_phase``: joins the gloo group through the
-    ``file://`` store, runs (a) on the first ``RING_REDUCE_RANKS`` ranks and
-    (b) on all, and sends its results to the parent. Any failure exits
-    non-zero."""
+    ``file://`` store, runs (a) on the first ``RING_REDUCE_RANKS`` ranks,
+    then (b) and every run of ``RING_RUNS`` on all, and sends its results to
+    the parent. Any failure exits non-zero."""
     sys.path.insert(0, SRC)
     import datetime
 
@@ -3611,9 +3834,92 @@ def ring_rank(rank: int, world: int, store: str, conn) -> None:
     dist.barrier()
     torch.cuda.empty_cache()
     out["train"] = ring_train_rank(rank, world)
+    out["runs"], out["run_s"] = [], []
+    for run in RING_RUNS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["runs"].append(ring_train_rank(rank, world, run))
+        out["run_s"].append(time.perf_counter() - t0)
     conn.send(out)
     conn.close()
     dist.destroy_process_group()
+
+
+def ring_launches_held(run: RingRun, tr: list) -> dict:
+    """Each rank's launches of ``run`` against its part: the select where it
+    selects (``ring_leaders``), ef_update and chunk_scatter on every rank,
+    once per compressed tensor and step, every select and scatter vec4.
+    Returns the launches summed over the ranks."""
+    n_c, leaders = tr[0]["n_compressed"], tr[0]["leaders"]
+    total = dict.fromkeys(KERNELS, 0)
+    for r, x in enumerate(tr):
+        want = dict.fromkeys(x["launches"], 0)
+        want.update(chunk_argmax=n_c * sum(r in ranks for ranks in leaders),
+                    ef_update=n_c * len(leaders), chunk_scatter=n_c * len(leaders))
+        check(x["launches"] == want, f"[ring:{run.label}] {run.name}: rank {r}: launches "
+                                     f"{x['launches']}, want {want}")
+        check(x["variants"] == {"chunk_argmax": want["chunk_argmax"],
+                                "chunk_scatter": want["chunk_scatter"]},
+              f"[ring:{run.label}] {run.name}: rank {r}: vec4 launches {x['variants']}, want "
+              f"every one")
+        for k in total:
+            total[k] += x["launches"][k]
+    return total
+
+
+def ring_run_report(run: RingRun, tr: list, seconds: float, card_line: str) -> dict:
+    """Prints what the ranks measured in one of ``RING_RUNS`` and returns its
+    launches summed over the ranks."""
+    import statistics as st
+
+    tag = f"[ring:{run.label}] {run.name}"
+    checks = tr[0]["checks"]
+    for i in range(run.steps):
+        rows = [x["steps"][i] for x in tr]
+        c = checks[i]
+        step = [x["step_ms"] for x in rows]
+        kinds = {k: st.median(x["collective_ms"][k] for x in rows)
+                 for k in CollectiveClock.KINDS}
+        held = (f"ghat max abs err {c['ghat_err']:.3e}, params {c['params_err']:.3e}, loss "
+                f"{c['loss_err']:.3e}")
+        if c["mode"] == "scalecom":
+            held += ", offsets bitwise rank 0's"
+            if run.compressor == "true_topk":
+                held += f" but {sum(c['near_ties'])} near-tie chunks"
+            if c["gamma_err"] is not None:
+                held += f", contraction_gamma rel err {c['gamma_err']:.3e}"
+        print(f"{tag}: step {i} {c['mode']}: loss {rows[0]['loss']:.4f}; step ms max "
+              f"{max(step):.1f} median {st.median(step):.1f} over {len(tr)} ranks; the gradient "
+              f"pass {st.median(x['grads_ms'] for x in rows):.1f} ms; collectives host ms "
+              f"(median over ranks) " + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items() if v)
+              + f"; against the stacked step: {held}; residues bitwise on every rank"
+              + (", group replicas bitwise" if run.groups else "")
+              + f", params bitwise across ranks; on {card_line}")
+    comp = [c for c in checks if c["mode"] == "scalecom"]
+    extra = comp[0]["extra"]
+    print(f"{tag}: payload a rank on average {comp[0]['sent_mean']:,.1f} B == the plan's "
+          f"comm_bytes_per_worker {comp[0]['planned']:,.1f} B on all {len(comp)} compressed "
+          f"steps (by rank " + " / ".join(f"{b:,}" for b in comp[0]["sent"]) + "); beside it, "
+          f"outside the payload, a rank on average: oracle {extra['oracle']:,.0f} B, intra-group "
+          f"{extra['intra']:,.0f} B, stats {extra['stats']:,.0f} B")
+    launches = ring_launches_held(run, tr)
+    km = tr[0]["kernel_ms"]
+    print(f"{tag}: launches per rank: " + "; ".join(
+        f"rank {r} " + ", ".join(f"{k} {v}" for k, v in x["launches"].items() if v)
+        for r, x in enumerate(tr)) + f"; all vec4; the reduce's kernels of one compressed step "
+        f"on rank 0 ({km['tensors']} tensors), device ms: "
+        + ", ".join(f"{k} {v:.4f} (bound {km['bound'][k]:.4f})" for k, v in km["ms"].items())
+        + f"; on {card_line}")
+    dither = tr[0]["dither"]
+    if dither:
+        print(f"{tag}: the dither draw of one step on one rank, device ms {dither['ms']:.4f} for "
+              f"{dither['bytes'] / 1e6:.1f} MB of int32 (the whole {run.groups or len(tr)}-row "
+              f"stack; the rank keeps {dither['row_bytes'] / 1e6:.1f} MB), bound "
+              f"{dither['bound']:.4f} ms; on {card_line}")
+    print(f"{tag}: peak allocated GiB by rank " + " / ".join(f"{x['peak'] / 2**30:.2f}"
+                                                            for x in tr)
+          + f"; {seconds:.1f} s on rank 0 on {card_line}")
+    return launches
 
 
 def ring_phase(card_line: str) -> dict:
@@ -3622,10 +3928,11 @@ def ring_phase(card_line: str) -> dict:
     kernel library is built before they start, so no rank runs nvcc): (a)
     on ``RING_REDUCE_RANKS`` of them the tok_embed ring reduce
     (``ring_reduce_rank``), (b) on all of them the main path's training, one
-    worker per rank (``ring_train_rank``). Each rank checks its part and
-    exits non-zero on a failure; a rank that fails, or a phase that outlasts
-    ``RING_TIMEOUT_S``, fails the script. Prints what the ranks measured and
-    returns the kernels' launches summed over the ranks in (b)."""
+    worker per rank (``ring_train_rank``), then each of ``RING_RUNS``. Each
+    rank checks its part and exits non-zero on a failure; a rank that fails,
+    or a phase that outlasts ``RING_PHASE_S``, fails the script. Prints what
+    the ranks measured and returns the kernels' launches summed over the
+    ranks in (b) and the runs."""
     import multiprocessing
     import statistics as st
     import tempfile
@@ -3638,9 +3945,10 @@ def ring_phase(card_line: str) -> dict:
     t_phase = time.perf_counter()
     build.library()
     print(f"[ring] backend {RING_BACKEND}: the machine has one card and NCCL puts one rank on a "
-          f"card, so {RING_WORLD} ranks share it through gloo, whose broadcast and all_reduce "
-          f"take CUDA tensors and stage them through host memory; the collective times below "
-          f"are that staging and loopback TCP between processes on one host, not a network's")
+          f"card, so {RING_WORLD} ranks share it through gloo, whose broadcast, all_reduce and "
+          f"all_gather take CUDA tensors and stage them through host memory; the collective "
+          f"times below are that staging and loopback TCP between processes on one host, not "
+          f"a network's")
     torch.cuda.empty_cache()
     ctx = multiprocessing.get_context("spawn")
     results = {}
@@ -3650,7 +3958,7 @@ def ring_phase(card_line: str) -> dict:
                              args=(r, RING_WORLD, os.path.join(tmp, "store"), pipes[r][1]))
                  for r in range(RING_WORLD)]
         t_spawn = time.time()
-        deadline = time.monotonic() + RING_TIMEOUT_S
+        deadline = time.monotonic() + RING_PHASE_S
         try:
             for p in procs:
                 p.start()
@@ -3660,7 +3968,7 @@ def ring_phase(card_line: str) -> dict:
                 left = deadline - time.monotonic()
                 pending = [r for r in range(RING_WORLD) if r not in results]
                 check(left > 0, f"[ring] ranks {pending} did not finish within "
-                                f"{RING_TIMEOUT_S} s")
+                                f"{RING_PHASE_S} s")
                 connection.wait([pipes[r][0] for r in pending] + [procs[r].sentinel
                                                                   for r in pending], left)
                 for r in pending:
@@ -3717,14 +4025,16 @@ def ring_phase(card_line: str) -> dict:
         step = [x["step_ms"] for x in rows]
         coll = [sum(x["collective_ms"].values()) for x in rows]
         calls = rows[0]["collective_calls"]
+        grad_calls = calls["values"] + calls["dense"]
         print(f"[ring:train] step {i} {rows[0]['mode']}: loss {rows[0]['loss']:.4f}; step ms "
               f"max {max(step):.1f} median {st.median(step):.1f} over {RING_WORLD} ranks; "
               f"inside it (median over ranks) the gradient pass {st.median(x['grads_ms'] for x in rows):.1f} "
               f"ms, collectives {st.median(coll):.1f} ms host clock ({calls['offsets']} broadcasts, "
-              f"{calls['values']} gradient all_reduces, {calls['metrics']} metric all_reduce); "
+              f"{grad_calls} gradient all_reduces, {calls['metrics']} metric all_reduce); "
               f"held against the single-process stacked step from the same state and gradients: "
               f"ghat max abs err {c['ghat_err']:.3e}, params {c['params_err']:.3e}, loss "
-              f"{c['loss_err']:.3e} (rtol 1e-6 / atol 1e-7), residues bitwise on every rank, "
+              f"{c['loss_err']:.3e} (rtol 1e-6 / atol 1e-7), offsets bitwise rank 0's, residues "
+              f"bitwise on every rank, "
               f"params bitwise identical across ranks; on {card_line}")
     dense = [c for c in checks if c["mode"] == "dense"]
     comp = [c for c in checks if c["mode"] == "scalecom"]
@@ -3735,24 +4045,14 @@ def ring_phase(card_line: str) -> dict:
           f"{comp[0]['planned']:,.1f} B on all {len(comp)} compressed steps; dense steps "
           f"{dense[0]['planned']:,.0f} B a rank; compressed / dense = 1 / "
           f"{dense[0]['planned'] / comp[0]['planned']:.1f}")
-    d_coll = [st.median(x["steps"][c["step"]]["collective_ms"]["values"] for x in tr)
+    d_coll = [st.median(x["steps"][c["step"]]["collective_ms"]["dense"] for x in tr)
               for c in dense]
     print(f"[ring:train] dense warm-up all-reduce ({dense[0]['planned'] / 1e6:.1f} MB a rank in "
-          f"{tr[0]['steps'][0]['collective_calls']['values']} all_reduces), host ms median over "
+          f"{tr[0]['steps'][0]['collective_calls']['dense']} all_reduces), host ms median over "
           f"ranks by step " + " / ".join(f"{v:.1f}" for v in d_coll) + f" on {card_line}")
     # launches per rank: the leader selects, every rank updates and scatters
-    n_c, leaders = tr[0]["n_compressed"], tr[0]["leaders"]
-    ring_launches = dict.fromkeys(KERNELS, 0)
-    for r, x in enumerate(tr):
-        want = dict.fromkeys(x["launches"], 0)
-        want.update(chunk_argmax=n_c * leaders.count(r), ef_update=n_c * len(leaders),
-                    chunk_scatter=n_c * len(leaders))
-        check(x["launches"] == want, f"[ring] rank {r}: launches {x['launches']}, want {want}")
-        check(x["variants"] == {"chunk_argmax": want["chunk_argmax"],
-                                "chunk_scatter": want["chunk_scatter"]},
-              f"[ring] rank {r}: vec4 launches {x['variants']}, want every one")
-        for k in ring_launches:
-            ring_launches[k] += x["launches"][k]
+    leaders = [t % RING_WORLD for t in range(RING_TRAIN.warmup, RING_TRAIN.steps)]
+    ring_launches = ring_launches_held(RING_TRAIN, tr)
     print(f"[ring:train] launches per rank over the {len(leaders)} compressed steps (leaders "
           f"ranks {leaders}): " + "; ".join(
               f"rank {r} " + ", ".join(f"{k} {v}" for k, v in x["launches"].items() if v)
@@ -3763,10 +4063,18 @@ def ring_phase(card_line: str) -> dict:
           + ", ".join(f"{k} {v:.4f} (bound {km['bound'][k]:.4f})" for k, v in km["ms"].items())
           + f"; the leader {sum(km['ms'].values()):.4f}, any other rank "
           f"{km['ms']['ef_update'] + km['ms']['scatter']:.4f}; on rank 0 alone on {card_line}")
-    print(f"[ring] peak allocated GiB by rank "
+    print(f"[ring:train] peak allocated GiB by rank "
           + " / ".join(f"{x['peak'] / 2**30:.2f}" for x in tr)
-          + f" (rank 0 also holds the stacked step); phase {time.perf_counter() - t_phase:.1f} s "
-          f"wall on {card_line}")
+          + f" (rank 0 also holds the stacked step) on {card_line}")
+
+    # the other configurations of the group step
+    for j, run in enumerate(RING_RUNS):
+        launches = ring_run_report(run, [results[r]["runs"][j] for r in range(RING_WORLD)],
+                                   results[0]["run_s"][j], card_line)
+        for k in ring_launches:
+            ring_launches[k] += launches[k]
+    print(f"[ring] launches summed over the ranks and runs {ring_launches}; phase "
+          f"{time.perf_counter() - t_phase:.1f} s wall on {card_line}")
     return ring_launches
 
 

@@ -18,13 +18,18 @@ The port of ``repro.training.train_step``. Two variants:
     the folding implies.
 
 With ``group`` (a ``torch.distributed`` process group, the counterpart of
-the reference's ``worker_axis``) each rank of the group is one ScaleCom
-worker: it takes its row of the global batch and its own gradient, and the
-reduce runs through real collectives (``repro_torch.distributed.ring``): a
-clt_k tensor through ``clt_ring_reduce``, a dense one (and every gradient of
-the dense mode) through an all-reduce and a division by n. The residues are
-this rank's row (``shard_train_state``); params and optimizer state are
-replicated and stay bitwise identical across ranks.
+the reference's ``worker_axis``) each rank of the group is one worker: it
+takes its row of the global batch and its own gradient, and the reduce runs
+through real collectives (``repro_torch.distributed.ring``): a compressed
+tensor through ``ring_reduce`` (any chunked compressor), a dense one (and
+every gradient of the dense mode) through an all-reduce and a division by
+n. With ``ScaleComConfig.groups=G`` the world's ranks form G groups of n/G
+(``ring.make_hierarchy``): each gradient is averaged over the rank's group
+first (``ring.group_fold``), and the reduce runs across the groups, each
+rank of a group holding a replica of the group's residue row. The residues
+are this rank's row, or its group's, in any codec (``shard_train_state``);
+params and optimizer state are replicated and stay bitwise identical
+across ranks.
 
 Batches arrive worker-stacked, as numpy arrays or tensors
 ({"tokens": (n, B, S), ...}), and are moved to the parameters' device here.
@@ -41,10 +46,13 @@ import torch.distributed as dist
 from repro_torch import tree
 from repro_torch.backends import resolve_backend, resolve_fused
 from repro_torch.core import overlap
+from repro_torch.core import state as state_codecs
 from repro_torch.core.plan import plan_tensors
 from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
-from repro_torch.core.state import ScaleComState, init_state
-from repro_torch.distributed.ring import all_reduce_mean, clt_ring_reduce
+from repro_torch.core.state import (
+    ScaleComState, codec_key, codec_signature, init_state, require_codec, residue_signature,
+)
+from repro_torch.distributed.ring import all_reduce_mean, group_fold, make_hierarchy, ring_reduce
 from repro_torch.optim.optimizer import Optimizer
 
 __all__ = [
@@ -152,67 +160,106 @@ def dense_grads(model, params, batch):
 
 
 # what a group step runs, named by every refusal of what it does not
-GROUP_SUPPORTED = ("compressor clt_k (chunked) or none, residue_dtype fp32, unfused, "
-                   "unbucketed, no compute_stats or telemetry, groups None")
+GROUP_SUPPORTED = ("compressor clt_k, true_topk, local_topk, random_k (chunked) or none, "
+                   "every residue codec, groups, compute_stats; unfused, unbucketed, "
+                   "no telemetry, no exact path")
 
 
-def _require_group_support(sc_cfg: ScaleComConfig, compute_stats: bool, buckets: Any) -> None:
+def _require_group_support(sc_cfg: ScaleComConfig, buckets: Any) -> None:
     """Raise ValueError, naming ``GROUP_SUPPORTED``, for what of this
     configuration a group step does not run. Reads $SCALECOM_TORCH_FUSED
     and $SCALECOM_TORCH_BUCKET_MB for their "auto"."""
     comp = sc_cfg.compressor
-    if comp.name not in ("clt_k", "none") or comp.exact:
-        refused = f"compressor {comp.name!r}" + (" with exact=True" if comp.exact else "")
-    elif sc_cfg.residue_dtype != "fp32":
-        refused = f"residue_dtype {sc_cfg.residue_dtype!r} (a lossy residue codec)"
+    if comp.exact:
+        refused = f"compressor {comp.name!r} with exact=True"
     elif resolve_fused(sc_cfg.fused):
         refused = "the fused reduce (its worker mean is inside one launch)"
     elif isinstance(buckets, (tuple, list)) or overlap.resolve_bucket_bytes(
             buckets, sc_cfg.bucket_bytes) is not None:
         refused = f"buckets={buckets!r}"
-    elif compute_stats or sc_cfg.telemetry:
-        refused = "compute_stats or telemetry"
-    elif sc_cfg.groups is not None:
-        refused = f"groups={sc_cfg.groups}"
+    elif sc_cfg.telemetry:
+        refused = "telemetry"
     else:
         return
     raise ValueError(f"a train step over a process group does not run {refused}; "
                      f"it runs {GROUP_SUPPORTED}")
 
 
-def _group_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, group):
+# the field each stochastically rounding codec draws its dither for
+_DITHERED = {"bf16": "q", "fp8_ec": "c"}
+
+
+def _row_dither(codec, path: str, t: int, rows: int, row: int, storage, device):
+    """Row ``row`` of the dither the stacked reduce draws for ``(path, t)``
+    over all ``rows`` residue rows, or None for a codec that rounds to
+    nearest. Each rank draws the whole (rows, ...) stack and keeps its row:
+    the draw is not row-addressable, and a rank that drew its own shape
+    would not give the stacked step's codes."""
+    field = _DITHERED.get(codec.name)
+    if field is None:
+        return None
+    shape = codec.init(rows, storage, "meta")[field].shape
+    return state_codecs.codec_dither(codec_key(path, t), shape, device)[row:row + 1]
+
+
+def _group_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, group, hierarchy,
+                  compute_stats: bool):
     """Algorithm 1 over this rank's (1, *shape) gradients with real
     collectives: the plan (``core.plan.plan_tensors`` at n = group.size()
-    workers) sends a compressed tensor through ``clt_ring_reduce`` and a
-    dense one through ``all_reduce_mean``. Returns (ghat, new_state, stats),
-    stats holding the plan's ``comm_bytes_per_worker`` and
-    ``comm_bytes_dense`` as the stacked reduce's do."""
+    workers, G = ``sc_cfg.groups`` or n) sends a compressed tensor through
+    ``ring_reduce`` and a dense one through ``all_reduce_mean``, over the
+    whole group, or with ``hierarchy`` over its inter group after
+    ``group_fold`` has averaged every gradient over the rank's own group.
+    The rank's residue row is decoded, and m' encoded with the rank's row of
+    the stacked draw. Returns (ghat, new_state, stats), stats holding the
+    plan's ``comm_bytes_per_worker`` and ``comm_bytes_dense`` as the stacked
+    reduce's do, and with ``compute_stats`` ``contraction_gamma`` from the
+    worker-mean EF (one all-reduce of ef per tensor, ``sent["stats"]``)."""
     n = group.size()
+    codec = require_codec(sc_cfg.residue_dtype)
     flat = tree.flatten_with_path(grads)
     # bare residue paths: the rows are this rank's, checked below
     plans = plan_tensors(tuple((p, tuple(g.shape[1:]), n) for p, g in flat), sc_cfg,
                          frozenset(sc_state.residues))
-    backend = resolve_backend(sc_cfg.backend, flat[0][1].device)
+    device = flat[0][1].device
+    backend = resolve_backend(sc_cfg.backend, device)
+    across = group if hierarchy is None else hierarchy.inter
+    row = dist.get_rank(group) if hierarchy is None else hierarchy.index
+    t = sc_state.t
     new_residues = dict(sc_state.residues)
     ghat_leaves = []
+    sq_err = sq_all = 0.0
     for plan, (path, g) in zip(plans, flat):
-        gw = g.to(torch.float32)
+        gw = g[0].to(torch.float32)
+        if hierarchy is not None:
+            gw = group_fold(gw, hierarchy)
         if plan.dense:
-            ghat_leaves.append(all_reduce_mean(gw[0], group).reshape(plan.shape).to(g.dtype))
+            ghat_leaves.append(all_reduce_mean(gw, across).reshape(plan.shape).to(g.dtype))
             continue
-        q = sc_state.residues[path]["q"]
-        if tuple(q.shape) != (1,) + plan.storage:
-            raise ValueError(
-                f"residue {path!r} holds {tuple(q.shape)}, want this rank's row "
-                f"{(1,) + plan.storage} (shard_train_state)")
-        ghat, m_new = clt_ring_reduce(gw.reshape(plan.work), q.reshape(plan.work), sc_state.t,
-                                      plan.comp, sc_cfg.beta, group, backend)
-        new_residues[path] = {"q": m_new.reshape((1,) + plan.storage)}
-        ghat_leaves.append(ghat.reshape(plan.shape).to(g.dtype))
+        enc = sc_state.residues[path]
+        want = codec_signature(sc_cfg.residue_dtype, 1, plan.storage)
+        (_, got), = residue_signature({path: enc})
+        if got != want:
+            raise ValueError(f"residue {path!r} holds {got}, want this rank's row {want} "
+                             f"(shard_train_state)")
+        m = codec.decode(enc, plan.storage).reshape(plan.work)
+        work = gw.reshape(plan.work)
+        ghat, m_new = ring_reduce(work, m, t, plan.comp, sc_cfg.beta, across, backend)
+        new_residues[path] = codec.encode(
+            m_new.reshape((1,) + plan.storage), plan.storage,
+            key=_row_dither(codec, path, t, plan.groups, row, plan.storage, device))
+        ghat = ghat.reshape(plan.shape)
+        if compute_stats:
+            ef_mean = all_reduce_mean(m + work, across, "stats").reshape(plan.shape)
+            sq_err = sq_err + torch.sum((ef_mean - ghat) ** 2)
+            sq_all = sq_all + torch.sum(ef_mean**2)
+        ghat_leaves.append(ghat.to(g.dtype))
     stats = {"comm_bytes_per_worker": sum(p.bytes_payload for p in plans),
              "comm_bytes_dense": sum(p.bytes_dense for p in plans)}
+    if compute_stats:
+        stats["contraction_gamma"] = sq_err / torch.clamp_min(torch.as_tensor(sq_all), 1e-30)
     return (tree.unflatten(grads, ghat_leaves),
-            ScaleComState(residues=new_residues, t=sc_state.t + 1), stats)
+            ScaleComState(residues=new_residues, t=t + 1), stats)
 
 
 def _group_mean(loss: torch.Tensor, auxs: Dict, group) -> Tuple[torch.Tensor, Dict]:
@@ -257,12 +304,17 @@ def build_train_step(
     one waits for the step to finish.
 
     ``group``: a ``torch.distributed`` process group whose ranks are the
-    ``n_workers`` ScaleCom workers, one each (``n_workers`` must equal
+    ``n_workers`` workers, one each (``n_workers`` must equal
     ``group.size()``). Each rank passes the same global batch and the state
     ``shard_train_state`` gave it, trains on its row and gets ĝ through the
     collectives of ``repro_torch.distributed.ring``; the loss and aux
     metrics are averaged over the ranks, so they equal the stacked step's.
-    A configuration outside ``GROUP_SUPPORTED`` raises ValueError.
+    With ``sc_cfg.groups=G`` the group is the world of the hierarchy: this
+    call builds (or takes from the cache) the rank's two process groups
+    (``ring.make_hierarchy``, collective: every rank builds its steps in
+    the same order), and the world must divide into G groups. The dense
+    mode stays one all-reduce over the whole group. A configuration outside
+    ``GROUP_SUPPORTED`` raises ValueError.
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
@@ -273,8 +325,9 @@ def build_train_step(
             raise ValueError(
                 f"a train step over a process group runs one worker per rank: n_workers "
                 f"({n_workers}) must equal group.size() ({group.size()})")
-        _require_group_support(sc_cfg, compute_stats, buckets)
+        _require_group_support(sc_cfg, buckets)
         rank = dist.get_rank(group)
+        hierarchy = None if sc_cfg.groups is None else make_hierarchy(group, sc_cfg.groups)
     # The JAX package trains in full fp32 (compute_dtype="float32"); TF32
     # would keep about three decimal digits in the card's matmuls.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -284,12 +337,13 @@ def build_train_step(
         device = tree.leaves(state.params)[0].device
         batch = _batch_on(batch, device)
         if group is not None:
-            _require_group_support(sc_cfg, compute_stats, buckets)  # "auto" reads env now
+            _require_group_support(sc_cfg, buckets)  # "auto" reads env now
             _check_lead(batch, n_workers)
             batch = {k: v[rank:rank + 1] for k, v in batch.items()}
         if mode == "scalecom" and group is not None:
             loss, auxs, gpw = per_worker_grads(model, state.params, batch, 1, microbatches)
-            ghat, sc_state, stats = _group_reduce(gpw, state.sc_state, sc_cfg, group)
+            ghat, sc_state, stats = _group_reduce(gpw, state.sc_state, sc_cfg, group, hierarchy,
+                                                  compute_stats)
             del gpw
         elif mode == "scalecom":
             loss, auxs, gpw = per_worker_grads(model, state.params, batch, n_workers,
@@ -334,20 +388,28 @@ def init_train_state(model, optimizer: Optimizer, sc_cfg: ScaleComConfig,
     return TrainState(params, optimizer.init(params), sc_state, 0)
 
 
-def shard_train_state(state: TrainState, rank: int, world: int) -> TrainState:
+def shard_train_state(state: TrainState, rank: int, world: int,
+                      groups: Optional[int] = None) -> TrainState:
     """Rank ``rank``'s share of a worker-stacked TrainState over ``world``
-    ranks: its own row of every residue, and copies of the replicated params
-    and optimizer state (so a step on the share leaves ``state`` as it was).
-    The step counter and ScaleCom ``t`` carry over."""
+    ranks: its own row of every field of every residue encoding (with
+    ``groups=G``, the row of its group, ``rank // (world // G)``, of G
+    rows), and copies of the replicated params and optimizer state (so a
+    step on the share leaves ``state`` as it was). The step counter and
+    ScaleCom ``t`` carry over."""
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} is not in [0, {world})")
+    if groups is not None and (groups < 1 or world % groups):
+        raise ValueError(f"{world} workers not divisible into {groups} groups: a world of "
+                         f"{world} ranks needs world % groups == 0 (G={groups})")
+    rows = world if groups is None else groups
+    row = rank if groups is None else rank // (world // groups)
     residues = {}
     for path, enc in state.sc_state.residues.items():
-        if set(enc) != {"q"} or enc["q"].shape[0] != world:
+        if any(v.shape[0] != rows for v in enc.values()):
             raise ValueError(
-                f"residue {path!r} must be fp32 rows of {world} workers, got "
+                f"residue {path!r} must hold rows of {rows} workers in every field, got "
                 f"{ {k: tuple(v.shape) for k, v in enc.items()} }")
-        residues[path] = {"q": enc["q"][rank:rank + 1].clone()}
+        residues[path] = {k: v[row:row + 1].clone() for k, v in enc.items()}
     copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
     return TrainState(tree.tree_map(copy, state.params), tree.tree_map(copy, state.opt_state),
                       ScaleComState(residues=residues, t=state.sc_state.t), state.step)

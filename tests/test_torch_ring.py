@@ -25,8 +25,8 @@ started beside them.
 - The payload bytes the ranks count equal the plan's, and at the main
   path's chunk 64 the compressed step sends under a tenth of the dense one
   (the port's form of ``test_no_dense_gradient_allreduce_in_hlo``).
-- Every configuration the group step does not run raises a ValueError
-  naming what it runs.
+- Every configuration the group step does not run (the exact path, the
+  fused reduce, buckets, telemetry) raises a ValueError naming what it runs.
 """
 
 import multiprocessing
@@ -70,22 +70,16 @@ STEP_TOL = dict(rtol=1e-4, atol=1e-5)
 LOCAL_B, SEQ, CHUNK, MIN_SIZE, LR = 2, 32, 16, 512, 0.05
 TIMEOUT_S = 240
 
-# (label, ScaleComConfig fields, build_train_step keywords, environment)
+# (label, ScaleComConfig fields, build_train_step keywords, environment):
+# what the group step still refuses (``tests/test_torch_ring_configs.py``
+# runs the compressors, codecs, groups and compute_stats it gained)
 REFUSALS = [
-    ("true_topk", {"compressor": CompressorConfig("true_topk", chunk=CHUNK)}, {}, {}),
-    ("local_topk", {"compressor": CompressorConfig("local_topk", chunk=CHUNK)}, {}, {}),
-    ("random_k", {"compressor": CompressorConfig("random_k", chunk=CHUNK)}, {}, {}),
     ("exact", {"compressor": CompressorConfig("clt_k", chunk=CHUNK, exact=True)}, {}, {}),
-    ("bf16", {"residue_dtype": "bf16"}, {}, {}),
-    ("fp8", {"residue_dtype": "fp8"}, {}, {}),
-    ("fp8_ec", {"residue_dtype": "fp8_ec"}, {}, {}),
     ("fused", {"fused": True}, {}, {}),
     ("fused_env", {}, {}, {"SCALECOM_TORCH_FUSED": "1"}),
     ("buckets", {}, {"buckets": True}, {}),
     ("buckets_env", {}, {}, {"SCALECOM_TORCH_BUCKET_MB": "4"}),
-    ("compute_stats", {}, {"compute_stats": True}, {}),
     ("telemetry", {"telemetry": True}, {}, {}),
-    ("groups", {"groups": 2}, {}, {}),
     ("n_workers", {}, {"n_workers": 3}, {}),
 ]
 
@@ -314,7 +308,8 @@ def test_counted_bytes_equal_the_plan(world, mode):
     _, per_worker, dense = world["ranks"][0]["bytes"]["scalecom"]
     mean = sum(sum(c.values()) for c in counted) / N
     if mode == "dense":
-        assert all(c == {"values": 0, "indices": 0, "dense": dense} for c in counted)
+        assert all(c == {"values": 0, "indices": 0, "dense": dense, "oracle": 0, "intra": 0,
+                         "stats": 0} for c in counted)
     else:
         assert mean == per_worker
         # only the leader (t = 7: rank 3) sends offsets
@@ -367,5 +362,5 @@ def test_shard_train_state_keeps_one_row_and_copies_the_rest(world):
     assert not torch.equal(p0, next(iter(state.params.values())))
     with pytest.raises(ValueError, match=r"rank 4 is not in \[0, 4\)"):
         shard_train_state(state, 4, N)
-    with pytest.raises(ValueError, match="fp32 rows of 3 workers"):
+    with pytest.raises(ValueError, match="rows of 3 workers in every field"):
         shard_train_state(state, 0, 3)
