@@ -36,7 +36,13 @@ Phases, each fatal on failure:
      4/8/17/64/128, top-m 1/2/8/9, m or g misaligned, both modes; NaN
      payloads, -0 and +-inf throughout; and one tensor past 2^31 elements
      through every variant of the selects, the scatter and the fused reduce
-     and the gather;
+     and the gather. The fused reduce's one-row variant
+     (``fused_select_update``, a process group leader's select and Eq. 5
+     update) bitwise against its plain twin at the tok_embed one-row shapes
+     (m + g and keyed selects, top-1 and 2), timed beside its bound and the
+     unfused chunk_argmax + ef_update, at every block size the autotuner
+     tries, and at small odd rows x chunk 4/8/64/128 x top-m 1/2/8 full of
+     ties and NaNs (``select_update_checks``);
   2b. ``[harness]``, the fault harness on the card: the launch preflight
      (``launch.train.preflight``: 8 workers, clt_k, chunk 64, fp32, all five
      scenarios) and its wall time; the harness CLI's sweeps
@@ -208,9 +214,21 @@ Phases, each fatal on failure:
      ``GAMMA_RTOL``, the payload the plan's with the oracle, intra-group and
      stats bytes beside it; per run step ms, collectives' host ms by kind,
      the reduce's kernels' device ms on rank 0, the dither draw's device ms
-     and bytes (bf16, fp8_ec) and peak memory by rank. A rank that fails,
-     or a phase past ``RING_PHASE_S``, fails the script. These launches
-     stand under ``ring_launches`` in the JSON line.
+     and bytes (bf16, fp8_ec) and peak memory by rank. Then, held the same
+     way, ``[ring:buckets]`` (25 MB and 4 MB buckets with overlap, 25 MB
+     without: packed async collectives, the stacked reduce bucketed alike),
+     ``[ring:telemetry]`` (metrics_every 1 with ``compute_stats``: the taps'
+     keys the stacked reduce's, their values the same on every rank by
+     digest and within rtol 1e-5 of the stacked reduce's, the rank-based
+     ones counted where they move), ``[ring:fused]`` (clt_k and true_topk:
+     the leader's ``fused_select_update`` launches, on the key route for
+     true_topk) and ``[ring:exact]`` (clt_k: no kernel; offsets held by ĝ's
+     support), each step printing its gloo calls and their host ms by kind
+     (an async call: its issue and its ``wait()``). A rank that fails, or a
+     phase past ``RING_PHASE_S``, fails the script. These launches stand
+     under ``ring_launches`` in the JSON line; ``fused_select_update``'s,
+     whose path is the ring's alone, are its ``launches``. A ``[time]`` line
+     gives each phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -244,7 +262,11 @@ KERNELS = {  # name: (source of the kernel timed, the Pallas body it replaces)
     "chunk_scatter": ("scalecom_kernels.cu", "src/repro/kernels/chunk_topk.py:101"),
     "ef_update": ("scalecom_kernels.cu", "src/repro/kernels/ef_update.py:44"),
     "fused_reduce": ("fused_reduce_vec4.cuh", "src/repro/kernels/fused_reduce.py:63"),
+    # the fused reduce's one-row variant: a process group's leader, no ĝ
+    "fused_select_update": ("fused_select_update.cuh", "src/repro/kernels/fused_reduce.py:63"),
 }
+# the kernels whose path is the ring's alone (a process group's leader)
+RING_ONLY = ("fused_select_update",)
 # the kernels with two variants, and the one each runs on the main path
 VARIANTS = {"chunk_argmax": "vec4", "chunk_topm": "vec4", "chunk_scatter": "vec4",
             "fused_reduce": "vec4"}
@@ -446,7 +468,8 @@ def kernel_phase(card_line: str):
         name = key.split("[")[0]
         out_k, out_p = kern(), plain()
         torch.cuda.synchronize()
-        same = bitwise if name in ("chunk_gather", "chunk_scatter", "fused_reduce") else equal
+        same = (bitwise if name in ("chunk_gather", "chunk_scatter", "fused_reduce",
+                                    "fused_select_update") else equal)
         check(same(out_k, out_p), f"{key}: kernel and plain version differ")
         err = max_abs_err(out_k, out_p)
         ms = device_ms(kern, (counter(name, VARIANTS.get(name)), 1), what=f"{key} kernel")
@@ -701,6 +724,7 @@ def kernel_phase(card_line: str):
     select_boundaries(gen)
     scatter_gather_boundaries(gen)
     fused_boundaries(gen)
+    select_update_checks(gen, record, results, card_line)
     past_int32(gen)
     fused_past_int32(gen)
     return results
@@ -882,6 +906,97 @@ def fused_boundaries(gen) -> None:
           f"chunk 4/8/17/64/128; top-m 1, 2, {limit} and {limit + 1}; m or g misaligned; clt_k "
           f"with the first and last leader, true_topk; ties, -0, inf, NaN payloads): each ran the "
           f"variant fused_variant picks, and the scalar kernel beside vec4: bitwise equal to plain")
+
+
+SELECT_UPDATE_ODD_ROWS = (1, 3, 33, 255, 1031)  # small odd row counts, every block size
+SELECT_UPDATE_CHUNKS = (4, 8, 64, 128)  # lanes per row 1, 2, 4 and 8; 2 batches at 128
+
+
+def select_update_checks(gen, record, results: dict, card_line: str) -> None:
+    """``fused_select_update`` (the fused reduce's one-row variant, a process
+    group leader's select and Eq. 5 update) against its plain twin, bitwise:
+    at the tok_embed one-row shapes (296,000 rows of 64) for the m + g
+    select and the keyed one (true_topk's), top-1 and top-2, timed beside
+    its byte bound and beside the unfused kernels it replaces
+    (``chunk_argmax`` on m + g, then ``ef_update``); at every block size the
+    autotuner tries for the fused reduce (``CANDIDATE_THREADS``), at the
+    tok_embed shapes and at small odd row counts; at chunk 4, 8, 64 and 128
+    (128: a lane's share of a row is two batches, re-read in the update),
+    top-m 1, 2 and 8, on rows full of ties, -0, +-inf and NaN payloads."""
+    import torch
+
+    from repro_torch.kernels import build, chunk_topk as ct, ef_update as efk
+    from repro_torch.kernels import fused_reduce as frk
+
+    m1 = torch.randn(R, CHUNK, device="cuda", generator=gen)
+    g1 = torch.randn(R, CHUNK, device="cuda", generator=gen)
+    ties = torch.randint(-3, 4, g1[::997].shape, device="cuda", generator=gen).float()
+    g1[::997] = ties - m1[::997]  # m + g near small integers: ties in the select
+    key = torch.randn(R, CHUNK, device="cuda", generator=gen)
+    for route, k in (("", None), ("key", key)):
+        for topm in (1, 2):
+            label = "fused_select_update" + (f"[{', '.join(filter(None, (route, f'top-{topm}')))}]"
+                                             if (route, topm) != ("", 1) else "")
+            nbytes = (3 + (k is not None)) * R * CHUNK * 4 + R * topm * 8
+            record(label, lambda k=k, topm=topm: frk.fused_select_update(m1, g1, BETA, CHUNK,
+                                                                           topm, k),
+                   lambda k=k, topm=topm: frk.fused_select_update_plain(m1, g1, BETA, CHUNK,
+                                                                          topm, k),
+                   None, "no single call", nbytes, 7 * R * CHUNK)
+            results[label]["variant"] = "vec4"
+    # the unfused kernels it replaces on the leader, from the same inputs
+    ef = m1 + g1
+    idx = ct.chunk_argmax(ef)[0]
+    sel_ms = device_ms(lambda: ct.chunk_argmax(ef), (counter("chunk_argmax"), 1),
+                       what="[kernel] select on one row")
+    upd_ms = device_ms(lambda: efk.ef_update(m1, g1, idx, BETA), (counter("ef_update"), 1),
+                       what="[kernel] ef_update on one row")
+    r = results["fused_select_update"]
+    r["unfused_ms"] = {"chunk_argmax": sel_ms, "ef_update": upd_ms}
+    unfused_bound = bound(R * CHUNK * 4 + R * 8 + 3 * R * CHUNK * 4 + R * 8, 0)[0]
+    print(f"[kernel] fused_select_update at the tok_embed one-row shapes: {r['ms']:.4f} device ms "
+          f"({r['bound_ms'] / r['ms']:.0%} of its bound {r['bound_ms']:.4f}) against the "
+          f"unfused chunk_argmax {sel_ms:.4f} + ef_update {upd_ms:.4f} = {sel_ms + upd_ms:.4f} "
+          f"(their bound {unfused_bound:.4f}, and m + g before them) on {card_line}")
+    # every block size at top-1, both routes, against the plain twin
+    n = 0
+    for threads in build.CANDIDATE_THREADS:
+        for k in (None, key):
+            want = frk.fused_select_update_plain(m1, g1, BETA, CHUNK, 1, k)
+            before = frk.fused_select_update.threads[threads]
+            check(bitwise(frk.fused_select_update(m1, g1, BETA, CHUNK, 1, k, threads=threads),
+                          want) and frk.fused_select_update.threads[threads] == before + 1,
+                  f"fused_select_update at {threads} threads differs from plain or ran at "
+                  f"another size")
+            n += 1
+        r[f"threads_{threads}_ms"] = device_ms(
+            lambda threads=threads: frk.fused_select_update(m1, g1, BETA, CHUNK, 1,
+                                                            threads=threads),
+            (counter("fused_select_update"), 1), what=f"fused_select_update {threads}")
+    del m1, g1, key, ef, idx
+    for rows in SELECT_UPDATE_ODD_ROWS:
+        for chunk in SELECT_UPDATE_CHUNKS:
+            mg = tied_nan(3 * rows, chunk, gen).view(3, rows, chunk)
+            for topm in sorted({1, 2, min(ct.VEC4_MAX_TOPM, chunk)}):
+                for k in (None, mg[2]):
+                    want = frk.fused_select_update_plain(mg[0], mg[1], BETA, chunk, topm, k)
+                    sizes = build.CANDIDATE_THREADS if topm == 1 else (None,)
+                    for threads in sizes:
+                        got = frk.fused_select_update(mg[0], mg[1], BETA, chunk, topm, k,
+                                                      threads=threads)
+                        check(bitwise(got, want),
+                              f"fused_select_update ({rows}, {chunk}) top-{topm} "
+                              f"{'key' if k is not None else 'm + g'} at {threads} threads "
+                              f"differs from plain")
+                        n += 1
+            del mg
+    torch.cuda.synchronize()
+    print(f"[kernel] fused_select_update: {n} cases bitwise equal to plain: both routes at "
+          f"every block size {build.CANDIDATE_THREADS} at the tok_embed one-row shapes (device "
+          f"ms " + ", ".join(f"{t}: {r[f'threads_{t}_ms']:.4f}" for t in build.CANDIDATE_THREADS)
+          + f"), and rows {SELECT_UPDATE_ODD_ROWS} x chunk {SELECT_UPDATE_CHUNKS} x top-m "
+          f"1/2/8 full of ties, -0, inf and NaN payloads, top-1 at every block size, on "
+          f"{card_line}")
 
 
 def fused_past_int32(gen) -> None:
@@ -1838,6 +1953,8 @@ def print_ptxas(log: str) -> None:
     modes = {("0", "0"): "clt_k", ("1", "1"): "true_topk staged", ("1", "0"): "true_topk L2 re-read"}
     labels = ["chunk_select_vec4_kernel", "chunk_scatter_vec4_kernel"]
     labels += [f"fused_reduce_vec4_kernel {m}" for m in modes.values()]
+    keys = {"0": "m + g", "1": "key"}
+    labels += [f"select_update_kernel ({k})" for k in keys.values()]
     groups = {}  # (label, threads) -> [(registers, spills)]
     for n, regs, spills in entries:
         found = re.search(r"kernelI((?:L[ib]\d+E)+)E", n)  # template arguments, mangled
@@ -1848,6 +1965,9 @@ def print_ptxas(log: str) -> None:
         elif "fused_reduce_vec4_kernel" in n:
             label = f"fused_reduce_vec4_kernel {modes[args[2], args[3]]}"
             threads = int(args[4]) if len(args) == 5 else default
+        elif "select_update_kernel" in n:  # fused_select_update: (L, M, kKey, kThreads)
+            label = f"select_update_kernel ({keys[args[2]]})"
+            threads = int(args[3])
         else:
             short = next((k for k in KERNELS if f"{k}_kernel" in n), n)
             threads = int(args[0]) * 32 if short == "ef_update" and args else default
@@ -2390,7 +2510,7 @@ def harness_phase(card_line: str) -> tuple:
                   f"{dist:.3g} ({share:.2g} of a run's tolerance)")
     swept = kernels.launches()
     got = {k: n + timed[k] for k, n in swept.items()}
-    missing = [k for k, n in got.items() if n == 0 and k != "chunk_gather"]
+    missing = [k for k, n in got.items() if n == 0 and k not in ("chunk_gather",) + RING_ONLY]
     check(not missing, f"harness: {missing} never launched")
     harness_routes = {k: sum(r[k] for r in routes.values()) for k in frk.ROUTES}
     check(frk.fused_reduce.variants["scalar"] == 0
@@ -3184,8 +3304,11 @@ GAMMA_RTOL = 1e-5  # contraction gamma over the ranks against the stacked reduce
 class RingRun:
     """One training run of ``[ring]`` over ``RING_WORLD`` ranks: the main
     path's model and batch, ``warmup`` dense steps and then compressed ones
-    up to ``steps``, with this compressor, residue codec, ``groups`` (G
-    groups of ``RING_WORLD / G`` ranks) and ``compute_stats``."""
+    up to ``steps``, with this compressor (``exact``: its dense top-k
+    path), residue codec, ``groups`` (G groups of ``RING_WORLD / G``
+    ranks), ``compute_stats``, bucket byte target (None: unbucketed) and
+    side-stream ``overlap``, ``fused`` reduce and ``telemetry`` (the taps,
+    the similarity ones every ``metrics_every`` steps)."""
 
     label: str
     compressor: str = "clt_k"
@@ -3194,16 +3317,27 @@ class RingRun:
     stats: bool = False
     warmup: int = 1
     steps: int = 3
+    buckets: int | None = None
+    overlap: bool = True
+    fused: bool = False
+    exact: bool = False
+    telemetry: bool = False
+    metrics_every: int = 0
 
     @property
     def name(self) -> str:
-        return (f"{self.compressor}, {self.codec} residues"
+        return (f"{self.compressor}{' exact' if self.exact else ''}, {self.codec} residues"
                 + (f", groups={self.groups}" if self.groups else "")
+                + (f", {self.buckets >> 20} MB buckets, overlap "
+                   f"{'on' if self.overlap else 'off'}" if self.buckets else "")
+                + (", fused" if self.fused else "")
+                + (f", telemetry (metrics_every {self.metrics_every})" if self.telemetry else "")
                 + (", compute_stats" if self.stats else ""))
 
 
 # (b), the main path's settings, and the runs of the other configurations the
-# group step runs (the reference's pod2 setting last: fp8, 2 groups of 4)
+# group step runs (the reference's pod2 setting: fp8, 2 groups of 4; its CI's
+# 8 MB buckets and fused legs, here at the port's 25 MB default and 4 MB)
 RING_TRAIN = RingRun("train", warmup=2, steps=5)
 RING_RUNS = (
     RingRun("compressors", "true_topk"),
@@ -3213,9 +3347,16 @@ RING_RUNS = (
     RingRun("codecs", codec="fp8"),
     RingRun("codecs", codec="fp8_ec"),
     RingRun("pod2", codec="fp8", groups=2, stats=True),
+    RingRun("buckets", buckets=25 << 20),
+    RingRun("buckets", buckets=4 << 20),
+    RingRun("buckets", buckets=25 << 20, overlap=False),
+    RingRun("telemetry", telemetry=True, metrics_every=1, stats=True),
+    RingRun("fused", fused=True),
+    RingRun("fused", "true_topk", fused=True),
+    RingRun("exact", exact=True),
 )
 # the byte counts a rank sends along in ``exchange``, after its digests
-SENT_KEYS = ("payload", "oracle", "intra", "stats")
+SENT_KEYS = ("payload", "oracle", "intra", "stats", "telemetry")
 _BITS = {4: "int32", 2: "int16", 1: "uint8"}
 
 
@@ -3248,13 +3389,18 @@ def exchange(row: list, rank: int, world: int) -> list:
 
 class CollectiveClock:
     """Host ms of every ``torch.distributed`` broadcast, all_reduce and
-    all_gather this process makes inside ``with clock:``, each between two
-    device syncs (the collectives block the host anyway), by kind:
-    "offsets" (a broadcast), else the ``ring.sent`` key the ring counted
-    for it just before ("values", "dense", "indices", "oracle", "intra",
-    "stats"), else "metrics" (the loss and aux all_reduce)."""
+    all_gather this process makes inside ``with clock:``, and the number of
+    calls, by kind: "offsets" (a broadcast of int32; the taps' float32
+    broadcast is "telemetry"), else the ``ring.sent`` key the ring counted
+    for it just before ("values", "dense", "indices",
+    "oracle", "intra", "stats", "telemetry"), else "metrics" (the loss and
+    aux all_reduce). A blocking call is timed between two device syncs (it
+    blocks the host anyway); an async one (a bucketed step's) by the host
+    time of its issue and of its ``wait()``, with no sync, so that the
+    overlap it buys stays in the step."""
 
-    KINDS = ("offsets", "values", "dense", "indices", "oracle", "intra", "stats", "metrics")
+    KINDS = ("offsets", "values", "dense", "indices", "oracle", "intra", "stats", "telemetry",
+             "metrics")
 
     def __init__(self):
         self.ms = dict.fromkeys(self.KINDS, 0.0)
@@ -3270,14 +3416,34 @@ class CollectiveClock:
     def _timed(self, fn, default=None):
         import torch
 
+        clock = self
+        broadcast = default == "offsets"
+
+        class Waited:
+            def __init__(self, work, kind):
+                self.work, self.kind = work, kind
+
+            def wait(self):
+                t0 = time.perf_counter()
+                out = self.work.wait()
+                clock.ms[self.kind] += (time.perf_counter() - t0) * 1e3
+                return out
+
         def call(*args, **kwargs):
             kind = self._kind(default)
+            if broadcast and args[0].dtype != torch.int32:
+                kind = "telemetry"  # rank 0's similarity taps, float32
+            self.calls[kind] += 1
+            if kwargs.get("async_op"):
+                t0 = time.perf_counter()
+                work = fn(*args, **kwargs)
+                self.ms[kind] += (time.perf_counter() - t0) * 1e3
+                return Waited(work, kind)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
             torch.cuda.synchronize()
             self.ms[kind] += (time.perf_counter() - t0) * 1e3
-            self.calls[kind] += 1
             return out
 
         return call
@@ -3303,26 +3469,35 @@ class CollectiveClock:
 
 class OffsetSpy:
     """Inside ``with spy:``, a clone of the offsets of every ``ef_update``
-    of the CUDA backend in this process, in call order (the ring's: this
-    rank's offsets; the stacked reduce's: shared, or one row per worker)."""
+    and ``fused_select_update`` of the CUDA backend in this process, in call
+    order (the ring's: this rank's offsets; the stacked reduce's: shared, or
+    one row per worker)."""
 
     def __enter__(self):
         from repro_torch.backends.cuda_backend import CudaBackend
 
-        self.offsets, self._real = [], CudaBackend.ef_update
-        real, offsets = self._real, self.offsets
+        self.offsets = []
+        self._real = CudaBackend.ef_update, CudaBackend.fused_select_update
+        real_update, real_fused = self._real
+        offsets = self.offsets
 
         def ef_update(backend, m, g, idx, *args, **kwargs):
             offsets.append(idx.clone())
-            return real(backend, m, g, idx, *args, **kwargs)
+            return real_update(backend, m, g, idx, *args, **kwargs)
+
+        def fused_select_update(backend, *args, **kwargs):
+            out = real_fused(backend, *args, **kwargs)
+            offsets.append(out[0].clone())
+            return out
 
         CudaBackend.ef_update = ef_update
+        CudaBackend.fused_select_update = fused_select_update
         return self
 
     def __exit__(self, *exc):
         from repro_torch.backends.cuda_backend import CudaBackend
 
-        CudaBackend.ef_update = self._real
+        CudaBackend.ef_update, CudaBackend.fused_select_update = self._real
         return False
 
 
@@ -3481,7 +3656,7 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
     from repro_torch.core.scalecom import ScaleComConfig
     from repro_torch.data import make_batches
     from repro_torch.distributed import ring
-    from repro_torch.kernels import chunk_topk as ct
+    from repro_torch.kernels import chunk_topk as ct, fused_reduce as frk
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer, schedule
     from repro_torch.optim.optimizer import Optimizer
@@ -3491,9 +3666,11 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
     group = dist.group.WORLD
     cfg = registry.arch("paper-transformer-base")
     model = build_model(cfg, loss_chunk=64)
-    sc_cfg = ScaleComConfig(compressor=CompressorConfig(run.compressor, chunk=CHUNK), beta=BETA,
-                            min_size=1024, residue_dtype=run.codec, groups=run.groups,
-                            warmup_steps=run.warmup, fused=False)
+    sc_cfg = ScaleComConfig(compressor=CompressorConfig(run.compressor, chunk=CHUNK,
+                                                        exact=run.exact),
+                            beta=BETA, min_size=1024, residue_dtype=run.codec, groups=run.groups,
+                            warmup_steps=run.warmup, fused=run.fused, overlap=run.overlap,
+                            telemetry=run.telemetry, metrics_every=run.metrics_every)
     base_opt = make_optimizer("sgdm")
     sched = schedule.linear_warmup(schedule.constant(0.05), run.warmup)
     ghats = []  # the ĝ each update receives (rank 0 holds it against the stacked step)
@@ -3510,7 +3687,8 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
     ref_residues = full.sc_state.residues if rank == 0 else None
     del full
     fns = {mode: build_train_step(model, opt, sched, sc_cfg, n_workers=world, mode=mode,
-                                  group=group, compute_stats=run.stats)
+                                  group=group, compute_stats=run.stats,
+                                  buckets=run.buckets or False)
            for mode in ("dense", "scalecom")}
     # the gradient pass inside the step, timed between device syncs; its
     # result kept for the digests
@@ -3532,6 +3710,7 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
     batches = make_batches(cfg.vocab, world, 4, 128, seed=0)
     launches = dict.fromkeys(kernels.launches(), 0)
     variants = {"chunk_argmax": 0, "chunk_scatter": 0}
+    routes0 = dict(frk.fused_select_update.routes)
     steps, checks = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3576,6 +3755,13 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
                   for d in digest(state.sc_state.residues[p][f][0])]
                + [d for x in tree.leaves(own_grads[0]) for d in digest(x)] + sent)
         table = exchange(row, rank, world)
+        taps = sorted(k for k in metrics if k.startswith("obs/"))
+        if taps:  # every rank's tap values, bit for bit
+            tap_rows = exchange(digest(torch.stack([torch.as_tensor(metrics[k], device="cuda")
+                                                    .float().reshape(()) for k in taps])),
+                                rank, world)
+            check(all(x == tap_rows[0] for x in tap_rows),
+                  f"[ring:{run.label}] {run.name}: step {i}: the ranks' tap values differ")
         if rank == 0:
             checks.append(ring_stacked_hold(i, mode, run, model, base_opt, sched, sc_cfg, before,
                                             batch_np, state, metrics, ghats[0], ref_residues,
@@ -3585,6 +3771,7 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
         del before, spy
     ts.per_worker_grads, ts.dense_grads = plain_grads
     peak = torch.cuda.max_memory_allocated()
+    routes = {k: v - routes0[k] for k, v in frk.fused_select_update.routes.items()}
     # the reduce's kernels of one compressed step at this rank's shapes, on
     # rank 0 alone while the others wait
     kernel_ms = dither = None
@@ -3594,7 +3781,8 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
     dist.barrier()
     return {"steps": steps, "launches": launches, "variants": variants, "peak": peak,
             "checks": checks, "kernel_ms": kernel_ms, "dither": dither,
-            "n_compressed": len(paths), "leaders": ring_leaders(run, world)}
+            "n_compressed": len(paths), "leaders": ring_leaders(run, world),
+            "select_update_routes": routes}
 
 
 @contextlib.contextmanager
@@ -3681,23 +3869,36 @@ def ring_stacked_hold(i: int, mode: str, run: RingRun, model, opt, sched, sc_cfg
         leaves.append(tree.leaves(g))
         losses.append(loss)
         del g
-    near, gamma_err = [], None
+    near, gamma_err, taps = [], None, None
     if mode == "scalecom":
         gpw = tree.unflatten(params0, [torch.cat(xs) for xs in zip(*leaves)])
         del leaves
         held = (offsets_held(list(ring_offsets), near, world)
-                if run.compressor == "true_topk" else contextlib.nullcontext())
+                if run.compressor == "true_topk" and not run.exact else contextlib.nullcontext())
+        # unfused (its ef_update runs at the offsets, as on a non-leader rank;
+        # the fused stacked reduce's are bitwise the same), with the run's
+        # buckets, so that the stacked reduce visits the tensors in the ring's order
         with held, OffsetSpy() as spy:
-            ghat_ref, ref_state, stats = scalecom_reduce(gpw, ScaleComState(ref_residues, t),
-                                                         sc_cfg, compute_stats=run.stats)
+            ghat_ref, ref_state, stats = scalecom_reduce(
+                gpw, ScaleComState(ref_residues, t), dataclasses.replace(sc_cfg, fused=False),
+                compute_stats=run.stats, buckets=run.buckets or False)
         del gpw
-        check(len(spy.offsets) == len(ring_offsets) == len(paths),
-              f"{tag}: {len(ring_offsets)} ring and {len(spy.offsets)} stacked ef_updates, "
-              f"want {len(paths)}")
+        if run.exact:
+            # the exact path runs no ef_update: its offsets are ĝ's support
+            sup = [bitwise(a != 0, b != 0) for a, b in zip(tree.leaves(ghat),
+                                                            tree.leaves(ghat_ref))]
+            check(all(sup), f"{tag}: rank 0's ghat support (the exact offsets) differs from "
+                            f"the stacked exact path's in {sup.count(False)} tensors")
+        else:
+            check(len(spy.offsets) == len(ring_offsets) == len(paths),
+                  f"{tag}: {len(ring_offsets)} ring and {len(spy.offsets)} stacked ef_updates, "
+                  f"want {len(paths)}")
         for j, (mine, theirs) in enumerate(zip(ring_offsets, spy.offsets)):
             want = theirs[0] if run.compressor == "local_topk" else theirs
             check(bitwise(mine, want), f"{tag}: rank 0's offsets of compressed tensor {j} "
                                        f"differ from the stacked reduce's")
+        if run.telemetry:
+            taps = taps_held(metrics, stats, tag)
         residues = ref_state.residues
         planned = stats["comm_bytes_per_worker"]
         check(metrics["comm_bytes_per_worker"] == planned,
@@ -3742,7 +3943,40 @@ def ring_stacked_hold(i: int, mode: str, run: RingRun, model, opt, sched, sc_cfg
             "sent": [x[0] for x in sent],
             "extra": {k: sum(x[j] for x in sent) / world
                       for j, k in enumerate(SENT_KEYS) if j},
-            "near_ties": near, "gamma_err": gamma_err, "residues": residues}
+            "near_ties": near, "gamma_err": gamma_err, "taps": taps, "residues": residues}
+
+
+# the similarity taps that rank offsets: where the worker mean's rounding moves
+# a near tie, they move
+RANK_TAPS = ("hamming_d_over_k", "topk_energy_overlap", "spearman_rho")
+TAP_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def taps_held(metrics: dict, stats: dict, tag: str) -> dict:
+    """The group step's taps (rank 0's ``metrics``) against the stacked
+    reduce's (``stats``) from the same state: the same ``obs/`` keys, every
+    value within ``TAP_TOL`` but the rank-based similarity taps, which are
+    counted where they move beyond it (and fail beyond 0.01)."""
+    import torch
+
+    got = {k: float(v) for k, v in metrics.items() if k.startswith("obs/")}
+    want = {k: float(v) for k, v in stats.items() if k.startswith("obs/")}
+    check(sorted(got) == sorted(want), f"{tag}: tap keys {sorted(set(got) ^ set(want))} differ "
+                                       f"from the stacked reduce's")
+    moved = ranked = 0
+    worst = 0.0
+    for key in got:
+        a, b = torch.tensor(got[key]), torch.tensor(want[key])
+        if any(f"obs/{name}{{" in key for name in RANK_TAPS):
+            ranked += 1
+            moved += not bool(torch.isclose(a, b, **TAP_TOL))
+            check(abs(got[key] - want[key]) <= 0.01, f"{tag}: tap {key} {got[key]} against the "
+                                                     f"stacked {want[key]}")
+        else:
+            check(bool(torch.isclose(a, b, **TAP_TOL)), f"{tag}: tap {key} {got[key]} against "
+                                                        f"the stacked {want[key]}")
+            worst = max(worst, abs(got[key] - want[key]) / max(abs(want[key]), 1e-30))
+    return {"keys": len(got), "moved": moved, "ranked": ranked, "worst_rel": worst}
 
 
 def ring_kernel_times(residues: dict, grads, run: RingRun, world: int) -> dict:
@@ -3751,12 +3985,16 @@ def ring_kernel_times(residues: dict, grads, run: RingRun, world: int) -> dict:
     ``grads``): the select (the leader's, or every rank's for local_topk;
     none for random_k), and every rank's ef_update and scatter (local_topk
     scatters the ``world`` gathered rows), each summed over the tensors,
-    beside their byte bounds."""
+    beside their byte bounds; with ``fused`` the leader's
+    ``fused_select_update`` beside them. None for the exact path, which
+    runs no kernel."""
     from repro_torch import tree
     from repro_torch.backends import resolve_backend
     from repro_torch.core.chunked import num_chunks
     from repro_torch.core.state import require_codec
 
+    if run.exact:
+        return None
     be = resolve_backend("cuda")
     codec = require_codec(run.codec)
     by_path = dict(tree.flatten_with_path(grads))
@@ -3784,8 +4022,13 @@ def ring_kernel_times(residues: dict, grads, run: RingRun, world: int) -> dict:
     ms["scatter"] = device_ms(lambda: [be.scatter(vals, idx, CHUNK, m.numel())
                                        for m, _, _, idx, vals in items],
                               (counter("chunk_scatter"), n), what="[ring] scatter x17")
+    if run.fused:
+        ms["fused_select_update"] = device_ms(
+            lambda: [be.fused_select_update(m, g, BETA, CHUNK) for m, g, *_ in items],
+            (counter("fused_select_update"), n), what="[ring] fused_select_update x17")
     nbytes = {"select": 4 * size + 8 * rows, "ef_update": 12 * size + 8 * rows,
-              "scatter": lanes * (4 * rows * CHUNK + 8 * rows)}
+              "scatter": lanes * (4 * rows * CHUNK + 8 * rows),
+              "fused_select_update": 12 * size + 8 * rows}
     return {"ms": ms, "bound": {k: bound(nbytes[k], 0)[0] for k in ms},
             "tensors": n, "elements": size}
 
@@ -3848,14 +4091,25 @@ def ring_rank(rank: int, world: int, store: str, conn) -> None:
 def ring_launches_held(run: RingRun, tr: list) -> dict:
     """Each rank's launches of ``run`` against its part: the select where it
     selects (``ring_leaders``), ef_update and chunk_scatter on every rank,
-    once per compressed tensor and step, every select and scatter vec4.
-    Returns the launches summed over the ranks."""
+    once per compressed tensor and step, every select and scatter vec4;
+    fused, the leader's select and ef_update one ``fused_select_update``
+    (true_topk's on the key route); the exact path no kernel. Returns the
+    launches summed over the ranks."""
     n_c, leaders = tr[0]["n_compressed"], tr[0]["leaders"]
     total = dict.fromkeys(KERNELS, 0)
     for r, x in enumerate(tr):
         want = dict.fromkeys(x["launches"], 0)
-        want.update(chunk_argmax=n_c * sum(r in ranks for ranks in leaders),
-                    ef_update=n_c * len(leaders), chunk_scatter=n_c * len(leaders))
+        selects = n_c * sum(r in ranks for ranks in leaders)
+        if run.fused:
+            want.update(fused_select_update=selects, ef_update=n_c * len(leaders) - selects,
+                        chunk_scatter=n_c * len(leaders))
+            route = "key" if run.compressor == "true_topk" else "sum"
+            check(x["select_update_routes"] == {"sum": 0, "key": 0, route: selects},
+                  f"[ring:{run.label}] {run.name}: rank {r}: fused_select_update routes "
+                  f"{x['select_update_routes']}, want {route} on all {selects}")
+        elif not run.exact:
+            want.update(chunk_argmax=selects, ef_update=n_c * len(leaders),
+                        chunk_scatter=n_c * len(leaders))
         check(x["launches"] == want, f"[ring:{run.label}] {run.name}: rank {r}: launches "
                                      f"{x['launches']}, want {want}")
         check(x["variants"] == {"chunk_argmax": want["chunk_argmax"],
@@ -3880,18 +4134,28 @@ def ring_run_report(run: RingRun, tr: list, seconds: float, card_line: str) -> d
         step = [x["step_ms"] for x in rows]
         kinds = {k: st.median(x["collective_ms"][k] for x in rows)
                  for k in CollectiveClock.KINDS}
+        calls = rows[0]["collective_calls"]
         held = (f"ghat max abs err {c['ghat_err']:.3e}, params {c['params_err']:.3e}, loss "
                 f"{c['loss_err']:.3e}")
         if c["mode"] == "scalecom":
-            held += ", offsets bitwise rank 0's"
-            if run.compressor == "true_topk":
+            held += (", offsets (ghat's support) bitwise the stacked exact path's" if run.exact
+                     else ", offsets bitwise rank 0's")
+            if run.compressor == "true_topk" and not run.exact:
                 held += f" but {sum(c['near_ties'])} near-tie chunks"
             if c["gamma_err"] is not None:
                 held += f", contraction_gamma rel err {c['gamma_err']:.3e}"
+            if c["taps"]:
+                tp = c["taps"]
+                held += (f", {tp['keys']} taps the stacked reduce's keys, the same on every "
+                         f"rank, within rtol 1e-5 (worst rel err {tp['worst_rel']:.2e}) but "
+                         f"{tp['moved']} of the {tp['ranked']} rank-based ones")
         print(f"{tag}: step {i} {c['mode']}: loss {rows[0]['loss']:.4f}; step ms max "
               f"{max(step):.1f} median {st.median(step):.1f} over {len(tr)} ranks; the gradient "
-              f"pass {st.median(x['grads_ms'] for x in rows):.1f} ms; collectives host ms "
-              f"(median over ranks) " + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items() if v)
+              f"pass {st.median(x['grads_ms'] for x in rows):.1f} ms; {sum(calls.values())} gloo "
+              f"calls ({', '.join(f'{k} {v}' for k, v in calls.items() if v)}); collectives "
+              f"host ms (median over ranks) "
+              + ", ".join(f"{k} {v:.1f}" for k, v in kinds.items() if v)
+              + f" = {st.median(sum(x['collective_ms'].values()) for x in rows):.1f}"
               + f"; against the stacked step: {held}; residues bitwise on every rank"
               + (", group replicas bitwise" if run.groups else "")
               + f", params bitwise across ranks; on {card_line}")
@@ -3901,15 +4165,18 @@ def ring_run_report(run: RingRun, tr: list, seconds: float, card_line: str) -> d
           f"comm_bytes_per_worker {comp[0]['planned']:,.1f} B on all {len(comp)} compressed "
           f"steps (by rank " + " / ".join(f"{b:,}" for b in comp[0]["sent"]) + "); beside it, "
           f"outside the payload, a rank on average: oracle {extra['oracle']:,.0f} B, intra-group "
-          f"{extra['intra']:,.0f} B, stats {extra['stats']:,.0f} B")
+          f"{extra['intra']:,.0f} B, stats {extra['stats']:,.0f} B, telemetry "
+          f"{extra['telemetry']:,.0f} B")
     launches = ring_launches_held(run, tr)
     km = tr[0]["kernel_ms"]
+    kernel_line = ("no kernel (the exact path's dense top-k is torch.sort)" if km is None else
+                   f"the reduce's kernels of one compressed step on rank 0 ({km['tensors']} "
+                   f"tensors), device ms: " + ", ".join(
+                       f"{k} {v:.4f} (bound {km['bound'][k]:.4f})" for k, v in km["ms"].items()))
     print(f"{tag}: launches per rank: " + "; ".join(
-        f"rank {r} " + ", ".join(f"{k} {v}" for k, v in x["launches"].items() if v)
-        for r, x in enumerate(tr)) + f"; all vec4; the reduce's kernels of one compressed step "
-        f"on rank 0 ({km['tensors']} tensors), device ms: "
-        + ", ".join(f"{k} {v:.4f} (bound {km['bound'][k]:.4f})" for k, v in km["ms"].items())
-        + f"; on {card_line}")
+        f"rank {r} " + (", ".join(f"{k} {v}" for k, v in x["launches"].items() if v) or "none")
+        for r, x in enumerate(tr)) + f"{'; all vec4' if km else ''}; {kernel_line}; on "
+        f"{card_line}")
     dither = tr[0]["dither"]
     if dither:
         print(f"{tag}: the dither draw of one step on one rank, device ms {dither['ms']:.4f} for "
@@ -4095,6 +4362,14 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: the port runs on a CUDA card")
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        """Seconds since the last mark, under ``name`` (the [time] line)."""
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+
     sys.path.insert(0, SRC)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -4125,12 +4400,15 @@ def main() -> None:
     build.library()
     print(f"[build] nvcc {build.build_info['seconds']:.1f} s -> {build.build_info['path']}")
     print_ptxas(build.build_info["ptxas"])
+    mark("card and build")
 
     # -- 2. kernels against their plain versions -----------------------------
     results = kernel_phase(card_line)
+    mark("[kernel]")
 
     # -- 2b. the fault harness: the preflight, the CLI's sweeps, card against CPU --
     harness_launches, harness_routes = harness_phase(card_line)
+    mark("[harness]")
 
     # -- 3. the main path at full width, unfused then fused ---------------------
     cfg = registry.arch("paper-transformer-base")
@@ -4333,6 +4611,8 @@ def main() -> None:
           and bool(torch.isfinite(dense_x).all()), "compress exact clt_k: shapes or values")
     print(f"[compress] exact clt_k: k = {idx_x.numel()}, finite")
 
+    mark("main path, reduces, compress")
+
     # -- 6. the lossy residue codecs, remap, buckets, telemetry -------------------
     states = {"fp32": trained}
     for name in ("fp32",) + LOSSY:
@@ -4361,8 +4641,11 @@ def main() -> None:
     telemetry_phase(gpw, trained, base_cfg, card_line)
     path_update(flat_plans, workers, card_line, results)
 
+    mark("codecs, buckets, telemetry, [path]")
+
     # -- 6b. the launch-geometry autotuner on the main path -----------------------------
     autotune_phase(state.params, gpw, trained, base_cfg, flat_plans, workers, card_line, results)
+    mark("[autotune]")
     print(f"[memory] peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del gpw, ef, vals_x, idx_x, dense_x, m_new, vals, want_m, want_vals
     torch.cuda.empty_cache()
@@ -4375,6 +4658,7 @@ def main() -> None:
     checkpoint_phase(state, fp8_state, model, opt, sc_cfg, workers, card_line)
     del fp8_state
     torch.cuda.empty_cache()
+    mark("microbatches, recorder, checkpoint")
 
     # -- 8. where a fused compressed step's time goes ------------------------------
     step_batch = next(batches)
@@ -4403,20 +4687,34 @@ def main() -> None:
     del reduce, agree  # reduce's default argument holds the trained residues
     gc.collect()
     torch.cuda.empty_cache()
+    mark("[profile]")
     remat_phase(card_line)
+    mark("[remat]")
     arch_launches = arch_phase(card_line)
+    mark("[arch]")
 
     # -- 10. serving every family at full width (SERVE_RUNS) ------------------------
     serve_phase(card_line)
+    mark("[serve]")
 
     # -- 11. real collectives: the ring reduce and one worker per rank -----------------
     ring_launches = ring_phase(card_line)
+    mark("[ring]")
+    print("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
+          + f"; total {sum(phase_s.values()):.1f} (the interpreter's start and imports "
+          f"before it not counted) on {card_line}")
 
-    for name in ("chunk_argmax", "ef_update", "chunk_scatter"):
+    for name in ("chunk_argmax", "ef_update", "chunk_scatter", "fused_select_update"):
         check(ring_launches[name] > 0, f"{name} was never launched on the ring path")
     for name in KERNELS:
-        check(path_launches.get(name, 0) > 0, f"{name} was never launched on the main path")
-        results[name]["launches"] = path_launches[name] + harness_launches[name]
+        if name in RING_ONLY:
+            # its path is a process group's leader: launched in [ring:fused] alone
+            check(path_launches.get(name, 0) == harness_launches[name] == arch_launches[name] == 0,
+                  f"{name} launched outside the ring")
+            results[name]["launches"] = ring_launches[name]
+        else:
+            check(path_launches.get(name, 0) > 0, f"{name} was never launched on the main path")
+            results[name]["launches"] = path_launches[name] + harness_launches[name]
         results[name]["harness_launches"] = harness_launches[name]
         results[name]["arch_launches"] = arch_launches[name]
         results[name]["ring_launches"] = ring_launches[name]

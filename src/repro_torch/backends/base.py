@@ -17,6 +17,10 @@ and inherits default compositions of the derived ops:
                mode, leader)              (idx, vals, m', ghat): the whole
                                           per-tensor inner loop composed of
                                           the three primitives
+  fused_select_update(m, g, beta, chunk,
+                      topm, key)          (idx, vals, m'): one rank's select
+                                          and Eq. 5 update, the fused path of
+                                          a process group's leader
 
 Registered backends:
 
@@ -113,6 +117,20 @@ class KernelBackend:
         m_new, vals = self.ef_update(m, g, idx, beta, chunk, topm)
         ghat = self.scatter(torch.mean(vals, dim=0), idx, chunk, m.shape[-1], topm)
         return idx, vals, m_new, ghat
+
+    def fused_select_update(self, m: Tensor, g: Tensor, beta: float, chunk: int,
+                            topm: int = 1, key: Optional[Tensor] = None):
+        """select over ONE worker's EF (or ``key``) -> Eq. 5 update.
+
+        m, g (and key): (..., size). The offsets are the top-m of |m + g|
+        per chunk, or of |key| when given (true_topk's worker-mean EF).
+        Returns (idx, vals, m_new). This default is ``select_indices``
+        followed by ``ef_update``; the "cuda" backend overrides it with one
+        kernel.
+        """
+        idx = self.select_indices(m + g if key is None else key, chunk, topm)
+        m_new, vals = self.ef_update(m, g, idx, beta, chunk, topm)
+        return idx, vals, m_new
 
     def __repr__(self) -> str:  # pragma: no cover - debugging nicety
         return f"<KernelBackend {self.name}>"

@@ -8,7 +8,10 @@ Per compressed tensor and step the unfused reduce makes three launches:
              one write of (m', vals)
   scatter    chunk_scatter of the worker-mean values into ghat
 
-and the fused reduce (``fused_reduce``, clt_k and true_topk) makes one.
+and the fused reduce (``fused_reduce``, clt_k and true_topk) makes one. A
+process group's leader selects and updates in one ``fused_select_update``
+launch where its kernel takes the chunk and top-m (``select_update_fits``),
+else in the select and ``ef_update``.
 ``gather`` (``compress`` and the default ``select``) is chunk_gather.
 
 This module is the layout layer around them (the counterpart of
@@ -145,6 +148,26 @@ class CudaBackend(KernelBackend):
             m_new.reshape(mp.shape)[..., :n],
             ghat.reshape(lead + (ncr * chunk,))[..., :n],
         )
+
+    def fused_select_update(self, m, g, beta, chunk, topm=1, key=None):
+        if not fr_kernel.select_update_fits(chunk, topm):
+            return super().fused_select_update(m, g, beta, chunk, topm, key)
+        n = m.shape[-1]
+        mp = pad_to_chunks(m, chunk)
+        lead, ncr, tail = tuple(m.shape[:-1]), mp.shape[-1] // chunk, _tail(topm)
+        m2, g2 = _aligned(_rows(mp, chunk)), _aligned(_rows(pad_to_chunks(g, chunk), chunk))
+        k2 = None if key is None else _aligned(_rows(pad_to_chunks(key, chunk), chunk))
+        idx, vals, m_new = fr_kernel.fused_select_update(
+            m2, g2, beta, chunk, topm, k2,
+            threads=_threads("fused_reduce", m2, m2.shape[0], chunk, topm == 1))
+        return (idx.reshape(lead + (ncr,) + tail), vals.reshape(lead + (ncr,) + tail),
+                m_new.reshape(mp.shape)[..., :n])
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x``, or a copy of it where its base is not 16-byte aligned (a view
+    into another tensor), for a kernel of 16-byte loads."""
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 @functools.lru_cache(maxsize=1)

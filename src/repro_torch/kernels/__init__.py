@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels of the ScaleCom reduce and their PyTorch wrappers.
 
 ``chunk_topk`` (select, top-m select, gather, scatter), ``ef_update`` and
-``fused_reduce`` wrap the kernels in ``csrc/*.cu``; ``build`` compiles those
-sources with nvcc at first use. Importing this package builds nothing.
+``fused_reduce`` (the fused reduce, and its one-row variant
+``fused_select_update``) wrap the kernels in ``csrc/*.cu``; ``build``
+compiles those sources with nvcc at first use. Importing this package
+builds nothing.
 """
 
 from repro_torch.kernels import chunk_topk, ef_update, fused_reduce
@@ -15,6 +17,7 @@ KERNELS = (
     chunk_topk.chunk_scatter,
     ef_update.ef_update,
     fused_reduce.fused_reduce,
+    fused_reduce.fused_select_update,  # a variant of the last: one row, no ĝ
 )
 
 

@@ -15,11 +15,12 @@ with ``ctypes`` and every function gets explicit ``argtypes`` (pointers and
 the stream as ``c_void_p``, counts as ``c_int64``, beta as ``c_float``, the
 fused reduce's mode and leader and a tuned launch's block size as ``c_int``).
 
-Three launches take their block size as an argument: the vec4 select at
-top-1 (``chunk_argmax``), ``ef_update`` and the vec4 fused reduce's clt_k
-route at top-1. ``CANDIDATE_THREADS`` are the sizes the library was built for
-(``TunedThreads`` in ``csrc/common.cuh``), ``DEFAULT_THREADS`` the size each
-took when it was a constant; ``threads_arg`` checks a size asked for.
+Four launches take their block size as an argument: the vec4 select at
+top-1 (``chunk_argmax``), ``ef_update``, the vec4 fused reduce's clt_k
+route at top-1 and ``fused_select_update`` at top-1. ``CANDIDATE_THREADS``
+are the sizes the library was built for (``TunedThreads`` in
+``csrc/common.cuh``), ``DEFAULT_THREADS`` the size each took when it was a
+constant; ``threads_arg`` checks a size asked for.
 
 Nothing here runs at import time, and nothing is skipped: without CUDA, an
 sm_90 card or ``nvcc`` the build raises.
@@ -76,6 +77,7 @@ _SIGNATURES = {
     "scalecom_fused_reduce_vec4": (
         _P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _I64, _I32, _I32, _F32, _I32, _P, _P,
     ),
+    "scalecom_fused_select_update": (_P, _P, _P, _P, _P, _P, _I64, _I64, _I64, _F32, _I32, _P),
 }
 
 # filled by library(): seconds the build took (0.0 when it was cached on

@@ -36,6 +36,28 @@ The wrapper launches on CUDA tensors (counting ``fused_reduce.launches``,
 ``fused_reduce.variants``, for vec4 ``fused_reduce.routes`` as the library
 reports the route it took, and for the tuned route ``fused_reduce.threads``
 by block size) and runs the plain version on CPU tensors.
+
+``fused_select_update`` is the variant for one rank of a process group
+(``repro_torch.distributed.ring``), where a collective must sit between
+the select and the scatter: over ONE row of residue ``m`` and gradient
+``g`` (no worker axis), one launch does
+
+    select   top-m of |m + g| (clt_k), or of |key| when a key is given
+             (true_topk: the oracle's worker mean, from an all-reduce)
+    update   vals[j] = (m + g)[idx[j]];  m' = m + beta * (g - own)
+
+and stores idx, vals and m', no ĝ: the all-reduce of vals and
+``chunk_scatter`` make ĝ. It is ``csrc/fused_select_update.cu``'s kernel,
+the vec4 design of the fused reduce at one worker (16-byte loads, the picks
+merged in registers, the row's m and g kept in registers between select and
+update when a lane's share of it fits one batch, as at chunk 64); it needs
+chunk % 4 == 0, 16-byte-aligned bases and top-m <= 8
+(``select_update_fits``). At top-1 it takes ``threads`` as the fused clt_k
+route does. Its outputs are bitwise ``select_indices`` followed by
+``ef_update`` (the plain twin, ``fused_select_update_plain``). The wrapper
+counts ``fused_select_update.launches``, ``.routes`` ("sum" or "key") and
+``.threads``. Bound: device-memory bytes, m and g (and the key) read once,
+m' written once.
 """
 
 from __future__ import annotations
@@ -49,7 +71,10 @@ from repro_torch.kernels import build
 from repro_torch.kernels.chunk_topk import VEC4_MAX_TOPM, chunk_scatter_plain, chunk_topm_plain
 from repro_torch.kernels.ef_update import ef_update_plain
 
-__all__ = ["MODES", "ROUTES", "fused_variant", "fused_reduce", "fused_reduce_plain"]
+__all__ = [
+    "MODES", "ROUTES", "fused_variant", "fused_reduce", "fused_reduce_plain",
+    "fused_select_update", "fused_select_update_plain", "select_update_fits",
+]
 
 # Selection modes of the fused kernel, by the integer the kernel takes
 MODES = ("clt_k", "true_topk")
@@ -164,3 +189,77 @@ fused_reduce.launches = 0
 fused_reduce.variants = {"vec4": 0, "scalar": 0}  # launches by variant
 fused_reduce.routes = dict.fromkeys(ROUTES, 0)  # vec4 launches by the route the library took
 fused_reduce.threads = dict.fromkeys(build.CANDIDATE_THREADS, 0)  # clt_k top-1 vec4 launches by block size
+
+
+def select_update_fits(chunk: int, topm: int) -> bool:
+    """Whether ``fused_select_update``'s kernel takes this chunk and top-m
+    (its bases 16-byte aligned): chunk % 4 == 0 and top-m <= 8."""
+    return chunk % 4 == 0 and 1 <= topm <= VEC4_MAX_TOPM
+
+
+def fused_select_update_plain(
+    m: torch.Tensor, g: torch.Tensor, beta: float, chunk: int, topm: int = 1,
+    key: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(..., size) m/g [key], size % chunk == 0 -> (idx (rows[, topm]),
+    vals (rows[, topm]), m' like m), rows = m.numel() / chunk: the select
+    on |m + g| (or |key|), then the Eq. 5 update at its offsets."""
+    m2, g2 = m.reshape(-1, chunk), g.reshape(-1, chunk)
+    idx = chunk_topm_plain(m2 + g2 if key is None else key.reshape(-1, chunk), topm)[0]
+    if topm == 1:
+        idx = idx[:, 0]
+    m_new, vals = ef_update_plain(m2, g2, idx, beta)
+    return idx, vals, m_new.reshape(m.shape)
+
+
+def fused_select_update(
+    m: torch.Tensor, g: torch.Tensor, beta: float, chunk: int, topm: int = 1,
+    key: Optional[torch.Tensor] = None, threads=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One row's select and Eq. 5 update in one launch, over contiguous fp32
+    m, g (and ``key``) of one shape whose last axis is a multiple of
+    ``chunk``. Returns ``(idx, vals, m')``: idx int32 ``(rows,)`` for
+    topm == 1, else ``(rows, topm)``; vals like idx, float32; m' like m.
+    ``threads``: the block size of a top-1 launch (None: the default)."""
+    name = "fused_select_update"
+    build.threads_arg(threads, name)
+    tensors = (m, g) if key is None else (m, g, key)
+    build.require(m.dim() >= 1 and all(x.shape == m.shape for x in tensors), name,
+                  f"m/g/key must share one shape, got {[tuple(x.shape) for x in tensors]}")
+    build.require(all(x.dtype == torch.float32 for x in tensors), name,
+                  f"m/g/key must be float32, got {[x.dtype for x in tensors]}")
+    build.require(all(x.is_contiguous() for x in tensors), name, "m/g/key must be contiguous")
+    build.require(chunk > 0 and m.shape[-1] % chunk == 0, name,
+                  f"the last axis {m.shape[-1]} must be a multiple of chunk {chunk}")
+    build.require(1 <= topm <= chunk, name, f"need 1 <= topm <= chunk, got {topm}, {chunk}")
+    if not build.on_card(name, *tensors):
+        return fused_select_update_plain(m, g, beta, chunk, topm, key)
+    build.require(select_update_fits(chunk, topm), name,
+                  f"the kernel takes chunk % 4 == 0 and top-m <= {VEC4_MAX_TOPM}, got chunk "
+                  f"{chunk}, top-{topm}")
+    build.require(all(x.data_ptr() % 16 == 0 for x in tensors), name,
+                  "m/g/key must start 16-byte aligned")
+    build.require(threads is None or topm == 1, name, "threads sets the block size of a top-1 "
+                                                      "launch only")
+    rows = m.numel() // chunk
+    tail = () if topm == 1 else (topm,)
+    idx = torch.empty((rows,) + tail, dtype=torch.int32, device=m.device)
+    vals = torch.empty((rows,) + tail, dtype=torch.float32, device=m.device)
+    m_new = torch.empty_like(m)
+    if rows:
+        t = (threads or build.DEFAULT_THREADS) if topm == 1 else 0
+        rc = build.library().scalecom_fused_select_update(
+            m.data_ptr(), g.data_ptr(), None if key is None else key.data_ptr(), idx.data_ptr(),
+            vals.data_ptr(), m_new.data_ptr(), rows, chunk, topm, float(beta), t,
+            build.stream_of(m))
+        build.check(rc, name)
+        fused_select_update.launches += 1
+        fused_select_update.routes["sum" if key is None else "key"] += 1
+        if t:
+            fused_select_update.threads[t] += 1
+    return idx, vals, m_new
+
+
+fused_select_update.launches = 0
+fused_select_update.routes = {"sum": 0, "key": 0}  # launches by select key: m + g, or given
+fused_select_update.threads = dict.fromkeys(build.CANDIDATE_THREADS, 0)  # top-1 launches by size

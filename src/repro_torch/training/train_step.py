@@ -21,15 +21,17 @@ With ``group`` (a ``torch.distributed`` process group, the counterpart of
 the reference's ``worker_axis``) each rank of the group is one worker: it
 takes its row of the global batch and its own gradient, and the reduce runs
 through real collectives (``repro_torch.distributed.ring``): a compressed
-tensor through ``ring_reduce`` (any chunked compressor), a dense one (and
-every gradient of the dense mode) through an all-reduce and a division by
-n. With ``ScaleComConfig.groups=G`` the world's ranks form G groups of n/G
+tensor through the compressor's reduce (``ring.ring_steps``: any
+compressor, chunked or exact, fused or not), a dense one (and every
+gradient of the dense mode) through an all-reduce and a division by n;
+tensor by tensor, or bucket by bucket with packed async collectives. With
+``ScaleComConfig.groups=G`` the world's ranks form G groups of n/G
 (``ring.make_hierarchy``): each gradient is averaged over the rank's group
 first (``ring.group_fold``), and the reduce runs across the groups, each
-rank of a group holding a replica of the group's residue row. The residues
-are this rank's row, or its group's, in any codec (``shard_train_state``);
-params and optimizer state are replicated and stay bitwise identical
-across ranks.
+rank of a group holding a replica of the group's residue row. The
+residues are this rank's row, or its group's, in any codec
+(``shard_train_state``); params and optimizer state are replicated and
+stay bitwise identical across ranks.
 
 Batches arrive worker-stacked, as numpy arrays or tensors
 ({"tokens": (n, B, S), ...}), and are moved to the parameters' device here.
@@ -37,6 +39,7 @@ Batches arrive worker-stacked, as numpy arrays or tensors
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -44,15 +47,20 @@ import torch
 import torch.distributed as dist
 
 from repro_torch import tree
-from repro_torch.backends import resolve_backend, resolve_fused
+from repro_torch.backends import FUSABLE_MODES, resolve_backend, resolve_fused
 from repro_torch.core import overlap
 from repro_torch.core import state as state_codecs
+from repro_torch.core.metrics import hamming_distance_topk, spearman_rho, topk_overlap
 from repro_torch.core.plan import plan_tensors
-from repro_torch.core.scalecom import ScaleComConfig, scalecom_reduce
+from repro_torch.core.scalecom import _SIMILARITY_KEYS, ScaleComConfig, _const, scalecom_reduce
 from repro_torch.core.state import (
     ScaleComState, codec_key, codec_signature, init_state, require_codec, residue_signature,
 )
-from repro_torch.distributed.ring import all_reduce_mean, group_fold, make_hierarchy, ring_reduce
+from repro_torch.distributed.ring import (
+    Collective, Flight, all_reduce_mean, drive, group_fold, make_hierarchy, ring_steps,
+)
+from repro_torch.kernels.fused_reduce import select_update_fits
+from repro_torch.obs import taps
 from repro_torch.optim.optimizer import Optimizer
 
 __all__ = [
@@ -159,32 +167,6 @@ def dense_grads(model, params, batch):
             tree.unflatten(params, list(grads)))
 
 
-# what a group step runs, named by every refusal of what it does not
-GROUP_SUPPORTED = ("compressor clt_k, true_topk, local_topk, random_k (chunked) or none, "
-                   "every residue codec, groups, compute_stats; unfused, unbucketed, "
-                   "no telemetry, no exact path")
-
-
-def _require_group_support(sc_cfg: ScaleComConfig, buckets: Any) -> None:
-    """Raise ValueError, naming ``GROUP_SUPPORTED``, for what of this
-    configuration a group step does not run. Reads $SCALECOM_TORCH_FUSED
-    and $SCALECOM_TORCH_BUCKET_MB for their "auto"."""
-    comp = sc_cfg.compressor
-    if comp.exact:
-        refused = f"compressor {comp.name!r} with exact=True"
-    elif resolve_fused(sc_cfg.fused):
-        refused = "the fused reduce (its worker mean is inside one launch)"
-    elif isinstance(buckets, (tuple, list)) or overlap.resolve_bucket_bytes(
-            buckets, sc_cfg.bucket_bytes) is not None:
-        refused = f"buckets={buckets!r}"
-    elif sc_cfg.telemetry:
-        refused = "telemetry"
-    else:
-        return
-    raise ValueError(f"a train step over a process group does not run {refused}; "
-                     f"it runs {GROUP_SUPPORTED}")
-
-
 # the field each stochastically rounding codec draws its dither for
 _DITHERED = {"bf16": "q", "fp8_ec": "c"}
 
@@ -202,64 +184,262 @@ def _row_dither(codec, path: str, t: int, rows: int, row: int, storage, device):
     return state_codecs.codec_dither(codec_key(path, t), shape, device)[row:row + 1]
 
 
+@dataclasses.dataclass(frozen=True)
+class _GroupCtx:
+    """What every tensor of one group reduce shares."""
+
+    codec: Any
+    beta: float
+    t: int
+    backend: Any
+    across: Any  # the process group the compressor's reduce runs over
+    hierarchy: Any
+    row: int  # this rank's residue row among the stacked step's
+    fused: bool
+    want_ef: bool  # the worker-mean EF, for contraction gamma (stats or taps)
+    ef_kind: str  # the ``sent`` key its all-reduce counts under
+    metrics_every: int
+
+
+def _with_first(first: list, steps):
+    """Run the round generator ``steps`` with the collectives ``first`` added
+    to its first round; returns (what ``steps`` returns, their results)."""
+    try:
+        req = next(steps)
+    except StopIteration as stop:
+        return stop.value, (yield first)
+    got = yield list(first) + list(req)
+    head, got = got[:len(first)], got[len(first):]
+    while True:
+        try:
+            req = steps.send(got)
+        except StopIteration as stop:
+            return stop.value, head
+        got = yield req
+
+
+def _leader_launches(comp, use_fused: bool) -> float:
+    """Kernel launches of one compressed tensor's group reduce on the leader
+    rank (the ``fused_launches`` tap): the select, Eq. 5 and the scatter; the
+    select and Eq. 5 in one where fused; no select for random_k; none on the
+    exact path."""
+    if comp.exact:
+        return 0.0
+    if use_fused and select_update_fits(comp.chunk, comp.topm):
+        return 2.0
+    return 2.0 if comp.name == "random_k" else 3.0
+
+
+def _leaf_taps(plan, ctx: _GroupCtx, ef, ef_mean, vals, idx, ghat, m_new, new_enc,
+               use_fused: bool):
+    """One tensor's taps over the group, under ``core.scalecom._tap_execute``'s
+    keys, the same values on every rank (a generator of one round). Shapes
+    and the plan give the byte and build-up taps; two all-reduced squared
+    norms the codec's roundtrip error; on sampled steps the rank holding
+    worker 0's EF (rank 0 of the group) computes the Hamming, energy and
+    Spearman taps against the worker mean and broadcasts them, and one
+    all-reduce of every rank's unit EF u_i gives the pairwise cosine
+    distance, 1 - (|sum u_i|^2 - sum |u_i|^2) / (n (n - 1)). Their bytes
+    count under ``sent["telemetry"]``."""
+    comp, dev, n = plan.comp, ghat.device, ctx.across.size()
+    taps.tap("fused", _const(1.0 if use_fused else 0.0, dev), path=plan.path,
+             compressor=comp.name)
+    taps.tap("fused_launches", _const(_leader_launches(comp, use_fused), dev), path=plan.path)
+    if comp.name == "local_topk":
+        index_bytes = 4.0 * idx.numel()
+    elif comp.name == "random_k":
+        index_bytes = 0.0
+    else:
+        index_bytes = 4.0 * idx.numel() / n
+    labels = dict(path=plan.path, compressor=comp.name)
+    taps.tap("bytes_measured", _const(4.0 * vals.numel() + index_bytes, dev), **labels)
+    taps.tap("bytes_planned", _const(plan.bytes_payload, dev), **labels)
+    taps.tap("buildup_nnz", torch.count_nonzero(ghat).to(torch.float32), path=plan.path)
+    taps.tap("buildup_k", _const(plan.k, dev), path=plan.path)
+    m_row = m_new.reshape((1,) + plan.storage)
+    decoded = ctx.codec.decode(new_enc, plan.storage)
+    norms = torch.stack([torch.sum((decoded - m_row) ** 2), torch.sum(m_row ** 2)])
+    calls = [Collective("all_reduce", norms, ctx.across, "telemetry")]
+    similarity = ctx.metrics_every > 0 and n >= 2
+    sampled = similarity and ctx.t % ctx.metrics_every == 0
+    if sampled:
+        x, y = ef.reshape(-1), ef_mean.reshape(-1)
+        u = x / torch.clamp_min(torch.linalg.norm(x), 1e-30)
+        calls.append(Collective("all_reduce", torch.cat([u, torch.sum(u * u)[None]]),
+                                ctx.across, "telemetry"))
+        k = max(1, min(plan.k, x.numel()))
+        mine = (torch.stack([hamming_distance_topk(x, y, k), topk_overlap(x, y, k),
+                             spearman_rho(x, y)]) if dist.get_rank(ctx.across) == 0 else
+                torch.empty(3, dtype=torch.float32, device=dev))
+        calls.append(Collective("broadcast", mine, ctx.across, "telemetry", src=0))
+    got = yield calls
+    taps.tap("codec_roundtrip_err",
+             torch.sqrt(got[0][0]) / torch.clamp_min(torch.sqrt(got[0][1]), 1e-30),
+             path=plan.path, codec=ctx.codec.name)
+    if similarity:
+        if sampled:
+            s = got[1][:-1]
+            report = [1.0 - (torch.sum(s * s) - got[1][-1]) / (n * (n - 1))] + list(got[2])
+        else:
+            report = [_const(0.0, dev) for _ in _SIMILARITY_KEYS]
+        taps.tap("similarity_sampled", _const(1.0 if sampled else 0.0, dev), path=plan.path)
+        for name, value in zip(_SIMILARITY_KEYS, report):
+            taps.tap(name, value, path=plan.path)
+
+
+def _leaf_steps(plan, g: torch.Tensor, enc, ctx: _GroupCtx):
+    """One tensor of the group reduce as a round generator (``ring.Flight``):
+    with ``hierarchy`` the mean over the rank's own group first
+    (``ring.group_fold``); a dense
+    tensor's all-reduce, or the compressor's reduce (``ring.ring_steps``)
+    with the worker-mean EF's all-reduce beside its first round when stats
+    or taps want it; m' coded with the rank's row of the stacked draw; the
+    taps. Returns (ghat leaf, new encoding or None, (sq_err, sq_all) or
+    None)."""
+    n = ctx.across.size()
+    gw = g[0].to(torch.float32)
+    if ctx.hierarchy is not None:
+        gw = yield from group_fold(gw, ctx.hierarchy)
+    if plan.dense:
+        (total,) = yield [Collective("all_reduce", gw, ctx.across, "dense")]
+        return (total / n).reshape(plan.shape).to(g.dtype), None, None
+    comp = plan.comp
+    m = ctx.codec.decode(enc, plan.storage).reshape(plan.work)
+    work = gw.reshape(plan.work)
+    use_fused = ctx.fused and not comp.exact and comp.name in FUSABLE_MODES
+    steps = ring_steps(work, m, ctx.t, comp, ctx.beta, ctx.across, ctx.backend, use_fused)
+    ef = ef_mean = None
+    if ctx.want_ef:
+        ef = m + work
+        out, (total,) = yield from _with_first(
+            [Collective("all_reduce", ef, ctx.across, ctx.ef_kind, pack=False)], steps)
+        ef_mean = (total / n).reshape(plan.shape)
+    else:
+        out = yield from steps
+    ghat, m_new, vals, idx = out
+    new_enc = ctx.codec.encode(
+        m_new.reshape((1,) + plan.storage), plan.storage,
+        key=_row_dither(ctx.codec, plan.path, ctx.t, plan.groups, ctx.row, plan.storage,
+                        g.device))
+    ghat = ghat.reshape(plan.shape)
+    sums = None
+    if ctx.want_ef:
+        sums = (torch.sum((ef_mean - ghat) ** 2), torch.sum(ef_mean**2))
+        taps.tap("contraction_gamma", sums[0] / torch.clamp_min(sums[1], 1e-30), path=plan.path)
+    if taps.active():
+        yield from _leaf_taps(plan, ctx, ef, ef_mean, vals, idx, ghat, m_new, new_enc, use_fused)
+    return ghat.to(g.dtype), new_enc, sums
+
+
 def _group_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, group, hierarchy,
-                  compute_stats: bool):
+                  compute_stats: bool, buckets: Any = False):
     """Algorithm 1 over this rank's (1, *shape) gradients with real
     collectives: the plan (``core.plan.plan_tensors`` at n = group.size()
     workers, G = ``sc_cfg.groups`` or n) sends a compressed tensor through
-    ``ring_reduce`` and a dense one through ``all_reduce_mean``, over the
-    whole group, or with ``hierarchy`` over its inter group after
-    ``group_fold`` has averaged every gradient over the rank's own group.
-    The rank's residue row is decoded, and m' encoded with the rank's row of
-    the stacked draw. Returns (ghat, new_state, stats), stats holding the
-    plan's ``comm_bytes_per_worker`` and ``comm_bytes_dense`` as the stacked
-    reduce's do, and with ``compute_stats`` ``contraction_gamma`` from the
-    worker-mean EF (one all-reduce of ef per tensor, ``sent["stats"]``)."""
+    the compressor's reduce (``ring.ring_steps``) and a dense one through an
+    all-reduce, over the whole group, or with ``hierarchy`` over its inter
+    group after a mean over the rank's own group. The rank's residue row is
+    decoded, and m' encoded with the rank's row of the stacked draw.
+
+    ``buckets`` (``core.overlap.resolve_buckets``; None/"auto" reads
+    $SCALECOM_TORCH_BUCKET_MB): unbucketed, the tensors run one after
+    another in leaf order, each collective a blocking call of its own.
+    Bucketed, each bucket of the plan's schedule (``core.plan.
+    plan_buckets``) is one ``ring.Flight``: its payload goes out packed,
+    one call per round and kind (offsets, values, dense tensors), every
+    call async and waited for only where a later launch reads it, and the
+    buckets advance round by round in schedule order (``overlap.
+    run_buckets``: on the side stream with ``overlap``), so one bucket's
+    collectives are in flight while another's kernels run. Offsets and m'
+    are the unbucketed step's bits; ĝ sums its packed values in another
+    order.
+
+    Returns (ghat, new_state, stats): stats holds the plan's
+    ``comm_bytes_per_worker`` and ``comm_bytes_dense`` as the stacked
+    reduce's do, with ``compute_stats`` ``contraction_gamma`` from the
+    worker-mean EF (one all-reduce of ef per tensor, ``sent["stats"]``),
+    and with ``sc_cfg.telemetry`` the taps as ``"obs/<key>"`` entries, as
+    ``scalecom_reduce`` returns them."""
+    with taps.collect() if sc_cfg.telemetry else contextlib.nullcontext() as collected:
+        ghat, new_state, stats = _group_reduce_body(grads, sc_state, sc_cfg, group, hierarchy,
+                                                    compute_stats, buckets, collected)
+    for key in sorted(collected or ()):
+        stats[f"obs/{key}"] = collected[key]
+    return ghat, new_state, stats
+
+
+def _group_reduce_body(grads, sc_state, sc_cfg, group, hierarchy, compute_stats, buckets,
+                       collected):
     n = group.size()
     codec = require_codec(sc_cfg.residue_dtype)
     flat = tree.flatten_with_path(grads)
     # bare residue paths: the rows are this rank's, checked below
     plans = plan_tensors(tuple((p, tuple(g.shape[1:]), n) for p, g in flat), sc_cfg,
                          frozenset(sc_state.residues))
+    for plan in plans:
+        if plan.dense:
+            continue
+        want = codec_signature(sc_cfg.residue_dtype, 1, plan.storage)
+        (_, got), = residue_signature({plan.path: sc_state.residues[plan.path]})
+        if got != want:
+            raise ValueError(f"residue {plan.path!r} holds {got}, want this rank's row {want} "
+                             f"(shard_train_state)")
     device = flat[0][1].device
-    backend = resolve_backend(sc_cfg.backend, device)
-    across = group if hierarchy is None else hierarchy.inter
-    row = dist.get_rank(group) if hierarchy is None else hierarchy.index
-    t = sc_state.t
+    ctx = _GroupCtx(
+        codec=codec, beta=sc_cfg.beta, t=sc_state.t,
+        backend=resolve_backend(sc_cfg.backend, device),
+        across=group if hierarchy is None else hierarchy.inter, hierarchy=hierarchy,
+        row=dist.get_rank(group) if hierarchy is None else hierarchy.index,
+        fused=resolve_fused(sc_cfg.fused), want_ef=compute_stats or sc_cfg.telemetry,
+        ef_kind="stats" if compute_stats else "telemetry", metrics_every=sc_cfg.metrics_every)
+    steps = [_leaf_steps(plan, g, sc_state.residues.get(path), ctx)
+             for plan, (path, g) in zip(plans, flat)]
+    schedule = overlap.resolve_buckets(buckets, sc_cfg, plans)
+    results: list = [None] * len(flat)
+    if schedule is None:
+        for i, one in enumerate(steps):
+            results[i] = drive(one)
+    else:
+        for b in schedule:
+            if taps.active():
+                taps.tap("bucket_staged_leaves", _const(len(b.leaf_ids), device),
+                         bucket=b.index, overlap=sc_cfg.overlap)
+                taps.tap("bucket_bytes_dense", _const(b.bytes_dense, device), bucket=b.index)
+                taps.tap("bucket_bytes_payload", _const(b.bytes_payload, device),
+                         bucket=b.index)
+        flights = {b.index: Flight([steps[i] for i in b.leaf_ids], async_op=True)
+                   for b in schedule}
+        live, caller = schedule, None
+        while live:
+            busy = set()
+
+            def advance(b):
+                if flights[b.index].advance():
+                    busy.add(b.index)
+
+            caller = overlap.run_buckets(live, advance, device, sc_cfg.overlap) or caller
+            live = tuple(b for b in live if b.index in busy)
+        for b in schedule:
+            for i, out in zip(b.leaf_ids, flights[b.index].out):
+                results[i] = out
+        if caller is not None:
+            overlap.hand_over([results, collected], caller)
     new_residues = dict(sc_state.residues)
     ghat_leaves = []
     sq_err = sq_all = 0.0
-    for plan, (path, g) in zip(plans, flat):
-        gw = g[0].to(torch.float32)
-        if hierarchy is not None:
-            gw = group_fold(gw, hierarchy)
-        if plan.dense:
-            ghat_leaves.append(all_reduce_mean(gw, across).reshape(plan.shape).to(g.dtype))
-            continue
-        enc = sc_state.residues[path]
-        want = codec_signature(sc_cfg.residue_dtype, 1, plan.storage)
-        (_, got), = residue_signature({path: enc})
-        if got != want:
-            raise ValueError(f"residue {path!r} holds {got}, want this rank's row {want} "
-                             f"(shard_train_state)")
-        m = codec.decode(enc, plan.storage).reshape(plan.work)
-        work = gw.reshape(plan.work)
-        ghat, m_new = ring_reduce(work, m, t, plan.comp, sc_cfg.beta, across, backend)
-        new_residues[path] = codec.encode(
-            m_new.reshape((1,) + plan.storage), plan.storage,
-            key=_row_dither(codec, path, t, plan.groups, row, plan.storage, device))
-        ghat = ghat.reshape(plan.shape)
-        if compute_stats:
-            ef_mean = all_reduce_mean(m + work, across, "stats").reshape(plan.shape)
-            sq_err = sq_err + torch.sum((ef_mean - ghat) ** 2)
-            sq_all = sq_all + torch.sum(ef_mean**2)
-        ghat_leaves.append(ghat.to(g.dtype))
+    for plan, (ghat, new_enc, sums) in zip(plans, results):
+        ghat_leaves.append(ghat)
+        if new_enc is not None:
+            new_residues[plan.path] = new_enc
+        if sums is not None:
+            sq_err = sq_err + sums[0]
+            sq_all = sq_all + sums[1]
     stats = {"comm_bytes_per_worker": sum(p.bytes_payload for p in plans),
              "comm_bytes_dense": sum(p.bytes_dense for p in plans)}
     if compute_stats:
         stats["contraction_gamma"] = sq_err / torch.clamp_min(torch.as_tensor(sq_all), 1e-30)
     return (tree.unflatten(grads, ghat_leaves),
-            ScaleComState(residues=new_residues, t=t + 1), stats)
+            ScaleComState(residues=new_residues, t=sc_state.t + 1), stats)
 
 
 def _group_mean(loss: torch.Tensor, auxs: Dict, group) -> Tuple[torch.Tensor, Dict]:
@@ -312,9 +492,14 @@ def build_train_step(
     With ``sc_cfg.groups=G`` the group is the world of the hierarchy: this
     call builds (or takes from the cache) the rank's two process groups
     (``ring.make_hierarchy``, collective: every rank builds its steps in
-    the same order), and the world must divide into G groups. The dense
-    mode stays one all-reduce over the whole group. A configuration outside
-    ``GROUP_SUPPORTED`` raises ValueError.
+    the same order), and the world must divide into G groups. The group
+    step runs every configuration the stacked one does: each compressor,
+    codec and exact path, ``groups``, ``compute_stats``, the fused reduce
+    (the leader's select and Eq. 5 in one ``fused_select_update`` launch;
+    the worker mean is the all-reduce's), ``telemetry`` (the same
+    ``"obs/<key>"`` taps, the same on every rank) and ``buckets`` (packed,
+    async collectives, bucket by bucket; see ``_group_reduce``). The dense
+    mode stays one all-reduce over the whole group.
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
@@ -325,7 +510,6 @@ def build_train_step(
             raise ValueError(
                 f"a train step over a process group runs one worker per rank: n_workers "
                 f"({n_workers}) must equal group.size() ({group.size()})")
-        _require_group_support(sc_cfg, buckets)
         rank = dist.get_rank(group)
         hierarchy = None if sc_cfg.groups is None else make_hierarchy(group, sc_cfg.groups)
     # The JAX package trains in full fp32 (compute_dtype="float32"); TF32
@@ -337,13 +521,12 @@ def build_train_step(
         device = tree.leaves(state.params)[0].device
         batch = _batch_on(batch, device)
         if group is not None:
-            _require_group_support(sc_cfg, buckets)  # "auto" reads env now
             _check_lead(batch, n_workers)
             batch = {k: v[rank:rank + 1] for k, v in batch.items()}
         if mode == "scalecom" and group is not None:
             loss, auxs, gpw = per_worker_grads(model, state.params, batch, 1, microbatches)
             ghat, sc_state, stats = _group_reduce(gpw, state.sc_state, sc_cfg, group, hierarchy,
-                                                  compute_stats)
+                                                  compute_stats, buckets)
             del gpw
         elif mode == "scalecom":
             loss, auxs, gpw = per_worker_grads(model, state.params, batch, n_workers,

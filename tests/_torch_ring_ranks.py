@@ -87,7 +87,8 @@ def _sc_cfg(job: dict, chunk: int, **kw) -> ScaleComConfig:
 def _group_steps(job: dict, rank: int, world: int, group) -> dict:
     """One dense and one scalecom group step from the job's state; three
     steps (dense, scalecom, scalecom) for the cross-rank check; the counted
-    bytes of a step at the main path's chunk; the refusals."""
+    bytes of a step at the main path's chunk; one scalecom step of each
+    labelled configuration, or its refusal."""
     model = build_model(registry.smoke(ARCH), loss_chunk=16)
     opt = make_optimizer("sgdm")
     sched = schedule.linear_warmup(schedule.constant(job["lr"]), 2)
@@ -98,7 +99,7 @@ def _group_steps(job: dict, rank: int, world: int, group) -> dict:
                                        group=group, **kw)
                 for mode in ("dense", "scalecom")}
 
-    out = {"step": {}, "bytes": {}, "errors": {}}
+    out = {"step": {}, "bytes": {}, "errors": {}, "cases": {}}
     fns = steps(job["chunk"])
     for mode, fn in fns.items():
         ring.reset_sent()
@@ -118,11 +119,15 @@ def _group_steps(job: dict, rank: int, world: int, group) -> dict:
         _, metrics = fn(shard_train_state(_state(job), rank, world), job["batch"])
         out["bytes"][mode] = (dict(ring.sent), metrics.get("comm_bytes_per_worker"),
                               metrics.get("comm_bytes_dense"))
-    for label, cfg_kw, step_kw, env in job["refusals"]:
+    for label, cfg_kw, step_kw, env in job["cases"]:
         os.environ.update(env)
         try:
-            build_train_step(model, opt, sched, _sc_cfg(job, job["chunk"], **cfg_kw),
-                             mode="scalecom", group=group, **{"n_workers": world, **step_kw})
+            fn = build_train_step(model, opt, sched, _sc_cfg(job, job["chunk"], **cfg_kw),
+                                  mode="scalecom", group=group, **{"n_workers": world, **step_kw})
+            ring.reset_sent()
+            new, metrics = fn(shard_train_state(_state(job), rank, world), job["batch"])
+            out["cases"][label] = {"params": _flat_np(new.params), "sent": dict(ring.sent),
+                                   "metrics": {k: float(v) for k, v in metrics.items()}}
             out["errors"][label] = None
         except ValueError as e:
             out["errors"][label] = str(e)

@@ -173,5 +173,5 @@ def test_cpu_run_launches_no_kernel():
     be.fused_reduce(x, x, BETA, 64, 1, "clt_k", 1)
     assert kernels.launches() == {
         "chunk_argmax": 0, "chunk_topm": 0, "chunk_gather": 0, "chunk_scatter": 0,
-        "ef_update": 0, "fused_reduce": 0,
+        "ef_update": 0, "fused_reduce": 0, "fused_select_update": 0,
     }

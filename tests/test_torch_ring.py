@@ -25,8 +25,13 @@ started beside them.
 - The payload bytes the ranks count equal the plan's, and at the main
   path's chunk 64 the compressed step sends under a tenth of the dense one
   (the port's form of ``test_no_dense_gradient_allreduce_in_hlo``).
-- Every configuration the group step does not run (the exact path, the
-  fused reduce, buckets, telemetry) raises a ValueError naming what it runs.
+- The configurations the group step gained (the exact path, the fused
+  reduce and buckets, each also through its environment variable, and
+  telemetry) build and run a step on the 4 ranks: the loss JAX's, the
+  params bitwise identical across ranks and, but for the exact path and
+  the packed buckets (rtol 1e-6 / atol 1e-7), bitwise the plain group
+  step's; an ``n_workers`` other than ``group.size()`` raises.
+  ``tests/test_torch_ring_group_paths.py`` holds each against JAX.
 """
 
 import multiprocessing
@@ -59,7 +64,6 @@ from repro_torch.backends import resolve_backend
 from repro_torch.distributed import clt_ring_reduce, make_ring_reducer
 from repro_torch.models.convert import params_from_jax
 from repro_torch.training import TrainState, shard_train_state
-from repro_torch.training.train_step import GROUP_SUPPORTED
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 N = 4
@@ -71,9 +75,9 @@ LOCAL_B, SEQ, CHUNK, MIN_SIZE, LR = 2, 32, 16, 512, 0.05
 TIMEOUT_S = 240
 
 # (label, ScaleComConfig fields, build_train_step keywords, environment):
-# what the group step still refuses (``tests/test_torch_ring_configs.py``
-# runs the compressors, codecs, groups and compute_stats it gained)
-REFUSALS = [
+# the configurations the group step gained, each run for one step, and the
+# one it refuses, n_workers
+GROUP_CASES = [
     ("exact", {"compressor": CompressorConfig("clt_k", chunk=CHUNK, exact=True)}, {}, {}),
     ("fused", {"fused": True}, {}, {}),
     ("fused_env", {}, {}, {"SCALECOM_TORCH_FUSED": "1"}),
@@ -166,7 +170,7 @@ def world(tmp_path_factory):
                      "residues": {p: np.asarray(e["q"]) for p, e in js.sc_state.residues.items()},
                      "t": int(js.sc_state.t), "step": int(js.step), "batch": batches[0],
                      "batches3": batches[1:], "chunk": CHUNK, "min_size": MIN_SIZE, "lr": LR,
-                     "refusals": REFUSALS},
+                     "cases": GROUP_CASES},
         }
         for parent, _ in pipes:
             parent.send(job)
@@ -309,7 +313,7 @@ def test_counted_bytes_equal_the_plan(world, mode):
     mean = sum(sum(c.values()) for c in counted) / N
     if mode == "dense":
         assert all(c == {"values": 0, "indices": 0, "dense": dense, "oracle": 0, "intra": 0,
-                         "stats": 0} for c in counted)
+                         "stats": 0, "telemetry": 0} for c in counted)
     else:
         assert mean == per_worker
         # only the leader (t = 7: rank 3) sends offsets
@@ -323,15 +327,34 @@ def test_counted_bytes_equal_the_plan(world, mode):
             world["jax"][mode][1]["comm_bytes_per_worker"])
 
 
-@pytest.mark.parametrize("label", [r[0] for r in REFUSALS])
+@pytest.mark.parametrize("label", [r[0] for r in GROUP_CASES])
 def test_group_step_refuses_what_it_does_not_run(world, label):
-    for res in world["ranks"]:
+    """The group step refuses only an ``n_workers`` other than the group's
+    size; the configurations it once refused run a step."""
+    jloss = float(world["jax"]["scalecom"][1]["loss"])
+    for r, res in enumerate(world["ranks"]):
         msg = res["errors"][label]
-        assert msg is not None, f"{label}: no ValueError"
         if label == "n_workers":
-            assert "n_workers (3) must equal group.size() (4)" in msg
-        else:
-            assert "does not run" in msg and GROUP_SUPPORTED in msg, msg
+            assert msg is not None and "n_workers (3) must equal group.size() (4)" in msg, msg
+            continue
+        assert msg is None, f"rank {r}: {msg}"
+        run = res["cases"][label]
+        np.testing.assert_allclose(run["metrics"]["loss"], jloss, rtol=1e-4)
+        assert any(k.startswith("obs/") for k in run["metrics"]) == (label == "telemetry")
+        plain = res["step"]["scalecom"]["params"]
+        for path, x in run["params"].items():
+            first = world["ranks"][0]["cases"][label]["params"][path]
+            np.testing.assert_array_equal(x.view(np.uint32), first.view(np.uint32),
+                                          err_msg=f"rank {r} {path}")
+            if label.startswith("buckets"):
+                np.testing.assert_allclose(x, plain[path], err_msg=path, **RING_TOL)
+            elif label != "exact":
+                np.testing.assert_array_equal(x.view(np.uint32), plain[path].view(np.uint32),
+                                              err_msg=f"rank {r} {path}")
+        payload = sum(run["sent"][k] for k in ("values", "indices", "dense"))
+        assert np.float32(sum(sum(world["ranks"][q]["cases"][label]["sent"][k]
+                                  for k in ("values", "indices", "dense")) for q in range(N))
+                          / N) == np.float32(run["metrics"]["comm_bytes_per_worker"]), payload
 
 
 def test_ring_refuses_other_compressors():

@@ -234,5 +234,5 @@ def test_cpu_run_through_the_cuda_backend_launches_no_kernel():
     assert len(history) == 3 and all(np.isfinite(h["loss"]) for h in history)
     assert kernels.launches() == {
         "chunk_argmax": 0, "chunk_topm": 0, "chunk_gather": 0, "chunk_scatter": 0,
-        "ef_update": 0, "fused_reduce": 0,
+        "ef_update": 0, "fused_reduce": 0, "fused_select_update": 0,
     }
