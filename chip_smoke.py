@@ -61,7 +61,8 @@ Phases, each fatal on failure:
      re-read. Their kernel launches count toward each kernel's
      ``launches``, and stand alone under ``harness_launches``;
   3. the main path: ``run_training`` trains paper-transformer-base at full
-     width (6 layers, d 512, vocab 37000) with CLT-k, 8 workers of batch 4 x
+     width (6 layers, d 512, vocab 37000; fp32 compute, as the reference's
+     CLI trains, like every phase but the bf16 ones) with CLT-k, 8 workers of batch 4 x
      128 tokens, 2 dense warm-up steps then 3 compressed steps, once unfused
      and once with ``fused=True``; the loss must be finite and each kernel
      must have launched as often as the reduce plan says (unfused: select,
@@ -139,6 +140,18 @@ Phases, each fatal on failure:
      run's launches are counted from 0 and held to the plan;
   8. one more fused compressed step under ``torch.profiler``: device busy
      time, idle share and the kernels that take the most device time;
+  8b. ``[bf16]``, the main path in the reference's mixed precision (bf16
+     compute over fp32 parameters, ``build_model``'s default): the same
+     runs as 3 (unfused, then fused), each kernel launched as the plan says,
+     in its vec4 variant, on fp32 inputs only (every launch's tensors
+     recorded); the bytes the plan's, build-up and a finite loss. On the
+     trained weights and one batch the bf16 batched pass against the fp32
+     one (``BF16_LOSS_REL``, ``BF16_GRAD_REL``) and against the bf16 loop,
+     each with its peak memory; every matrix product of one forward pass
+     on bf16 operands; the teacher-forced reduces from the bf16
+     state held as ``[arch]`` holds them (cuda against torch, unfused
+     bitwise); one profiled fused step; host ms a step, device busy ms,
+     idle share and the pass's peak beside the fp32 run's;
   9. ``[arch]``, the registry's model families at full width, depth cut
      (``ARCH_RUNS``), their initial weights drawn on the card:
      starcoder2-3b (RMSNorm / SwiGLU, GQA with 2 KV heads) at 2 of 30
@@ -162,6 +175,10 @@ Phases, each fatal on failure:
      loop (``grads_phase``) and for the MoE arch nnz(ĝ)/k of the expert
      tensors. These launches stand under ``arch_launches`` in the JSON
      line and are not in ``launches``.
+  9b. ``[arch:bf16]``, each ``ARCH_RUNS`` cut in bf16 compute over fp32
+     parameters, fused: 1 dense + 1 compressed step, launches and bytes as
+     planned, a finite loss, the peak beside the fp32 run's (their
+     launches join ``arch_launches``);
   10. ``[serve]``, serving the registry's families at full width
      (``SERVE_RUNS``), each one's weights drawn on the card and freed before
      the next: paper-transformer-base (6 layers), starcoder2-3b (30),
@@ -178,6 +195,16 @@ Phases, each fatal on failure:
      factor), the card against the CPU on the same weights cut in depth
      (``SERVE_CPU_REL_TOL``), the recurrent states' size, and no ScaleCom
      kernel launched.
+  10b. ``[serve:bf16]``, the reference's production serving configuration
+     (bf16 parameters and compute, ``BF16_SERVE_RUNS``, the same phase
+     function): paper-transformer-base and rwkv6-3b at full depth and
+     internvl2-26b at all 48 layers, which fp32 weights cannot hold, each
+     stacked leaf drawn in fp32 one layer at a time and stored in bf16.
+     ``[serve]``'s timings, the weight-read bound at 2 bytes a weight; every
+     matrix product of a decode step on bf16 operands but RWKV-6's fp32
+     ones; prefill/decode consistency at each run's fixed tolerance, for
+     rwkv6-3b also at 1 to 16 layers; the greedy tokens' agreement with an
+     fp32 run of the same draw where one fits;
   11. ``[ring]``, real collectives (``repro_torch.distributed.ring``):
      ``RING_WORLD`` = 8 spawned processes on the one card, joined by gloo
      through a ``file://`` store (NCCL puts one rank on a card; gloo's
@@ -231,7 +258,9 @@ Phases, each fatal on failure:
      gives each phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+last line is ``{"ok": true, "device": {...}}``. The bf16 main path's
+launches (8b) count in each kernel's ``launches`` and stand alone under
+``bf16_launches``.
 """
 
 from __future__ import annotations
@@ -2772,7 +2801,7 @@ def reduce_bound(plans, workers: int) -> tuple:
 
 
 def arch_hold(label: str, gpw, sc_state, sc_cfg, plans, fused: bool, workers: int,
-              card_line: str) -> dict:
+              card_line: str, tag: str = "[arch]") -> dict:
     """A teacher-forced reduce on the card from the trained state (cuda
     backend, ``fused`` or not), timed, and held tensor by tensor against the
     torch backend's composition from the same inputs (``hold_reduce``; one
@@ -2826,7 +2855,7 @@ def arch_hold(label: str, gpw, sc_state, sc_cfg, plans, fused: bool, workers: in
     k = sum(by_plan[p].k for p in ratios)
     v = check_buildup(nnz / k, "clt_k", workers, CHUNK)
     check(v is None, f"[arch] {label} reduce from the trained state: {v}")
-    print(f"[arch] {label} reduce from the trained state, cuda backend: {dev_ms:.2f} device ms "
+    print(f"{tag} {label} reduce from the trained state, cuda backend: {dev_ms:.2f} device ms "
           f"(5 calls back to back), {ms:.2f} ms host clock (the held call), against a bound of "
           f"{bound_ms:.2f} ms ({nbytes / 1e9:.2f} GB over {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
           f"{bound_ms / dev_ms:.0%} of it; held tensor by tensor against the torch "
@@ -2868,7 +2897,8 @@ def arch_phase(card_line: str) -> dict:
     composition (``arch_hold``); with ``grads`` also the batched per-worker
     pass against the loop (``grads_phase``, the residues parked in host
     memory meanwhile), and for an MoE arch nnz(ĝ)/k of the expert tensors.
-    Returns the training runs' kernel launches, summed."""
+    Returns the training runs' kernel launches, summed, and each run's peak
+    allocated bytes by label."""
     import torch
 
     from repro_torch.configs import registry
@@ -2882,6 +2912,7 @@ def arch_phase(card_line: str) -> dict:
 
     t_phase = time.perf_counter()
     launched = dict.fromkeys(KERNELS, 0)
+    peaks = {}
     opt = make_optimizer("sgdm")
     sched = schedule.linear_warmup(schedule.constant(0.05), WARMUP)
     base_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
@@ -2890,7 +2921,7 @@ def arch_phase(card_line: str) -> dict:
         name, workers = spec.name, spec.workers
         full = registry.arch(name)
         cfg = dataclasses.replace(full, **spec.cut)
-        model = build_model(cfg, loss_chunk=64)
+        model = build_model(cfg, compute_dtype="float32", loss_chunk=64)
         kept = " + ".join(f"{getattr(cfg, k)} of {getattr(full, k)}" for k in spec.cut)
         print(f"[arch] {name}: {kept} layers ({describe(cfg)}); {workers} workers x "
               f"{spec.local_batch} x {spec.seq} tokens, CLT-k chunk {CHUNK} top-1, beta {BETA}, "
@@ -2907,7 +2938,8 @@ def arch_phase(card_line: str) -> dict:
                             workers, STEPS, label, card_line, f"[arch] {label}",
                             spec.local_batch, spec.seq,
                             torch.Generator(device="cuda").manual_seed(0))
-            print(f"[arch] {label}: peak allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            peaks[label] = torch.cuda.max_memory_allocated()
+            print(f"[arch] {label}: peak allocated {peaks[label] / 2**30:.2f} "
                   f"GiB (without remat: {spec.before}) on {card_line}")
             launched = {k: n + run.launches[k] for k, n in launched.items()}
             compressed = [p for p in run.plans if not p.dense]
@@ -2956,7 +2988,7 @@ def arch_phase(card_line: str) -> dict:
     check(not missing, f"[arch] {missing} never launched on the arch path")
     print(f"[arch] launches of the training runs: {launched}; phase "
           f"{time.perf_counter() - t_phase:.1f} s wall on {card_line}")
-    return launched
+    return launched, peaks
 
 
 @dataclasses.dataclass(frozen=True)
@@ -3003,13 +3035,14 @@ def remat_phase(card_line: str) -> None:
         full = registry.arch(spec.name)
         cfg = dataclasses.replace(full, **spec.cut)
         kept = " + ".join(f"{getattr(cfg, k)} of {getattr(full, k)}" for k in spec.cut)
-        params = build_model(cfg).init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+        params = build_model(cfg, compute_dtype="float32").init(
+            torch.Generator(device="cuda").manual_seed(0), "cuda")
         batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(make_batches(
             cfg.vocab, spec.workers, spec.local_batch, spec.seq, seed=1,
             **model_inputs(cfg))).items()}
         out, peak, ms = {}, {}, {}
         for remat in (False, True):
-            model = build_model(cfg, loss_chunk=64, remat=remat)
+            model = build_model(cfg, compute_dtype="float32", loss_chunk=64, remat=remat)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -3057,16 +3090,22 @@ def remat_phase(card_line: str) -> None:
 class ServeRun:
     """One [serve] run: an id of the registry at full width, its depth cut
     only where one card cannot hold its weights (``cut``, with ``why``),
-    serving ``batch`` prompts of ``prompt`` tokens and ``gen`` greedy tokens;
-    ``cpu_cut`` is the depth at which the card is held against the CPU."""
+    serving ``batch`` prompts of ``prompt`` tokens and ``gen`` greedy tokens
+    with parameters and compute in ``dtype``. An fp32 run is held against
+    the CPU at the depth ``cpu_cut``. A bf16 run's prefill/decode
+    consistency is held at ``rel_tol``; ``sweep`` lists the depths at
+    which its consistency and bf16 gap are printed."""
 
     name: str
-    cpu_cut: dict
+    cpu_cut: dict = dataclasses.field(default_factory=dict)
     cut: dict = dataclasses.field(default_factory=dict)
     why: str = ""
     prompt: int = 64
     batch: int = 4
     gen: int = 32
+    dtype: str = "float32"
+    rel_tol: float = 0.0
+    sweep: tuple = ()
 
 
 # The [serve] phase: serving needs no gradients, worker copies or residues,
@@ -3092,6 +3131,34 @@ SERVE_CONSISTENCY_TOL = dict(rtol=2e-3, atol=2e-3)
 # (fp32 both, GEMM sums in other orders)
 SERVE_CPU_REL_TOL = 1e-3
 SERVE_CPU_BATCH, SERVE_CPU_PROMPT, SERVE_CPU_STEPS = 2, 64, 4
+
+# The [serve:bf16] phase: the reference's production serving configuration
+# (repro/launch/dryrun.py:299-300, bf16 parameters and compute) at full
+# depth: the paper model, rwkv6-3b (the most fp32 islands: its decay,
+# recurrence and state) and internvl2-26b at all 48 layers (19.9 G
+# parameters: 40 GB in bf16, 79 GB in fp32).
+# bf16 prefill then decode against the prefill of one more token: the
+# largest logit difference over the largest |logit|. 3e-2 is the CPU test's
+# bound for the port against the reference in bf16 at SMOKE width
+# (tests/test_torch_mixed_precision.py; measured up to 1.64e-2, the
+# reference's own bf16-fp32 gap up to 1.08e-2). rwkv6-3b's 0.25 at 32 layers:
+# PyTorch's GEMMs round a row differently at another M (the prefill of T + 1
+# positions, of T, a decode step of 1; XLA's CPU dot does not, so the
+# reference's consistency is 0 there), and RWKV-6 magnifies a rounding with
+# depth as it magnifies bf16 against fp32. tools/rwkv6_bf16_witness.py at
+# full width on the CPU, one draw of the reference's weights: its own
+# bf16-fp32 gap 7.3e-3, 1.38e-2, 3.38e-2, 5.51e-2 and 1.44e-1 at 1, 2, 4, 8
+# and 16 layers, the port's 8.3e-3 to 1.49e-1, the port's consistency 0,
+# 7.0e-3, 1.56e-2, 2.63e-2 and 8.58e-2. 0.25 lies below the reference's own
+# gap carried on to 32 layers (x2.6 from 8 to 16). The sweep's depths up to
+# BF16_SWEEP_HELD are held at BF16_SERVE_REL.
+BF16_SERVE_REL = 3e-2
+BF16_SWEEP_HELD = 4
+BF16_SERVE_RUNS = (
+    ServeRun("paper-transformer-base", dtype="bfloat16", rel_tol=BF16_SERVE_REL),
+    ServeRun("rwkv6-3b", dtype="bfloat16", rel_tol=0.25, sweep=(1, 2, 4, 8, 16)),
+    ServeRun("internvl2-26b", dtype="bfloat16", rel_tol=BF16_SERVE_REL),
+)
 
 
 def cut_params(params, small) -> dict:
@@ -3137,18 +3204,25 @@ def decode_read_bytes(params, state, batch: int) -> tuple:
     return w, s
 
 
-def serve_phase(card_line: str) -> None:
-    """[serve]: each run of ``SERVE_RUNS`` at full width, its weights drawn on
-    the card and freed before the next: greedy serving through
-    ``build_serve_fns`` and ``launch.serve.generate`` twice (cold, then
-    warm: prefill ms and decode ms a token, tokens/s against the decode
-    step's weight-read bound, equal tokens both times), peak memory; the
-    prefill/decode consistency check (MoE at the no-drop capacity factor);
-    the card against the CPU at ``cpu_cut`` (prefill and
-    ``SERVE_CPU_STEPS`` teacher-forced decode steps); for the SSM and the
-    hybrid a decode state that does not grow with the context; one decode
+def serve_phase(card_line: str, runs=SERVE_RUNS, tag: str = "[serve]") -> None:
+    """[serve] (``SERVE_RUNS``) or [serve:bf16] (``BF16_SERVE_RUNS``): each
+    run at full width, its weights drawn on the card (a bf16 run's each
+    stacked leaf in fp32 a layer at a time, stored in bf16) and freed before
+    the next: greedy serving through ``build_serve_fns`` and
+    ``launch.serve.generate`` twice (cold, then warm: prefill ms and decode
+    ms a token, tokens/s against the decode step's weight-read bound at the
+    parameters' bytes, equal tokens both times), peak memory; one decode
     step under ``torch.profiler`` (device busy time, idle share, device
-    operations). No ScaleCom kernel may launch."""
+    operations). An fp32 run: the prefill/decode consistency check (MoE at
+    the no-drop capacity factor), the card against the CPU at ``cpu_cut``
+    (prefill and ``SERVE_CPU_STEPS`` teacher-forced decode steps), for the
+    SSM and the hybrid a decode state that does not grow with the context.
+    A bf16 run: the logits bf16, every matrix product of a decode step on
+    bf16 operands but RWKV-6's fp32 ones (``gemm_dtypes``), prefill/decode
+    consistency within the run's ``rel_tol``, at the ``sweep`` depths its
+    consistency and bf16 gap; where fp32 weights fit, the weights the fp32
+    draw rounded, bit for bit, and the greedy tokens of fp32 weights and
+    compute against the bf16 ones. No ScaleCom kernel may launch."""
     import numpy as np
     import torch
 
@@ -3164,23 +3238,31 @@ def serve_phase(card_line: str) -> None:
 
     t_phase = time.perf_counter()
     launched = kernels.launches()
-    for spec in SERVE_RUNS:
+    for spec in runs:
         name, B, T = spec.name, spec.batch, spec.prompt
         full = registry.arch(name)
         cfg = dataclasses.replace(full, **spec.cut)
-        model = build_model(cfg)
+        model = build_model(cfg, compute_dtype=spec.dtype, param_dtype=spec.dtype)
+        width = model.param_dtype.itemsize
         depth = (f"{cfg.n_layers} of {full.n_layers}" if not cfg.is_encdec else
                  f"{cfg.encoder_layers} + {cfg.n_layers} of {full.encoder_layers} + "
                  f"{full.n_layers}")
-        free, _ = torch.cuda.mem_get_info()
-        print(f"[serve] {name}: {depth} layers{' (cut: ' + spec.why + ')' if spec.why else ''}; "
-              f"{describe(cfg)}; {cfg.param_count():,} parameters "
-              f"({cfg.param_count() * 4 / 2**30:.2f} GiB fp32); batch {B}, prompt {T}, gen "
-              f"{spec.gen}; {free / 2**30:.2f} GiB free before the run")
+        gc.collect()
         torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        print(f"{tag} {name}: {depth} layers{' (cut: ' + spec.why + ')' if spec.why else ''}; "
+              f"{describe(cfg)}; {cfg.param_count():,} parameters "
+              f"({cfg.param_count() * width / 2**30:.2f} GiB {spec.dtype}); compute "
+              f"{model.compute_dtype}; batch {B}, prompt {T}, gen {spec.gen}; "
+              f"{free / 2**30:.2f} GiB free before the run")
         torch.cuda.reset_peak_memory_stats()
         gen = torch.Generator(device="cuda").manual_seed(0)
+        t0 = time.perf_counter()
         params = model.init(gen, "cuda")
+        torch.cuda.synchronize()
+        t_init, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+        check(all(t.dtype == model.param_dtype for t in tree.leaves(params)),
+              f"{tag} {name}: a parameter is not {spec.dtype}")
         toks = SyntheticLM(cfg.vocab, seed=0).sample(np.random.default_rng(0), B, T)
         toks = torch.from_numpy(toks).cuda()  # (B, T + 1)
         extra = {}
@@ -3193,14 +3275,17 @@ def serve_phase(card_line: str) -> None:
         ctx = T + (cfg.vision_tokens if cfg.arch_type == "vlm" else 0)
         prefill_fn, decode_fn = build_serve_fns(model, seq_len=ctx + spec.gen)
         batch = dict(extra, tokens=toks[:, :T])
-        runs = [generate(prefill_fn, decode_fn, params, batch, ctx, spec.gen,
-                         torch.cuda.synchronize) for _ in range(2)]
-        check(torch.equal(runs[0][0], runs[1][0]), f"[serve] {name}: two greedy runs differ")
-        (_, pre_cold, dec_cold), (tokens, pre_warm, dec_warm) = runs
+        runs_ = [generate(prefill_fn, decode_fn, params, batch, ctx, spec.gen,
+                          torch.cuda.synchronize) for _ in range(2)]
+        check(torch.equal(runs_[0][0], runs_[1][0]), f"{tag} {name}: two greedy runs differ")
+        (_, pre_cold, dec_cold), (tokens, pre_warm, dec_warm) = runs_
         check(tokens.shape == (B, spec.gen) and bool(
-            ((tokens >= 0) & (tokens < cfg.vocab)).all()), f"[serve] {name}: tokens {tokens}")
+            ((tokens >= 0) & (tokens < cfg.vocab)).all()), f"{tag} {name}: tokens {tokens}")
         peak = torch.cuda.max_memory_allocated()
-        _, state = prefill_fn(params, batch)
+        logits, state = prefill_fn(params, batch)
+        check(logits.dtype == model.compute_dtype and bool(torch.isfinite(logits).all()),
+              f"{tag} {name}: prefill logits {logits.dtype}, finite "
+              f"{bool(torch.isfinite(logits).all())}")
         w_bytes, s_bytes = decode_read_bytes(params, state, B)
         # one decode step under the profiler: device busy time, kernels launched
         torch.cuda.synchronize()
@@ -3209,83 +3294,474 @@ def serve_phase(card_line: str) -> None:
         on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
         busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
         n_kernels = sum(e.count for e in on_card)
-        del state, prof, on_card
+        del prof, on_card, logits
         ms_tok = dec_warm / (spec.gen - 1) * 1e3
         bound_ms = (w_bytes + s_bytes) / HBM_BYTES_PER_S * 1e3
-        print(f"[serve] {name}: prefill {pre_cold * 1e3:.1f} ms first call, {pre_warm * 1e3:.1f} "
-              f"ms warm ({B} x {ctx} positions); decode {ms_tok:.3f} ms a token warm "
+        print(f"{tag} {name}: init {t_init:.1f} s (peak {init_peak / 2**30:.2f} GiB); prefill "
+              f"{pre_cold * 1e3:.1f} ms first call, {pre_warm * 1e3:.1f} ms warm ({B} x {ctx} "
+              f"positions); decode {ms_tok:.3f} ms a token warm "
               f"({dec_cold / (spec.gen - 1) * 1e3:.3f} cold), {B / ms_tok * 1e3:.1f} tokens/s; "
-              f"weight-read bound {bound_ms:.3f} ms ({w_bytes / 1e9:.3f} GB of weights + "
-              f"{s_bytes / 1e9:.4f} GB of state a step over {HBM_BYTES_PER_S / 1e12:.2f} TB/s), "
-              f"{bound_ms / ms_tok:.1%} of it; peak allocated {peak / 2**30:.2f} GiB on "
-              f"{card_line}")
-        print(f"[serve] {name}: one decode step under torch.profiler: {step_ms:.3f} ms host clock, "
+              f"weight-read bound {bound_ms:.3f} ms ({w_bytes / 1e9:.3f} GB of weights at "
+              f"{width} B a weight + {s_bytes / 1e9:.4f} GB of state a step over "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {bound_ms / ms_tok:.1%} of it; peak "
+              f"allocated {peak / 2**30:.2f} GiB on {card_line}")
+        print(f"{tag} {name}: one decode step under torch.profiler: {step_ms:.3f} ms host clock, "
               + (f"{busy_ms:.3f} ms device busy (idle share {1 - busy_ms / step_ms:.3f}) in "
                  f"{n_kernels} device operations" if busy_ms > 0 else
                  "device time not measured (no device events recorded)") + f" on {card_line}")
-        print(f"[serve] {name}: greedy tokens of the first sequence {tokens[0, :16].tolist()}")
-
-        # prefill/decode consistency: decode of token T after prefill(tokens[:T])
-        # equals prefill(tokens[:T+1])'s last logits
-        cmodel = model if not cfg.n_experts else build_model(
-            dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)))
-        want, _ = cmodel.prefill(params, dict(extra, tokens=toks), ctx + 8)
-        _, state = cmodel.prefill(params, batch, ctx + 8)
-        got, state = cmodel.decode_step(params, state, toks[:, T], ctx)
-        err = max_abs_err(got, want)
-        ok = bool(torch.allclose(got, want, **SERVE_CONSISTENCY_TOL))
-        print(f"[serve] {name}: decode of token {T} after prefill of {T} against the prefill of "
-              f"{T + 1}{' (no-drop capacity factor ' + str(float(cfg.n_experts)) + ')' if cfg.n_experts else ''}: "
-              f"max abs err {err:.3e}, largest |logit| {float(want.abs().max()):.3f} (rtol = atol "
-              f"= 2e-3) {'ok' if ok else 'FAILED'}")
-        check(ok, f"[serve] {name}: prefill/decode consistency off by {err:.3e}")
-        del want, got, state
-
-        if cfg.arch_type in ("ssm", "hybrid"):
-            n = [sum(x.numel() for x in tree.leaves(model.init_decode_state(B, seq, "cuda")))
-                 for seq in (ctx, 16 * ctx)]
-            ok = n[0] == n[1] if cfg.arch_type == "ssm" else n[1] <= n[0] * 40
-            print(f"[serve] {name}: decode state {n[0]:,} elements at a {ctx}-position context, "
-                  f"{n[1]:,} at {16 * ctx} {'ok' if ok else 'FAILED'}")
-            check(ok, f"[serve] {name}: the decode state grows with the context")
-
-        # the card against the CPU, the same weights cut to cpu_cut
-        small = dataclasses.replace(full, **spec.cpu_cut)
-        smodel = build_model(small)
-        card_p = cut_params(params, small)
-        cpu_p = tree.tree_map(lambda t: t.cpu(), card_p)
-        b2, n2 = SERVE_CPU_BATCH, SERVE_CPU_PROMPT
-        t2 = torch.from_numpy(SyntheticLM(cfg.vocab, seed=1).sample(
-            np.random.default_rng(1), b2, n2 + SERVE_CPU_STEPS - 1))  # (b2, n2 + steps)
-        ctx2 = n2 + (cfg.vision_tokens if cfg.arch_type == "vlm" else 0)
-        outs, secs = {}, {}
-        for dev, p in (("cuda", card_p), ("cpu", cpu_p)):
-            t0 = time.perf_counter()
-            b = {k: v[:b2].to(dev) for k, v in extra.items()}
-            tk = t2.to(dev)  # teacher-forced: the prompt, then the next tokens
-            logits, st = smodel.prefill(p, dict(b, tokens=tk[:, :n2]), ctx2 + SERVE_CPU_STEPS)
-            outs[dev] = [logits.cpu()]
-            for i in range(SERVE_CPU_STEPS):
-                logits, st = smodel.decode_step(p, st, tk[:, n2 + i], ctx2 + i)
-                outs[dev].append(logits.cpu())
-            secs[dev] = time.perf_counter() - t0
-        worst = max(max_abs_err(a, c) / float(c.abs().max())
-                    for a, c in zip(outs["cuda"], outs["cpu"]))
-        ok = worst <= SERVE_CPU_REL_TOL
-        cut_depth = ", ".join(f"{k} {v}" for k, v in spec.cpu_cut.items())
-        print(f"[serve] {name}: card against the CPU at {cut_depth}, {b2} x {n2} prompt "
-              f"positions + {SERVE_CPU_STEPS} decode steps: largest logit difference "
-              f"{worst:.3e} of the largest |logit| (tolerance {SERVE_CPU_REL_TOL:g}) "
-              f"{'ok' if ok else 'FAILED'}; CPU {secs['cpu']:.1f} s")
-        check(ok, f"[serve] {name}: card and CPU logits differ by {worst:.3e} of the largest")
-        del params, card_p, cpu_p, outs, tokens, runs, batch, extra, toks, model, cmodel
+        print(f"{tag} {name}: greedy tokens of the first sequence {tokens[0, :16].tolist()}")
+        if spec.dtype != "float32":
+            with gemm_dtypes() as gemms:
+                decode_fn(params, state, tokens[:, 0], ctx)
+            fp32_gemms = cfg.n_layers * 3 if cfg.arch_type == "ssm" else 0
+            ok = (gemms.get(torch.float32, 0) == fp32_gemms and gemms.get(torch.bfloat16, 0) > 0
+                  and set(gemms) <= {torch.float32, torch.bfloat16})
+            print(f"{tag} {name}: one decode step's matrix products by operand dtype "
+                  f"{ {str(k).removeprefix('torch.'): v for k, v in gemms.items()} } (want every "
+                  f"one bf16 but {fp32_gemms} fp32: RWKV-6's decay adapters and state product, "
+                  f"3 a layer) {'ok' if ok else 'FAILED'}")
+            check(ok, f"{tag} {name}: a decode step's matrix products {gemms}")
+        del state
+        if spec.dtype == "float32":
+            serve_fp32_holds(spec, full, cfg, model, params, toks, extra, ctx, tag)
+        else:
+            serve_bf16_holds(spec, cfg, model, params, toks, extra, ctx, batch, tokens, tag,
+                             card_line, fp32_fits=cfg.param_count() * (4 + width) < 0.8 * free)
+        del params, tokens, runs_, batch, extra, toks, model
         gc.collect()
         torch.cuda.empty_cache()
     check(kernels.launches() == launched,
-          f"[serve] ScaleCom kernels launched while serving: {kernels.launches()} after "
+          f"{tag} ScaleCom kernels launched while serving: {kernels.launches()} after "
           f"{launched}")
-    print(f"[serve] no ScaleCom kernel launched in the phase ({launched} before and after); "
+    print(f"{tag} no ScaleCom kernel launched in the phase ({launched} before and after); "
           f"phase {time.perf_counter() - t_phase:.1f} s wall on {card_line}")
+
+
+def serve_fp32_holds(spec, full, cfg, model, params, toks, extra, ctx: int, tag: str) -> None:
+    """An fp32 [serve] run's holds: prefill/decode consistency at
+    ``SERVE_CONSISTENCY_TOL``, an SSM's or hybrid's decode state against
+    the context, and the card against the CPU at ``spec.cpu_cut``."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import build_model
+
+    name, B, T = spec.name, spec.batch, spec.prompt
+    batch = dict(extra, tokens=toks[:, :T])
+    # prefill/decode consistency: decode of token T after prefill(tokens[:T])
+    # equals prefill(tokens[:T+1])'s last logits
+    cmodel = model if not cfg.n_experts else build_model(
+        dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts)),
+        compute_dtype="float32")
+    want, _ = cmodel.prefill(params, dict(extra, tokens=toks), ctx + 8)
+    _, state = cmodel.prefill(params, batch, ctx + 8)
+    got, state = cmodel.decode_step(params, state, toks[:, T], ctx)
+    err = max_abs_err(got, want)
+    ok = bool(torch.allclose(got, want, **SERVE_CONSISTENCY_TOL))
+    print(f"{tag} {name}: decode of token {T} after prefill of {T} against the prefill of "
+          f"{T + 1}{' (no-drop capacity factor ' + str(float(cfg.n_experts)) + ')' if cfg.n_experts else ''}: "
+          f"max abs err {err:.3e}, largest |logit| {float(want.abs().max()):.3f} (rtol = atol "
+          f"= 2e-3) {'ok' if ok else 'FAILED'}")
+    check(ok, f"{tag} {name}: prefill/decode consistency off by {err:.3e}")
+    del want, got, state
+
+    if cfg.arch_type in ("ssm", "hybrid"):
+        n = [sum(x.numel() for x in tree.leaves(model.init_decode_state(B, seq, "cuda")))
+             for seq in (ctx, 16 * ctx)]
+        ok = n[0] == n[1] if cfg.arch_type == "ssm" else n[1] <= n[0] * 40
+        print(f"{tag} {name}: decode state {n[0]:,} elements at a {ctx}-position context, "
+              f"{n[1]:,} at {16 * ctx} {'ok' if ok else 'FAILED'}")
+        check(ok, f"{tag} {name}: the decode state grows with the context")
+
+    # the card against the CPU, the same weights cut to cpu_cut
+    small = dataclasses.replace(full, **spec.cpu_cut)
+    smodel = build_model(small, compute_dtype="float32")
+    card_p = cut_params(params, small)
+    cpu_p = tree.tree_map(lambda t: t.cpu(), card_p)
+    b2, n2 = SERVE_CPU_BATCH, SERVE_CPU_PROMPT
+    t2 = torch.from_numpy(SyntheticLM(cfg.vocab, seed=1).sample(
+        np.random.default_rng(1), b2, n2 + SERVE_CPU_STEPS - 1))  # (b2, n2 + steps)
+    ctx2 = n2 + (cfg.vision_tokens if cfg.arch_type == "vlm" else 0)
+    outs, secs = {}, {}
+    for dev, p in (("cuda", card_p), ("cpu", cpu_p)):
+        t0 = time.perf_counter()
+        b = {k: v[:b2].to(dev) for k, v in extra.items()}
+        tk = t2.to(dev)  # teacher-forced: the prompt, then the next tokens
+        logits, st = smodel.prefill(p, dict(b, tokens=tk[:, :n2]), ctx2 + SERVE_CPU_STEPS)
+        outs[dev] = [logits.cpu()]
+        for i in range(SERVE_CPU_STEPS):
+            logits, st = smodel.decode_step(p, st, tk[:, n2 + i], ctx2 + i)
+            outs[dev].append(logits.cpu())
+        secs[dev] = time.perf_counter() - t0
+    worst = max(max_abs_err(a, c) / float(c.abs().max())
+                for a, c in zip(outs["cuda"], outs["cpu"]))
+    ok = worst <= SERVE_CPU_REL_TOL
+    cut_depth = ", ".join(f"{k} {v}" for k, v in spec.cpu_cut.items())
+    print(f"{tag} {name}: card against the CPU at {cut_depth}, {b2} x {n2} prompt "
+          f"positions + {SERVE_CPU_STEPS} decode steps: largest logit difference "
+          f"{worst:.3e} of the largest |logit| (tolerance {SERVE_CPU_REL_TOL:g}) "
+          f"{'ok' if ok else 'FAILED'}; CPU {secs['cpu']:.1f} s")
+    check(ok, f"{tag} {name}: card and CPU logits differ by {worst:.3e} of the largest")
+
+
+def bf16_consistency(model, model32, params, toks, extra, ctx: int) -> tuple:
+    """(decode of token T after a prefill of T against the prefill of T + 1,
+    the same weights computed in fp32 against bf16 at that prefill): each the
+    largest logit difference over the largest |logit| of the bf16 prefill."""
+    T = toks.shape[1] - 1
+    want, _ = model.prefill(params, dict(extra, tokens=toks), ctx + 8)
+    _, state = model.prefill(params, dict(extra, tokens=toks[:, :T]), ctx + 8)
+    got, _ = model.decode_step(params, state, toks[:, T], ctx)
+    in_fp32, _ = model32.prefill(params, dict(extra, tokens=toks), ctx + 8)
+    scale = float(want.float().abs().max())
+    return (max_abs_err(got.float(), want.float()) / scale,
+            max_abs_err(in_fp32.float(), want.float()) / scale)
+
+
+def serve_bf16_holds(spec, cfg, model, params, toks, extra, ctx: int, batch, tokens, tag: str,
+                     card_line: str, fp32_fits: bool) -> None:
+    """A bf16 [serve:bf16] run's holds: prefill/decode consistency within
+    ``spec.rel_tol`` (and at the ``spec.sweep`` depths, those up to
+    ``BF16_SWEEP_HELD`` within ``BF16_SERVE_REL``); where ``fp32_fits``
+    (fp32 weights beside the bf16 ones in 80 % of the free memory), the
+    weights the fp32 draw rounded and the greedy tokens' agreement with
+    fp32 weights and compute."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import build_model
+    from repro_torch.training.serve import build_serve_fns
+
+    name, T, n_gen = spec.name, spec.prompt, spec.gen
+    for depth in spec.sweep:
+        small = dataclasses.replace(cfg, n_layers=depth)
+        rel, gap = bf16_consistency(
+            build_model(small, compute_dtype="bfloat16", param_dtype="bfloat16"),
+            build_model(small, compute_dtype="float32", param_dtype="bfloat16"),
+            cut_params(params, small), toks, extra, ctx)
+        held = depth <= BF16_SWEEP_HELD
+        print(f"{tag} {name} at {depth} of {cfg.n_layers} layers: prefill/decode consistency "
+              f"{rel:.3e} of the largest |logit|, bf16 compute against fp32 on the same weights "
+              f"{gap:.3e}" + (f" (tolerance {BF16_SERVE_REL:g}) {'ok' if rel <= BF16_SERVE_REL else 'FAILED'}"
+                              if held else ""))
+        check(not held or rel <= BF16_SERVE_REL,
+              f"{tag} {name} at {depth} layers: prefill/decode consistency off by {rel:.3e}")
+    rel, gap = bf16_consistency(
+        model, build_model(cfg, compute_dtype="float32", param_dtype="bfloat16"), params, toks,
+        extra, ctx)
+    ok = rel <= spec.rel_tol
+    print(f"{tag} {name}: decode of token {T} after prefill of {T} against the prefill of "
+          f"{T + 1}: largest difference {rel:.3e} of the largest |logit| (tolerance "
+          f"{spec.rel_tol:g}); the same bf16 weights computed in fp32 stand {gap:.3e} from the "
+          f"bf16 prefill {'ok' if ok else 'FAILED'}")
+    check(ok, f"{tag} {name}: prefill/decode consistency off by {rel:.3e}")
+    if not fp32_fits:
+        print(f"{tag} {name}: no fp32 run to compare the greedy tokens with: its "
+              f"{cfg.param_count() * 4 / 2**30:.2f} GiB of fp32 weights do not fit beside the "
+              f"bf16 ones")
+        return
+    model32 = build_model(cfg, compute_dtype="float32", param_dtype="float32")
+    p32 = model32.init(torch.Generator(device="cuda").manual_seed(0), "cuda")
+    same = all(torch.equal(a.to(torch.bfloat16).view(torch.int16), b.view(torch.int16))
+               for a, b in zip(tree.leaves(p32), tree.leaves(params)))
+    check(same, f"{tag} {name}: the bf16 weights are not the fp32 draw rounded")
+    p_fn, d_fn = build_serve_fns(model32, seq_len=ctx + n_gen)
+    tok32, _, dec32 = generate(p_fn, d_fn, p32, batch, ctx, n_gen, torch.cuda.synchronize)
+    equal = (tok32 == tokens)
+    first = [int(row.logical_not().nonzero()[0]) if not bool(row.all()) else n_gen
+             for row in equal]
+    print(f"{tag} {name}: bf16 weights are the fp32 draw rounded (bitwise, every leaf); greedy "
+          f"tokens of fp32 weights and compute against bf16: {int(equal.sum())} of "
+          f"{equal.numel()} equal, the first difference at positions {first} of {n_gen}; fp32 "
+          f"decode {dec32 / (n_gen - 1) * 1e3:.3f} ms a token on {card_line}")
+
+
+def profiled_step(loop, state, batch, step: int, tag: str, card_line: str) -> tuple:
+    """One training step of ``loop`` under ``torch.profiler``: its host ms,
+    device busy ms and idle share, and the kernels that take the most
+    device time. Returns (the new state, (host ms, busy ms))."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, metrics = loop.step(state, batch, step)
+        check(math.isfinite(float(metrics["loss"])), f"{tag} non-finite loss in the profiled step")
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
+    if busy_ms > 0:
+        print(f"{tag} one fused compressed step under torch.profiler: {wall_ms:.1f} ms host "
+              f"clock, {busy_ms:.1f} ms device busy, idle share {1 - busy_ms / wall_ms:.3f} "
+              f"on {card_line}")
+        for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]:
+            print(f"{tag} {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} {e.key[:100]}")
+    else:
+        print(f"{tag} device time not measured: torch.profiler recorded no device events "
+              f"({wall_ms:.1f} ms host clock)")
+    return state, (wall_ms, busy_ms)
+
+
+@contextlib.contextmanager
+def launch_dtypes():
+    """{(kernel, its tensors' dtypes): launches} of the kernels launched on
+    the card while the block runs (each wrapper asks ``build.on_card`` once
+    a launch, with its tensor inputs)."""
+    from repro_torch.kernels import build
+
+    seen, real = {}, build.on_card
+
+    def spy(kernel, *tensors):
+        on = real(kernel, *tensors)
+        if on:
+            key = (kernel, tuple(str(t.dtype).removeprefix("torch.") for t in tensors))
+            seen[key] = seen.get(key, 0) + 1
+        return on
+
+    build.on_card = spy
+    try:
+        yield seen
+    finally:
+        build.on_card = real
+
+
+# under inference_mode (prefill, decode_step) the composite products reach
+# the dispatch mode before they decompose
+GEMM_OPS = ("mm", "bmm", "addmm", "baddbmm", "matmul", "einsum", "linear")
+
+
+@contextlib.contextmanager
+def gemm_dtypes():
+    """{operand dtype: count} of the matrix products (``GEMM_OPS``, each
+    counted once by its last tensor operand) dispatched while the block
+    runs, under ``no_grad``: a path that quietly computes in fp32 shows
+    here, where a loss or logit tolerance cannot see it."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = {}
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket.__name__ in GEMM_OPS:
+                flat = [a for x in args for a in (x if isinstance(x, (list, tuple)) else [x])]
+                dt = [a for a in flat if isinstance(a, torch.Tensor)][-1].dtype
+                seen[dt] = seen.get(dt, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with torch.no_grad(), Count():
+        yield seen
+
+
+def fp32_inputs(seen: dict, tag: str) -> int:
+    """Check that every launch of ``seen`` (``launch_dtypes``) took fp32
+    values (int32 offsets beside them); returns the launches."""
+    bad = {k: n for k, n in seen.items() if set(k[1]) - {"float32", "int32"}}
+    check(not bad, f"{tag} kernel launches on other than fp32 values: {bad}")
+    return sum(seen.values())
+
+
+# bf16 compute against fp32 compute on the card, from the CPU measurements
+# (tests/test_torch_mixed_precision.py, the paper model at SMOKE width): the
+# reference's own bf16-fp32 gap there is 3.0e-4 of the loss and at most
+# 1.7e-2 of a gradient leaf's norm (relative norm of the difference); the
+# port's bf16 stood as far from the reference's. Held on the card at 4x each.
+BF16_LOSS_REL = 1.2e-3
+BF16_GRAD_REL = 7e-2
+BF16_GRAD_FLOOR = 1e-3  # a leaf's norm floor: this share of the largest leaf's
+
+
+def rel_norm_errors(a: dict, b: dict) -> tuple:
+    """Per leaf of two {path: (n, *shape)} gradient trees, |a - b| / |b| (L2
+    norms, |b| at least ``BF16_GRAD_FLOOR`` of the largest leaf's); returns
+    (the largest, its leaf)."""
+    import torch
+
+    from repro_torch import tree
+
+    by_path = dict(tree.flatten_with_path(b))
+    norms = {p: float(torch.linalg.vector_norm(y.float())) for p, y in by_path.items()}
+    floor = BF16_GRAD_FLOOR * max(norms.values())
+    worst, worst_path = 0.0, None
+    for path, x in tree.flatten_with_path(a):
+        check(bool(torch.isfinite(x).all()), f"{path} is not finite")
+        err = float(torch.linalg.vector_norm((x - by_path[path]).float())) / max(norms[path], floor)
+        if err > worst:
+            worst, worst_path = err, path
+    return worst, worst_path
+
+
+def bf16_phase(card_line: str, fp32_step_ms: dict, fp32_profile: tuple) -> dict:
+    """[bf16]: the main path in the reference's mixed precision, bf16 compute
+    over fp32 parameters (``build_model``'s default): ``train_run`` unfused
+    and then fused (launches as planned, vec4, bytes, build-up, a finite
+    loss), every launch's inputs recorded and held to fp32 (the gradients of
+    fp32 parameters are fp32 whatever the compute dtype). On the fused run's
+    weights and one batch: the bf16 batched pass against the fp32 one
+    (``BF16_LOSS_REL``, ``BF16_GRAD_REL``) and against the bf16 loop, each
+    pass's peak memory, every matrix product of one forward pass on bf16
+    operands (``gemm_dtypes``); from the trained state the teacher-forced reduces,
+    unfused and fused, held against the torch backend (``arch_hold``); one
+    profiled fused step. Prints host ms a step, device busy ms, idle share
+    and the pass's peak beside the fp32 run's (``fp32_step_ms``,
+    ``fp32_profile``). Returns the two runs' launches, summed."""
+    import torch
+
+    from repro_torch import tree
+    from repro_torch.configs import registry
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.scalecom import ScaleComConfig
+    from repro_torch.data import make_batches
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer, schedule
+    from repro_torch.training.train_step import per_worker_grads, per_worker_grads_loop
+
+    t_phase = time.perf_counter()
+    cfg = registry.arch("paper-transformer-base")
+    workers = 8
+    model = build_model(cfg, loss_chunk=64)  # bf16 compute over fp32 parameters
+    model32 = build_model(cfg, compute_dtype="float32", loss_chunk=64)
+    check(model.compute_dtype == torch.bfloat16 and model.param_dtype == torch.float32,
+          f"[bf16] build_model's defaults: {model.compute_dtype} / {model.param_dtype}")
+    opt = make_optimizer("sgdm")
+    sched = schedule.linear_warmup(schedule.constant(0.05), WARMUP)
+    base_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
+                              min_size=1024, warmup_steps=WARMUP, fused=False)
+    print(f"[bf16] paper-transformer-base at full width ({describe(cfg)}), compute "
+          f"{model.compute_dtype}, parameters {model.param_dtype}; {workers} workers x 4 x 128 "
+          f"tokens, CLT-k chunk {CHUNK} top-1, beta {BETA}, fp32 residues")
+    launched = dict.fromkeys(KERNELS, 0)
+    step_ms, run = {}, None
+    for fused in (False, True):
+        del run
+        torch.cuda.empty_cache()
+        label = "fused" if fused else "unfused"
+        with launch_dtypes() as seen:
+            run = train_run(cfg, model, opt, sched, dataclasses.replace(base_cfg, fused=fused),
+                            workers, STEPS, f"bf16 {label}", card_line, f"[bf16:{label}]")
+        n = fp32_inputs(seen, f"[bf16:{label}]")
+        check(n == sum(run.launches.values()), f"[bf16:{label}] {n} launches seen, "
+              f"{sum(run.launches.values())} counted")
+        print(f"[bf16:{label}] every one of the {n} kernel launches took fp32 values: "
+              + ", ".join(f"{k} {list(d)} x{c}" for (k, d), c in sorted(seen.items())))
+        launched = {k: c + run.launches[k] for k, c in launched.items()}
+        step_ms[label] = run.step_ms
+    state, loop, batches, plans = run.state, run.loop, run.batches, run.plans
+    del run
+
+    batch = {k: torch.as_tensor(v, device="cuda")
+             for k, v in next(make_batches(cfg.vocab, workers, 4, 128, seed=1)).items()}
+    passes, peaks = {}, {}
+    for name, m, fn in (("fp32", model32, per_worker_grads), ("bf16", model, per_worker_grads),
+                        ("bf16 loop", model, per_worker_grads_loop)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        passes[name], ms = host_ms(lambda: fn(m, state.params, batch, workers))
+        peaks[name] = (torch.cuda.max_memory_allocated() - base, ms)
+    for other, what in (("fp32", "the fp32 batched pass"), ("bf16 loop", "the bf16 loop")):
+        (la, _, ga), (lb, _, gb) = passes["bf16"], passes[other]
+        loss_rel = abs(float(la) - float(lb)) / abs(float(lb))
+        worst, worst_path = rel_norm_errors(ga, gb)
+        ok = loss_rel <= BF16_LOSS_REL and worst <= BF16_GRAD_REL
+        print(f"[bf16] the bf16 batched pass against {what}, same weights and batch: loss "
+              f"{float(la):.6f} vs {float(lb):.6f} (rel {loss_rel:.3e}, tolerance "
+              f"{BF16_LOSS_REL:g}); largest leaf |a-b|/|b| {worst:.3e} ({worst_path}; tolerance "
+              f"{BF16_GRAD_REL:g}) {'ok' if ok else 'FAILED'}")
+        check(ok, f"[bf16] bf16 batched pass against {what}: loss rel {loss_rel:.3e}, "
+                  f"gradient {worst:.3e} at {worst_path}")
+    check(all(g.dtype == torch.float32 for g in tree.leaves(passes["bf16"][2])),
+          "[bf16] gradients of fp32 parameters are not fp32")
+    with gemm_dtypes() as gemms:
+        model.loss(state.params, {k: v[0] for k, v in batch.items()})
+    ok = set(gemms) == {torch.bfloat16}
+    print(f"[bf16] one forward pass of the loss (one worker's 4 x 128 tokens): matrix products "
+          f"by operand dtype { {str(k).removeprefix('torch.'): v for k, v in gemms.items()} } "
+          f"(want every one bf16) {'ok' if ok else 'FAILED'}")
+    check(ok, f"[bf16] the forward pass's matrix products {gemms}")
+    gpw = passes.pop("bf16")[2]
+    del passes
+    print(f"[bf16] batched pass peak above the state: bf16 {peaks['bf16'][0] / 2**30:.2f} GiB "
+          f"({peaks['bf16'][1]:.1f} ms host), fp32 {peaks['fp32'][0] / 2**30:.2f} GiB "
+          f"({peaks['fp32'][1]:.1f} ms); the bf16 loop {peaks['bf16 loop'][0] / 2**30:.2f} GiB "
+          f"({peaks['bf16 loop'][1]:.1f} ms) on {card_line}")
+
+    # the teacher-forced reduces from the bf16-trained state; the momentum waits
+    sc_state = state.sc_state
+    for fused in (False, True):
+        arch_hold(f"bf16 {'fused' if fused else 'unfused'}", gpw, sc_state, base_cfg, plans,
+                  fused, workers, card_line, tag="[bf16]")
+    del gpw, sc_state
+    torch.cuda.empty_cache()
+    state, (wall_ms, busy_ms) = profiled_step(loop, state, next(batches), STEPS, "[bf16:profile]",
+                                              card_line)
+    fp32_wall, fp32_busy = fp32_profile
+    share = lambda w, b: f"{1 - b / w:.3f}" if b > 0 else "not measured"  # noqa: E731
+    print(f"[bf16] host ms a step (dense, then compressed), bf16 compute against fp32: unfused "
+          + " / ".join(f"{a:.1f}" for a in step_ms["unfused"]) + " against "
+          + " / ".join(f"{a:.1f}" for a in fp32_step_ms["unfused"]) + "; fused "
+          + " / ".join(f"{a:.1f}" for a in step_ms["fused"]) + " against "
+          + " / ".join(f"{a:.1f}" for a in fp32_step_ms["fused"])
+          + f"; a profiled fused step {wall_ms:.1f} ms host, {busy_ms:.1f} device busy, idle "
+          f"share {share(wall_ms, busy_ms)} against {fp32_wall:.1f} / {fp32_busy:.1f} / "
+          f"{share(fp32_wall, fp32_busy)}; phase {time.perf_counter() - t_phase:.1f} s on "
+          f"{card_line}")
+    del state, loop, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
+def arch_bf16_phase(card_line: str, fp32_peaks: dict) -> dict:
+    """[arch:bf16]: each ``ARCH_RUNS`` cut in bf16 compute over fp32
+    parameters, fused, 1 dense + 1 compressed step through ``train_run``
+    (launches and bytes as planned, build-up, a finite loss), every launch
+    on fp32 values; the peak beside the fp32 run's (``fp32_peaks``, by
+    ``arch_phase``'s labels). Returns the runs' launches, summed."""
+    import torch
+
+    from repro_torch.configs import registry
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.scalecom import ScaleComConfig
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer, schedule
+
+    t_phase = time.perf_counter()
+    launched = dict.fromkeys(KERNELS, 0)
+    opt = make_optimizer("sgdm")
+    sched = schedule.linear_warmup(schedule.constant(0.05), 1)
+    sc_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
+                            min_size=1024, warmup_steps=1, fused=True)
+    for spec in ARCH_RUNS:
+        cfg = dataclasses.replace(registry.arch(spec.name), **spec.cut)
+        model = build_model(cfg, loss_chunk=64)  # bf16 compute over fp32 parameters
+        label = f"{spec.name} fused"
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        with launch_dtypes() as seen:
+            run = train_run(cfg, model, opt, sched, sc_cfg, spec.workers, 2, f"bf16 {label}",
+                            card_line, f"[arch:bf16] {label}", spec.local_batch, spec.seq,
+                            torch.Generator(device="cuda").manual_seed(0))
+        fp32_inputs(seen, f"[arch:bf16] {label}")
+        peak = torch.cuda.max_memory_allocated()
+        print(f"[arch:bf16] {label}: {', '.join(f'{k} {v}' for k, v in spec.cut.items())}, "
+              f"compute {model.compute_dtype}; every launch on fp32 values; peak allocated "
+              f"{peak / 2**30:.2f} GiB against {fp32_peaks[label] / 2**30:.2f} GiB in fp32 "
+              f"compute (2 dense + 3 compressed steps there) on {card_line}")
+        launched = {k: n + run.launches[k] for k, n in launched.items()}
+        del run, model
+    check(launched["fused_reduce"] > 0, "[arch:bf16] fused_reduce never launched")
+    print(f"[arch:bf16] launches {launched}; phase {time.perf_counter() - t_phase:.1f} s wall on "
+          f"{card_line}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
 
 
 # The [ring] phase: real collectives. NCCL puts one rank on a card and the
@@ -3665,7 +4141,7 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
 
     group = dist.group.WORLD
     cfg = registry.arch("paper-transformer-base")
-    model = build_model(cfg, loss_chunk=64)
+    model = build_model(cfg, compute_dtype="float32", loss_chunk=64)
     sc_cfg = ScaleComConfig(compressor=CompressorConfig(run.compressor, chunk=CHUNK,
                                                         exact=run.exact),
                             beta=BETA, min_size=1024, residue_dtype=run.codec, groups=run.groups,
@@ -4371,9 +4847,6 @@ def main() -> None:
         t_mark[0] = now
 
     sys.path.insert(0, SRC)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch import kernels, tree
     from repro_torch.backends import resolve_backend
     from repro_torch.configs import registry
@@ -4413,7 +4886,7 @@ def main() -> None:
     # -- 3. the main path at full width, unfused then fused ---------------------
     cfg = registry.arch("paper-transformer-base")
     warmup, steps, workers = WARMUP, STEPS, 8
-    model = build_model(cfg, loss_chunk=64)
+    model = build_model(cfg, compute_dtype="float32", loss_chunk=64)
     base_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
                               min_size=1024, warmup_steps=warmup, fused=False)
     opt = make_optimizer("sgdm")
@@ -4661,41 +5134,33 @@ def main() -> None:
     mark("microbatches, recorder, checkpoint")
 
     # -- 8. where a fused compressed step's time goes ------------------------------
-    step_batch = next(batches)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, metrics = loop.step(state, step_batch, steps)
-        check(math.isfinite(float(metrics["loss"])), "non-finite loss in the profiled step")
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    on_card = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in on_card) / 1e3
-    if busy_ms > 0:
-        print(f"[profile] one fused compressed step under torch.profiler: {wall_ms:.1f} ms host "
-              f"clock, {busy_ms:.1f} ms device busy, idle share {1 - busy_ms / wall_ms:.3f} "
-              f"on {card_line}")
-        for e in sorted(on_card, key=lambda e: -e.self_device_time_total)[:12]:
-            print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} {e.key[:100]}")
-    else:
-        print(f"[profile] device time not measured: torch.profiler recorded no device events "
-              f"({wall_ms:.1f} ms host clock)")
+    state, fp32_profile = profiled_step(loop, state, next(batches), steps, "[profile]", card_line)
 
-    # -- 9. remat against no remat (REMAT_RUNS), the model families at full width
-    # (ARCH_RUNS) ----------------------------------------------------------------
-    del state, loop, batches, batch, step_batch, metrics, prof, on_card, trained, before
+    # -- 8b. the main path in the reference's mixed precision -------------------------
+    del state, loop, batches, batch, trained, before
     del m_t, g_t, idx, ghat
     del reduce, agree  # reduce's default argument holds the trained residues
     gc.collect()
     torch.cuda.empty_cache()
     mark("[profile]")
+    bf16_launches = bf16_phase(card_line, step_ms, fp32_profile)
+    mark("[bf16]")
+
+    # -- 9. remat against no remat (REMAT_RUNS), the model families at full width
+    # (ARCH_RUNS), then in bf16 compute ------------------------------------------------
     remat_phase(card_line)
     mark("[remat]")
-    arch_launches = arch_phase(card_line)
+    arch_launches, arch_peaks = arch_phase(card_line)
     mark("[arch]")
+    arch_bf16 = arch_bf16_phase(card_line, arch_peaks)
+    arch_launches = {k: n + arch_bf16[k] for k, n in arch_launches.items()}
+    mark("[arch:bf16]")
 
-    # -- 10. serving every family at full width (SERVE_RUNS) ------------------------
+    # -- 10. serving every family at full width (SERVE_RUNS), then bf16 weights ----------
     serve_phase(card_line)
     mark("[serve]")
+    serve_phase(card_line, BF16_SERVE_RUNS, "[serve:bf16]")
+    mark("[serve:bf16]")
 
     # -- 11. real collectives: the ring reduce and one worker per rank -----------------
     ring_launches = ring_phase(card_line)
@@ -4714,7 +5179,9 @@ def main() -> None:
             results[name]["launches"] = ring_launches[name]
         else:
             check(path_launches.get(name, 0) > 0, f"{name} was never launched on the main path")
-            results[name]["launches"] = path_launches[name] + harness_launches[name]
+            results[name]["launches"] = (path_launches[name] + harness_launches[name]
+                                         + bf16_launches[name])
+        results[name]["bf16_launches"] = bf16_launches[name]
         results[name]["harness_launches"] = harness_launches[name]
         results[name]["arch_launches"] = arch_launches[name]
         results[name]["ring_launches"] = ring_launches[name]

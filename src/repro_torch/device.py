@@ -4,6 +4,8 @@ Every entry point of ``repro_torch`` takes ``device`` (default ``"cuda"``) and
 resolves it here. Without CUDA a CUDA request raises; nothing falls back to
 the CPU behind the caller's back. ``require_sm90`` guards the kernel build:
 the kernels are compiled for ``sm_90a`` and run on a Hopper card only.
+``fp32_accumulation`` makes the card's matrix products accumulate as the
+JAX package's do.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Union
 
 import torch
 
-__all__ = ["resolve_device", "require_sm90"]
+__all__ = ["resolve_device", "require_sm90", "fp32_accumulation"]
 
 
 def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
@@ -41,3 +43,14 @@ def require_sm90() -> None:
             f"the repro_torch CUDA kernels are built for sm_90a (Hopper); "
             f"this card ({torch.cuda.get_device_name()}) is sm_{cap[0]}{cap[1]}"
         )
+
+
+def fp32_accumulation() -> None:
+    """Matrix products keep fp32 accumulation on the card, as XLA's do in the
+    JAX package: no TF32 (about three decimal digits) in fp32 GEMMs, and no
+    reduced-precision reductions in bf16 and fp16 GEMMs."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the reference accumulates bf16 and fp16 products in fp32
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction = False

@@ -64,7 +64,7 @@ def main(argv=None):
         raise SystemExit(f"unknown arch {args.arch}; choices: {list(registry.ARCHS)}")
     cfg = registry.smoke(args.arch)
     device = resolve_device(args.device)
-    model = build_model(cfg)
+    model = build_model(cfg, compute_dtype="float32")  # as the reference CLI serves
     params = model.init(torch.Generator().manual_seed(args.seed), device)
 
     src = SyntheticLM(cfg.vocab, seed=args.seed)

@@ -141,7 +141,7 @@ def main(argv=None):
         preflight(args.preflight_scenarios, args.workers, args.compressor, args.chunk,
                   args.groups, args.residue_dtype, device)
 
-    model = build_model(cfg, loss_chunk=64)
+    model = build_model(cfg, compute_dtype="float32", loss_chunk=64)  # as the reference CLI
     # --bucket-mb: None -> "auto" ($SCALECOM_TORCH_BUCKET_MB), <= 0 ->
     # unbucketed, > 0 -> bucketed at that size
     bucket_bytes = ScaleComConfig.bucket_bytes

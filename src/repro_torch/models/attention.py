@@ -6,7 +6,10 @@ output (never causal, never rotated). Serving: ``init_cache``,
 ``attention_decode`` (one token against the cache).
 
 Attention is einsum + masked softmax, masked with ``NEG_INF`` exactly as
-the reference does. ``attention_core`` scans the queries in chunks of
+the reference does. Mixed precision as there: the projections and the two
+einsums run in the compute dtype (``dtype``, each weight cast at use), the
+scores are cast to fp32 for the scale, mask and softmax, and the weights go
+back to the compute dtype; caches hold the compute dtype. ``attention_core`` scans the queries in chunks of
 ``q_chunk`` = 512 (the reference's default), so at most one chunk's
 (B, heads, q_chunk, T) scores exist at a time; in training each chunk's
 body is rematerialised (``common.remat``, the reference's
@@ -55,17 +58,17 @@ def init_attention(cfg, store: common.ParamStore, stacked: int = 0, prefix: str 
         store.zeros(f"{prefix}_bv", (KV * hd,), stacked=stacked)
 
 
-def _project_qkv(cfg, p, x, kv_x, positions, kv_positions, rope, prefix):
+def _project_qkv(cfg, p, x, kv_x, positions, kv_positions, dtype, rope, prefix):
     B, S, _ = x.shape
     T = kv_x.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p[f"{prefix}_wq"]
-    k = kv_x @ p[f"{prefix}_wk"]
-    v = kv_x @ p[f"{prefix}_wv"]
+    q = x @ p[f"{prefix}_wq"].to(dtype)
+    k = kv_x @ p[f"{prefix}_wk"].to(dtype)
+    v = kv_x @ p[f"{prefix}_wv"].to(dtype)
     if cfg.qkv_bias:
-        q = q + p[f"{prefix}_bq"]
-        k = k + p[f"{prefix}_bk"]
-        v = v + p[f"{prefix}_bv"]
+        q = q + p[f"{prefix}_bq"].to(dtype)
+        k = k + p[f"{prefix}_bk"].to(dtype)
+        v = v + p[f"{prefix}_bv"].to(dtype)
     q, k, v = q.reshape(B, S, H, hd), k.reshape(B, T, KV, hd), v.reshape(B, T, KV, hd)
     if rope:
         q = common.apply_rope(q, positions, cfg.rope_theta)
@@ -80,7 +83,8 @@ def attention_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor
     none negative. Returns (B, S, H, hd).
 
     Scans the queries in chunks of ``q_chunk`` (the last one sliced short),
-    so at most a (B, heads, q_chunk, T) score tensor exists at a time. With
+    so at most a (B, heads, q_chunk, T) score tensor exists at a time. The
+    scores and softmax are fp32, the output ``q``'s dtype. With
     ``remat`` each chunk's body is rematerialised (``common.remat``), so the
     backward recomputes a chunk's scores instead of keeping all of them."""
     S, H, hd = q.shape[1:]
@@ -99,7 +103,7 @@ def attention_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor
             mask = near if mask is None else mask & near
         if mask is not None:  # unmasked (an encoder's), no (B, heads, c, T) copy is made
             s = torch.where(mask, s, NEG_INF)
-        w = torch.softmax(s, dim=-1)
+        w = torch.softmax(s, dim=-1).to(qc.dtype)
         return torch.einsum("bkgqt,btkd->bqkgd", w, v).reshape(b, c, H, hd)
 
     step = common.remat(body) if remat else body
@@ -108,7 +112,8 @@ def attention_core(q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def attention_train(cfg, p, x: Tensor, positions: Tensor, *, causal: bool = True,
+def attention_train(cfg, p, x: Tensor, positions: Tensor, *, dtype: torch.dtype,
+                    causal: bool = True,
                     window: Optional[int] = None, kv_x: Optional[Tensor] = None,
                     kv_positions: Optional[Tensor] = None, rope: bool = True,
                     prefix: str = "attn", remat: bool = True) -> Tensor:
@@ -119,29 +124,32 @@ def attention_train(cfg, p, x: Tensor, positions: Tensor, *, causal: bool = True
     cross = kv_x is not None
     kv_src = kv_x if cross else x
     kv_pos = kv_positions if cross else positions
-    q, k, v = _project_qkv(cfg, p, x, kv_src, positions, kv_pos, rope and not cross, prefix)
+    q, k, v = _project_qkv(cfg, p, x, kv_src, positions, kv_pos, dtype, rope and not cross,
+                           prefix)
     out = attention_core(q, k, v, positions, kv_pos, causal=causal and not cross,
                          window=window, remat=remat)
     B, S = x.shape[:2]
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p[f"{prefix}_wo"]
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p[f"{prefix}_wo"].to(dtype)
 
 
-def init_cache(cfg, batch: int, capacity: int, device=None) -> Dict[str, Tensor]:
-    """An empty cache of ``capacity`` slots (``slot_pos`` -1)."""
+def init_cache(cfg, batch: int, capacity: int, dtype: torch.dtype,
+               device=None) -> Dict[str, Tensor]:
+    """An empty cache of ``capacity`` slots (``slot_pos`` -1), K and V in
+    ``dtype`` (the compute dtype)."""
     kv = (batch, capacity, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(kv, dtype=torch.float32, device=device),
-            "v": torch.zeros(kv, dtype=torch.float32, device=device),
+    return {"k": torch.zeros(kv, dtype=dtype, device=device),
+            "v": torch.zeros(kv, dtype=dtype, device=device),
             "slot_pos": torch.full((capacity,), -1, dtype=torch.int32, device=device)}
 
 
 def attention_prefill(cfg, p, x: Tensor, positions: Tensor, cache: Dict[str, Tensor], *,
-                      window: Optional[int] = None, rope: bool = True,
+                      dtype: torch.dtype, window: Optional[int] = None, rope: bool = True,
                       prefix: str = "attn") -> Tensor:
     """Full-sequence causal attention over the prompt x (B, S, D), writing the
     last min(C, S) positions' K/V into ``cache`` (capacity C) in place, at
     slots position % C. It runs under ``torch.inference_mode``: the query
     chunks alone bound its scores, with nothing to rematerialise."""
-    q, k, v = _project_qkv(cfg, p, x, x, positions, positions, rope, prefix)
+    q, k, v = _project_qkv(cfg, p, x, x, positions, positions, dtype, rope, prefix)
     out = attention_core(q, k, v, positions, positions, causal=True, window=window,
                          remat=False)
     B, S = x.shape[:2]
@@ -152,11 +160,11 @@ def attention_prefill(cfg, p, x: Tensor, positions: Tensor, cache: Dict[str, Ten
     cache["k"].index_copy_(1, slots, k[:, S - keep:])
     cache["v"].index_copy_(1, slots, v[:, S - keep:])
     cache["slot_pos"].index_copy_(0, slots, pos_tail.to(torch.int32))
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p[f"{prefix}_wo"]
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p[f"{prefix}_wo"].to(dtype)
 
 
 def attention_decode(cfg, p, x: Tensor, pos: int, cache: Dict[str, Tensor], *,
-                     window: Optional[int] = None, update_cache: bool = True,
+                     dtype: torch.dtype, window: Optional[int] = None, update_cache: bool = True,
                      rope: bool = True, causal: bool = True, prefix: str = "attn") -> Tensor:
     """One token x (B, 1, D) at absolute position ``pos`` (a Python int).
 
@@ -167,15 +175,15 @@ def attention_decode(cfg, p, x: Tensor, pos: int, cache: Dict[str, Tensor], *,
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     pos_t = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     if update_cache:
-        q, k_new, v_new = _project_qkv(cfg, p, x, x, pos_t, pos_t, rope, prefix)
+        q, k_new, v_new = _project_qkv(cfg, p, x, x, pos_t, pos_t, dtype, rope, prefix)
         slot = pos % cache["k"].shape[1]
         cache["k"][:, slot] = k_new[:, 0]
         cache["v"][:, slot] = v_new[:, 0]
         cache["slot_pos"][slot] = pos
     else:
-        q = x @ p[f"{prefix}_wq"]
+        q = x @ p[f"{prefix}_wq"].to(dtype)
         if cfg.qkv_bias:
-            q = q + p[f"{prefix}_bq"]
+            q = q + p[f"{prefix}_bq"].to(dtype)
         q = q.reshape(B, 1, H, hd)
         if rope:
             q = common.apply_rope(q, pos_t, cfg.rope_theta)
@@ -187,6 +195,6 @@ def attention_decode(cfg, p, x: Tensor, pos: int, cache: Dict[str, Tensor], *,
         valid = valid & (spos <= pos)
     if window is not None:
         valid = valid & ((pos - spos) < window)
-    w = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1)
+    w = torch.softmax(torch.where(valid, s, NEG_INF), dim=-1).to(dtype)
     o = torch.einsum("bkgqt,btkd->bqkgd", w, v).reshape(B, 1, H * hd)
-    return o @ p[f"{prefix}_wo"]
+    return o @ p[f"{prefix}_wo"].to(dtype)

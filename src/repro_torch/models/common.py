@@ -7,6 +7,13 @@ plain nested dicts of tensors with the JAX package's names and stacked
 shapes, so a JAX parameter tree carries across (``models.convert``) and the
 residue keys match.
 
+Mixed precision, as the reference places it: parameters are drawn in fp32
+and stored in the parameter dtype; every weight is cast to the compute
+dtype where it is used (``dtype`` arguments), so a parameter's gradient
+comes back in its own dtype (a cast's backward casts back). The norms and
+RoPE compute in fp32 and return the input's dtype; the cross-entropy's
+logits are fp32.
+
 ``remat(fn)`` is ``fn`` whose backward recomputes it: a
 ``torch.autograd.Function`` that saves only its tensor inputs and, in its
 backward, runs ``fn`` again under ``torch.func.vjp``. Its vmap rule is
@@ -53,54 +60,73 @@ __all__ = [
 class ParamStore:
     """Collects parameters during init, drawing from one explicit generator.
 
-    Normal draws come from ``generator``, on the generator's device, and are
-    then moved to ``device``: a CPU generator gives the same values whatever
-    the device, a CUDA one draws on the card (no host draws to wait for).
+    Normal draws come from ``generator``, on the generator's device, in
+    fp32, and are then moved to ``device`` and cast to ``param_dtype``
+    (round to nearest even), as the reference draws in fp32 and casts: a
+    bf16 init is the fp32 init rounded. A CPU generator gives the same
+    values whatever the device, a CUDA one draws on the card (no host draws
+    to wait for). A stacked leaf is drawn one layer at a time into its
+    stack, so the fp32 draw never holds more than one layer of it (48
+    layers of internvl2-26b's MLP are 19 GB in fp32).
     """
 
-    def __init__(self, generator: torch.Generator, device: torch.device):
+    def __init__(self, generator: torch.Generator, device: torch.device,
+                 param_dtype: torch.dtype = torch.float32):
         self.gen = generator
         self.device = device
+        self.param_dtype = param_dtype
         self.params: Dict[str, object] = {}
 
-    def _full(self, shape, stacked: int):
-        return ((stacked,) if stacked else ()) + tuple(shape)
+    def _put(self, name, shape, stacked: int, draw: Callable):
+        """``draw(shape)`` (an fp32 tensor) as the parameter ``name``,
+        ``stacked`` times on a new leading axis, one draw a layer."""
+        if not stacked:
+            self.params[name] = draw(tuple(shape)).to(self.device, self.param_dtype)
+            return
+        out = torch.empty((stacked,) + tuple(shape), dtype=self.param_dtype, device=self.device)
+        for i in range(stacked):
+            out[i] = draw(tuple(shape))
+        self.params[name] = out
 
     def dense(self, name, shape, scale: Optional[float] = None, stacked: int = 0):
         """Normal(0, scale) init; scale defaults to 1/sqrt(fan_in)."""
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         s = scale if scale is not None else fan_in**-0.5
-        full = self._full(shape, stacked)
-        w = torch.randn(full, generator=self.gen, dtype=torch.float32,
-                        device=self.gen.device) * s
-        self.params[name] = w.to(self.device)
+        self._put(name, shape, stacked, lambda sh: torch.randn(
+            sh, generator=self.gen, dtype=torch.float32, device=self.gen.device) * s)
 
     def zeros(self, name, shape, stacked: int = 0):
-        full = self._full(shape, stacked)
-        self.params[name] = torch.zeros(full, dtype=torch.float32, device=self.device)
+        full = ((stacked,) if stacked else ()) + tuple(shape)
+        self.params[name] = torch.zeros(full, dtype=self.param_dtype, device=self.device)
 
     def ones(self, name, shape, stacked: int = 0):
-        full = self._full(shape, stacked)
-        self.params[name] = torch.ones(full, dtype=torch.float32, device=self.device)
+        full = ((stacked,) if stacked else ()) + tuple(shape)
+        self.params[name] = torch.ones(full, dtype=self.param_dtype, device=self.device)
 
     def subtree(self, name: str) -> "ParamStore":
-        sub = ParamStore(self.gen, self.device)
+        sub = ParamStore(self.gen, self.device, self.param_dtype)
         self.params[name] = sub.params
         return sub
 
 
 def layernorm(x: Tensor, scale: Tensor, bias: Tensor, eps: float = 1e-5) -> Tensor:
-    """fp32 layernorm with the biased variance, as the JAX package computes it."""
+    """Layernorm with the biased variance, in fp32 as the JAX package
+    computes it; returns ``x``'s dtype."""
+    dt = x.dtype
     x = x.to(torch.float32)
     mu = torch.mean(x, dim=-1, keepdim=True)
     var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
-    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+    y = (x - mu) * torch.rsqrt(var + eps)
+    return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(dt)
 
 
 def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
-    """fp32 RMSNorm (a scale, no bias), as the JAX package computes it."""
+    """RMSNorm (a scale, no bias) in fp32, as the JAX package computes it;
+    returns ``x``'s dtype."""
+    dt = x.dtype
     x = x.to(torch.float32)
-    return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * scale
+    x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
+    return (x * scale.to(torch.float32)).to(dt)
 
 
 def init_norm(cfg, store: ParamStore, prefix: str, d: int, stacked: int = 0):
@@ -117,19 +143,21 @@ def apply_norm(cfg, x: Tensor, p: Dict[str, Tensor], prefix: str) -> Tensor:
 
 
 def apply_rope(x: Tensor, positions: Tensor, theta: float) -> Tensor:
-    """Rotary embedding over split halves. x: (..., S, heads, hd); positions: (S,)."""
+    """Rotary embedding over split halves, in fp32; returns ``x``'s dtype.
+    x: (..., S, heads, hd); positions: (S,)."""
     hd = x.shape[-1]
     freqs = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32, device=x.device) / hd))
     ang = positions[..., None].to(torch.float32) * freqs  # (S, hd/2)
     cos = torch.cos(ang)[..., None, :]  # broadcast over heads
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
-    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
 
 
 def sinusoidal_positions(seq: int, d: int, device=None) -> Tensor:
     """(seq, d) fp32 table: sin of pos / 10000^(2i/d) in the first half, cos in
-    the second, computed in float32 as the reference does."""
+    the second, computed in float32 as the reference does (its callers cast
+    it to the compute dtype)."""
     pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
     ang = pos / torch.pow(10_000.0, dim / d)
@@ -153,10 +181,11 @@ def init_gelu_mlp(store: ParamStore, d: int, f: int, stacked: int = 0):
     store.zeros("mlp_down_b", (d,), stacked=stacked)
 
 
-def gelu_mlp(p: Dict[str, Tensor], x: Tensor) -> Tensor:
-    """GELU MLP with biases; jax.nn.gelu's default is the tanh approximation."""
-    h = F.gelu(x @ p["mlp_up"] + p["mlp_up_b"], approximate="tanh")
-    return h @ p["mlp_down"] + p["mlp_down_b"]
+def gelu_mlp(p: Dict[str, Tensor], x: Tensor, dtype: torch.dtype) -> Tensor:
+    """GELU MLP with biases, in ``dtype``; jax.nn.gelu's default is the tanh
+    approximation."""
+    h = F.gelu(x @ p["mlp_up"].to(dtype) + p["mlp_up_b"].to(dtype), approximate="tanh")
+    return h @ p["mlp_down"].to(dtype) + p["mlp_down_b"].to(dtype)
 
 
 def init_swiglu(store: ParamStore, d: int, f: int, stacked: int = 0):
@@ -165,9 +194,10 @@ def init_swiglu(store: ParamStore, d: int, f: int, stacked: int = 0):
     store.dense("mlp_down", (f, d), stacked=stacked)
 
 
-def swiglu(p: Dict[str, Tensor], x: Tensor) -> Tensor:
-    """silu(x @ gate) * (x @ up) @ down, no biases."""
-    return (F.silu(x @ p["mlp_gate"]) * (x @ p["mlp_up"])) @ p["mlp_down"]
+def swiglu(p: Dict[str, Tensor], x: Tensor, dtype: torch.dtype) -> Tensor:
+    """silu(x @ gate) * (x @ up) @ down, no biases, in ``dtype``."""
+    return ((F.silu(x @ p["mlp_gate"].to(dtype)) * (x @ p["mlp_up"].to(dtype)))
+            @ p["mlp_down"].to(dtype))
 
 
 def init_embeddings(cfg, store: ParamStore):
@@ -176,13 +206,15 @@ def init_embeddings(cfg, store: ParamStore):
         store.dense("lm_head", (cfg.d_model, cfg.vocab))
 
 
-def embed_tokens(p, tokens: Tensor) -> Tensor:
-    return p["tok_embed"][tokens.long()]
+def embed_tokens(p, tokens: Tensor, dtype: torch.dtype) -> Tensor:
+    """The table cast to ``dtype``, then its rows: the reference's order, so
+    the rows' cotangents sum in ``dtype`` before the cast back."""
+    return p["tok_embed"].to(dtype)[tokens.long()]
 
 
-def lm_logits(p, x: Tensor) -> Tensor:
+def lm_logits(p, x: Tensor, dtype: torch.dtype) -> Tensor:
     w = p["lm_head"] if "lm_head" in p else p["tok_embed"].T
-    return x @ w
+    return x @ w.to(dtype)
 
 
 class _Remat(torch.autograd.Function):
@@ -258,10 +290,11 @@ def remat(fn: Callable) -> Callable:
 _remat = remat  # chunked_xent's keyword shadows the name
 
 
-def chunked_xent(p, h: Tensor, labels: Tensor, mask: Tensor, chunk: int,
+def chunked_xent(p, h: Tensor, labels: Tensor, mask: Tensor, chunk: int, dtype: torch.dtype,
                  remat: bool = True) -> Tensor:
     """Mean token cross-entropy over sequence chunks of ``chunk`` positions,
-    so only (B, chunk, V) logits exist at a time. Divides by sum(mask).
+    so only (B, chunk, V) logits exist at a time. Divides by sum(mask). The
+    logits are computed in ``dtype`` and cast to fp32 for the softmax.
 
     With ``remat`` (the reference's ``jax.checkpoint`` of the chunk body)
     the backward recomputes each chunk's logits, so it too holds one
@@ -272,7 +305,7 @@ def chunked_xent(p, h: Tensor, labels: Tensor, mask: Tensor, chunk: int,
     head = p["tok_embed"] if tied else p["lm_head"]
 
     def body(w, hx, lx, mx):
-        logits = (hx @ (w.T if tied else w)).to(torch.float32)
+        logits = (hx @ (w.T if tied else w).to(dtype)).to(torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
         return torch.sum((logz - gold) * mx)

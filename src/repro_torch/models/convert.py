@@ -7,7 +7,8 @@ shapes on both sides, so conversion is leafwise. Inputs are trees of arrays
 that ``numpy.asarray`` accepts (numpy or JAX arrays); nothing here imports
 JAX. The lossy residue codecs' bf16 and float8_e4m3fn leaves reach numpy as
 ``ml_dtypes`` dtypes, which torch does not take: they move across as their
-raw bits (``residue_bits`` gives those bits back, for bitwise comparisons).
+raw bits (``residue_bits`` gives those bits back, for bitwise comparisons);
+bf16 parameter leaves carry across the same way.
 """
 
 from __future__ import annotations
@@ -56,8 +57,14 @@ def decode_state_from_jax(state, device: Union[str, torch.device] = "cuda"):
 
 def decode_state_to_numpy(state):
     """The port's decode state -> the same tree of numpy arrays, for comparison
-    with the JAX package's (``jax.tree_util.keystr`` paths equal ``tree``'s)."""
-    return tree.tree_map(lambda t: t.detach().cpu().numpy(), state)
+    with the JAX package's (``jax.tree_util.keystr`` paths equal ``tree``'s).
+    numpy has no bfloat16: a bf16 leaf (a cache under bf16 compute) comes
+    back widened to float32, which is exact."""
+    def to_numpy(t):
+        t = t.detach().cpu()
+        return (t.to(torch.float32) if t.dtype == torch.bfloat16 else t).numpy()
+
+    return tree.tree_map(to_numpy, state)
 
 
 def state_from_jax(state, device: Union[str, torch.device] = "cuda") -> ScaleComState:

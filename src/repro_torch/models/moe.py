@@ -15,6 +15,10 @@ data).
 
 Auxiliary losses: the GShard load-balance loss and the ST-MoE router z-loss,
 with the share of dropped choices, as the reference reports them.
+
+Mixed precision as the reference places it: the router's logits, its
+softmax and gates and the aux losses in fp32; the dispatch buffer, the
+expert einsums and the combine weights in the compute dtype.
 """
 
 from __future__ import annotations
@@ -55,15 +59,16 @@ def _positions_in_expert(expert_ids: Tensor, n_experts: int) -> Tensor:
     return pos.to(torch.int32)
 
 
-def moe_ffn(cfg, p: Dict[str, Tensor], x: Tensor) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """x: (B, S, D) -> (B, S, D) and the aux dict (``moe_lb_loss``,
-    ``moe_z_loss``, ``moe_dropped_frac``), in fp32."""
+def moe_ffn(cfg, p: Dict[str, Tensor], x: Tensor, *,
+            dtype: torch.dtype) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: (B, S, D) -> (B, S, D) in ``dtype`` and the aux dict
+    (``moe_lb_loss``, ``moe_z_loss``, ``moe_dropped_frac``), in fp32."""
     B, S, D = x.shape
     E, K = cfg.n_experts, cfg.moe_topk
     T = B * S
     xt = x.reshape(T, D)
 
-    logits = (xt @ p["router"]).to(torch.float32)  # (T, E)
+    logits = (xt @ p["router"].to(dtype)).to(torch.float32)  # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, choice = torch.topk(probs, K, dim=-1)  # (T, K)
     gate_vals = gate_vals / torch.clamp(torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
@@ -76,18 +81,18 @@ def moe_ffn(cfg, p: Dict[str, Tensor], x: Tensor) -> Tuple[Tensor, Dict[str, Ten
     slot = torch.where(keep, flat_e * capacity + pos, torch.full_like(pos, E * capacity))
 
     # dispatch: (E*C + 1, D) buffers, the last row the dropped-choice sink
-    buf = torch.zeros((E * capacity + 1, D), dtype=x.dtype, device=x.device).index_add(
-        0, slot, xt.repeat_interleave(K, dim=0))
+    buf = torch.zeros((E * capacity + 1, D), dtype=dtype, device=x.device).index_add(
+        0, slot, xt.repeat_interleave(K, dim=0).to(dtype))
     eb = buf[: E * capacity].reshape(E, capacity, D)
 
-    h_gate = torch.einsum("ecd,edf->ecf", eb, p["expert_gate"])
-    h_up = torch.einsum("ecd,edf->ecf", eb, p["expert_up"])
-    eo = torch.einsum("ecf,efd->ecd", F.silu(h_gate) * h_up, p["expert_down"])
+    h_gate = torch.einsum("ecd,edf->ecf", eb, p["expert_gate"].to(dtype))
+    h_up = torch.einsum("ecd,edf->ecf", eb, p["expert_up"].to(dtype))
+    eo = torch.einsum("ecf,efd->ecd", F.silu(h_gate) * h_up, p["expert_down"].to(dtype))
 
     # combine: each (token, choice) slot's output, weighted by gate * keep
     flat_out = torch.cat([eo.reshape(E * capacity, D), eo.new_zeros((1, D))], dim=0)
     per_choice = torch.index_select(flat_out, 0, slot).reshape(T, K, D)
-    w = (gate_vals * keep.reshape(T, K)).to(x.dtype)
+    w = (gate_vals * keep.reshape(T, K)).to(dtype)
     out = torch.einsum("tkd,tk->td", per_choice, w)
 
     # aux losses (fp32): load balance (GShard) and router z-loss (ST-MoE)

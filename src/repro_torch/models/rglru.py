@@ -13,6 +13,11 @@ RG-LRU:  r_t = σ(W_a x_t),  i_t = σ(W_x x_t)
          a_t = exp(-c · softplus(Λ) · r_t)          (data-dependent decay)
          h_t = a_t h_{t-1} + sqrt(1 - a_t²) · (i_t ⊙ x_t)
 
+Mixed precision as the reference places it: the gate, the input and the
+conv in the compute dtype (``dtype``, each weight cast at use); ``r``,
+``i``, the decay and the scan in fp32, the output cast back; the state
+(``h`` and the conv's tail) fp32.
+
 The recurrence is a first-order linear scan, computed here in ⌈log₂ S⌉
 out-of-place rounds with the reference's combine (a1·a2, a2·b1 + b2): a
 sequential loop would be thousands of launches at long sequence. Its sums
@@ -74,20 +79,23 @@ def _rglru_scan(a: Tensor, bx: Tensor, h0: Tensor) -> Tensor:
     return bx
 
 
-def rglru_block(cfg, p, x: Tensor, state: Dict[str, Tensor]) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """x: (B, S, D); state: {"h": (B, D), "conv": (B, W-1, D)}. Returns the
-    residual x + out and the new state."""
+def rglru_block(cfg, p, x: Tensor, state: Dict[str, Tensor], *,
+                dtype: torch.dtype) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: (B, S, D); state: {"h": (B, D), "conv": (B, W-1, D)}, fp32. Returns
+    the residual x + out and the new state."""
+    f32 = torch.float32
     xn = common.apply_norm(cfg, x, p, "ln_rec")
-    gate = F.gelu(xn @ p["rec_in_gate"], approximate="tanh")  # jax.nn.gelu's default
-    u, new_tail = _conv1d_causal(xn @ p["rec_in_x"], p["rec_conv"], p["rec_conv_b"],
-                                 state["conv"])
-    r = torch.sigmoid(xn @ p["rec_wa"])
-    i = torch.sigmoid(xn @ p["rec_wx"])
-    a = torch.exp(-cfg.rglru_c * F.softplus(p["rec_lambda"]) * r)
-    bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u)
+    # jax.nn.gelu's default is the tanh approximation
+    gate = F.gelu(xn @ p["rec_in_gate"].to(dtype), approximate="tanh")
+    u, new_tail = _conv1d_causal(xn @ p["rec_in_x"].to(dtype), p["rec_conv"].to(dtype),
+                                 p["rec_conv_b"].to(dtype), state["conv"])
+    r = torch.sigmoid((xn @ p["rec_wa"].to(dtype)).to(f32))
+    i = torch.sigmoid((xn @ p["rec_wx"].to(dtype)).to(f32))
+    a = torch.exp(-cfg.rglru_c * F.softplus(p["rec_lambda"].to(f32)) * r)
+    bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.to(f32))
     h = _rglru_scan(a, bx, state["h"])
-    out = (h * gate) @ p["rec_out"]
-    return x + out, {"h": h[:, -1, :], "conv": new_tail}
+    out = (h.to(dtype) * gate) @ p["rec_out"].to(dtype)
+    return x + out, {"h": h[:, -1, :], "conv": new_tail.to(f32)}
 
 
 def init_rglru_state(cfg, batch: int, device=None) -> Dict[str, Tensor]:

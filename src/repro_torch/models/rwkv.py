@@ -13,6 +13,11 @@ The port of ``repro.models.rwkv``: the block over a sequence
 
 Channel mix: r = σ(x_r W_r); out = r ⊙ (relu(x_k W_k)² W_v).
 
+Mixed precision as the reference places it: the ddlerp, the projections,
+the gate, the output and the channel mix in the compute dtype (``dtype``,
+each weight cast at use); the decay, the bonus ``u``, r/k/v of the
+recurrence, the group norm and the state in fp32.
+
 The recurrence is a Python loop over the sequence in fp32, every op out of
 place, so ``torch.func.vmap`` over the workers takes it without a fallback.
 Autograd keeps each step's state for the backward pass (the reference's
@@ -64,13 +69,13 @@ def init_rwkv_block(cfg, store: common.ParamStore, stacked: int = 0):
     store.dense("cm_wr", (D, D), stacked=stacked)
 
 
-def _ddlerp(p, x: Tensor, x_prev: Tensor) -> Tuple[Tensor, ...]:
+def _ddlerp(p, x: Tensor, x_prev: Tensor, dtype: torch.dtype) -> Tuple[Tensor, ...]:
     """Data-dependent token-shift interpolation -> the 5 mixed inputs (r, k, v, g, w)."""
     xx = x_prev - x  # (B, S, D)
-    mu = p["tm_mu"]  # (5, D)
+    mu = p["tm_mu"].to(dtype)  # (5, D)
     base = x[:, :, None, :] + xx[:, :, None, :] * mu  # (B, S, 5, D)
-    adj = torch.tanh(torch.einsum("bsfd,fdr->bsfr", base, p["tm_lora_a"]))
-    adj = torch.einsum("bsfr,frd->bsfd", adj, p["tm_lora_b"])
+    adj = torch.tanh(torch.einsum("bsfd,fdr->bsfr", base, p["tm_lora_a"].to(dtype)))
+    adj = torch.einsum("bsfr,frd->bsfd", adj, p["tm_lora_b"].to(dtype))
     mixed = x[:, :, None, :] + xx[:, :, None, :] * (mu + adj)
     return tuple(mixed[:, :, i, :] for i in range(5))
 
@@ -80,19 +85,21 @@ def _shift(x: Tensor, x_last: Tensor) -> Tensor:
     return torch.cat([x_last[:, None, :].to(x.dtype), x[:, :-1, :]], dim=1)
 
 
-def time_mix(cfg, p, x: Tensor, state: Dict[str, Tensor]) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """x: (B, S, D); state: {"s": (B, H, hd, hd), "x_prev": (B, D)}."""
+def time_mix(cfg, p, x: Tensor, state: Dict[str, Tensor], *,
+             dtype: torch.dtype) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: (B, S, D); state: {"s": (B, H, hd, hd), "x_prev": (B, D)}, fp32."""
     B, S, D = x.shape
     hd = cfg.ssm_head_dim
     H = D // hd
-    xr, xk, xv, xg, xw = _ddlerp(p, x, _shift(x, state["x_prev"]))
-    r = (xr @ p["tm_wr"]).reshape(B, S, H, hd)
-    k = (xk @ p["tm_wk"]).reshape(B, S, H, hd)
-    v = (xv @ p["tm_wv"]).reshape(B, S, H, hd)
-    g = F.silu(xg @ p["tm_wg"])
-    wd = p["tm_w0"] + (xw @ p["tm_wd_a"]) @ p["tm_wd_b"]
+    f32 = torch.float32
+    xr, xk, xv, xg, xw = _ddlerp(p, x, _shift(x, state["x_prev"]), dtype)
+    r = (xr @ p["tm_wr"].to(dtype)).reshape(B, S, H, hd).to(f32)
+    k = (xk @ p["tm_wk"].to(dtype)).reshape(B, S, H, hd).to(f32)
+    v = (xv @ p["tm_wv"].to(dtype)).reshape(B, S, H, hd).to(f32)
+    g = F.silu(xg @ p["tm_wg"].to(dtype))
+    wd = p["tm_w0"].to(f32) + (xw.to(f32) @ p["tm_wd_a"].to(f32)) @ p["tm_wd_b"].to(f32)
     w = torch.exp(-torch.exp(wd)).reshape(B, S, H, hd)  # decay in (0, 1)
-    u = p["tm_u"]  # (H, hd)
+    u = p["tm_u"].to(f32)  # (H, hd)
     s = state["s"]
     ys = []
     for t in range(S):
@@ -105,35 +112,38 @@ def time_mix(cfg, p, x: Tensor, state: Dict[str, Tensor]) -> Tuple[Tensor, Dict[
     y = torch.stack(ys, dim=1)  # (B, S, H, hd)
     # per-head group norm
     y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + 1e-6)
-    y = y.reshape(B, S, D) * p["tm_gn"]
-    out = (y * g) @ p["tm_wo"]
-    return out, {"s": s, "x_prev": x[:, -1, :]}
+    y = y.reshape(B, S, D) * p["tm_gn"].to(f32)
+    out = (y.to(dtype) * g) @ p["tm_wo"].to(dtype)
+    return out, {"s": s, "x_prev": x[:, -1, :].to(f32)}
 
 
-def channel_mix(cfg, p, x: Tensor, x_prev: Tensor) -> Tuple[Tensor, Tensor]:
-    mu = p["cm_mu"]
+def channel_mix(cfg, p, x: Tensor, x_prev: Tensor, *,
+                dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+    mu = p["cm_mu"].to(dtype)
     xs = _shift(x, x_prev)
     xk = x + (xs - x) * mu[0]
     xr = x + (xs - x) * mu[1]
-    k = torch.square(torch.relu(xk @ p["cm_wk"]))
-    r = torch.sigmoid(xr @ p["cm_wr"])
-    return r * (k @ p["cm_wv"]), x[:, -1, :]
+    k = torch.square(torch.relu(xk @ p["cm_wk"].to(dtype)))
+    r = torch.sigmoid(xr @ p["cm_wr"].to(dtype))
+    return r * (k @ p["cm_wv"].to(dtype)), x[:, -1, :].to(torch.float32)
 
 
-def rwkv_block_train(cfg, p, x: Tensor, state) -> Tuple[Tensor, Dict]:
+def rwkv_block_train(cfg, p, x: Tensor, state, *, dtype: torch.dtype) -> Tuple[Tensor, Dict]:
     """The pre-norm time mix, then the pre-norm channel mix, each residual."""
-    h, new_tm = time_mix(cfg, p, common.apply_norm(cfg, x, p, "ln_tm"), state["tm"])
+    h, new_tm = time_mix(cfg, p, common.apply_norm(cfg, x, p, "ln_tm"), state["tm"], dtype=dtype)
     x = x + h
-    h, cm_prev = channel_mix(cfg, p, common.apply_norm(cfg, x, p, "ln_cm"), state["cm_x_prev"])
+    h, cm_prev = channel_mix(cfg, p, common.apply_norm(cfg, x, p, "ln_cm"), state["cm_x_prev"],
+                             dtype=dtype)
     return x + h, {"tm": new_tm, "cm_x_prev": cm_prev}
 
 
-def rwkv_block_decode(cfg, p, x: Tensor, state) -> Tuple[Tensor, Dict]:
+def rwkv_block_decode(cfg, p, x: Tensor, state, *, dtype: torch.dtype) -> Tuple[Tensor, Dict]:
     """One token x (B, 1, D): the block at S = 1, as the reference's."""
-    return rwkv_block_train(cfg, p, x, state)
+    return rwkv_block_train(cfg, p, x, state, dtype=dtype)
 
 
 def init_rwkv_state(cfg, batch: int, device=None) -> Dict:
+    """The zero state, fp32 whatever the compute dtype (as the reference's)."""
     D = cfg.d_model
     hd = cfg.ssm_head_dim
     H = D // hd

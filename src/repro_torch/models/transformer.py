@@ -32,6 +32,17 @@ Inside a layer attention scans 512-query chunks and the cross-entropy
 runs the same ops and keeps every activation; the tests hold the two
 against each other bit for bit.
 
+Mixed precision is the reference's: ``build_model`` takes
+``compute_dtype`` (default ``"bfloat16"``) and ``param_dtype`` (default
+``"float32"``), each one of ``"float32"``, ``"bfloat16"``, ``"float16"``.
+Parameters are stored in the parameter dtype and cast to the compute dtype
+where they are used; the residual stream, the attention caches and the
+MoE dispatch are in the compute dtype; the norms, RoPE, the attention and
+router softmaxes, the logits of the loss, RWKV-6's decay and recurrence
+and the RG-LRU's gates and scan are fp32 islands, and the recurrent states
+stay fp32. Under fp32 parameters each gradient is fp32 whatever the
+compute dtype.
+
 Serving keeps the reference's decode state, key for key and shape for
 shape: ``{"kv"}`` (dense, MoE, VLM: caches stacked on the layer axis),
 ``{"ssm"}`` (RWKV-6 states stacked), ``{"units", "tail"}`` (the hybrid:
@@ -58,7 +69,7 @@ from repro_torch.models import common, moe, rglru, rwkv
 
 Tensor = torch.Tensor
 
-__all__ = ["Model", "build_model", "MOE_LB_COEF", "MOE_Z_COEF"]
+__all__ = ["Model", "build_model", "DTYPES", "MOE_LB_COEF", "MOE_Z_COEF"]
 
 MOE_LB_COEF = 0.01
 MOE_Z_COEF = 1e-3
@@ -89,37 +100,38 @@ def _init_block(cfg: ArchConfig, store: common.ParamStore, kind: str, stacked: i
         common.init_swiglu(store, D, F, stacked=stacked)
 
 
-def _apply_mlp(cfg, p, x):
+def _apply_mlp(cfg, p, x, dtype):
     xn = common.apply_norm(cfg, x, p, "ln_mlp")
     if "mlp_gate" in p:
-        return x + common.swiglu(p, xn)
-    return x + common.gelu_mlp(p, xn)
+        return x + common.swiglu(p, xn, dtype)
+    return x + common.gelu_mlp(p, xn, dtype)
 
 
-def _block_train(cfg, p, x, positions, kind, *, window, enc_out=None,
+def _block_train(cfg, p, x, positions, kind, *, dtype, window, enc_out=None,
                  enc_pos=None, remat=True) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """One block forward. Returns (x, aux); aux is empty but for MoE.
-    ``remat`` rematerialises attention's query chunks."""
+    """One block forward in ``dtype``. Returns (x, aux); aux is empty but
+    for MoE. ``remat`` rematerialises attention's query chunks."""
     if kind == "ssm":
         state = rwkv.init_rwkv_state(cfg, x.shape[0], x.device)
-        x, _ = rwkv.rwkv_block_train(cfg, p, x, state)
+        x, _ = rwkv.rwkv_block_train(cfg, p, x, state, dtype=dtype)
         return x, {}
     if kind == "rec":
         state = rglru.init_rglru_state(cfg, x.shape[0], x.device)
-        x, _ = rglru.rglru_block(cfg, p, x, state)
-        return _apply_mlp(cfg, p, x), {}
+        x, _ = rglru.rglru_block(cfg, p, x, state, dtype=dtype)
+        return _apply_mlp(cfg, p, x, dtype), {}
     xn = common.apply_norm(cfg, x, p, "ln_attn")
-    x = x + attn.attention_train(cfg, p, xn, positions, causal=kind != "enc", window=window,
+    x = x + attn.attention_train(cfg, p, xn, positions, dtype=dtype, causal=kind != "enc",
+                                 window=window,
                                  rope=kind not in ("enc", "encdec_dec"),  # enc-dec: sinusoidal
                                  remat=remat)
     if kind == "encdec_dec":
         xn = common.apply_norm(cfg, x, p, "ln_cross")
-        x = x + attn.attention_train(cfg, p, xn, positions, kv_x=enc_out, kv_positions=enc_pos,
-                                     prefix="cross", remat=remat)
+        x = x + attn.attention_train(cfg, p, xn, positions, dtype=dtype, kv_x=enc_out,
+                                     kv_positions=enc_pos, prefix="cross", remat=remat)
     if kind == "moe":
-        h, aux = moe.moe_ffn(cfg, p, common.apply_norm(cfg, x, p, "ln_mlp"))
+        h, aux = moe.moe_ffn(cfg, p, common.apply_norm(cfg, x, p, "ln_mlp"), dtype=dtype)
         return x + h, aux
-    return _apply_mlp(cfg, p, x), {}
+    return _apply_mlp(cfg, p, x, dtype), {}
 
 
 def _layer(stacked: Dict, i: int) -> Dict:
@@ -147,20 +159,35 @@ def _hybrid_units(cfg) -> Tuple[int, Tuple[str, ...]]:
     return n_units, cfg._layer_kinds()[n_units * len(cfg.hybrid_pattern):]
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _dtype(name: str, what: str) -> torch.dtype:
+    if name not in DTYPES:
+        raise ValueError(f"{what} must be one of {', '.join(map(repr, DTYPES))}, got {name!r}")
+    return DTYPES[name]
+
+
 @dataclasses.dataclass
 class Model:
-    """A model of the registry computed in float32 (as the JAX CLI trains it)."""
+    """A model of the registry: parameters in ``param_dtype``, computed in
+    ``compute_dtype`` with the reference's fp32 islands (the module
+    docstring); by default bf16 compute over fp32 parameters, as the
+    reference's ``Model``."""
 
     cfg: ArchConfig
+    compute_dtype: torch.dtype = torch.bfloat16
+    param_dtype: torch.dtype = torch.float32
     loss_chunk: int = 512
     decode_window: Optional[int] = None  # caps the dense decoders' caches to a ring (long_500k)
     remat: bool = True  # the reference's RunConfig.remat; False keeps every activation (tests)
 
     def init(self, generator: torch.Generator,
              device: Union[str, torch.device] = "cuda") -> Dict:
-        """Random parameters drawn from ``generator``, placed on ``device``."""
+        """Random parameters drawn from ``generator`` in fp32, placed on
+        ``device`` in ``param_dtype`` (``common.ParamStore``)."""
         cfg = self.cfg
-        store = common.ParamStore(generator, resolve_device(device))
+        store = common.ParamStore(generator, resolve_device(device), self.param_dtype)
         common.init_embeddings(cfg, store)
         common.init_norm(cfg, store, "ln_final", cfg.d_model)
         if cfg.is_encdec:
@@ -189,10 +216,11 @@ class Model:
 
     def _embed_inputs(self, params, batch) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
         """(hidden, positions, labels, mask), a VLM's vision prefix prepended."""
-        x = common.embed_tokens(params, batch["tokens"])
+        dt = self.compute_dtype
+        x = common.embed_tokens(params, batch["tokens"], dt)
         labels, mask = batch["labels"], batch["mask"].to(torch.float32)
         if self.cfg.arch_type == "vlm":
-            vis = batch["vision"].to(torch.float32)  # (B, Tv, D) stub patch embeddings
+            vis = batch["vision"].to(dt)  # (B, Tv, D) stub patch embeddings
             x = torch.cat([vis, x], dim=1)
             labels = torch.cat([torch.zeros(vis.shape[:2], dtype=labels.dtype,
                                             device=x.device), labels], dim=1)
@@ -209,14 +237,14 @@ class Model:
 
     def _encode(self, params, frames: Tensor) -> Tuple[Tensor, Tensor]:
         """The Whisper encoder over stub frame embeddings. frames: (B, T, D)."""
-        cfg = self.cfg
+        cfg, dt = self.cfg, self.compute_dtype
         T = frames.shape[1]
-        x = frames.to(torch.float32) + common.sinusoidal_positions(T, cfg.d_model, frames.device)
+        x = frames.to(dt) + common.sinusoidal_positions(T, cfg.d_model, frames.device).to(dt)
         pos = torch.arange(T, dtype=torch.int32, device=frames.device)
         ep = params["encoder"]
         layers = {k: v for k, v in ep.items() if not k.startswith("ln_enc_final")}
-        step = self._step(lambda pl, x, pos: _block_train(cfg, pl, x, pos, "enc", window=None,
-                                                          remat=self.remat)[0])
+        step = self._step(lambda pl, x, pos: _block_train(cfg, pl, x, pos, "enc", dtype=dt,
+                                                          window=None, remat=self.remat)[0])
         for i in range(cfg.encoder_layers):
             x = step(_layer(layers, i), x, pos)
         return common.apply_norm(cfg, x, ep, "ln_enc_final"), pos
@@ -231,18 +259,18 @@ class Model:
         With ``remat`` each layer (each whole hybrid unit; the hybrid's tail
         layers are not) is rematerialised, as are attention's query chunks
         and the cross-entropy's chunks, where the reference checkpoints."""
-        cfg = self.cfg
+        cfg, dt = self.cfg, self.compute_dtype
         remat = self.remat
         auxs = []
         if cfg.is_encdec:
             enc_out, enc_pos = self._encode(params, batch["frames"])
-            x = common.embed_tokens(params, batch["tokens"])
-            x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
+            x = common.embed_tokens(params, batch["tokens"], dt)
+            x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(dt)
             positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
             labels, mask = batch["labels"], batch["mask"].to(torch.float32)
             step = self._step(lambda pl, x, positions, enc_out, enc_pos: _block_train(
-                cfg, pl, x, positions, "encdec_dec", window=cfg.sliding_window, enc_out=enc_out,
-                enc_pos=enc_pos, remat=remat)[0])
+                cfg, pl, x, positions, "encdec_dec", dtype=dt, window=cfg.sliding_window,
+                enc_out=enc_out, enc_pos=enc_pos, remat=remat)[0])
             for i in range(cfg.n_layers):
                 # each layer reads enc_out through a view of its own, so its K and V
                 # cotangents are summed before they join the other layers', with
@@ -257,7 +285,7 @@ class Model:
                 def unit(up, x, positions):
                     for pos, kind in enumerate(cfg.hybrid_pattern):
                         x, _ = _block_train(cfg, up[f"u{pos}_{kind}"], x, positions, kind,
-                                            window=self._window(kind), remat=remat)
+                                            dtype=dt, window=self._window(kind), remat=remat)
                     return x
 
                 step = self._step(unit)
@@ -265,18 +293,19 @@ class Model:
                     x = step(_layer(params["units"], u), x, positions)
                 for i, kind in enumerate(tail_kinds):
                     x, _ = _block_train(cfg, params["tail"][f"layer_{i}_{kind}"], x, positions,
-                                        kind, window=self._window(kind), remat=remat)
+                                        kind, dtype=dt, window=self._window(kind), remat=remat)
             else:
                 kind = cfg._layer_kinds()[0]
                 step = self._step(lambda pl, x, positions: list(_block_train(
-                    cfg, pl, x, positions, kind, window=self._window(kind), remat=remat)))
+                    cfg, pl, x, positions, kind, dtype=dt, window=self._window(kind),
+                    remat=remat)))
                 for i in range(cfg.n_layers):
                     x, aux = step(_layer(params["blocks"], i), x, positions)
                     auxs.append(aux)
         aux_total = {k: torch.mean(torch.stack([a[k] for a in auxs])) for k in
                      (auxs[0] if auxs else ())}
         x = common.apply_norm(cfg, x, params, "ln_final")
-        nll = common.chunked_xent(params, x, labels, mask, self.loss_chunk, remat=remat)
+        nll = common.chunked_xent(params, x, labels, mask, self.loss_chunk, dt, remat=remat)
         total = nll
         if "moe_lb_loss" in aux_total:
             total = total + MOE_LB_COEF * aux_total["moe_lb_loss"]
@@ -293,16 +322,18 @@ class Model:
     def _self_caches(self, batch: int, seq_len: int, device) -> Dict:
         """The encoder-decoder's stacked self-attention caches."""
         cap = self._cache_capacity(seq_len, "attn")
-        return _stack(self.cfg.n_layers, attn.init_cache(self.cfg, batch, cap, device))
+        return _stack(self.cfg.n_layers,
+                      attn.init_cache(self.cfg, batch, cap, self.compute_dtype, device))
 
     @torch.inference_mode()
     def init_decode_state(self, batch: int, seq_len: int,
                           device: Union[str, torch.device] = "cuda") -> Dict:
-        """Empty decode state for a ``seq_len`` context on ``device``."""
-        cfg = self.cfg
+        """Empty decode state for a ``seq_len`` context on ``device``: the
+        caches in the compute dtype, the recurrent states in fp32."""
+        cfg, dt = self.cfg, self.compute_dtype
         dev = resolve_device(device)
         if cfg.is_encdec:
-            cross = attn.init_cache(cfg, batch, cfg.encoder_seq, dev)
+            cross = attn.init_cache(cfg, batch, cfg.encoder_seq, dt, dev)
             return {"self": self._self_caches(batch, seq_len, dev),
                     "cross": _stack(cfg.n_layers, cross)}
         if cfg.arch_type == "ssm":
@@ -313,28 +344,30 @@ class Model:
             def one(kind):
                 if kind == "rec":
                     return rglru.init_rglru_state(cfg, batch, dev)
-                return attn.init_cache(cfg, batch, self._cache_capacity(seq_len, kind), dev)
+                return attn.init_cache(cfg, batch, self._cache_capacity(seq_len, kind), dt, dev)
 
             return {"units": {f"u{pos}_{kind}": _stack(n_units, one(kind))
                               for pos, kind in enumerate(cfg.hybrid_pattern)},
                     "tail": [one(kind) for kind in tail_kinds]}
         cap = self._cache_capacity(seq_len, cfg._layer_kinds()[0])
-        return {"kv": _stack(cfg.n_layers, attn.init_cache(cfg, batch, cap, dev))}
+        return {"kv": _stack(cfg.n_layers, attn.init_cache(cfg, batch, cap, dt, dev))}
 
     def _serve_layers(self, params, x: Tensor, state: Dict, *, positions: Optional[Tensor] = None,
                       pos: Optional[int] = None) -> Tensor:
         """The layers over a prompt at ``positions`` (prefill) or over one
         token at ``pos`` (a decode step), writing ``state`` in place."""
-        cfg = self.cfg
+        cfg, dt = self.cfg, self.compute_dtype
         decoding = pos is not None
 
         def self_attn(pl, xn, cache, window, rope=True):
             if decoding:
-                return attn.attention_decode(cfg, pl, xn, pos, cache, window=window, rope=rope)
-            return attn.attention_prefill(cfg, pl, xn, positions, cache, window=window, rope=rope)
+                return attn.attention_decode(cfg, pl, xn, pos, cache, dtype=dt, window=window,
+                                             rope=rope)
+            return attn.attention_prefill(cfg, pl, xn, positions, cache, dtype=dt, window=window,
+                                          rope=rope)
 
         def recurrent(block, pl, x, st):
-            x, new = block(cfg, pl, x, st)
+            x, new = block(cfg, pl, x, st, dtype=dt)
             _copy_into(st, new)
             return x
 
@@ -348,11 +381,12 @@ class Model:
                                   _layer(state["self"], i), window, rope=False)
                 xn = common.apply_norm(cfg, x, pl, "ln_cross")
                 if decoding:
-                    h = attn.attention_decode(cfg, pl, xn, pos, cross, update_cache=False,
-                                              rope=False, causal=False, prefix="cross")
+                    h = attn.attention_decode(cfg, pl, xn, pos, cross, dtype=dt,
+                                              update_cache=False, rope=False, causal=False,
+                                              prefix="cross")
                 else:
-                    h = _cross_read(cfg, pl, xn, positions, cross)
-                x = _apply_mlp(cfg, pl, x + h)
+                    h = _cross_read(cfg, pl, xn, positions, cross, dt)
+                x = _apply_mlp(cfg, pl, x + h, dt)
         elif cfg.arch_type == "ssm":
             block = rwkv.rwkv_block_decode if decoding else rwkv.rwkv_block_train
             for i in range(cfg.n_layers):
@@ -362,10 +396,10 @@ class Model:
 
             def layer(pl, x, st, kind):
                 if kind == "rec":
-                    return _apply_mlp(cfg, pl, recurrent(rglru.rglru_block, pl, x, st))
+                    return _apply_mlp(cfg, pl, recurrent(rglru.rglru_block, pl, x, st), dt)
                 # the window is local_window, the cache _cache_capacity's
                 h = self_attn(pl, common.apply_norm(cfg, x, pl, "ln_attn"), st, self._window(kind))
-                return _apply_mlp(cfg, pl, x + h)
+                return _apply_mlp(cfg, pl, x + h, dt)
 
             for u in range(n_units):
                 for p_, kind in enumerate(cfg.hybrid_pattern):
@@ -382,10 +416,10 @@ class Model:
                 x = x + self_attn(pl, common.apply_norm(cfg, x, pl, "ln_attn"),
                                   _layer(state["kv"], i), window)
                 if kind == "moe":
-                    h, _ = moe.moe_ffn(cfg, pl, common.apply_norm(cfg, x, pl, "ln_mlp"))
+                    h, _ = moe.moe_ffn(cfg, pl, common.apply_norm(cfg, x, pl, "ln_mlp"), dtype=dt)
                     x = x + h
                 else:
-                    x = _apply_mlp(cfg, pl, x)
+                    x = _apply_mlp(cfg, pl, x, dt)
         return x
 
     @torch.inference_mode()
@@ -393,65 +427,70 @@ class Model:
         """Run the prompt ``batch["tokens"]`` (B, S) (with a VLM's ``vision``,
         an encoder-decoder's ``frames``) and return the last position's
         logits (B, V) and the decode state for a ``seq_len`` context."""
-        cfg = self.cfg
-        x = common.embed_tokens(params, batch["tokens"])
+        cfg, dt = self.cfg, self.compute_dtype
+        x = common.embed_tokens(params, batch["tokens"], dt)
         B, dev = x.shape[0], x.device
         if cfg.arch_type == "vlm":
-            x = torch.cat([batch["vision"].to(torch.float32), x], dim=1)
+            x = torch.cat([batch["vision"].to(dt), x], dim=1)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
         if cfg.is_encdec:
             enc_out, enc_pos = self._encode(params, batch["frames"])
-            x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, dev)
+            x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, dev).to(dt)
             state = {"self": self._self_caches(B, seq_len, dev),
-                     "cross": _build_cross_caches(cfg, params["decoder"], enc_out, enc_pos)}
+                     "cross": _build_cross_caches(cfg, params["decoder"], enc_out, enc_pos, dt)}
         else:
             state = self.init_decode_state(B, seq_len, dev)
         x = self._serve_layers(params, x, state, positions=positions)
         x = common.apply_norm(cfg, x, params, "ln_final")
-        return common.lm_logits(params, x[:, -1:, :])[:, 0, :], state
+        return common.lm_logits(params, x[:, -1:, :], dt)[:, 0, :], state
 
     @torch.inference_mode()
     def decode_step(self, params, state: Dict, token: Tensor, pos: int) -> Tuple[Tensor, Dict]:
         """One token (B,) at absolute position ``pos`` (a Python int): the
         logits (B, V) and ``state``, written in place."""
-        cfg = self.cfg
-        x = common.embed_tokens(params, token[:, None])  # (B, 1, D)
+        cfg, dt = self.cfg, self.compute_dtype
+        x = common.embed_tokens(params, token[:, None], dt)  # (B, 1, D)
         if cfg.is_encdec:
-            x = x + common.sinusoidal_positions_at(pos, cfg.d_model, x.device)
+            x = x + common.sinusoidal_positions_at(pos, cfg.d_model, x.device).to(dt)
         x = self._serve_layers(params, x, state, pos=pos)
         x = common.apply_norm(cfg, x, params, "ln_final")
-        return common.lm_logits(params, x)[:, 0, :], state
+        return common.lm_logits(params, x, dt)[:, 0, :], state
 
 
-def _build_cross_caches(cfg, dec_params, enc_out: Tensor, enc_pos: Tensor) -> Dict:
-    """Each decoder layer's cross K/V of the encoder output, stacked on the
-    layer axis (the slots hold the encoder positions)."""
+def _build_cross_caches(cfg, dec_params, enc_out: Tensor, enc_pos: Tensor, dtype) -> Dict:
+    """Each decoder layer's cross K/V of the encoder output, in ``dtype``,
+    stacked on the layer axis (the slots hold the encoder positions)."""
     B, T = enc_out.shape[:2]
     KV, hd = cfg.n_kv_heads, cfg.hd
     ks, vs = [], []
     for i in range(cfg.n_layers):
         pl = _layer(dec_params, i)
-        k, v = enc_out @ pl["cross_wk"], enc_out @ pl["cross_wv"]
+        k, v = enc_out @ pl["cross_wk"].to(dtype), enc_out @ pl["cross_wv"].to(dtype)
         if cfg.qkv_bias:
-            k, v = k + pl["cross_bk"], v + pl["cross_bv"]
+            k, v = k + pl["cross_bk"].to(dtype), v + pl["cross_bv"].to(dtype)
         ks.append(k.reshape(B, T, KV, hd))
         vs.append(v.reshape(B, T, KV, hd))
     return {"k": torch.stack(ks), "v": torch.stack(vs),
             "slot_pos": _stack(cfg.n_layers, enc_pos.to(torch.int32))}
 
 
-def _cross_read(cfg, pl, xn: Tensor, positions: Tensor, crossc: Dict) -> Tensor:
+def _cross_read(cfg, pl, xn: Tensor, positions: Tensor, crossc: Dict, dtype) -> Tensor:
     """Full-sequence cross-attention against a layer's cross cache."""
     B, S, _ = xn.shape
-    q = xn @ pl["cross_wq"]
+    q = xn @ pl["cross_wq"].to(dtype)
     if cfg.qkv_bias:
-        q = q + pl["cross_bq"]
+        q = q + pl["cross_bq"].to(dtype)
     out = attn.attention_core(q.reshape(B, S, cfg.n_heads, cfg.hd), crossc["k"], crossc["v"],
                               positions, crossc["slot_pos"], causal=False, window=None,
                               remat=False)
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ pl["cross_wo"]
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ pl["cross_wo"].to(dtype)
 
 
-def build_model(cfg: ArchConfig, *, loss_chunk: int = 512,
-                decode_window: Optional[int] = None, remat: bool = True) -> Model:
-    return Model(cfg=cfg, loss_chunk=loss_chunk, decode_window=decode_window, remat=remat)
+def build_model(cfg: ArchConfig, *, compute_dtype: str = "bfloat16", param_dtype: str = "float32",
+                loss_chunk: int = 512, decode_window: Optional[int] = None,
+                remat: bool = True) -> Model:
+    """The reference's ``build_model``: dtypes by name (``DTYPES``), bf16
+    compute over fp32 parameters by default; an unknown name raises."""
+    return Model(cfg=cfg, compute_dtype=_dtype(compute_dtype, "compute_dtype"),
+                 param_dtype=_dtype(param_dtype, "param_dtype"), loss_chunk=loss_chunk,
+                 decode_window=decode_window, remat=remat)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 from typing import Callable, Tuple
 
+from repro_torch.device import fp32_accumulation
+
 __all__ = ["build_serve_fns"]
 
 
@@ -20,8 +22,10 @@ def build_serve_fns(model, *, seq_len: int) -> Tuple[Callable, Callable]:
     decode_fn(params, state, token, pos)  -> (logits (B, V), state)
 
     The state holds a ``seq_len`` context; ``decode_fn`` writes it in place
-    and takes ``pos`` as a Python int.
+    and takes ``pos`` as a Python int. Matrix products accumulate in fp32,
+    as training's (``device.fp32_accumulation``).
     """
+    fp32_accumulation()
 
     def prefill_fn(params, batch):
         return model.prefill(params, batch, seq_len)

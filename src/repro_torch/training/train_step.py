@@ -56,6 +56,7 @@ from repro_torch.core.scalecom import _SIMILARITY_KEYS, ScaleComConfig, _const, 
 from repro_torch.core.state import (
     ScaleComState, codec_key, codec_signature, init_state, require_codec, residue_signature,
 )
+from repro_torch.device import fp32_accumulation
 from repro_torch.distributed.ring import (
     Collective, Flight, all_reduce_mean, drive, group_fold, make_hierarchy, ring_steps,
 )
@@ -512,10 +513,9 @@ def build_train_step(
                 f"({n_workers}) must equal group.size() ({group.size()})")
         rank = dist.get_rank(group)
         hierarchy = None if sc_cfg.groups is None else make_hierarchy(group, sc_cfg.groups)
-    # The JAX package trains in full fp32 (compute_dtype="float32"); TF32
-    # would keep about three decimal digits in the card's matmuls.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # fp32 GEMMs without TF32, bf16 and fp16 ones accumulating in fp32, as
+    # the JAX package's matmuls do whatever the model's compute dtype
+    fp32_accumulation()
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         device = tree.leaves(state.params)[0].device

@@ -89,7 +89,7 @@ def assert_param_count_is_the_abstract_init(name):
 def assert_param_tree_matches(name):
     j, t = configs(name, "smoke")
     full, _ = jbuild(j).init(None, abstract=True)
-    tp = build_model(t).init(torch.Generator().manual_seed(0), "cpu")
+    tp = build_model(t, compute_dtype="float32").init(torch.Generator().manual_seed(0), "cpu")
     jflat = {jax.tree_util.keystr(p): tuple(v.shape)
              for p, v in jax.tree_util.tree_flatten_with_path(full)[0]}
     tflat = {p: tuple(v.shape) for p, v in tree.flatten_with_path(tp)}
@@ -146,7 +146,7 @@ def loss_and_grads_match_jax(name, cache, seq=S, **overrides):
         cache[key] = (jp, b, fn(jax.tree.map(jnp.asarray, jp), jax.tree.map(jnp.asarray, b)))
     jp, b, ((jloss, jaux), jgrads) = cache[key]
 
-    tmodel = build_model(tcfg, loss_chunk=LOSS_CHUNK)
+    tmodel = build_model(tcfg, compute_dtype="float32", loss_chunk=LOSS_CHUNK)
     tp = tree.tree_map(lambda p: p.requires_grad_(True), params_from_jax(jp, "cpu"))
     tloss, taux = tmodel.loss(tp, {k: _t(v) for k, v in b.items()})
     tgrads = torch.autograd.grad(tloss, tree.leaves(tp))
@@ -168,7 +168,7 @@ def batched_pass_matches_the_loop(name, n=4, local_b=2, seq=32, tol=LOOP_TOL):
     vmap fallback warns) against ``per_worker_grads_loop``, every gradient
     to ``tol``."""
     jcfg, tcfg = configs(name, "smoke")
-    model = build_model(tcfg, loss_chunk=LOSS_CHUNK)
+    model = build_model(tcfg, compute_dtype="float32", loss_chunk=LOSS_CHUNK)
     params = params_from_jax(jax_params(jcfg), "cpu")
     b = {k: torch.from_numpy(v) for k, v in next(
         jmake_batches(tcfg.vocab, n, local_b, seq, seed=5, **model_inputs(tcfg))).items()}
@@ -212,7 +212,7 @@ def one_compressed_step_matches_jax(name, *, chunk, min_size, layout, n=4, local
     tcfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=chunk), backend="torch",
                           **kw)
     jmodel = jbuild(jcfg_m, compute_dtype="float32", loss_chunk=LOSS_CHUNK)
-    tmodel = build_model(tcfg_m, loss_chunk=LOSS_CHUNK)
+    tmodel = build_model(tcfg_m, compute_dtype="float32", loss_chunk=LOSS_CHUNK)
     jopt, topt = jmake_opt("sgdm"), make_optimizer("sgdm")
     js, _ = jinit(jmodel, jopt, jcfg, jax.random.PRNGKey(0), n_workers=n)
     js.params = jax.tree.map(jnp.asarray, perturb_constants(js.params, 0))

@@ -125,7 +125,7 @@ def _group_steps(job: dict, rank: int, world: int, group) -> dict:
     """One dense and one scalecom group step (groups, fp8, compute_stats)
     from the job's state, then the refusal of a world that the groups do not
     divide."""
-    model = build_model(registry.smoke(ARCH), loss_chunk=16)
+    model = build_model(registry.smoke(ARCH), compute_dtype="float32", loss_chunk=16)
     opt = make_optimizer("sgdm")
     sched = schedule.linear_warmup(schedule.constant(job["lr"]), 2)
     cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=job["chunk"]), beta=0.1,

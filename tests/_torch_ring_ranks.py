@@ -89,7 +89,7 @@ def _group_steps(job: dict, rank: int, world: int, group) -> dict:
     steps (dense, scalecom, scalecom) for the cross-rank check; the counted
     bytes of a step at the main path's chunk; one scalecom step of each
     labelled configuration, or its refusal."""
-    model = build_model(registry.smoke(ARCH), loss_chunk=16)
+    model = build_model(registry.smoke(ARCH), compute_dtype="float32", loss_chunk=16)
     opt = make_optimizer("sgdm")
     sched = schedule.linear_warmup(schedule.constant(job["lr"]), 2)
 

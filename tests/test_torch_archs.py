@@ -84,7 +84,7 @@ def test_swiglu_matches_jax():
     x = 2.0 * rng.standard_normal((3, 5, 16)).astype(np.float32)
     want = jcommon.swiglu(jax.tree.map(jax.numpy.asarray, p), jax.numpy.asarray(x),
                           jax.numpy.float32)
-    got = tcommon.swiglu({k: parity._t(v) for k, v in p.items()}, parity._t(x))
+    got = tcommon.swiglu({k: parity._t(v) for k, v in p.items()}, parity._t(x), torch.float32)
     np.testing.assert_allclose(got.numpy(), parity._np(want), rtol=1e-5, atol=1e-5)
 
 

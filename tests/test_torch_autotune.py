@@ -174,7 +174,8 @@ def test_autotune_params_sweeps_the_reference_keys(cache, monkeypatch):
     arch = "paper-transformer-base"
     jparams, _ = jbuild(jregistry.smoke(arch), compute_dtype="float32").init(
         jax.random.PRNGKey(0))
-    tparams = build_model(registry.smoke(arch)).init(torch.Generator().manual_seed(0), "cpu")
+    tparams = build_model(registry.smoke(arch), compute_dtype="float32").init(
+        torch.Generator().manual_seed(0), "cpu")
     calls = []
     monkeypatch.setattr(jat, "autotune", lambda op, size, chunk, dtype, **kw: 128)
     monkeypatch.setattr(autotune, "autotune",
@@ -192,7 +193,7 @@ def test_autotune_params_writes_the_keys_the_launches_read(cache, workers, layou
     """At the run's worker count the sweep writes, for every compressed tensor
     of the SMOKE paper transformer, the key its stacked launches look up:
     all the launch's rows, workers x the plan's chunk rows."""
-    tparams = build_model(registry.smoke("paper-transformer-base")).init(
+    tparams = build_model(registry.smoke("paper-transformer-base"), compute_dtype="float32").init(
         torch.Generator().manual_seed(0), "cpu")
     wins = autotune.autotune_params(tparams, 64, min_size=1024, workers=workers,
                                     candidates=(128,), iters=1, device="cpu")

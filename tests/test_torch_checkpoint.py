@@ -94,7 +94,7 @@ def _port_like(codec, arch=ARCH) -> TrainState:
     cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), min_size=MIN_SIZE,
                          residue_dtype=codec)
     tcfg = dataclasses.replace(registry.smoke(arch), **OVERRIDES.get(arch, {}))
-    return init_train_state(build_model(tcfg, loss_chunk=16),
+    return init_train_state(build_model(tcfg, compute_dtype="float32", loss_chunk=16),
                             make_optimizer("sgdm"), cfg, torch.Generator().manual_seed(1),
                             n_workers=N, device="cpu")
 
@@ -181,7 +181,8 @@ def test_restore_rejects_a_wrong_shape(tmp_path):
 def test_loop_saves_every_checkpoint_every_steps(tmp_path):
     cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), min_size=MIN_SIZE,
                          warmup_steps=1, backend="torch")
-    model, opt = build_model(registry.smoke(ARCH), loss_chunk=16), make_optimizer("sgdm")
+    model = build_model(registry.smoke(ARCH), compute_dtype="float32", loss_chunk=16)
+    opt = make_optimizer("sgdm")
     state = init_train_state(model, opt, cfg, torch.Generator().manual_seed(0), n_workers=2,
                              device="cpu")
     loop = TrainLoop(model=model, optimizer=opt, schedule=schedule.constant(0.05), sc_cfg=cfg,

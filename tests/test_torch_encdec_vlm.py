@@ -143,8 +143,9 @@ def test_cross_attention_matches_jax():
         kv_positions=jnp.asarray(mpos), prefix="cross"))
     want = fn(jax.tree.map(jnp.asarray, p), jnp.asarray(x), jnp.asarray(mem))
     t = {k: parity._t(v) for k, v in p.items()}
-    got = tattn.attention_train(tcfg, t, parity._t(x), parity._t(pos), kv_x=parity._t(mem),
-                                kv_positions=parity._t(mpos), prefix="cross")
+    got = tattn.attention_train(tcfg, t, parity._t(x), parity._t(pos), dtype=torch.float32,
+                                kv_x=parity._t(mem), kv_positions=parity._t(mpos),
+                                prefix="cross")
     assert got.shape == (2, 24, tcfg.d_model)
     np.testing.assert_allclose(got.numpy(), parity._np(want), **parity.TOL)
 

@@ -67,7 +67,8 @@ def test_config_is_the_jax_config():
 
 def test_param_tree_matches_jax_keys_and_shapes():
     jp = _jax_params()
-    tp = build_model(registry.smoke(ARCH)).init(torch.Generator().manual_seed(0), "cpu")
+    tp = build_model(registry.smoke(ARCH), compute_dtype="float32").init(
+        torch.Generator().manual_seed(0), "cpu")
     jflat = {jax.tree_util.keystr(p): v.shape for p, v in jax.tree_util.tree_flatten_with_path(jp)[0]}
     tflat = {p: tuple(v.shape) for p, v in tree.flatten_with_path(tp)}
     assert list(jflat) == list(tflat)  # JAX's sorted leaf order
@@ -81,7 +82,7 @@ def test_loss_and_every_gradient_match_jax():
     (jloss, jaux), jgrads = jax.value_and_grad(jmodel.loss, has_aux=True)(
         jax.tree.map(jnp.asarray, jp), jax.tree.map(jnp.asarray, batch))
 
-    tmodel = build_model(registry.smoke(ARCH), loss_chunk=LOSS_CHUNK)
+    tmodel = build_model(registry.smoke(ARCH), compute_dtype="float32", loss_chunk=LOSS_CHUNK)
     tp = tree.tree_map(lambda p: p.requires_grad_(True), params_from_jax(jp, "cpu"))
     tloss, taux = tmodel.loss(tp, {k: _t(v) for k, v in batch.items()})
     tgrads = torch.autograd.grad(tloss, tree.leaves(tp))
@@ -102,7 +103,7 @@ def test_gelu_mlp_is_the_tanh_approximation():
                       "mlp_down_b": (16,)}.items()}
     x = 2.0 * rng.standard_normal((3, 5, 16)).astype(np.float32)
     want = jcommon.gelu_mlp(jax.tree.map(jnp.asarray, p), jnp.asarray(x), jnp.float32)
-    got = tcommon.gelu_mlp({k: _t(v) for k, v in p.items()}, _t(x))
+    got = tcommon.gelu_mlp({k: _t(v) for k, v in p.items()}, _t(x), torch.float32)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-5, atol=1e-5)
 
 
@@ -134,7 +135,8 @@ def test_chunked_xent_divides_by_mask_sum(chunk):
     mask = (rng.random((B, S)) > 0.5).astype(np.float32)
     want = jcommon.chunked_xent(jax.tree.map(jnp.asarray, p), jnp.asarray(h), jnp.asarray(labels),
                                 jnp.asarray(mask), chunk, jnp.float32)
-    got = tcommon.chunked_xent({k: _t(v) for k, v in p.items()}, _t(h), _t(labels), _t(mask), chunk)
+    got = tcommon.chunked_xent({k: _t(v) for k, v in p.items()}, _t(h), _t(labels), _t(mask), chunk,
+                               torch.float32)
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
 
 
@@ -153,5 +155,5 @@ def test_attention_with_qkv_bias_and_neg_inf_mask(window):
     want = jattn.attention_train(jcfg, jax.tree.map(jnp.asarray, p), jnp.asarray(x),
                                  jnp.asarray(pos), dtype=jnp.float32, causal=True, window=window)
     got = tattn.attention_train(cfg, {k: _t(v) for k, v in p.items()}, _t(x), _t(pos),
-                                causal=True, window=window)
+                                dtype=torch.float32, causal=True, window=window)
     np.testing.assert_allclose(got.numpy(), _np(want), rtol=1e-4, atol=1e-5)

@@ -69,10 +69,10 @@ def margins(monkeypatch):
     seen = []
     real = tmoe.moe_ffn
 
-    def recording(cfg, p, x):
+    def recording(cfg, p, x, **kw):
         if not torch._C._functorch.is_functorch_wrapped_tensor(x):  # the vmapped pass: see probe
             seen.append(_margin(cfg, p["router"], x))
-        return real(cfg, p, x)
+        return real(cfg, p, x, **kw)
 
     monkeypatch.setattr(tmoe, "moe_ffn", recording)
     return seen
@@ -161,7 +161,7 @@ def test_moe_ffn_and_its_gradients_match_jax(capacity_factor):
     tp = {k: parity._t(v).requires_grad_(True) for k, v in p.items()}
     tx = parity._t(x).requires_grad_(True)
     assert _margin(tcfg, tp["router"], tx) > MARGIN  # no ties
-    tout, taux = tmoe.moe_ffn(tcfg, tp, tx)
+    tout, taux = tmoe.moe_ffn(tcfg, tp, tx, dtype=torch.float32)
     tl = torch.sum(tout * parity._t(r)) + taux["moe_lb_loss"] + taux["moe_z_loss"]
     tg = torch.autograd.grad(tl, list(tp.values()) + [tx])
 
@@ -187,9 +187,9 @@ def test_moe_ffn_under_vmap_matches_each_worker():
                           .astype(np.float32))
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        out, aux = torch.func.vmap(lambda x: tmoe.moe_ffn(tcfg, tp, x))(xs)
+        out, aux = torch.func.vmap(lambda x: tmoe.moe_ffn(tcfg, tp, x, dtype=torch.float32))(xs)
     for i in range(3):
-        o, a = tmoe.moe_ffn(tcfg, tp, xs[i])
+        o, a = tmoe.moe_ffn(tcfg, tp, xs[i], dtype=torch.float32)
         np.testing.assert_allclose(out[i].numpy(), o.numpy(), rtol=1e-6, atol=1e-6)
         assert float(aux["moe_dropped_frac"][i]) == float(a["moe_dropped_frac"])
     assert float(aux["moe_dropped_frac"].min()) > 0

@@ -250,7 +250,8 @@ def test_train_loop_bucketed_matches_unbucketed(monkeypatch):
     from repro_torch.training import TrainLoop, init_train_state, run_training
 
     seen = _spy(monkeypatch)
-    model = build_model(registry.smoke("paper-transformer-base"), loss_chunk=16)
+    model = build_model(registry.smoke("paper-transformer-base"), compute_dtype="float32",
+                        loss_chunk=16)
     sc = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=16), beta=0.1, min_size=512,
                         warmup_steps=1, residue_dtype="fp8", backend="torch")
     runs = []

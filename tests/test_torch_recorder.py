@@ -57,7 +57,7 @@ def runs(tmp_path_factory):
     tcfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), backend="torch",
                           **kw)
     jmodel = jbuild(jregistry.smoke(ARCH), compute_dtype="float32", loss_chunk=16)
-    tmodel = build_model(registry.smoke(ARCH), loss_chunk=16)
+    tmodel = build_model(registry.smoke(ARCH), compute_dtype="float32", loss_chunk=16)
     jopt = jmake_opt("sgdm")
     js, _ = jinit(jmodel, jopt, jcfg, jax.random.PRNGKey(0), n_workers=N)
     ts = TrainState(params=params_from_jax(js.params, "cpu"),
@@ -185,7 +185,8 @@ def test_cli_writes_trace_events_and_checkpoint(tmp_path, capsys):
     # checkpoint_every = steps // 2: saved after step 2
     assert checkpoint.latest_step(str(ck)) == 2 and os.path.exists(ck / "ckpt_00000002.npz")
     cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=64), min_size=1024)
-    like = init_train_state(build_model(registry.smoke(ARCH), loss_chunk=64),
+    like = init_train_state(build_model(registry.smoke(ARCH), compute_dtype="float32",
+                                        loss_chunk=64),
                             make_optimizer("sgdm"), cfg, torch.Generator(),
                             n_workers=2, device="cpu")
     restored = checkpoint.restore(str(ck), like)

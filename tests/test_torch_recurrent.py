@@ -119,7 +119,7 @@ def test_hybrid_param_tree_matches_jax_keys_and_shapes(layers):
     full, _ = jbuild(jcfg).init(None, abstract=True)
     jflat = {jax.tree_util.keystr(p): tuple(v.shape)
              for p, v in jax.tree_util.tree_flatten_with_path(full)[0]}
-    tp = build_model(tcfg).init(torch.Generator().manual_seed(0), "cpu")
+    tp = build_model(tcfg, compute_dtype="float32").init(torch.Generator().manual_seed(0), "cpu")
     tflat = {p: tuple(v.shape) for p, v in tree.flatten_with_path(tp)}
     assert list(tflat) == list(jflat) and tflat == jflat
     D, W = tcfg.d_model, tcfg.conv_width
@@ -147,9 +147,11 @@ def test_hybrid_window_masks_at_long_sequence():
     jcfg, tcfg = parity.configs(HYBRID, "smoke", **TAIL)
     params = params_from_jax(parity.jax_params(jcfg), "cpu")
     b = {k: parity._t(v) for k, v in parity.batch(tcfg, seq=LONG).items()}
-    windowed, _ = build_model(tcfg, loss_chunk=parity.LOSS_CHUNK).loss(params, b)
+    windowed, _ = build_model(tcfg, compute_dtype="float32",
+                              loss_chunk=parity.LOSS_CHUNK).loss(params, b)
     wide = dataclasses.replace(tcfg, local_window=LONG)
-    unmasked, _ = build_model(wide, loss_chunk=parity.LOSS_CHUNK).loss(params, b)
+    unmasked, _ = build_model(wide, compute_dtype="float32",
+                              loss_chunk=parity.LOSS_CHUNK).loss(params, b)
     assert abs(float(windowed) - float(unmasked)) > 1e-4
 
 
@@ -192,7 +194,7 @@ def test_time_mix_matches_jax_from_a_carried_state():
     fn = jax.jit(lambda p, x, st: jrwkv.time_mix(jcfg, p, x, st, dtype=jnp.float32))
     want, wstate = fn(jax.tree.map(jnp.asarray, p), jnp.asarray(x), jax.tree.map(jnp.asarray, st))
     got, gstate = trwkv.time_mix(tcfg, {k: parity._t(v) for k, v in p.items()}, parity._t(x),
-                                 {k: parity._t(v) for k, v in st.items()})
+                                 {k: parity._t(v) for k, v in st.items()}, dtype=torch.float32)
     np.testing.assert_allclose(got.numpy(), parity._np(want), **parity.TOL)
     for k in ("s", "x_prev"):
         np.testing.assert_allclose(gstate[k].numpy(), parity._np(wstate[k]), err_msg=k,
@@ -211,7 +213,8 @@ def test_rglru_block_matches_jax_from_a_carried_state():
     fn = jax.jit(lambda p, x, st: jrglru.rglru_block(jcfg, p, x, st, dtype=jnp.float32))
     want, wstate = fn(jax.tree.map(jnp.asarray, p), jnp.asarray(x), jax.tree.map(jnp.asarray, st))
     got, gstate = trglru.rglru_block(tcfg, {k: parity._t(v) for k, v in p.items()},
-                                     parity._t(x), {k: parity._t(v) for k, v in st.items()})
+                                     parity._t(x), {k: parity._t(v) for k, v in st.items()},
+                                     dtype=torch.float32)
     np.testing.assert_allclose(got.numpy(), parity._np(want), **parity.TOL)
     for k in ("h", "conv"):
         np.testing.assert_allclose(gstate[k].numpy(), parity._np(wstate[k]), err_msg=k,

@@ -125,7 +125,7 @@ def test_chunked_attention_core_matches_jax(case):
 
 def _family(name, n=2, local_b=2, seq=24):
     cfg = parity.configs(name, "smoke", **OVERRIDES.get(name, {}))[1]
-    params = build_model(cfg).init(torch.Generator().manual_seed(0), "cpu")
+    params = build_model(cfg, compute_dtype="float32").init(torch.Generator().manual_seed(0), "cpu")
     batch = {k: torch.from_numpy(v) for k, v in next(parity.jmake_batches(
         cfg.vocab, n, local_b, seq, seed=3, **model_inputs(cfg))).items()}
     return cfg, params, batch, n
@@ -137,7 +137,7 @@ def test_remat_is_bitwise_the_plain_pass(name, how):
     cfg, params, batch, n = _family(name)
     out = []
     for remat in (False, True):
-        model = build_model(cfg, loss_chunk=8, remat=remat)
+        model = build_model(cfg, compute_dtype="float32", loss_chunk=8, remat=remat)
         with warnings.catch_warnings():
             warnings.simplefilter("error")  # a vmap fallback warns
             if how == "loop":
@@ -159,7 +159,8 @@ def test_remat_runs_under_inference_mode(name):
     cfg, params, batch, _ = _family(name)
     one = {k: v[0] for k, v in batch.items()}
     with torch.inference_mode():
-        got = [build_model(cfg, loss_chunk=8, remat=r).loss(params, one) for r in (False, True)]
+        got = [build_model(cfg, compute_dtype="float32", loss_chunk=8, remat=r).loss(params, one)
+               for r in (False, True)]
     assert torch.equal(got[0][0], got[1][0])
     assert all(torch.equal(got[0][1][k], got[1][1][k]) for k in got[0][1])
 
@@ -168,7 +169,7 @@ def _saved_bytes(cfg, n_layers, remat, B=2, S=48):
     """Bytes of the distinct storages ``Model.loss`` saves for its backward,
     the parameters' own excluded."""
     cfg = dataclasses.replace(cfg, n_layers=n_layers)
-    model = build_model(cfg, loss_chunk=16, remat=remat)
+    model = build_model(cfg, compute_dtype="float32", loss_chunk=16, remat=remat)
     params = tree.tree_map(lambda p: p.requires_grad_(True),
                            model.init(torch.Generator().manual_seed(0), "cpu"))
     own = {p.untyped_storage().data_ptr() for p in tree.leaves(params)}
@@ -212,7 +213,7 @@ from repro_torch.training.train_step import per_worker_grads
 torch.set_num_threads(1)
 remat, layers, n, B, S = sys.argv[1] == "1", int(sys.argv[2]), 2, 2, 512
 cfg = dataclasses.replace(registry.smoke("paper-transformer-base"), n_layers=layers)
-model = build_model(cfg, loss_chunk=64, remat=remat)
+model = build_model(cfg, compute_dtype="float32", loss_chunk=64, remat=remat)
 params = model.init(torch.Generator().manual_seed(0), "cpu")
 rng = np.random.default_rng(0)
 batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (n, B, S)).astype(np.int32)),
@@ -258,4 +259,5 @@ def test_past_one_query_chunk_matches_jax(name, seq, overrides, jax_cache):
 
 
 def test_remat_is_on_by_default_as_the_reference():
-    assert build_model(registry.smoke("paper-transformer-base")).remat is True
+    assert build_model(registry.smoke("paper-transformer-base"),
+                       compute_dtype="float32").remat is True

@@ -121,7 +121,7 @@ def jax_run(name, cache, *, prompt=PROMPT, decode_window=None, **overrides):
 
 
 def _port(run, decode_window=None):
-    model = build_model(run["tcfg"], decode_window=decode_window)
+    model = build_model(run["tcfg"], compute_dtype="float32", decode_window=decode_window)
     return model, params_from_jax(run["params"], "cpu")
 
 
@@ -188,7 +188,7 @@ def test_prefill_decode_consistency(name):
     cfg = registry.smoke(name)
     if cfg.n_experts:
         cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
-    model = build_model(cfg)
+    model = build_model(cfg, compute_dtype="float32")
     params = model.init(torch.Generator().manual_seed(0), "cpu")
     b = {k: _t(v) for k, v in _prompt(parity.batch(cfg, seed=3, seq=32), 32).items()}
     ctx = _prefix(cfg) + 31
@@ -215,7 +215,8 @@ def test_decode_window_ring_matches_jax(jax_cache, name):
 def test_window_ring_cache_matches_full_for_short_context():
     """Within the window, ring-cache serving equals full-cache serving."""
     cfg = registry.smoke("starcoder2-3b")
-    ring, full = build_model(cfg, decode_window=PROMPT + 8), build_model(cfg)
+    ring = build_model(cfg, compute_dtype="float32", decode_window=PROMPT + 8)
+    full = build_model(cfg, compute_dtype="float32")
     params = full.init(torch.Generator().manual_seed(0), "cpu")
     tokens = _t(parity.batch(cfg, seq=PROMPT + 1)["tokens"])
     lw, sw = ring.prefill(params, {"tokens": tokens[:, :PROMPT]}, PROMPT + 8)
@@ -243,7 +244,7 @@ def test_hybrid_past_its_window_matches_jax(jax_cache):
 
 @pytest.mark.parametrize("name", ["rwkv6-3b", HYBRID])
 def test_recurrent_state_is_context_length_independent(name):
-    model = build_model(registry.smoke(name))
+    model = build_model(registry.smoke(name), compute_dtype="float32")
     n = [sum(x.numel() for x in tree.leaves(model.init_decode_state(2, seq, "cpu")))
          for seq in (64, 4096)]
     if name == "rwkv6-3b":
@@ -259,7 +260,7 @@ def test_one_layers_write_leaves_the_others_untouched(name, params_key, state_ke
     """Stacked caches are tensors of their own, never views of one shared
     cache: a decode write into layer 0's slot shows in no other layer."""
     cfg = dataclasses.replace(registry.smoke(name), n_layers=6 if name == HYBRID else 2)
-    model = build_model(cfg)
+    model = build_model(cfg, compute_dtype="float32")
     state = model.init_decode_state(2, 8, "cpu")
     stack = model.init(torch.Generator().manual_seed(0), "cpu")[params_key]
     caches = state[state_key]
@@ -268,7 +269,7 @@ def test_one_layers_write_leaves_the_others_untouched(name, params_key, state_ke
     layer0 = lambda t: tree.tree_map(lambda v: v[0], t)
     with torch.inference_mode():
         attn.attention_decode(cfg, layer0(stack), torch.randn(2, 1, cfg.d_model), 3,
-                              layer0(caches))
+                              layer0(caches), dtype=model.compute_dtype)
     assert torch.count_nonzero(caches["k"][0]) > 0 and caches["slot_pos"][0, 3] == 3
     assert torch.count_nonzero(caches["k"][1:]) == 0 and torch.count_nonzero(caches["v"][1:]) == 0
     assert torch.all(caches["slot_pos"][1:] == -1)

@@ -71,7 +71,7 @@ def setup():
     jmodel = jbuild(jregistry.smoke(ARCH), compute_dtype="float32", loss_chunk=LOSS_CHUNK)
     jparams, _ = jmodel.init(jax.random.PRNGKey(0))
     batch = next(jmake_batches(jregistry.smoke(ARCH).vocab, N, LOCAL_B, SEQ, seed=5))
-    tmodel = build_model(registry.smoke(ARCH), loss_chunk=LOSS_CHUNK)
+    tmodel = build_model(registry.smoke(ARCH), compute_dtype="float32", loss_chunk=LOSS_CHUNK)
     return {
         "jmodel": jmodel, "jparams": jparams, "batch": batch, "tmodel": tmodel,
         "params": params_from_jax(jparams, "cpu"),

@@ -53,7 +53,7 @@ def _cfgs(compressor="clt_k", warmup=2):
 
 def _models():
     return (jbuild(jregistry.smoke(ARCH), compute_dtype="float32", loss_chunk=16),
-            build_model(registry.smoke(ARCH), loss_chunk=16))
+            build_model(registry.smoke(ARCH), compute_dtype="float32", loss_chunk=16))
 
 
 def _carry(jstate):

@@ -57,7 +57,7 @@ def _step_sizes():
     from repro_torch.core.scalecom import ScaleComConfig
     from repro_torch.models import build_model
 
-    params = build_model(registry.arch("paper-transformer-base")).init(
+    params = build_model(registry.arch("paper-transformer-base"), compute_dtype="float32").init(
         torch.Generator().manual_seed(0), "cpu")
     flat = tree.flatten_with_path(params)
     sc = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=64), min_size=1024)
