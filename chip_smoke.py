@@ -205,6 +205,28 @@ Phases, each fatal on failure:
      ones; prefill/decode consistency at each run's fixed tolerance, for
      rwkv6-3b also at 1 to 16 layers; the greedy tokens' agreement with an
      fp32 run of the same draw where one fits;
+  10c. ``[examples]``, the reference's five examples ported in
+     ``examples_torch/`` (``examples_phase``), each loaded by path. As
+     written (SMOKE width, through the entry points): quickstart's
+     ``main`` (dense and CLT-k, 60 steps), each final loss held to the
+     port's CPU record of the same CPU-drawn weights and batches
+     (``QUICKSTART_CPU``, ``QUICKSTART_RTOL``); multipod_groups' ``main``
+     with its four assertions; the playground's ``main``, its ``table`` on
+     a CPU-drawn ``ef`` against the CPU's, and at 8 x 18,944,000 (the
+     tok_embed size); serve_decode's three CLI runs, no kernel launched.
+     Then at paper-transformer-base's full width, at each example's own
+     settings (``example_run``): ``[examples:table2]`` (quickstart's: dense,
+     clt_k beta 1, and the same in bf16 compute over fp32 parameters),
+     ``[examples:table3]`` (large_batch_lowpass's 16 workers at lr 0.2:
+     dense, beta 1, beta 0.1) and ``[examples:multipod]`` (its assertions).
+     Each run prints the loss every 10 steps, step ms, the largest
+     nnz(ĝ)/k, the bytes and the peak; it holds every compressed step's
+     bytes to the plan's and nnz(ĝ)/k to ``check_buildup``, the launches to
+     the plan, and the last compressed step's reduce, re-run from clones of
+     its inputs, bitwise between the cuda and torch backends. The losses
+     themselves, the arms' order and their finiteness are findings, printed
+     and not held. These launches stand under ``examples_launches`` in the
+     JSON line;
   11. ``[ring]``, real collectives (``repro_torch.distributed.ring``):
      ``RING_WORLD`` = 8 spawned processes on the one card, joined by gloo
      through a ``file://`` store (NCCL puts one rank on a card; gloo's
@@ -3764,6 +3786,349 @@ def arch_bf16_phase(card_line: str, fp32_peaks: dict) -> dict:
     return launched
 
 
+# The [examples] phase: the reference's five examples, ported in
+# examples_torch/, on the card. Each runs once as written (SMOKE width,
+# through its entry point); the three training examples run again at the
+# paper transformer's full width at their own settings (workers, batch,
+# steps, learning rate, beta), instrumented (``example_run``).
+EXAMPLES_DIR = os.path.join(ROOT, "examples_torch")
+# The port's own CPU record of quickstart as written: the same CPU-drawn
+# weights (seed 0) and batches, torch on one thread. Made by
+#   PYTHONPATH=src python tools/examples_witness.py --examples quickstart
+QUICKSTART_CPU = {"none": 4.200640678405762, "clt_k": 4.920510768890381}
+# a worker mean sums in another order on the card; over 55 compressed steps
+# a near-tie CLT-k pick can flip and compound, which the dense arm cannot
+QUICKSTART_RTOL = {"none": 1e-3, "clt_k": 1e-2}
+EXAMPLE_LOSS_EVERY = 10  # steps between the losses a full-width run prints
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module, loaded by path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(f"examples_torch_{name}",
+                                                  os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class LastReduce:
+    """Clones of the inputs of the train step's ``scalecom_reduce`` call
+    number ``at`` (0-based): the gradients, the residues and the config,
+    taken before the call, for a teacher-forced rerun after training."""
+
+    def __init__(self, at: int):
+        self.at, self.calls, self.args = at, 0, None
+
+    @contextlib.contextmanager
+    def on(self):
+        import torch
+
+        from repro_torch import tree
+        from repro_torch.training import train_step as train_step_mod
+
+        real = train_step_mod.scalecom_reduce
+
+        def keep(grads_pw, state, cfg, **kw):
+            if self.calls == self.at:
+                self.args = (tree.tree_map(torch.clone, grads_pw),
+                             dataclasses.replace(state, residues=tree.tree_map(torch.clone,
+                                                                               state.residues)),
+                             cfg, kw)
+            self.calls += 1
+            return real(grads_pw, state, cfg, **kw)
+
+        train_step_mod.scalecom_reduce = keep
+        try:
+            yield self
+        finally:
+            train_step_mod.scalecom_reduce = real
+
+
+def example_run(tag: str, label: str, make, steps: int, tokens: str, card_line: str,
+                model=None, after=None) -> dict:
+    """``run_training`` of an example's loop, initial state and batches
+    (``make()``, the example's ``setup``) for ``steps`` steps, optionally with
+    another ``model`` (the same weights in another compute dtype),
+    instrumented. Held, whatever the loss does: every compressed step's
+    comm bytes equal the plan's and its nnz(ĝ)/k passes ``check_buildup`` (ĝ
+    counted as the optimizer receives it); the kernels launched as
+    ``expected_launches`` plans them; the last compressed step's reduce,
+    re-run from clones of its inputs on the cuda and torch backends, bitwise
+    equal (``hold_reduce``). Prints the loss every ``EXAMPLE_LOSS_EVERY``
+    steps and the final one, the first non-finite step, step ms (the first
+    compressed step, the run's first batched pass, apart), the largest nnz(ĝ)/k,
+    the bytes against the plan's and the peak. ``after(state, history)``
+    runs on the trained state before it is freed. Returns {"loss": the
+    final loss, "hist": the history, "launches": by kernel}."""
+    import torch
+
+    from repro_torch import kernels, tree
+    from repro_torch.core.plan import plan_tensors
+    from repro_torch.core.scalecom import scalecom_reduce
+    from repro_torch.core.state import residue_signature
+    from repro_torch.harness.invariants import check_buildup, check_comm_accounting
+    from repro_torch.training import run_training
+
+    what = f"{tag} {label}"
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    box = list(make())  # the initial state lives in the list until run_training takes it
+    loop, batches = box[0], box[2]
+    sc_cfg, workers, comp = loop.sc_cfg, loop.n_workers, loop.sc_cfg.compressor
+    params = box[1].params
+    plans = plan_tensors(tuple((p, tuple(v.shape), workers)
+                               for p, v in tree.flatten_with_path(params)),
+                         sc_cfg, residue_signature(box[1].sc_state.residues))
+    compressed = [p for p in plans if not p.dense]
+    n_comp = sum(loop.compressed_at(i) for i in range(steps))
+    changes, counts = dict(log_every=1), []
+    if n_comp:
+        changes["optimizer"], counts = observed(loop.optimizer, [p.path for p in compressed])
+    if model is not None:
+        changes["model"] = model
+    loop = dataclasses.replace(loop, **changes)
+    del params
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    last = LastReduce(n_comp - 1)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    with last.on():
+        state, hist = run_training(loop, box.pop(1), batches, steps, log=None)
+    torch.cuda.synchronize()
+    got = kernels.launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check([h["step"] for h in hist] == list(range(steps)), f"{what}: history {len(hist)} steps")
+    ms = [hist[0]["wall_s"] * 1e3] + [(b["wall_s"] - a["wall_s"]) * 1e3
+                                      for a, b in zip(hist, hist[1:])]
+    losses = [h["loss"] for h in hist]
+    bad = [i for i, x in enumerate(losses) if not math.isfinite(x)]
+    planned = sum(p.bytes_payload for p in plans)
+    k_total = sum(p.k for p in compressed)
+    ratios = []
+    for h in hist:
+        i = h["step"]
+        if not loop.compressed_at(i):
+            continue
+        v = check_comm_accounting(h["comm_bytes_per_worker"], planned)
+        check(v is None, f"{what}: step {i}: {v}")
+        ratios.append(int(counts[i].sum()) / k_total)
+        v = check_buildup(ratios[-1], comp.name, sc_cfg.n_workers(workers), comp.chunk)
+        check(v is None, f"{what}: step {i}: {v}")
+    want = (expected_launches(plans, False, n_comp) if n_comp
+            else dict.fromkeys(kernels.launches(), 0))
+    check(got == want, f"{what}: launches {got}, want {want}")
+    if after is not None:
+        after(state, hist)
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    comp_ms = [t for i, t in enumerate(ms) if loop.compressed_at(i)]
+    dense_ms = [t for i, t in enumerate(ms) if not loop.compressed_at(i)]
+    line = (f"{what}: {workers} workers x {tokens} tokens, {steps} steps "
+            f"({steps - n_comp} dense); loss " + ", ".join(
+                f"{i} {losses[i]:.4f}" for i in range(0, steps, EXAMPLE_LOSS_EVERY))
+            + f"; final {losses[-1]:.4f}"
+            + (f"; NOT FINITE from step {bad[0]} (a finding, not a failure)" if bad else "")
+            + f"; dense steps median {statistics.median(dense_ms):.1f} ms (the first "
+            f"{dense_ms[0]:.1f})")
+    if n_comp:
+        line += (f"; compressed steps median {statistics.median(comp_ms[1:] or comp_ms):.1f} ms "
+                 f"of {len(comp_ms) - 1}, the first (the run's first batched pass) {comp_ms[0]:.1f} ms"
+                 f"; largest nnz(ĝ)/k {max(ratios):.6f} (check_buildup on all {n_comp}); comm "
+                 f"bytes {planned:,.1f} B a worker a step, the plan's on all {n_comp}; launches "
+                 f"{ {k: n for k, n in got.items() if n} } as planned")
+    print(f"{line}; init {t_init:.1f} s; peak allocated {peak:.2f} GiB on {card_line}")
+
+    if n_comp:
+        grads, sc_state, cfg_r, kw = last.args
+        last.args = None
+        clone_state = dataclasses.replace(sc_state, residues=tree.tree_map(torch.clone,
+                                                                            sc_state.residues))
+        card = scalecom_reduce(tree.tree_map(torch.clone, grads), clone_state,
+                               dataclasses.replace(cfg_r, backend="cuda"), **kw)
+        plain = scalecom_reduce(grads, sc_state, dataclasses.replace(cfg_r, backend="torch"), **kw)
+        same, _, _ = hold_reduce(card, plain, False, comp.chunk, comp.name,
+                                 f"{what} last reduce")
+        check(same, f"{what}: the last reduce differs between the cuda and torch backends")
+        print(f"{what}: the last compressed step's reduce (t={sc_state.t}) from clones of its "
+              f"inputs, cuda backend == torch backend, bitwise ({len(plans)} tensors)")
+        del grads, sc_state, clone_state, card, plain
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"loss": losses[-1], "hist": hist, "launches": got}
+
+
+def examples_phase(card_line: str) -> dict:
+    """[examples]: the five example ports, as written and at full width.
+    Returns the launches of the phase by kernel."""
+    import torch
+
+    from repro_torch import kernels, tree
+    from repro_torch.configs import registry
+    from repro_torch.core.plan import plan_tensors
+    from repro_torch.core.state import residue_signature
+    from repro_torch.models import build_model
+
+    t_phase = time.perf_counter()
+    quick, large = load_example("quickstart"), load_example("large_batch_lowpass")
+    pod, play = load_example("multipod_groups"), load_example("compressor_playground")
+    serve_ex = load_example("serve_decode")
+    launched = dict.fromkeys(KERNELS, 0)
+
+    def count(got: dict) -> None:
+        for k, n in got.items():
+            launched[k] += n
+
+    def planned_launches(setup, steps: int) -> dict:
+        """The launches a run of ``steps`` steps of ``setup()``'s loop plans."""
+        loop, state, _ = setup()
+        plans = plan_tensors(tuple((p, tuple(v.shape), loop.n_workers)
+                                   for p, v in tree.flatten_with_path(state.params)),
+                             loop.sc_cfg, residue_signature(state.sc_state.residues))
+        return expected_launches(plans, False, sum(map(loop.compressed_at, range(steps))))
+
+    # -- as written: quickstart's main, held to the port's CPU record --------------
+    kernels.reset_launches()
+    dense, compressed = quick.main(["--device", "cuda"])
+    got = kernels.launches()
+    want = planned_launches(lambda: quick.setup("clt_k", device="cuda"), quick.STEPS)
+    check(got == want, f"[examples] quickstart: launches {got}, want {want} (the clt_k arm's)")
+    count(got)
+    for arm, loss in (("none", dense), ("clt_k", compressed)):
+        rec, rtol = QUICKSTART_CPU[arm], QUICKSTART_RTOL[arm]
+        gap = abs(loss - rec) / abs(rec)
+        check(gap <= rtol, f"[examples] quickstart {arm}: final loss {loss!r} on the card, "
+                           f"{rec!r} on the CPU: relative gap {gap:.3e} > {rtol:g}")
+        print(f"[examples] quickstart {arm} (SMOKE, {quick.STEPS} steps): final loss {loss:.6f} on "
+              f"the card, {rec:.6f} the port's CPU record: relative gap {gap:.3e} (bound "
+              f"{rtol:g}) on {card_line}")
+
+    # -- multipod as written: its four assertions ------------------------------------
+    kernels.reset_launches()
+    acc = pod.main(device="cuda")
+    got = kernels.launches()
+    want = planned_launches(lambda: pod.setup(device="cuda"), pod.STEPS)
+    check(got == want, f"[examples] multipod: launches {got}, want {want}")
+    count(got)
+    print(f"[examples] multipod_groups (SMOKE, {pod.STEPS} steps): residue rows are pods, the loss "
+          f"fell, bytes {acc['meas_up']:,.1f} / {acc['meas_dense']:,.1f} B the accounting's, "
+          f"byte reduction {acc['meas_ratio']:.3f}x against the perf model's "
+          f"{acc['pred_ratio']:.3f}x on {card_line}")
+
+    # -- the playground: as written, against the CPU, and at the tok_embed size --------
+    def table(ef, what: str) -> dict:
+        kernels.reset_launches()
+        rows = play.table(ef, play.CHUNK)
+        got = kernels.launches()
+        want = dict.fromkeys(got, 0)
+        want.update(chunk_argmax=3, chunk_gather=4, chunk_scatter=4)
+        check(got == want, f"[examples] playground {what}: launches {got}, want {want}")
+        count(got)
+        n, size = ef.shape
+        k = size // play.CHUNK
+        for name, (gamma, nnz, d_over_k) in rows.items():
+            most = n * k if name == "local_topk" else k
+            check(0 < gamma < 1 and k <= nnz <= most and 0 <= d_over_k <= 1,
+                  f"[examples] playground {what} {name}: gamma {gamma}, nnz {nnz}, d/k {d_over_k}")
+        print(f"[examples] playground {what}, {n} x {size:,} (k {k:,}): " + "; ".join(
+            f"{name} gamma {g:.6f} nnz {z:,} d/k {d:.6f}" for name, (g, z, d) in rows.items())
+            + f" on {card_line}")
+        return rows
+
+    kernels.reset_launches()
+    play.main(["--device", "cuda"])
+    count(kernels.launches())
+    ef_cpu = play.correlated_ef(device="cpu")
+    on_cpu = play.table(ef_cpu, play.CHUNK)
+    on_card = table(ef_cpu.cuda(), "CPU-drawn ef")
+    k = ef_cpu.shape[1] // play.CHUNK
+    for name, (gamma, nnz, d_over_k) in on_card.items():
+        c_gamma, c_nnz, c_d = on_cpu[name]
+        check(nnz == c_nnz, f"[examples] playground {name}: nnz {nnz} on the card, {c_nnz} on the CPU")
+        if name != "random_k":  # the card's generator draws other offsets
+            check(math.isclose(gamma, c_gamma, rel_tol=1e-4) and abs(d_over_k - c_d) <= 2 / k,
+                  f"[examples] playground {name}: gamma {gamma} / {c_gamma}, d/k {d_over_k} / "
+                  f"{c_d} (card / CPU)")
+    print("[examples] playground on the CPU-drawn ef: nnz equal on the card and the CPU, gamma "
+          "within rtol 1e-4 and d/k within 2/k (but random_k's, drawn by another generator)")
+    del ef_cpu
+    ef = play.correlated_ef(play.N, 37000 * 512, device="cuda")
+    table(ef, "at the tok_embed size")
+    del ef
+    torch.cuda.empty_cache()
+
+    # -- serve_decode as written -------------------------------------------------------
+    kernels.reset_launches()
+    toks = serve_ex.main("cuda")
+    check(list(toks) == list(serve_ex.ARCHS)
+          and all(t.shape == (2, 8) for t in toks.values()),
+          f"[examples] serve_decode: {({a: t.shape for a, t in toks.items()})}")
+    check(not any(kernels.launches().values()),
+          f"[examples] serve_decode launched a ScaleCom kernel: {kernels.launches()}")
+    mark_s = time.perf_counter() - t_phase
+    print(f"[examples] as written: {mark_s:.1f} s on {card_line}")
+
+    # -- the paper's comparisons at full width -------------------------------------------
+    full = registry.arch("paper-transformer-base")
+    quick_tokens = f"{quick.LOCAL_BATCH} x {quick.SEQ}"
+    table2 = {}
+    for label, arm in (("dense", ("none", 64, 1.0)), ("clt_k beta=1", ("clt_k", 64, 1.0))):
+        run = example_run("[examples:table2]", label,
+                          lambda: quick.setup(*arm, device="cuda", cfg=full), quick.STEPS,
+                          quick_tokens, card_line)
+        table2[label] = run["loss"]
+        count(run["launches"])
+    run = example_run("[examples:table2]", "clt_k beta=1 bf16 compute",
+                      lambda: quick.setup("clt_k", 64, 1.0, device="cuda", cfg=full),
+                      quick.STEPS, quick_tokens, card_line,
+                      model=build_model(full, loss_chunk=16))  # bf16 compute, fp32 parameters
+    table2["clt_k beta=1 bf16"] = run["loss"]
+    count(run["launches"])
+    print(f"[examples:table2] {full.name} ({full.param_count():,} parameters), final losses: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in table2.items())
+          + f"; clt_k - dense {table2['clt_k beta=1'] - table2['dense']:+.4f}, bf16 - fp32 "
+          f"{table2['clt_k beta=1 bf16'] - table2['clt_k beta=1']:+.4f} on {card_line}")
+
+    table3 = {}
+    for label, arm in (("dense", ("none", 1.0)), ("clt_k beta=1", ("clt_k", 1.0)),
+                       ("clt_k beta=0.1", ("clt_k", 0.1))):
+        run = example_run("[examples:table3]", label,
+                          lambda: large.setup(*arm, device="cuda", cfg=full), large.STEPS,
+                          f"{large.LOCAL_BATCH} x {large.SEQ}", card_line)
+        table3[label] = run["loss"]
+        count(run["launches"])
+    d, b1, b01 = table3["dense"], table3["clt_k beta=1"], table3["clt_k beta=0.1"]
+    held = all(map(math.isfinite, (d, b1, b01))) and b01 < b1 and abs(b01 - d) < abs(b1 - d)
+    print(f"[examples:table3] {full.name} at lr {large.LR} over {large.WORKERS} workers, final "
+          "losses: " + ", ".join(f"{k} {v:.4f}" for k, v in table3.items())
+          + f"; the paper's ordering (dense ~ beta=0.1 < beta=1) {'held' if held else 'did NOT hold'}"
+          f" (a finding, not asserted) on {card_line}")
+
+    def pod_setup():
+        loop, state, batches = pod.setup(device="cuda", cfg=full)
+        pod.check_pod_residues(state)
+        return loop, state, batches
+
+    run = example_run("[examples:multipod]", f"{pod.POD_COUNT} pods x {pod.RANKS_PER_POD} ranks",
+                      pod_setup, pod.STEPS, f"{pod.LOCAL_BATCH} x {pod.SEQ}", card_line,
+                      after=lambda state, hist: pod.check_dcn_bytes(state.params, hist))
+    count(run["launches"])
+    print(f"[examples:multipod] {full.name}: residue rows are pods, the loss fell "
+          f"({run['hist'][0]['loss']:.4f} -> {run['loss']:.4f}), bytes the accounting's and the "
+          f"byte reduction within x0.85-1.15 of the perf model's on {card_line}")
+
+    for name in ("chunk_argmax", "chunk_gather", "chunk_scatter", "ef_update"):
+        check(launched[name] > 1, f"[examples] {name} launched {launched[name]} times")
+    print(f"[examples] launches {launched}; phase {time.perf_counter() - t_phase:.1f} s wall on "
+          f"{card_line}")
+    return launched
+
+
 # The [ring] phase: real collectives. NCCL puts one rank on a card and the
 # machine has one, so the ranks share it over gloo, whose all_reduce and
 # broadcast take CUDA tensors (staged through host memory).
@@ -5162,6 +5527,10 @@ def main() -> None:
     serve_phase(card_line, BF16_SERVE_RUNS, "[serve:bf16]")
     mark("[serve:bf16]")
 
+    # -- 10c. the reference's five examples, as written and at full width -----------------
+    examples_launches = examples_phase(card_line)
+    mark("[examples]")
+
     # -- 11. real collectives: the ring reduce and one worker per rank -----------------
     ring_launches = ring_phase(card_line)
     mark("[ring]")
@@ -5185,6 +5554,7 @@ def main() -> None:
         results[name]["harness_launches"] = harness_launches[name]
         results[name]["arch_launches"] = arch_launches[name]
         results[name]["ring_launches"] = ring_launches[name]
+        results[name]["examples_launches"] = examples_launches[name]
     results["fused_reduce"]["harness_routes"] = harness_routes
     print(json.dumps({"kernels": [results[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
