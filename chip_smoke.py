@@ -216,9 +216,11 @@ Phases, each fatal on failure:
      tok_embed size); serve_decode's three CLI runs, no kernel launched.
      Then at paper-transformer-base's full width, at each example's own
      settings (``example_run``): ``[examples:table2]`` (quickstart's: dense,
-     clt_k beta 1, and the same in bf16 compute over fp32 parameters),
-     ``[examples:table3]`` (large_batch_lowpass's 16 workers at lr 0.2:
-     dense, beta 1, beta 0.1) and ``[examples:multipod]`` (its assertions).
+     clt_k beta 1, and the same in bf16 compute over fp32 parameters;
+     ``TABLE2_STEPS`` = 30 of its 60 steps), ``[examples:table3]``
+     (large_batch_lowpass's 16 workers at lr 0.2: dense, beta 1, beta 0.1;
+     ``TABLE3_STEPS`` = 40 of its 80 steps) and ``[examples:multipod]`` (its
+     assertions).
      Each run prints the loss every 10 steps, step ms, the largest
      nnz(ĝ)/k, the bytes and the peak; it holds every compressed step's
      bytes to the plan's and nnz(ĝ)/k to ``check_buildup``, the launches to
@@ -276,8 +278,30 @@ Phases, each fatal on failure:
      (an async call: its issue and its ``wait()``). A rank that fails, or a
      phase past ``RING_PHASE_S``, fails the script. These launches stand
      under ``ring_launches`` in the JSON line; ``fused_select_update``'s,
-     whose path is the ring's alone, are its ``launches``. A ``[time]`` line
-     gives each phase's seconds.
+     whose path is the ring's alone, are its ``launches``.
+  12. ``[tp]``, the tensor-parallel step (``build_train_step(mesh=...)``,
+     the reference's ``tp`` policy), run by ``[ring]``'s 8 ranks after
+     ``RING_RUNS``; ``TP_RUNS``: paper-transformer-base at full
+     width on a (4 data, 2 model) grid and starcoder2-3b at full width, 2
+     layers, on (2, 2) (the world's first 4 ranks), each 1 dense + 2
+     compressed steps unfused and then fused (``tp_run_rank``). Each step's
+     launches per rank as planned (the leader's select, or fused its
+     ``fused_select_update``; ef_update and chunk_scatter; all vec4), the
+     data replicas' parameters bitwise (digests), each data group's
+     payload the plan's share and the shares summing to the plan's bytes;
+     in the unfused pass rank 0 runs the stacked single-process step from
+     the same init and batches and holds the logical parameters (gathered
+     over its model group) within ``TP_TOL`` outside the chunks that
+     selected another lane at a near tie (both steps' ef at the two lanes,
+     ``NEAR_TIE_RTOL``; counted and printed), the loss within
+     ``TP_LOSS_TOL``; the fused pass's parameters bitwise the unfused
+     pass's; the last compressed step's reduce teacher-forced on every rank,
+     cuda backend bitwise torch backend, unfused and fused; the four
+     kernels at rank 0's part shapes bitwise their plain versions. Prints
+     step ms, the model axis's gloo calls and bytes against the data axis's
+     payload, and the peak per rank. These launches stand under
+     ``tp_launches`` in the JSON line. A ``[time]`` line gives each phase's
+     seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. The bf16 main path's
@@ -3799,6 +3823,13 @@ QUICKSTART_CPU = {"none": 4.200640678405762, "clt_k": 4.920510768890381}
 # a worker mean sums in another order on the card; over 55 compressed steps
 # a near-tie CLT-k pick can flip and compound, which the dense arm cannot
 QUICKSTART_RTOL = {"none": 1e-3, "clt_k": 1e-2}
+# [examples:table3]'s full-width runs take 40 of large_batch_lowpass's 80
+# steps, to keep the script inside its time limit: their losses are
+# findings, printed and not held
+TABLE3_STEPS = 40
+# and [examples:table2]'s take 30 of quickstart's 60, for the same reason
+# (quickstart as written keeps its 60 steps: it is held to the CPU record)
+TABLE2_STEPS = 30
 EXAMPLE_LOSS_EVERY = 10  # steps between the losses a full-width run prints
 
 
@@ -4079,17 +4110,18 @@ def examples_phase(card_line: str) -> dict:
     table2 = {}
     for label, arm in (("dense", ("none", 64, 1.0)), ("clt_k beta=1", ("clt_k", 64, 1.0))):
         run = example_run("[examples:table2]", label,
-                          lambda: quick.setup(*arm, device="cuda", cfg=full), quick.STEPS,
+                          lambda: quick.setup(*arm, device="cuda", cfg=full), TABLE2_STEPS,
                           quick_tokens, card_line)
         table2[label] = run["loss"]
         count(run["launches"])
     run = example_run("[examples:table2]", "clt_k beta=1 bf16 compute",
                       lambda: quick.setup("clt_k", 64, 1.0, device="cuda", cfg=full),
-                      quick.STEPS, quick_tokens, card_line,
+                      TABLE2_STEPS, quick_tokens, card_line,
                       model=build_model(full, loss_chunk=16))  # bf16 compute, fp32 parameters
     table2["clt_k beta=1 bf16"] = run["loss"]
     count(run["launches"])
-    print(f"[examples:table2] {full.name} ({full.param_count():,} parameters), final losses: "
+    print(f"[examples:table2] {full.name} ({full.param_count():,} parameters), {TABLE2_STEPS} "
+          f"of the example's {quick.STEPS} steps, final losses: "
           + ", ".join(f"{k} {v:.4f}" for k, v in table2.items())
           + f"; clt_k - dense {table2['clt_k beta=1'] - table2['dense']:+.4f}, bf16 - fp32 "
           f"{table2['clt_k beta=1 bf16'] - table2['clt_k beta=1']:+.4f} on {card_line}")
@@ -4098,14 +4130,15 @@ def examples_phase(card_line: str) -> dict:
     for label, arm in (("dense", ("none", 1.0)), ("clt_k beta=1", ("clt_k", 1.0)),
                        ("clt_k beta=0.1", ("clt_k", 0.1))):
         run = example_run("[examples:table3]", label,
-                          lambda: large.setup(*arm, device="cuda", cfg=full), large.STEPS,
+                          lambda: large.setup(*arm, device="cuda", cfg=full), TABLE3_STEPS,
                           f"{large.LOCAL_BATCH} x {large.SEQ}", card_line)
         table3[label] = run["loss"]
         count(run["launches"])
     d, b1, b01 = table3["dense"], table3["clt_k beta=1"], table3["clt_k beta=0.1"]
     held = all(map(math.isfinite, (d, b1, b01))) and b01 < b1 and abs(b01 - d) < abs(b1 - d)
-    print(f"[examples:table3] {full.name} at lr {large.LR} over {large.WORKERS} workers, final "
-          "losses: " + ", ".join(f"{k} {v:.4f}" for k, v in table3.items())
+    print(f"[examples:table3] {full.name} at lr {large.LR} over {large.WORKERS} workers, "
+          f"{TABLE3_STEPS} of the example's {large.STEPS} steps, final losses: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in table3.items())
           + f"; the paper's ordering (dense ~ beta=0.1 < beta=1) {'held' if held else 'did NOT hold'}"
           f" (a finding, not asserted) on {card_line}")
 
@@ -4216,15 +4249,16 @@ def digest(x) -> list:
             ((0x5851F42D4C957F2D, 0x14057B7EF767814F), (0x2545F4914F6CDD1D, 0x1B03738712FAD5C9))]
 
 
-def exchange(row: list, rank: int, world: int) -> list:
+def exchange(row: list, rank: int, world: int, group=None) -> list:
     """Every rank's ``row`` of ints, on every rank: one all_reduce of a CPU
-    int64 table in which each rank fills its own row."""
+    int64 table in which each rank fills its own row (over ``group``, whose
+    rank ``rank`` is, of ``world``; default the whole world)."""
     import torch
     import torch.distributed as dist
 
     table = torch.zeros((world, len(row)), dtype=torch.int64)
     table[rank] = torch.tensor(row, dtype=torch.int64)
-    dist.all_reduce(table)
+    dist.all_reduce(table, group=group)
     return table.tolist()
 
 
@@ -4899,8 +4933,9 @@ def ring_dither_times(residues: dict, sc_cfg, run: RingRun, world: int):
 def ring_rank(rank: int, world: int, store: str, conn) -> None:
     """One spawned rank of ``ring_phase``: joins the gloo group through the
     ``file://`` store, runs (a) on the first ``RING_REDUCE_RANKS`` ranks,
-    then (b) and every run of ``RING_RUNS`` on all, and sends its results to
-    the parent. Any failure exits non-zero."""
+    then (b) and every run of ``RING_RUNS`` on all, then ``[tp]``'s
+    ``TP_RUNS`` (``tp_run_rank``), and sends its results to the parent. Any
+    failure exits non-zero."""
     sys.path.insert(0, SRC)
     import datetime
 
@@ -4924,6 +4959,14 @@ def ring_rank(rank: int, world: int, store: str, conn) -> None:
         t0 = time.perf_counter()
         out["runs"].append(ring_train_rank(rank, world, run))
         out["run_s"].append(time.perf_counter() - t0)
+    # [tp]'s cells in the same warm processes (no second spawn, no second
+    # first use of the card's libraries in each)
+    out["tp"], out["tp_s"] = [], []
+    for run in TP_RUNS:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["tp"].append(tp_run_rank(rank, run))
+        out["tp_s"].append(time.perf_counter() - t0)
     conn.send(out)
     conn.close()
     dist.destroy_process_group()
@@ -5040,7 +5083,8 @@ def ring_phase(card_line: str) -> dict:
     rank checks its part and exits non-zero on a failure; a rank that fails,
     or a phase that outlasts ``RING_PHASE_S``, fails the script. Prints what
     the ranks measured and returns the kernels' launches summed over the
-    ranks in (b) and the runs."""
+    ranks in (b) and the runs, and every rank's results (``[tp]``'s cells
+    among them, for ``tp_phase``)."""
     import multiprocessing
     import statistics as st
     import tempfile
@@ -5182,8 +5226,472 @@ def ring_phase(card_line: str) -> dict:
         for k in ring_launches:
             ring_launches[k] += launches[k]
     print(f"[ring] launches summed over the ranks and runs {ring_launches}; phase "
-          f"{time.perf_counter() - t_phase:.1f} s wall on {card_line}")
-    return ring_launches
+          f"{time.perf_counter() - t_phase:.1f} s wall, [tp]'s cells included "
+          f"({results[0]['tp_s'][0] + results[0]['tp_s'][1]:.1f} s on rank 0), on {card_line}")
+    return ring_launches, results
+
+
+# The [tp] phase: the tensor-parallel step (``build_train_step(mesh=...)``),
+# the counterpart of the reference's step under its ``tp`` policy, on a
+# (data x model) grid of gloo ranks sharing the card as [ring]'s do.
+TP_MODES = ("dense", "scalecom", "scalecom")
+TP_TOL = dict(rtol=2e-4, atol=1e-5)  # the CPU tests' (tests/test_distributed.py:75-76)
+TP_LOSS_TOL = 1e-3
+# a chunk may select another lane than the stacked step only at a near tie:
+# the stacked step's two |ef| differ by no more than the two steps' ef
+# differ at those lanes (the sums' order explains the swap), and the two
+# steps' ef agree at both lanes within this (the lm_head gradients of
+# random init are ~6e-6, sums of 256 terms that cancel, so rounding moves
+# them by up to ~1e-3 of themselves; a wrong gradient moves them by ~1)
+NEAR_TIE_RTOL = 1e-2
+TP_KERNELS = ("chunk_argmax", "ef_update", "chunk_scatter", "fused_select_update")
+
+
+@dataclasses.dataclass(frozen=True)
+class TPRun:
+    """One cell of ``[tp]``: an arch at full width (``layers``: the depth it
+    is cut to, None for its own) on a (data, model) grid over the world's
+    first ranks, ``batch`` x ``seq`` tokens a worker, 1 dense + 2
+    compressed steps, unfused and then fused."""
+
+    arch: str
+    grid: tuple
+    layers: int | None
+    batch: int
+    seq: int
+
+    @property
+    def tag(self) -> str:
+        return f"[tp:{self.arch} {self.grid[0]}x{self.grid[1]}]"
+
+
+TP_RUNS = (
+    TPRun("paper-transformer-base", (4, 2), None, 4, 128),  # the main path's model and batch
+    TPRun("starcoder2-3b", (2, 2), 2, 2, 128),  # GQA, 2 kv heads: one a model rank
+)
+
+
+def tp_flip_lanes(ghat, ef, chunk: int):
+    """The chunks where the tensor-parallel step's ĝ (the logical tensor)
+    has its lane elsewhere than the stacked step's selection (the arg-max
+    of the leader's |ef|): (chunks, the stacked lanes, the step's lanes)."""
+    import torch
+
+    pad = (-ef.numel()) % chunk
+    e = torch.nn.functional.pad(ef.reshape(-1).abs(), (0, pad)).view(-1, chunk)
+    a = torch.nn.functional.pad(ghat.reshape(-1), (0, pad)).view(-1, chunk) != 0
+    want = torch.argmax(e, dim=1)
+    lane = torch.argmax(a.to(torch.uint8), dim=1)
+    rows = torch.nonzero(a.any(dim=1) & (lane != want)).reshape(-1)
+    return rows.tolist(), want[rows].tolist(), lane[rows].tolist()
+
+
+def tp_local_index(flat: int, shape, dim, width: int, index: int) -> int:
+    """Where element ``flat`` of a logical tensor of ``shape`` lies in model
+    rank ``index``'s slice (``width`` of dim ``dim``; None: replicated), as
+    a flat index into the slice; -1 if elsewhere."""
+    coords = []
+    for size in reversed(shape):
+        coords.append(flat % size)
+        flat //= size
+    coords.reverse()
+    local = list(shape)
+    if dim is not None:
+        coords[dim] -= index * width
+        if not 0 <= coords[dim] < width:
+            return -1
+        local[dim] = width
+    out = 0
+    for c, size in zip(coords, local):
+        out = out * size + c
+    return out
+
+
+def tp_expected_launches(shards, leader: bool, fused: bool) -> dict:
+    """One compressed step's launches on a rank: per compressed tensor with
+    a part on it, the leader's select (chunk_argmax) or, fused, its select
+    and Eq. 5 in one fused_select_update; ef_update on the others (every
+    rank unfused); chunk_scatter on every rank."""
+    n_c = sum(1 for sp in shards if not sp.plan.dense and sp.k > 0)
+    want = dict.fromkeys(("chunk_argmax", "chunk_topm", "chunk_gather", "chunk_scatter",
+                          "ef_update", "fused_reduce", "fused_select_update"), 0)
+    want["chunk_scatter"] = n_c
+    if fused:
+        want["fused_select_update" if leader else "ef_update"] = n_c
+    else:
+        want["ef_update"] = n_c
+        want["chunk_argmax"] = n_c if leader else 0
+    return want
+
+
+def tp_kernel_holds(shards, gen) -> list:
+    """Each kernel of the [tp] path on this rank's largest compressed part
+    shapes (random inputs), bitwise against its plain version on the card:
+    chunk_argmax, ef_update, chunk_scatter, fused_select_update. Returns
+    [(rows, chunk)] held."""
+    import torch
+
+    from repro_torch.kernels import chunk_topk as ct, ef_update as ek, fused_reduce as frk
+
+    parts = sorted({(-(-math.prod(sp.work) // sp.plan.comp.chunk), sp.plan.comp.chunk)
+                    for sp in shards if not sp.plan.dense and sp.k > 0}, reverse=True)[:2]
+    for rows, chunk in parts:
+        m = torch.randn((rows, chunk), generator=gen, device="cuda")
+        g = torch.randn((rows, chunk), generator=gen, device="cuda")
+        idx, val = ct.chunk_argmax(m + g)
+        pidx, pval = ct.chunk_argmax_plain(m + g)
+        check(bitwise(idx, pidx) and bitwise(val, pval),
+              f"[tp] chunk_argmax at ({rows}, {chunk}) differs from its plain version")
+        m_new, vals = ek.ef_update(m, g, idx, BETA)
+        pm, pv = ek.ef_update_plain(m, g, idx, BETA)
+        check(bitwise(m_new, pm) and bitwise(vals, pv),
+              f"[tp] ef_update at ({rows}, {chunk}) differs from its plain version")
+        check(bitwise(ct.chunk_scatter(vals, idx, chunk), ct.chunk_scatter_plain(vals, idx, chunk)),
+              f"[tp] chunk_scatter at ({rows}, {chunk}) differs from its plain version")
+        got = frk.fused_select_update(m.reshape(-1), g.reshape(-1), BETA, chunk)
+        want = frk.fused_select_update_plain(m.reshape(-1), g.reshape(-1), BETA, chunk)
+        check(all(bitwise(a, b) for a, b in zip(got, want)),
+              f"[tp] fused_select_update at ({rows}, {chunk}) differs from its plain version")
+    return parts
+
+
+def tp_run_rank(rank: int, run: TPRun):
+    """One ``TPRun`` on this rank: its grid's ranks train the arch through
+    ``build_train_step(mesh=...)``, unfused then fused from the same init,
+    each step timed with its launches, model-axis calls and bytes and
+    payload counted; rank 0 (data 0, model 0) runs the stacked
+    single-process step from the same init and batches during the unfused
+    pass and holds the logical parameters (gathered over its model group)
+    within ``TP_TOL``, up to counted near-tie chunks, and the loss within
+    ``TP_LOSS_TOL``; every rank's parameters are bitwise its data replicas'
+    and, fused, bitwise the unfused pass's; each data group's payload the
+    plan's share; the last compressed step's reduce teacher-forced, cuda
+    backend bitwise torch backend, unfused and fused; the kernels at the
+    rank's part shapes against their plain versions. Ranks outside the
+    grid return None."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels, tree
+    from repro_torch.configs import registry
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.plan import plan_shards, plan_tensors
+    from repro_torch.core.scalecom import ScaleComConfig
+    from repro_torch.data import make_batches
+    from repro_torch.distributed import ring, sharding, tensor_parallel
+    from repro_torch.kernels import chunk_topk as ct
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import gather_shards
+    from repro_torch.optim import make_optimizer, schedule
+    from repro_torch.optim.optimizer import Optimizer
+    from repro_torch.training import build_train_step, init_train_state
+    from repro_torch.training import train_step as ts
+
+    size = run.grid[0] * run.grid[1]
+    mesh = make_test_mesh(run.grid, subset=True)
+    members = dist.new_group(list(range(size)))
+    if mesh is None:
+        return None
+    tag = run.tag
+    cfg = registry.arch(run.arch)
+    if run.layers:
+        cfg = dataclasses.replace(cfg, n_layers=run.layers)
+    model = build_model(cfg, compute_dtype="float32", loss_chunk=64)
+    n, d_index, m_index = run.grid[0], mesh.index("data"), mesh.index("model")
+    abstract, axes = model.abstract_params(), model.logical_axes()
+    specs = sharding.specs_for_axes(abstract, axes, "tp", mesh)
+    layout = ts._tp_layout(abstract, axes, mesh)
+    batches = list(make_batches(cfg.vocab, n, run.batch, run.seq, seed=0, steps=3))
+    sched = schedule.constant(0.05)
+    base_opt = make_optimizer("sgdm")
+    ghats = []
+
+    def spying(opt):
+        def update(grads, state, params, lr):
+            ghats.append(grads)
+            return opt.update(grads, state, params, lr)
+        return Optimizer(opt.init, update)
+
+    def sc_cfg(fused: bool, backend="auto"):
+        return ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
+                              min_size=1024, fused=fused, backend=backend)
+
+    def new_state(fused: bool, **kw):
+        return init_train_state(model, base_opt, sc_cfg(fused),
+                                torch.Generator(device="cuda").manual_seed(0), n_workers=n,
+                                device="cuda", **kw)
+
+    out = {"steps": {}, "checks": [], "peak": {}}
+    plain_digests, stacked, skip, flipped = [], None, {}, 0
+    captured, own_grads, ref_grads = [], [], []
+    real_reduce, real_grads = ts._tp_reduce, ts.per_worker_grads
+
+    def spy_grads(into: list):
+        def call(*a, **k):
+            got = real_grads(*a, **k)
+            into.append(got[2])
+            return got
+        return call
+    for fused in (False, True):
+        state = new_state(fused, mesh=mesh)
+        residue_paths = frozenset(state.sc_state.residues)
+        plans = plan_tensors(tuple((p, s, n) for p, s in zip(layout.paths, layout.shapes)),
+                             sc_cfg(fused), residue_paths)
+        shards = plan_shards(plans, layout.specs, run.grid[1], m_index)
+        if rank == 0 and not fused:
+            stacked = new_state(False)
+            fns_ref = {mode: build_train_step(model, spying(base_opt), sched, sc_cfg(False),
+                                              n_workers=n, mode=mode) for mode in ("dense",
+                                                                                   "scalecom")}
+        fns = {mode: build_train_step(model, spying(base_opt), sched, sc_cfg(fused), n_workers=n,
+                                      mode=mode, mesh=mesh) for mode in ("dense", "scalecom")}
+        rows = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, mode in enumerate(TP_MODES):
+            t_sc = state.sc_state.t
+            last = mode == "scalecom" and i == len(TP_MODES) - 1 and not fused
+
+            def capture(grads, sc_state, cfg_, layout_):
+                captured[:] = [tree.tree_map(torch.clone, grads), sc_state]
+                return real_reduce(grads, sc_state, cfg_, layout_)
+
+            if last:
+                ts._tp_reduce = capture
+            own_before = state.sc_state.residues
+            if mode == "scalecom" and not fused:
+                ts.per_worker_grads = spy_grads(own_grads)
+            ghats.clear()
+            ring.reset_sent()
+            tensor_parallel.reset_sent()
+            c0 = kernels.launches()
+            v0 = (ct.chunk_argmax.variants["vec4"], ct.chunk_scatter.variants["vec4"])
+            dist.barrier(group=members)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = fns[mode](state, batches[i])
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            ts._tp_reduce = real_reduce
+            ts.per_worker_grads = real_grads
+            c1 = kernels.launches()
+            launched = {k: c1[k] - c0[k] for k in c1}
+            vec4 = (ct.chunk_argmax.variants["vec4"] - v0[0],
+                    ct.chunk_scatter.variants["vec4"] - v0[1])
+            want = (tp_expected_launches(shards, d_index == t_sc % n, fused)
+                    if mode == "scalecom" else dict.fromkeys(launched, 0))
+            check(launched == want, f"{tag} {'fused' if fused else 'unfused'} step {i} rank "
+                                    f"{rank}: launches {launched}, want {want}")
+            check(vec4 == (want["chunk_argmax"], want["chunk_scatter"]),
+                  f"{tag} step {i} rank {rank}: vec4 launches {vec4}, want every one")
+            check(math.isfinite(loss), f"{tag} step {i} rank {rank}: loss {loss}")
+            payload = ring.payload_sent()
+            share = metrics.get("comm_bytes_per_shard", 0.0)
+            rows.append({"mode": mode, "step_ms": step_ms, "loss": loss, "launches": launched,
+                         "model_calls": dict(tensor_parallel.calls),
+                         "model_bytes": dict(tensor_parallel.sent), "payload": payload,
+                         "share": share, "planned": metrics.get("comm_bytes_per_worker", 0.0)})
+            # data replicas bitwise; fused bitwise the unfused pass
+            row = [x for p in tree.leaves(state.params) for x in digest(p)]
+            table = exchange(row + [d_index, m_index, payload], rank, size, members)
+            for other in table:
+                if other[-3] != d_index and other[-2] == m_index:
+                    check(other[:-3] == row, f"{tag} step {i}: rank {rank}'s parameters differ "
+                                             f"from its data replica's")
+            if fused:
+                check(row == plain_digests[i], f"{tag} fused step {i} rank {rank}: parameters "
+                                               f"differ from the unfused pass's")
+            else:
+                plain_digests.append(row)
+            if mode == "scalecom":  # the payload: a data group's mean is the plan's share
+                for m in range(run.grid[1]):
+                    mine = [t[-1] for t in table if t[-2] == m]
+                    if m == m_index:
+                        check(sum(mine) / n == share, f"{tag} step {i}: model rank {m}'s data "
+                                                      f"group sent {mine}, the plan's share is "
+                                                      f"{share}")
+                shares = exchange([int(share * 8)], rank, size, members)
+                check(sum(s[0] for s in shares) / 8 / n == metrics["comm_bytes_per_worker"],
+                      f"{tag} step {i}: the model ranks' shares do not sum to the plan's bytes")
+            if fused:
+                continue
+            # the stacked step on rank 0, and the logical parameters against it
+            whole = ghat_whole = None
+            if d_index == 0:
+                whole = gather_shards(state.params, specs, mesh)
+                if mode == "scalecom":
+                    ghat_whole = gather_shards(ghats[-1], specs, mesh)
+            cand = []  # (leaf, the stacked lane's element, the step's lane's, their stacked ef)
+            if rank == 0:
+                if mode == "scalecom":
+                    ref_before = stacked.sc_state
+                    ts.per_worker_grads = spy_grads(ref_grads)
+                ghats.clear()
+                stacked, m_ref = fns_ref[mode](stacked, batches[i])
+                ts.per_worker_grads = real_grads
+                if mode == "scalecom":
+                    gpw = dict(tree.flatten_with_path(ref_grads.pop()))
+                    g_tp = dict(tree.flatten_with_path(ghat_whole))
+                    for path, enc in ref_before.residues.items():
+                        ef = enc["q"][t_sc % n] + gpw[path][t_sc % n].reshape(-1)
+                        for c, a, b in zip(*tp_flip_lanes(g_tp[path], ef, CHUNK)):
+                            pa, pb = c * CHUNK + a, c * CHUNK + b
+                            cand.append((layout.paths.index(path), pa, pb, float(ef[pa]),
+                                         float(ef[pb])))
+                    del gpw, g_tp, ref_before, ef
+            if mode == "scalecom":
+                # the step's own ef at each flipped chunk's two lanes, from the
+                # leader's ranks (each element on the model rank whose slice
+                # holds it)
+                count = torch.tensor([len(cand)], dtype=torch.int64)
+                dist.broadcast(count, 0, group=members)
+                where = (torch.tensor([c[:3] for c in cand], dtype=torch.int64).reshape(-1, 3)
+                         if rank == 0 else torch.zeros((int(count), 3), dtype=torch.int64))
+                mine = torch.zeros((int(count), 2), dtype=torch.float64)
+                if int(count):
+                    dist.broadcast(where, 0, group=members)
+                if int(count) and d_index == t_sc % n:
+                    grads = dict(tree.flatten_with_path(own_grads[0]))
+                    for f, (leaf, pa, pb) in enumerate(where.tolist()):
+                        path, dim = layout.paths[leaf], layout.dims[leaf]
+                        width = layout.shapes[leaf][dim] // run.grid[1] if dim is not None else 0
+                        m_, g_ = own_before[path]["q"][0].reshape(-1), grads[path][0].reshape(-1)
+                        for j, pos in enumerate((pa, pb)):
+                            at = tp_local_index(pos, layout.shapes[leaf], dim, width, m_index)
+                            if at >= 0 and (dim is not None or m_index == 0):
+                                mine[f, j] = float(m_[at] + g_[at])  # the reduce's ef, fp32
+                    del grads
+                if int(count):
+                    dist.all_reduce(mine, group=members)
+                if rank == 0:
+                    for (leaf, pa, pb, ra, rb), (ta, tb) in zip(cand, mine.tolist()):
+                        close = all(abs(x - y) <= NEAR_TIE_RTOL * abs(y) for x, y in
+                                    ((ta, ra), (tb, rb)))
+                        explained = abs(ra) - abs(rb) <= abs(ta - ra) + abs(tb - rb)
+                        check(close and explained and abs(ta) <= abs(tb),
+                              f"{tag} step {i}: {layout.paths[leaf]} elements {pa} / {pb}: the "
+                              f"stacked step's ef {ra!r} / {rb!r}, this step's {ta!r} / {tb!r}: "
+                              f"another lane without a near tie (rtol {NEAR_TIE_RTOL})")
+                        mask = skip.setdefault(layout.paths[leaf], torch.zeros(
+                            layout.shapes[leaf], dtype=torch.bool, device="cuda")).view(-1)
+                        mask[pa // CHUNK * CHUNK:(pa // CHUNK + 1) * CHUNK] = True
+                    flipped += len(cand)
+                    chunks = sum(-(-math.prod(sh) // CHUNK) for sh in layout.shapes)
+                    check(flipped <= max(8, chunks // 10_000),
+                          f"{tag} step {i}: {flipped} chunks selected another lane than the "
+                          f"stacked step, of {chunks}")
+            own_grads.clear()
+            if rank != 0:
+                continue
+            worst = 0.0
+            for (path, a), b in zip(tree.flatten_with_path(whole), tree.leaves(stacked.params)):
+                keep = ~skip[path] if path in skip else torch.ones_like(a, dtype=torch.bool)
+                check(bool(torch.allclose(a[keep], b[keep], **TP_TOL)),
+                      f"{tag} step {i}: parameters {path} differ from the stacked step's beyond "
+                      f"rtol {TP_TOL['rtol']} / atol {TP_TOL['atol']}")
+                worst = max(worst, float((a - b)[keep].abs().max()))
+            loss_err = abs(loss - float(m_ref["loss"]))
+            check(loss_err < TP_LOSS_TOL, f"{tag} step {i}: loss {loss} against the stacked "
+                                          f"step's {float(m_ref['loss'])}")
+            out["checks"].append({"step": i, "params_err": worst, "loss_err": loss_err,
+                                  "flipped": flipped})
+            del whole, ghat_whole
+        out["steps"]["fused" if fused else "unfused"] = rows
+        out["peak"]["fused" if fused else "unfused"] = torch.cuda.max_memory_allocated()
+        if not fused:
+            stacked = None
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the last compressed step's reduce, teacher-forced: the cuda
+            # backend's bits against the torch backend's, unfused and fused
+            # (by digest, one reduce's outputs alive at a time)
+            grads, before = captured
+            for f in (False, True):
+                bits = []
+                for b in ("cuda", "torch"):
+                    ghat, new, _ = ts._tp_reduce(grads, before, sc_cfg(f, b), layout)
+                    bits.append([digest(x) for x in tree.leaves(ghat)]
+                                + [digest(new.residues[p]["q"]) for p in sorted(new.residues)])
+                    del ghat, new
+                check(bits[0] == bits[1], f"{tag} rank {rank}: the teacher-forced "
+                                          f"{'fused' if f else 'unfused'} reduce differs between "
+                                          f"the cuda and torch backends")
+            captured.clear()
+            del grads, before
+        del state, fns
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["kernel_shapes"] = tp_kernel_holds(shards, torch.Generator(device="cuda").manual_seed(rank))
+    out["n_compressed"] = sum(1 for sp in shards if not sp.plan.dense and sp.k > 0)
+    out["routes"] = {r: sum(1 for sp in shards if sp.route == r) for r in ("dense", "local", "part")}
+    dist.barrier(group=members)
+    return out
+
+
+def tp_phase(card_line: str, results: dict) -> dict:
+    """[tp]: prints what the ranks of ``ring_phase``'s spawn measured in
+    ``TP_RUNS`` (``tp_run_rank``, run there after ``RING_RUNS``) and returns
+    the kernels' launches summed over the ranks and passes."""
+    import statistics as st
+
+    print(f"[tp] {RING_WORLD} ranks ({RING_BACKEND}, one card; [ring]'s processes); each cell "
+          f"trains 1 dense + 2 compressed steps (clt_k chunk {CHUNK}, beta {BETA}, min_size "
+          f"1024, sgdm, lr 0.05), unfused and then fused, through build_train_step(mesh=...)")
+    launches = dict.fromkeys(TP_KERNELS, 0)
+    for j, run in enumerate(TP_RUNS):
+        tr = [results[r]["tp"][j] for r in range(RING_WORLD) if results[r]["tp"][j]]
+        tag = run.tag
+        checks = tr[0]["checks"]
+        for fused in ("unfused", "fused"):
+            for i, mode in enumerate(TP_MODES):
+                rows = [x["steps"][fused][i] for x in tr]
+                step = [x["step_ms"] for x in rows]
+                calls = rows[0]["model_calls"]
+                mb = st.median(sum(x["model_bytes"].values()) for x in rows)
+                held = ""
+                if fused == "unfused":
+                    c = checks[i]
+                    held = (f"; the logical parameters against the stacked step's: max abs err "
+                            f"{c['params_err']:.3e} (rtol {TP_TOL['rtol']} / atol "
+                            f"{TP_TOL['atol']}) outside {c['flipped']} near-tie chunks so far, "
+                            f"loss err {c['loss_err']:.3e}")
+                else:
+                    held = "; parameters bitwise the unfused pass's on every rank"
+                print(f"{tag} {fused} step {i} {mode}: loss {rows[0]['loss']:.4f}; step ms max "
+                      f"{max(step):.1f} median {st.median(step):.1f} over {len(tr)} ranks; model "
+                      f"axis a rank {sum(calls.values())} gloo calls ("
+                      + ", ".join(f"{k} {v}" for k, v in calls.items())
+                      + f"), {mb / 1e6:.2f} MB (median); data axis payload a rank "
+                      f"{st.median(x['payload'] for x in rows) / 1e6:.3f} MB (median)"
+                      + (f", the plan's logical bytes {rows[0]['planned'] / 1e6:.3f} MB a worker"
+                         if mode == "scalecom" else " (the dense all-reduce of its slices)")
+                      + f"{held}; data replicas bitwise; on {card_line}")
+            for x in tr:
+                for row in x["steps"][fused]:
+                    for k in launches:
+                        launches[k] += row["launches"][k]
+        routes = tr[0]["routes"]
+        print(f"{tag} reduce routes on rank 0: {routes['local']} tensors where they lie, "
+              f"{routes['part']} in parts (replicated ones and those whose chunks cross the "
+              f"slices), {routes['dense']} dense slices; {tr[0]['n_compressed']} compressed parts "
+              f"a rank; the payload of each data group the plan's share and the shares summing "
+              f"to the plan's bytes on every compressed step; launches as planned on every rank "
+              f"(the leader's select, ef_update and chunk_scatter; fused the leader's "
+              f"fused_select_update), all vec4; the last compressed step's reduce teacher-forced "
+              f"on every rank: cuda backend == torch backend, bitwise, unfused and fused")
+        print(f"{tag} kernels at rank 0's part shapes (rows x chunk) "
+              + ", ".join(f"{r:,} x {c}" for r, c in tr[0]["kernel_shapes"])
+              + ": chunk_argmax, ef_update, chunk_scatter and fused_select_update bitwise their "
+              f"plain versions; on {card_line}")
+        print(f"{tag} peak allocated GiB by rank, unfused / fused: "
+              + " / ".join(f"{x['peak']['unfused'] / 2**30:.2f}, {x['peak']['fused'] / 2**30:.2f}"
+                           for x in tr)
+              + f" (rank 0 also holds the stacked step); {results[0]['tp_s'][j]:.1f} s on rank 0"
+              f" on {card_line}")
+    print(f"[tp] launches summed over the ranks and passes {launches} on {card_line}")
+    return launches
 
 
 def main() -> None:
@@ -5532,14 +6040,17 @@ def main() -> None:
     mark("[examples]")
 
     # -- 11. real collectives: the ring reduce and one worker per rank -----------------
-    ring_launches = ring_phase(card_line)
-    mark("[ring]")
+    ring_launches, ring_results = ring_phase(card_line)
+    mark("[ring] and [tp]'s cells")
+    tp_launches = tp_phase(card_line, ring_results)
+    del ring_results
     print("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f} (the interpreter's start and imports "
           f"before it not counted) on {card_line}")
 
     for name in ("chunk_argmax", "ef_update", "chunk_scatter", "fused_select_update"):
         check(ring_launches[name] > 0, f"{name} was never launched on the ring path")
+        check(tp_launches[name] > 0, f"{name} was never launched on the tensor-parallel path")
     for name in KERNELS:
         if name in RING_ONLY:
             # its path is a process group's leader: launched in [ring:fused] alone
@@ -5555,6 +6066,7 @@ def main() -> None:
         results[name]["arch_launches"] = arch_launches[name]
         results[name]["ring_launches"] = ring_launches[name]
         results[name]["examples_launches"] = examples_launches[name]
+        results[name]["tp_launches"] = tp_launches.get(name, 0)
     results["fused_reduce"]["harness_routes"] = harness_routes
     print(json.dumps({"kernels": [results[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

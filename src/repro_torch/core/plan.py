@@ -5,7 +5,8 @@ tree structure and cached: per tensor the compressor after ``rate_rules``,
 the ``min_size`` dense fallback, grouping, the chunk layout, the residue
 storage shape and execute work view, and the wire bytes. ``plan_buckets``
 packs the plans into the launch buckets of the bucketed reduce
-(``core.overlap``).
+(``core.overlap``). ``plan_shards`` maps the plan of each logical tensor
+onto one rank of a tensor-parallel model axis.
 
 Byte accounting, one rule for both layouts (per-worker transmit bytes for
 one tensor and step; fp32 values, int32 indices; k = n_chunks * topm):
@@ -31,7 +32,8 @@ from repro_torch.core.state import CODECS, codec_signature, resolve_layout, stor
 
 Shape = Tuple[int, ...]
 
-__all__ = ["TensorPlan", "Bucket", "plan_tensors", "plan_buckets", "payload_bytes"]
+__all__ = ["TensorPlan", "Bucket", "ShardPlan", "plan_tensors", "plan_buckets", "plan_shards",
+           "payload_bytes"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,3 +255,121 @@ def plan_buckets(plans: Tuple[TensorPlan, ...], bucket_bytes: int) -> Tuple[Buck
     if bucket_bytes <= 0:
         raise ValueError(f"bucket_bytes must be positive, got {bucket_bytes}")
     return _buckets_cached(tuple(plans), int(bucket_bytes))
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardPlan:
+    """One logical tensor's reduce on one rank of a model axis of ``parts``
+    ranks (the tensor-parallel step), from its logical ``plan``: the
+    ``min_size`` fallback, chunk count, k and wire bytes are the logical
+    tensor's, split among the model ranks.
+
+    dim:    the parameter dim split over the model axis, None if replicated
+    route:  "dense"  a split dense tensor: its slice all-reduced over the
+                     data group
+            "local"  a split compressed tensor whose slice, in its own work
+                     view, is a run of whole chunks of the logical view:
+                     reduced where it lies
+            "part"   the rest (a replicated tensor; a split compressed one
+                     whose chunks cross slices): the rank reduces its
+                     ``bounds[index]`` of the logical work view's units
+                     (chunks of a 1-D view, rows of a rowwise one, elements
+                     of a dense tensor), and the parts are gathered over the
+                     model axis
+    work:   the view this rank's reduce runs on ((size,), or rows)
+    bounds: [(lo, hi)] per model rank, in units (the "part" route)
+    unit:   elements per unit of ``bounds``
+    n_chunks, k, bytes_payload: this rank's share of the plan's
+    """
+
+    plan: TensorPlan
+    dim: Optional[int]
+    route: str
+    local_shape: Shape
+    work: Shape
+    bounds: Tuple[Tuple[int, int], ...]
+    unit: int
+    n_chunks: int
+    k: int
+    bytes_payload: float
+
+
+def _even(n: int, parts: int) -> Tuple[Tuple[int, int], ...]:
+    """``n`` units in ``parts`` consecutive ranges, the first ``n % parts``
+    one longer."""
+    q, r = divmod(n, parts)
+    out, lo = [], 0
+    for i in range(parts):
+        hi = lo + q + (i < r)
+        out.append((lo, hi))
+        lo = hi
+    return tuple(out)
+
+
+def _whole_chunks(plan: TensorPlan, dim: int, parts: int) -> bool:
+    """Whether every rank's slice (dim ``dim`` in ``parts``), in its own
+    work view, is a run of whole chunks of the logical view, each in its
+    logical order."""
+    chunk, shape = plan.comp.chunk, plan.shape
+    width = shape[dim] // parts
+    if len(plan.work) == 1:  # flat: runs of width * inner elements, shape[dim] * inner apart
+        inner = 1
+        for d in shape[dim + 1:]:
+            inner *= d
+        return (width * inner) % chunk == 0
+    return dim < len(shape) - 1 or width % chunk == 0  # rowwise: whole rows, or aligned cuts
+
+
+def _shard_one(plan: TensorPlan, spec, parts: int, index: int) -> ShardPlan:
+    split = [d for d, ax in enumerate(spec) if ax == "model"]
+    dim = split[0] if split and parts > 1 else None
+    local = tuple(plan.shape)
+    if dim is not None:
+        local = local[:dim] + (local[dim] // parts,) + local[dim + 1:]
+    size = 1
+    for d in local:
+        size *= d
+    if plan.dense:
+        if dim is not None:
+            return ShardPlan(plan, dim, "dense", local, (size,), (), 1, 0, 0, 4.0 * size)
+        bounds = _even(plan.size, parts)
+        lo, hi = bounds[index]
+        return ShardPlan(plan, None, "part", local, (hi - lo,), bounds, 1, 0, 0, 4.0 * (hi - lo))
+    comp = plan.comp
+    if comp.exact or comp.name != "clt_k":
+        raise ValueError(
+            f"tensor {plan.path!r}: the tensor-parallel reduce runs chunked clt_k; got "
+            f"{comp.name!r}{' exact' if comp.exact else ''} (ROADMAP: the other compressors "
+            f"across model shards)")
+    if dim is not None and _whole_chunks(plan, dim, parts):
+        work = (size,) if len(plan.work) == 1 else local
+        rows = 1
+        for d in work[:-1]:
+            rows *= d
+        nch = rows * num_chunks(work[-1], comp.chunk)
+        k = nch * comp.topm
+        return ShardPlan(plan, dim, "local", local, work, (), 1, nch, k,
+                         payload_bytes(comp, k, plan.groups))
+    if len(plan.work) == 1:
+        bounds = _even(plan.n_chunks, parts)
+        lo, hi = bounds[index]
+        elems = min(hi * comp.chunk, plan.size) - lo * comp.chunk if hi > lo else 0
+        nch, work, unit = hi - lo, (elems,), comp.chunk
+    else:
+        rows = plan.size // plan.work[-1]
+        bounds = _even(rows, parts)
+        lo, hi = bounds[index]
+        nch = (hi - lo) * num_chunks(plan.work[-1], comp.chunk)
+        work, unit = (hi - lo, plan.work[-1]), plan.work[-1]
+    k = nch * comp.topm
+    return ShardPlan(plan, dim, "part", local, work, bounds, unit, nch, k,
+                     payload_bytes(comp, k, plan.groups) if k else 0.0)
+
+
+def plan_shards(plans, specs, parts: int, index: int) -> Tuple[ShardPlan, ...]:
+    """Each logical plan of ``plans`` on rank ``index`` of a model axis of
+    ``parts`` ranks: ``specs`` holds the leaves' sharding specs in the same
+    order (``distributed.sharding``; the mesh axis "model" splits). Summed
+    over the model ranks, the chunks, k and payload bytes are the logical
+    plan's. Raises for a compressed tensor that is not chunked clt_k."""
+    return tuple(_shard_one(p, tuple(s), parts, index) for p, s in zip(plans, specs))

@@ -48,14 +48,14 @@ __all__ = ["NEG_INF", "init_attention", "attention_core", "attention_train", "in
 
 def init_attention(cfg, store: common.ParamStore, stacked: int = 0, prefix: str = "attn"):
     D, H, KV, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    store.dense(f"{prefix}_wq", (D, H * hd), stacked=stacked)
-    store.dense(f"{prefix}_wk", (D, KV * hd), stacked=stacked)
-    store.dense(f"{prefix}_wv", (D, KV * hd), stacked=stacked)
-    store.dense(f"{prefix}_wo", (H * hd, D), stacked=stacked)
+    store.dense(f"{prefix}_wq", (D, H * hd), ("embed", "heads"), stacked=stacked)
+    store.dense(f"{prefix}_wk", (D, KV * hd), ("embed", "kv"), stacked=stacked)
+    store.dense(f"{prefix}_wv", (D, KV * hd), ("embed", "kv"), stacked=stacked)
+    store.dense(f"{prefix}_wo", (H * hd, D), ("heads", "embed"), stacked=stacked)
     if cfg.qkv_bias:
-        store.zeros(f"{prefix}_bq", (H * hd,), stacked=stacked)
-        store.zeros(f"{prefix}_bk", (KV * hd,), stacked=stacked)
-        store.zeros(f"{prefix}_bv", (KV * hd,), stacked=stacked)
+        store.zeros(f"{prefix}_bq", (H * hd,), ("heads",), stacked=stacked)
+        store.zeros(f"{prefix}_bk", (KV * hd,), ("kv",), stacked=stacked)
+        store.zeros(f"{prefix}_bv", (KV * hd,), ("kv",), stacked=stacked)
 
 
 def _project_qkv(cfg, p, x, kv_x, positions, kv_positions, dtype, rope, prefix):
@@ -116,12 +116,22 @@ def attention_train(cfg, p, x: Tensor, positions: Tensor, *, dtype: torch.dtype,
                     causal: bool = True,
                     window: Optional[int] = None, kv_x: Optional[Tensor] = None,
                     kv_positions: Optional[Tensor] = None, rope: bool = True,
-                    prefix: str = "attn", remat: bool = True) -> Tensor:
+                    prefix: str = "attn", remat: bool = True, tp=None) -> Tensor:
     """Full-sequence attention (training, encoding). positions: (S,). With
     ``kv_x`` (B, T, D) and ``kv_positions`` (T,) it is cross-attention: K and V
     come from ``kv_x``, and it is never causal and never rotated. ``remat``
-    rematerialises each query chunk (``attention_core``)."""
+    rematerialises each query chunk (``attention_core``). With ``tp`` (a
+    ``tensor_parallel.ModelAxis`` that splits "heads") self-attention runs
+    on this rank's heads (``_attention_tp``). A layout that splits "kv" with
+    the heads whole raises: nothing in the reference's rules gives that for
+    the archs of the registry, and a rank would read every kv head."""
     cross = kv_x is not None
+    if tp is not None and not cross and tp.over("heads"):
+        return _attention_tp(cfg, p, x, positions, tp, dtype=dtype, causal=causal,
+                             window=window, rope=rope, prefix=prefix, remat=remat)
+    if tp is not None and tp.over("kv"):
+        raise ValueError(f"{prefix}_wk: kv columns split over the model axis with the heads "
+                         f"whole: not supported")
     kv_src = kv_x if cross else x
     kv_pos = kv_positions if cross else positions
     q, k, v = _project_qkv(cfg, p, x, kv_src, positions, kv_pos, dtype, rope and not cross,
@@ -130,6 +140,58 @@ def attention_train(cfg, p, x: Tensor, positions: Tensor, *, dtype: torch.dtype,
                          window=window, remat=remat)
     B, S = x.shape[:2]
     return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p[f"{prefix}_wo"].to(dtype)
+
+
+def _attention_tp(cfg, p, x: Tensor, positions: Tensor, tp, *, dtype: torch.dtype, causal: bool,
+                  window: Optional[int], rope: bool, prefix: str, remat: bool) -> Tensor:
+    """Self-attention on this rank's heads (``distributed.tensor_parallel``):
+    ``wq``/``wk``/``wv`` and their biases column-parallel, ``wo``
+    row-parallel, its products summed over the model group.
+
+    Where the rank's q heads are whole and meet exactly its own kv heads
+    (GQA groups not cut), attention is local. Otherwise (the reference's
+    rule splits columns, not heads: starcoder2-3b's 256 kv columns at
+    model=4 give a rank half a head; or kv replicated) each of q, k and v is
+    made whole on every rank, from the ranks' column slices
+    (``gather_from_model``) or, replicated, from this rank's own product
+    with its cotangent summed over the group (``copy_to_model`` on the
+    product, which reads ``x`` itself and not its model copy), attention
+    runs over all heads and the rank keeps the output columns of its ``wo``
+    rows. Either way every activation that several ranks read has its
+    cotangent summed over the model group."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    kv_split = tp.over("kv") is not None
+    q_cols, kv_cols = H * hd // tp.size, KV * hd // (tp.size if kv_split else 1)
+    xp = tp.copy(x)
+
+    def proj(name, src):
+        y = src @ p[f"{prefix}_w{name}"].to(dtype)
+        return y + p[f"{prefix}_b{name}"].to(dtype) if cfg.qkv_bias else y
+
+    hq, hk = q_cols // hd, kv_cols // hd
+    if kv_split and q_cols % hd == 0 and kv_cols % hd == 0 and hq == (H // KV) * hk:
+        q, k, v = proj("q", xp), proj("k", xp), proj("v", xp)
+        q, k, v = q.reshape(B, S, hq, hd), k.reshape(B, S, hk, hd), v.reshape(B, S, hk, hd)
+        if rope:
+            q = common.apply_rope(q, positions, cfg.rope_theta)
+            k = common.apply_rope(k, positions, cfg.rope_theta)
+        out = attention_core(q, k, v, positions, positions, causal=causal, window=window,
+                             remat=remat).reshape(B, S, q_cols)
+    else:
+        q = tp.gather(proj("q", xp), -1)
+        if kv_split:
+            k, v = tp.gather(proj("k", xp), -1), tp.gather(proj("v", xp), -1)
+        else:
+            k, v = tp.copy(proj("k", x)), tp.copy(proj("v", x))
+        q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
+        if rope:
+            q = common.apply_rope(q, positions, cfg.rope_theta)
+            k = common.apply_rope(k, positions, cfg.rope_theta)
+        out = attention_core(q, k, v, positions, positions, causal=causal, window=window,
+                             remat=remat).reshape(B, S, H * hd)
+        out = out.narrow(-1, tp.index * q_cols, q_cols)
+    return tp.reduce(out @ p[f"{prefix}_wo"].to(dtype))
 
 
 def init_cache(cfg, batch: int, capacity: int, dtype: torch.dtype,

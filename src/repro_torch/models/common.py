@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree
+from repro_torch.distributed import sharding, tensor_parallel
 
 Tensor = torch.Tensor
 
@@ -58,7 +59,12 @@ __all__ = [
 
 
 class ParamStore:
-    """Collects parameters during init, drawing from one explicit generator.
+    """Collects parameters during init, drawing from one explicit generator,
+    and each parameter's logical axes (``axes``, a parallel tree of tuples),
+    as the reference's store records them: the names
+    ``distributed.sharding`` maps onto mesh axes ("vocab", "embed",
+    "heads", "kv", "mlp", "experts", "layers", "conv", "state" or None),
+    with "layers" in front of a stacked leaf's.
 
     Normal draws come from ``generator``, on the generator's device, in
     fp32, and are then moved to ``device`` and cast to ``param_dtype``
@@ -67,45 +73,73 @@ class ParamStore:
     values whatever the device, a CUDA one draws on the card (no host draws
     to wait for). A stacked leaf is drawn one layer at a time into its
     stack, so the fp32 draw never holds more than one layer of it (48
-    layers of internvl2-26b's MLP are 19 GB in fp32).
+    layers of internvl2-26b's MLP are 19 GB in fp32). On the ``meta``
+    device nothing is drawn: the leaves are shapes only (the reference's
+    ``abstract=True``). With ``specs`` (a spec per leaf,
+    ``distributed.sharding``) and ``mesh`` (a grid with coordinates) each
+    drawn layer is cut to this rank's slice at once: the draws are the
+    whole init's, and only the slices are kept.
     """
 
-    def __init__(self, generator: torch.Generator, device: torch.device,
-                 param_dtype: torch.dtype = torch.float32):
+    def __init__(self, generator: Optional[torch.Generator], device: torch.device,
+                 param_dtype: torch.dtype = torch.float32, specs: Optional[Dict] = None,
+                 mesh=None):
         self.gen = generator
         self.device = device
         self.param_dtype = param_dtype
+        self.specs = specs
+        self.mesh = mesh
         self.params: Dict[str, object] = {}
+        self.axes: Dict[str, object] = {}
 
-    def _put(self, name, shape, stacked: int, draw: Callable):
+    def _put(self, name, shape, axes, stacked: int, draw: Callable):
         """``draw(shape)`` (an fp32 tensor) as the parameter ``name``,
         ``stacked`` times on a new leading axis, one draw a layer."""
-        if not stacked:
-            self.params[name] = draw(tuple(shape)).to(self.device, self.param_dtype)
+        full = ((stacked,) if stacked else ()) + tuple(shape)
+        ax = (("layers",) if stacked else ()) + tuple(axes)
+        if len(ax) != len(full):
+            raise ValueError(f"parameter {name!r}: axes {ax} for shape {full}")
+        self.axes[name] = ax
+        if self.device.type == "meta":
+            self.params[name] = torch.empty(full, dtype=self.param_dtype, device=self.device)
             return
-        out = torch.empty((stacked,) + tuple(shape), dtype=self.param_dtype, device=self.device)
-        for i in range(stacked):
-            out[i] = draw(tuple(shape))
-        self.params[name] = out
+        layer = lambda: draw(tuple(shape))  # noqa: E731
+        if self.specs is not None:
+            spec = self.specs[name]
+            if stacked and spec[0] is not None:
+                raise ValueError(f"parameter {name!r}: its layers are split ({spec})")
+            one = spec[1:] if stacked else spec
+            layer = lambda: sharding.shard_of(draw(tuple(shape)), one, self.mesh)  # noqa: E731
+            full = full[:len(full) - len(shape)] + tuple(
+                n // (self.mesh.shape[a] if a else 1) for n, a in zip(shape, one))
+        if not stacked:
+            self.params[name] = layer().to(self.device, self.param_dtype)
+        else:
+            out = torch.empty(full, dtype=self.param_dtype, device=self.device)
+            for i in range(stacked):
+                out[i] = layer()
+            self.params[name] = out
 
-    def dense(self, name, shape, scale: Optional[float] = None, stacked: int = 0):
+    def dense(self, name, shape, axes, scale: Optional[float] = None, stacked: int = 0):
         """Normal(0, scale) init; scale defaults to 1/sqrt(fan_in)."""
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         s = scale if scale is not None else fan_in**-0.5
-        self._put(name, shape, stacked, lambda sh: torch.randn(
+        self._put(name, shape, axes, stacked, lambda sh: torch.randn(
             sh, generator=self.gen, dtype=torch.float32, device=self.gen.device) * s)
 
-    def zeros(self, name, shape, stacked: int = 0):
-        full = ((stacked,) if stacked else ()) + tuple(shape)
-        self.params[name] = torch.zeros(full, dtype=self.param_dtype, device=self.device)
+    def zeros(self, name, shape, axes, stacked: int = 0):
+        self._put(name, shape, axes, stacked,
+                  lambda sh: torch.zeros(sh, dtype=torch.float32, device=self.device))
 
-    def ones(self, name, shape, stacked: int = 0):
-        full = ((stacked,) if stacked else ()) + tuple(shape)
-        self.params[name] = torch.ones(full, dtype=self.param_dtype, device=self.device)
+    def ones(self, name, shape, axes, stacked: int = 0):
+        self._put(name, shape, axes, stacked,
+                  lambda sh: torch.ones(sh, dtype=torch.float32, device=self.device))
 
     def subtree(self, name: str) -> "ParamStore":
-        sub = ParamStore(self.gen, self.device, self.param_dtype)
+        sub = ParamStore(self.gen, self.device, self.param_dtype,
+                         None if self.specs is None else self.specs[name], self.mesh)
         self.params[name] = sub.params
+        self.axes[name] = sub.axes
         return sub
 
 
@@ -131,9 +165,9 @@ def rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
 
 def init_norm(cfg, store: ParamStore, prefix: str, d: int, stacked: int = 0):
     """``cfg.norm``'s parameters: a scale, and for layernorm a bias."""
-    store.ones(f"{prefix}_scale", (d,), stacked=stacked)
+    store.ones(f"{prefix}_scale", (d,), ("embed",), stacked=stacked)
     if cfg.norm == "layernorm":
-        store.zeros(f"{prefix}_bias", (d,), stacked=stacked)
+        store.zeros(f"{prefix}_bias", (d,), ("embed",), stacked=stacked)
 
 
 def apply_norm(cfg, x: Tensor, p: Dict[str, Tensor], prefix: str) -> Tensor:
@@ -175,40 +209,54 @@ def sinusoidal_positions_at(pos: int, d: int, device=None) -> Tensor:
 
 
 def init_gelu_mlp(store: ParamStore, d: int, f: int, stacked: int = 0):
-    store.dense("mlp_up", (d, f), stacked=stacked)
-    store.dense("mlp_down", (f, d), stacked=stacked)
-    store.zeros("mlp_up_b", (f,), stacked=stacked)
-    store.zeros("mlp_down_b", (d,), stacked=stacked)
+    store.dense("mlp_up", (d, f), ("embed", "mlp"), stacked=stacked)
+    store.dense("mlp_down", (f, d), ("mlp", "embed"), stacked=stacked)
+    store.zeros("mlp_up_b", (f,), ("mlp",), stacked=stacked)
+    store.zeros("mlp_down_b", (d,), ("embed",), stacked=stacked)
 
 
-def gelu_mlp(p: Dict[str, Tensor], x: Tensor, dtype: torch.dtype) -> Tensor:
+def gelu_mlp(p: Dict[str, Tensor], x: Tensor, dtype: torch.dtype, tp=None) -> Tensor:
     """GELU MLP with biases, in ``dtype``; jax.nn.gelu's default is the tanh
-    approximation."""
+    approximation. With ``tp`` (a ``tensor_parallel.ModelAxis``) this rank
+    holds a column slice of ``mlp_up``/``mlp_up_b`` and the matching rows of
+    ``mlp_down``: its product is summed over the model group before the
+    replicated ``mlp_down_b``."""
+    if tp is not None:
+        x = tp.copy(x)
     h = F.gelu(x @ p["mlp_up"].to(dtype) + p["mlp_up_b"].to(dtype), approximate="tanh")
-    return h @ p["mlp_down"].to(dtype) + p["mlp_down_b"].to(dtype)
+    out = h @ p["mlp_down"].to(dtype)
+    return (out if tp is None else tp.reduce(out)) + p["mlp_down_b"].to(dtype)
 
 
 def init_swiglu(store: ParamStore, d: int, f: int, stacked: int = 0):
-    store.dense("mlp_gate", (d, f), stacked=stacked)
-    store.dense("mlp_up", (d, f), stacked=stacked)
-    store.dense("mlp_down", (f, d), stacked=stacked)
+    store.dense("mlp_gate", (d, f), ("embed", "mlp"), stacked=stacked)
+    store.dense("mlp_up", (d, f), ("embed", "mlp"), stacked=stacked)
+    store.dense("mlp_down", (f, d), ("mlp", "embed"), stacked=stacked)
 
 
-def swiglu(p: Dict[str, Tensor], x: Tensor, dtype: torch.dtype) -> Tensor:
-    """silu(x @ gate) * (x @ up) @ down, no biases, in ``dtype``."""
-    return ((F.silu(x @ p["mlp_gate"].to(dtype)) * (x @ p["mlp_up"].to(dtype)))
-            @ p["mlp_down"].to(dtype))
+def swiglu(p: Dict[str, Tensor], x: Tensor, dtype: torch.dtype, tp=None) -> Tensor:
+    """silu(x @ gate) * (x @ up) @ down, no biases, in ``dtype``. With ``tp``
+    the gate and up columns and the down rows are this rank's, the product
+    summed over the model group."""
+    if tp is not None:
+        x = tp.copy(x)
+    out = ((F.silu(x @ p["mlp_gate"].to(dtype)) * (x @ p["mlp_up"].to(dtype)))
+           @ p["mlp_down"].to(dtype))
+    return out if tp is None else tp.reduce(out)
 
 
 def init_embeddings(cfg, store: ParamStore):
-    store.dense("tok_embed", (cfg.vocab, cfg.d_model), scale=1.0)
+    store.dense("tok_embed", (cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=1.0)
     if not cfg.tie_embeddings:
-        store.dense("lm_head", (cfg.d_model, cfg.vocab))
+        store.dense("lm_head", (cfg.d_model, cfg.vocab), ("embed", "vocab"))
 
 
-def embed_tokens(p, tokens: Tensor, dtype: torch.dtype) -> Tensor:
+def embed_tokens(p, tokens: Tensor, dtype: torch.dtype, tp=None) -> Tensor:
     """The table cast to ``dtype``, then its rows: the reference's order, so
-    the rows' cotangents sum in ``dtype`` before the cast back."""
+    the rows' cotangents sum in ``dtype`` before the cast back. With ``tp``
+    this rank holds a slice of the vocabulary (``tensor_parallel.vocab_embed``)."""
+    if tp is not None:
+        return tensor_parallel.vocab_embed(tp, p["tok_embed"], tokens, dtype)
     return p["tok_embed"].to(dtype)[tokens.long()]
 
 
@@ -291,21 +339,29 @@ _remat = remat  # chunked_xent's keyword shadows the name
 
 
 def chunked_xent(p, h: Tensor, labels: Tensor, mask: Tensor, chunk: int, dtype: torch.dtype,
-                 remat: bool = True) -> Tensor:
+                 remat: bool = True, tp=None) -> Tensor:
     """Mean token cross-entropy over sequence chunks of ``chunk`` positions,
     so only (B, chunk, V) logits exist at a time. Divides by sum(mask). The
     logits are computed in ``dtype`` and cast to fp32 for the softmax.
 
     With ``remat`` (the reference's ``jax.checkpoint`` of the chunk body)
     the backward recomputes each chunk's logits, so it too holds one
-    chunk's at a time; without it autograd keeps every chunk's."""
+    chunk's at a time; without it autograd keeps every chunk's.
+
+    With ``tp`` the head's vocabulary is split over the model group
+    (``tensor_parallel.vocab_xent``): ``h`` goes through ``copy_to_model``
+    once, before the chunks."""
     S = h.shape[1]
     chunk = min(chunk, S)
     tied = "lm_head" not in p
     head = p["tok_embed"] if tied else p["lm_head"]
+    if tp is not None:
+        h = tp.copy(h)
 
     def body(w, hx, lx, mx):
         logits = (hx @ (w.T if tied else w).to(dtype)).to(torch.float32)
+        if tp is not None:
+            return torch.sum(tensor_parallel.vocab_xent(tp, logits, lx) * mx)
         logz = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lx[..., None].long())[..., 0]
         return torch.sum((logz - gold) * mx)

@@ -9,6 +9,12 @@ JAX. The lossy residue codecs' bf16 and float8_e4m3fn leaves reach numpy as
 ``ml_dtypes`` dtypes, which torch does not take: they move across as their
 raw bits (``residue_bits`` gives those bits back, for bitwise comparisons);
 bf16 parameter leaves carry across the same way.
+
+For the tensor-parallel step (``build_train_step(mesh=...)``):
+``shards_from_jax`` gives a rank its slice of each parameter (under the
+specs of ``distributed.sharding.specs_for_axes``), ``train_state_shard_from_jax``
+its share of a worker-stacked ``TrainState``, and ``gather_shards`` puts the
+ranks' slices back together into the logical tree.
 """
 
 from __future__ import annotations
@@ -21,9 +27,11 @@ import torch
 from repro_torch import tree
 from repro_torch.core.state import ScaleComState
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 
 __all__ = ["params_from_jax", "decode_state_from_jax", "decode_state_to_numpy",
-           "state_from_jax", "residue_bits"]
+           "state_from_jax", "residue_bits", "shards_from_jax", "train_state_shard_from_jax",
+           "gather_shards"]
 
 # numpy dtype name -> (its bits as a numpy dtype, the torch dtype they view as)
 _BY_BITS = {
@@ -85,3 +93,49 @@ def residue_bits(state: ScaleComState) -> Dict[str, Dict[str, np.ndarray]]:
 
     return {path: {name: bits(v) for name, v in enc.items()}
             for path, enc in state.residues.items()}
+
+
+def _slice(a: np.ndarray, spec, mesh) -> np.ndarray:
+    for d, ax in sharding.split_dims(spec):
+        step = a.shape[d] // mesh.shape[ax]
+        a = np.take(a, range(mesh.index(ax) * step, (mesh.index(ax) + 1) * step), axis=d)
+    return a
+
+
+def shards_from_jax(params, specs, mesh, device: Union[str, torch.device] = "cuda"):
+    """A nested dict of arrays -> this rank's slice of each (``specs``: the
+    same tree of sharding specs) as tensors on ``device``: only the slice
+    moves to the device."""
+    dev = resolve_device(device)
+    by_path = dict(tree.flatten_with_path(specs))
+    flat = tree.flatten_with_path(params)
+    return tree.unflatten(params, [_tensor(_slice(np.asarray(x), by_path[p], mesh), dev)
+                                   for p, x in flat])
+
+
+def train_state_shard_from_jax(state, axes, mesh, device: Union[str, torch.device] = "cuda"):
+    """A worker-stacked ``repro.training.TrainState`` (params, an optimizer
+    state of params-like trees, fp32 residues) -> this rank's share for the
+    tensor-parallel step, as ``training.shard_train_state(mesh=...,
+    axes=...)`` gives it from the port's own."""
+    from repro_torch.training.train_step import TrainState, shard_train_state
+
+    dev = resolve_device(device)
+    whole = TrainState(params_from_jax(state.params, "cpu"),
+                       {k: params_from_jax(v, "cpu") if isinstance(v, dict) else int(np.asarray(v))
+                        for k, v in state.opt_state.items()},
+                       state_from_jax(state.sc_state, "cpu"), int(np.asarray(state.step)))
+    mine = shard_train_state(whole, mesh=mesh, axes=axes)
+    move = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x  # noqa: E731
+    return TrainState(tree.tree_map(move, mine.params), tree.tree_map(move, mine.opt_state),
+                      ScaleComState({p: {k: v.to(dev) for k, v in e.items()}
+                                     for p, e in mine.sc_state.residues.items()},
+                                    mine.sc_state.t), mine.step)
+
+
+def gather_shards(local, specs, mesh):
+    """This rank's slices -> the logical tree, on every rank of the mesh
+    groups that split it (``distributed.sharding.unshard``, collective)."""
+    by_path = dict(tree.flatten_with_path(specs))
+    return tree.unflatten(local, [sharding.unshard(x, by_path[p], mesh)
+                                  for p, x in tree.flatten_with_path(local)])

@@ -37,10 +37,10 @@ __all__ = ["init_moe", "moe_ffn"]
 
 def init_moe(cfg, store: common.ParamStore, stacked: int = 0):
     D, Fd, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-    store.dense("router", (D, E), scale=0.02, stacked=stacked)
-    store.dense("expert_gate", (E, D, Fd), stacked=stacked)
-    store.dense("expert_up", (E, D, Fd), stacked=stacked)
-    store.dense("expert_down", (E, Fd, D), stacked=stacked)
+    store.dense("router", (D, E), ("embed", None), scale=0.02, stacked=stacked)
+    store.dense("expert_gate", (E, D, Fd), ("experts", "embed", "mlp"), stacked=stacked)
+    store.dense("expert_up", (E, D, Fd), ("experts", "embed", "mlp"), stacked=stacked)
+    store.dense("expert_down", (E, Fd, D), ("experts", "mlp", "embed"), stacked=stacked)
 
 
 def _positions_in_expert(expert_ids: Tensor, n_experts: int) -> Tensor:

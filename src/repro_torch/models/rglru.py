@@ -42,14 +42,14 @@ def init_rglru_block(cfg, store: common.ParamStore, stacked: int = 0):
     D = cfg.d_model
     W = cfg.conv_width
     common.init_norm(cfg, store, "ln_rec", D, stacked=stacked)
-    store.dense("rec_in_gate", (D, D), stacked=stacked)
-    store.dense("rec_in_x", (D, D), stacked=stacked)
-    store.dense("rec_conv", (W, D), scale=W**-0.5, stacked=stacked)
-    store.zeros("rec_conv_b", (D,), stacked=stacked)
-    store.dense("rec_wa", (D, D), scale=0.02, stacked=stacked)
-    store.dense("rec_wx", (D, D), scale=0.02, stacked=stacked)
-    store.zeros("rec_lambda", (D,), stacked=stacked)
-    store.dense("rec_out", (D, D), stacked=stacked)
+    store.dense("rec_in_gate", (D, D), ("embed", "heads"), stacked=stacked)
+    store.dense("rec_in_x", (D, D), ("embed", "heads"), stacked=stacked)
+    store.dense("rec_conv", (W, D), (None, "heads"), scale=W**-0.5, stacked=stacked)
+    store.zeros("rec_conv_b", (D,), ("heads",), stacked=stacked)
+    store.dense("rec_wa", (D, D), ("embed", "heads"), scale=0.02, stacked=stacked)
+    store.dense("rec_wx", (D, D), ("embed", "heads"), scale=0.02, stacked=stacked)
+    store.zeros("rec_lambda", (D,), ("heads",), stacked=stacked)
+    store.dense("rec_out", (D, D), ("heads", "embed"), stacked=stacked)
 
 
 def _conv1d_causal(x: Tensor, w: Tensor, b: Tensor, tail: Tensor) -> Tuple[Tensor, Tensor]:

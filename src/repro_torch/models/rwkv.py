@@ -50,23 +50,23 @@ def init_rwkv_block(cfg, store: common.ParamStore, stacked: int = 0):
     common.init_norm(cfg, store, "ln_cm", D, stacked=stacked)
     # time-mix projections
     for nm in ("tm_wr", "tm_wk", "tm_wv", "tm_wg"):
-        store.dense(nm, (D, D), stacked=stacked)
-    store.dense("tm_wo", (D, D), stacked=stacked)
+        store.dense(nm, (D, D), ("embed", "heads"), stacked=stacked)
+    store.dense("tm_wo", (D, D), ("heads", "embed"), stacked=stacked)
     # ddlerp base mixers (5 interpolation targets: r, k, v, g, w)
-    store.zeros("tm_mu", (5, D), stacked=stacked)
-    store.dense("tm_lora_a", (5, D, LORA_R), scale=0.01, stacked=stacked)
-    store.dense("tm_lora_b", (5, LORA_R, D), scale=0.01, stacked=stacked)
+    store.zeros("tm_mu", (5, D), (None, "embed"), stacked=stacked)
+    store.dense("tm_lora_a", (5, D, LORA_R), (None, "embed", None), scale=0.01, stacked=stacked)
+    store.dense("tm_lora_b", (5, LORA_R, D), (None, None, "embed"), scale=0.01, stacked=stacked)
     # data-dependent decay
-    store.zeros("tm_w0", (D,), stacked=stacked)
-    store.dense("tm_wd_a", (D, LORA_R), scale=0.01, stacked=stacked)
-    store.dense("tm_wd_b", (LORA_R, D), scale=0.01, stacked=stacked)
-    store.zeros("tm_u", (H, hd), stacked=stacked)  # bonus
-    store.ones("tm_gn", (D,), stacked=stacked)  # per-head group-norm scale
+    store.zeros("tm_w0", (D,), ("embed",), stacked=stacked)
+    store.dense("tm_wd_a", (D, LORA_R), ("embed", None), scale=0.01, stacked=stacked)
+    store.dense("tm_wd_b", (LORA_R, D), (None, "embed"), scale=0.01, stacked=stacked)
+    store.zeros("tm_u", (H, hd), ("heads", None), stacked=stacked)  # bonus
+    store.ones("tm_gn", (D,), ("embed",), stacked=stacked)  # per-head group-norm scale
     # channel mix
-    store.zeros("cm_mu", (2, D), stacked=stacked)
-    store.dense("cm_wk", (D, Fd), stacked=stacked)
-    store.dense("cm_wv", (Fd, D), stacked=stacked)
-    store.dense("cm_wr", (D, D), stacked=stacked)
+    store.zeros("cm_mu", (2, D), (None, "embed"), stacked=stacked)
+    store.dense("cm_wk", (D, Fd), ("embed", "mlp"), stacked=stacked)
+    store.dense("cm_wv", (Fd, D), ("mlp", "embed"), stacked=stacked)
+    store.dense("cm_wr", (D, D), ("embed", "heads"), stacked=stacked)
 
 
 def _ddlerp(p, x: Tensor, x_prev: Tensor, dtype: torch.dtype) -> Tuple[Tensor, ...]:

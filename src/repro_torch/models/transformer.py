@@ -64,12 +64,26 @@ import torch
 from repro_torch import tree
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding
 from repro_torch.models import attention as attn
 from repro_torch.models import common, moe, rglru, rwkv
 
 Tensor = torch.Tensor
 
 __all__ = ["Model", "build_model", "DTYPES", "MOE_LB_COEF", "MOE_Z_COEF"]
+
+# the families whose loss runs split over a model axis (``tensor_parallel``)
+TP_FAMILIES = ("dense", "vlm")
+
+
+def require_tp_family(cfg: ArchConfig) -> None:
+    """Raises, naming it, for a family whose pass is not split over a model
+    axis yet."""
+    if cfg.arch_type not in TP_FAMILIES:
+        raise ValueError(
+            f"the tensor-parallel pass runs the {'/'.join(TP_FAMILIES)} families, not the "
+            f"{cfg.arch_type!r} family of {cfg.name} (ROADMAP, sharded step item 4, MoE's "
+            f"experts axis, and the other families)")
 
 MOE_LB_COEF = 0.01
 MOE_Z_COEF = 1e-3
@@ -100,17 +114,20 @@ def _init_block(cfg: ArchConfig, store: common.ParamStore, kind: str, stacked: i
         common.init_swiglu(store, D, F, stacked=stacked)
 
 
-def _apply_mlp(cfg, p, x, dtype):
+def _apply_mlp(cfg, p, x, dtype, tp=None):
     xn = common.apply_norm(cfg, x, p, "ln_mlp")
+    tp = tp and tp.over("mlp")
     if "mlp_gate" in p:
-        return x + common.swiglu(p, xn, dtype)
-    return x + common.gelu_mlp(p, xn, dtype)
+        return x + common.swiglu(p, xn, dtype, tp)
+    return x + common.gelu_mlp(p, xn, dtype, tp)
 
 
 def _block_train(cfg, p, x, positions, kind, *, dtype, window, enc_out=None,
-                 enc_pos=None, remat=True) -> Tuple[Tensor, Dict[str, Tensor]]:
+                 enc_pos=None, remat=True, tp=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One block forward in ``dtype``. Returns (x, aux); aux is empty but
-    for MoE. ``remat`` rematerialises attention's query chunks."""
+    for MoE. ``remat`` rematerialises attention's query chunks; ``tp`` (a
+    ``tensor_parallel.ModelAxis``) splits attention and the MLP over the
+    model group (dense blocks)."""
     if kind == "ssm":
         state = rwkv.init_rwkv_state(cfg, x.shape[0], x.device)
         x, _ = rwkv.rwkv_block_train(cfg, p, x, state, dtype=dtype)
@@ -123,7 +140,7 @@ def _block_train(cfg, p, x, positions, kind, *, dtype, window, enc_out=None,
     x = x + attn.attention_train(cfg, p, xn, positions, dtype=dtype, causal=kind != "enc",
                                  window=window,
                                  rope=kind not in ("enc", "encdec_dec"),  # enc-dec: sinusoidal
-                                 remat=remat)
+                                 remat=remat, tp=tp)
     if kind == "encdec_dec":
         xn = common.apply_norm(cfg, x, p, "ln_cross")
         x = x + attn.attention_train(cfg, p, xn, positions, dtype=dtype, kv_x=enc_out,
@@ -131,7 +148,7 @@ def _block_train(cfg, p, x, positions, kind, *, dtype, window, enc_out=None,
     if kind == "moe":
         h, aux = moe.moe_ffn(cfg, p, common.apply_norm(cfg, x, p, "ln_mlp"), dtype=dtype)
         return x + h, aux
-    return _apply_mlp(cfg, p, x, dtype), {}
+    return _apply_mlp(cfg, p, x, dtype, tp), {}
 
 
 def _layer(stacked: Dict, i: int) -> Dict:
@@ -183,11 +200,33 @@ class Model:
     remat: bool = True  # the reference's RunConfig.remat; False keeps every activation (tests)
 
     def init(self, generator: torch.Generator,
-             device: Union[str, torch.device] = "cuda") -> Dict:
+             device: Union[str, torch.device] = "cuda", mesh=None) -> Dict:
         """Random parameters drawn from ``generator`` in fp32, placed on
-        ``device`` in ``param_dtype`` (``common.ParamStore``)."""
+        ``device`` in ``param_dtype`` (``common.ParamStore``). With ``mesh``
+        (a grid with coordinates, ``launch.mesh``) only this rank's slice
+        of each leaf under the ``tp`` specs is kept, cut from each layer as
+        it is drawn: the whole init's slices, bit for bit, and never more
+        than one layer of a leaf whole."""
+        specs = None
+        if mesh is not None:
+            specs = sharding.specs_for_axes(self.abstract_params(), self.logical_axes(), "tp",
+                                            mesh)
+        return self._store(generator, resolve_device(device), specs, mesh).params
+
+    def logical_axes(self) -> Dict:
+        """Each parameter's logical axes, a tree of tuples under the
+        parameters' keys (the second value of the reference's ``init``)."""
+        return self._store(None, torch.device("meta")).axes
+
+    def abstract_params(self) -> Dict:
+        """The parameter tree as ``meta`` tensors: shapes and dtypes, no
+        storage (the reference's ``init(abstract=True)``)."""
+        return self._store(None, torch.device("meta")).params
+
+    def _store(self, generator: Optional[torch.Generator], device: torch.device, specs=None,
+               mesh=None):
         cfg = self.cfg
-        store = common.ParamStore(generator, resolve_device(device), self.param_dtype)
+        store = common.ParamStore(generator, device, self.param_dtype, specs, mesh)
         common.init_embeddings(cfg, store)
         common.init_norm(cfg, store, "ln_final", cfg.d_model)
         if cfg.is_encdec:
@@ -206,7 +245,7 @@ class Model:
         else:
             _init_block(cfg, store.subtree("blocks"), cfg._layer_kinds()[0],
                         stacked=cfg.n_layers)
-        return store.params
+        return store
 
     def _window(self, kind: str) -> Optional[int]:
         cfg = self.cfg
@@ -214,10 +253,10 @@ class Model:
             return cfg.local_window
         return cfg.sliding_window
 
-    def _embed_inputs(self, params, batch) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    def _embed_inputs(self, params, batch, tp=None) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
         """(hidden, positions, labels, mask), a VLM's vision prefix prepended."""
         dt = self.compute_dtype
-        x = common.embed_tokens(params, batch["tokens"], dt)
+        x = common.embed_tokens(params, batch["tokens"], dt, tp and tp.over("vocab"))
         labels, mask = batch["labels"], batch["mask"].to(torch.float32)
         if self.cfg.arch_type == "vlm":
             vis = batch["vision"].to(dt)  # (B, Tv, D) stub patch embeddings
@@ -249,7 +288,7 @@ class Model:
             x = step(_layer(layers, i), x, pos)
         return common.apply_norm(cfg, x, ep, "ln_enc_final"), pos
 
-    def loss(self, params, batch) -> Tuple[Tensor, Dict[str, Tensor]]:
+    def loss(self, params, batch, tp=None) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Mean token cross-entropy of ``batch`` (tokens/labels/mask (B, S); a
         VLM's ``vision`` (B, Tv, D), an encoder-decoder's ``frames`` (B, T, D)),
         plus ``MOE_LB_COEF`` x the load-balance loss and ``MOE_Z_COEF`` x the
@@ -258,10 +297,17 @@ class Model:
 
         With ``remat`` each layer (each whole hybrid unit; the hybrid's tail
         layers are not) is rematerialised, as are attention's query chunks
-        and the cross-entropy's chunks, where the reference checkpoints."""
+        and the cross-entropy's chunks, where the reference checkpoints.
+
+        With ``tp`` (a ``tensor_parallel.ModelAxis``; the ``TP_FAMILIES``
+        only) ``params`` are this rank's slices and the pass splits the
+        embedding, attention, the MLP and the cross-entropy over the model
+        group where ``tp.split`` names their logical axes."""
         cfg, dt = self.cfg, self.compute_dtype
         remat = self.remat
         auxs = []
+        if tp is not None:
+            require_tp_family(cfg)
         if cfg.is_encdec:
             enc_out, enc_pos = self._encode(params, batch["frames"])
             x = common.embed_tokens(params, batch["tokens"], dt)
@@ -278,7 +324,7 @@ class Model:
                 x = step(_layer(params["decoder"], i), x, positions, enc_out.view_as(enc_out),
                          enc_pos)
         else:
-            x, positions, labels, mask = self._embed_inputs(params, batch)
+            x, positions, labels, mask = self._embed_inputs(params, batch, tp)
             if cfg.arch_type == "hybrid":
                 n_units, tail_kinds = _hybrid_units(cfg)
 
@@ -298,14 +344,15 @@ class Model:
                 kind = cfg._layer_kinds()[0]
                 step = self._step(lambda pl, x, positions: list(_block_train(
                     cfg, pl, x, positions, kind, dtype=dt, window=self._window(kind),
-                    remat=remat)))
+                    remat=remat, tp=tp)))
                 for i in range(cfg.n_layers):
                     x, aux = step(_layer(params["blocks"], i), x, positions)
                     auxs.append(aux)
         aux_total = {k: torch.mean(torch.stack([a[k] for a in auxs])) for k in
                      (auxs[0] if auxs else ())}
         x = common.apply_norm(cfg, x, params, "ln_final")
-        nll = common.chunked_xent(params, x, labels, mask, self.loss_chunk, dt, remat=remat)
+        nll = common.chunked_xent(params, x, labels, mask, self.loss_chunk, dt, remat=remat,
+                                  tp=tp and tp.over("vocab"))
         total = nll
         if "moe_lb_loss" in aux_total:
             total = total + MOE_LB_COEF * aux_total["moe_lb_loss"]

@@ -41,6 +41,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
+import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
@@ -49,18 +51,22 @@ import torch.distributed as dist
 from repro_torch import tree
 from repro_torch.backends import FUSABLE_MODES, resolve_backend, resolve_fused
 from repro_torch.core import overlap
+from repro_torch.core.overlap import resolve_bucket_bytes
 from repro_torch.core import state as state_codecs
 from repro_torch.core.metrics import hamming_distance_topk, spearman_rho, topk_overlap
-from repro_torch.core.plan import plan_tensors
+from repro_torch.core.plan import plan_shards, plan_tensors
 from repro_torch.core.scalecom import _SIMILARITY_KEYS, ScaleComConfig, _const, scalecom_reduce
 from repro_torch.core.state import (
     ScaleComState, codec_key, codec_signature, init_state, require_codec, residue_signature,
 )
 from repro_torch.device import fp32_accumulation
+from repro_torch.distributed import tensor_parallel
 from repro_torch.distributed.ring import (
     Collective, Flight, all_reduce_mean, drive, group_fold, make_hierarchy, ring_steps,
 )
+from repro_torch.distributed.sharding import shard_of, specs_for_axes, split_axes
 from repro_torch.kernels.fused_reduce import select_update_fits
+from repro_torch.models.transformer import require_tp_family
 from repro_torch.obs import taps
 from repro_torch.optim.optimizer import Optimizer
 
@@ -100,9 +106,10 @@ def _with_grad(params):
     return tree.tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
-def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1):
+def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1, tp=None):
     """(mean worker loss, {aux: (n,) per-worker values}, {path: (n, *shape)
     gradients}); the aux dict is the model's (``nll``, and the MoE losses).
+    ``tp`` goes to ``model.loss`` (the tensor-parallel pass).
 
     One vmapped pass over the workers per microbatch. With ``microbatches``
     M > 1, microbatch j is rows j*B/M .. (j+1)*B/M - 1 of every worker's
@@ -112,7 +119,8 @@ def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1
     """
     shapes = _check_lead(batch, n_workers)
     # (params, one worker's batch) -> (grads, (loss, aux)), mapped over the workers
-    batched = torch.func.vmap(torch.func.grad_and_value(model.loss, has_aux=True),
+    loss_fn = model.loss if tp is None else functools.partial(model.loss, tp=tp)
+    batched = torch.func.vmap(torch.func.grad_and_value(loss_fn, has_aux=True),
                               in_dims=(None, 0))
     if microbatches == 1:
         grads, (losses, auxs) = batched(params, batch)
@@ -158,11 +166,12 @@ def per_worker_grads_loop(model, params, batch, n_workers: int):
             tree.unflatten(params, stacked))
 
 
-def dense_grads(model, params, batch):
-    """(loss, aux, grads) of the loss over the folded global batch."""
+def dense_grads(model, params, batch, tp=None):
+    """(loss, aux, grads) of the loss over the folded global batch; ``tp``
+    goes to ``model.loss``."""
     folded = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch.items()}
     pg = _with_grad(params)
-    loss, aux = model.loss(pg, folded)
+    loss, aux = model.loss(pg, folded) if tp is None else model.loss(pg, folded, tp=tp)
     grads = torch.autograd.grad(loss, tree.leaves(pg))
     return (loss.detach(), {k: v.detach() for k, v in aux.items()},
             tree.unflatten(params, list(grads)))
@@ -453,6 +462,211 @@ def _group_mean(loss: torch.Tensor, auxs: Dict, group) -> Tuple[torch.Tensor, Di
     return both[0], {k: both[i + 1] for i, k in enumerate(keys)}
 
 
+# -- the tensor-parallel step ----------------------------------------------------
+
+# what the tensor-parallel step does not run yet, and the ROADMAP queue item
+# that takes it up
+_TP_LATER = {
+    "compressor": "1, the other compressors across model shards",
+    "codec": "2, the lossy codecs and groups",
+    "groups": "2, the lossy codecs and groups",
+}
+
+
+def _tp_refuse(what: str, item: str) -> None:
+    raise ValueError(f"the tensor-parallel train step does not run {what} (ROADMAP, sharded "
+                     f"step item {_TP_LATER[item]})")
+
+
+@dataclasses.dataclass(frozen=True)
+class _TPLayout:
+    """The model's leaves on this rank of a (data x model) grid: logical
+    shapes and tp specs in leaf order, the dim each leaf splits over the
+    model axis (None: replicated), and the model axis that the pass takes
+    (``Model.loss(..., tp=axis)``)."""
+
+    mesh: Any
+    paths: Tuple[str, ...]
+    shapes: Tuple[Tuple[int, ...], ...]
+    specs: Tuple[Tuple, ...]
+    dims: Tuple[Optional[int], ...]
+    axis: tensor_parallel.ModelAxis
+
+    @property
+    def data(self):
+        return self.mesh.group("data")
+
+    @property
+    def model(self):
+        return self.mesh.group("model")
+
+
+def _tp_layout(abstract, axes, mesh) -> _TPLayout:
+    """The layout of a parameter tree (tensors or ``meta`` shapes, logical)
+    with its logical ``axes`` on this rank of ``mesh``, under the ``tp``
+    specs."""
+    spec_tree = specs_for_axes(abstract, axes, "tp", mesh)
+    specs = tree.leaves(spec_tree)
+    flat = tree.flatten_with_path(abstract)
+    split = mesh.shape["model"] > 1
+    dims = tuple(next((d for d, ax in enumerate(s) if ax == "model"), None) if split else None
+                 for s in specs)
+    axis = tensor_parallel.ModelAxis(mesh.group("model"), mesh.index("model"),
+                                     mesh.shape["model"],
+                                     split_axes(spec_tree, axes) if split else frozenset())
+    return _TPLayout(mesh, tuple(p for p, _ in flat), tuple(tuple(x.shape) for _, x in flat),
+                     tuple(specs), dims, axis)
+
+
+def _tp_check(model, sc_cfg: ScaleComConfig, mode: str, compute_stats: bool, mesh,
+              n_workers: int, group) -> None:
+    """Raises, naming it, for what the tensor-parallel step does not run."""
+    if group is not None:
+        raise ValueError("pass the grid as mesh= (its data group is the workers' group), "
+                         "not group= as well")
+    if tuple(mesh.axis_names) != ("data", "model") or mesh.groups is None:
+        raise ValueError(f"the tensor-parallel step takes a (data, model) grid of process "
+                         f"groups (launch.mesh.make_test_mesh), got {mesh.shape}")
+    if n_workers != mesh.shape["data"]:
+        raise ValueError(f"n_workers ({n_workers}) must equal the grid's data size "
+                         f"({mesh.shape['data']}): the ranks of one data index are one worker")
+    require_tp_family(model.cfg)
+    if mode != "scalecom":
+        return
+    comp = sc_cfg.compressor
+    if comp.name != "clt_k" or comp.exact:
+        _tp_refuse(f"compressor {comp.name!r}{' exact' if comp.exact else ''}", "compressor")
+    if sc_cfg.residue_dtype != "fp32":
+        _tp_refuse(f"residue_dtype {sc_cfg.residue_dtype!r}", "codec")
+    if sc_cfg.groups is not None:
+        _tp_refuse(f"groups={sc_cfg.groups}", "groups")
+    if sc_cfg.telemetry or compute_stats:
+        raise ValueError("the tensor-parallel train step does not run telemetry or "
+                         "compute_stats (ROADMAP, sharded step)")
+
+
+def _gather_parts(part: torch.Tensor, sizes, group) -> torch.Tensor:
+    """The flat concatenation of every model rank's ``part`` (``sizes[i]``
+    elements on rank i): padded to the longest, one all_gather."""
+    width = max(sizes)
+    flat = part.reshape(-1)
+    if flat.numel() < width:
+        flat = torch.cat([flat, flat.new_zeros(width - flat.numel())])
+    rows = tensor_parallel.all_gather(flat[None], 0, group)
+    return torch.cat([rows[i, :n] for i, n in enumerate(sizes)])
+
+
+def _tp_leaf(sp, g: torch.Tensor, enc, layout: _TPLayout, t: int, beta: float, backend,
+             fused: bool):
+    """One tensor of the tensor-parallel reduce on this rank (``ShardPlan``
+    ``sp``): (ĝ of its slice, its new residue slice or None)."""
+    plan, data, model = sp.plan, layout.data, layout.model
+    n = data.size()
+    gw = g[0].to(torch.float32)
+    if sp.route == "dense":
+        return all_reduce_mean(gw, data).to(g.dtype), None
+    comp = plan.comp
+    use_fused = fused and comp is not None and comp.name in FUSABLE_MODES
+    local_store = enc["q"].shape[1:] if enc is not None else None
+    if sp.route == "local":
+        m = enc["q"].reshape(sp.work)
+        ghat, m_new, _, _ = drive(ring_steps(gw.reshape(sp.work), m, t, comp, beta, data,
+                                             backend, use_fused))
+        return ghat.reshape(sp.local_shape).to(g.dtype), {"q": m_new.reshape((1,) + local_store)}
+
+    # "part": this rank's units of the logical tensor, then every rank's parts
+    def whole(x):  # this rank's slice -> the logical tensor, flat
+        x = x.reshape(sp.local_shape)
+        if sp.dim is not None:
+            x = tensor_parallel.all_gather(x, sp.dim, model)
+        return x.reshape(-1)
+
+    index = layout.mesh.index("model")
+
+    def mine(x):  # the logical tensor, flat -> this rank's slice
+        x = x.reshape(plan.shape)
+        if sp.dim is None:
+            return x
+        width = sp.local_shape[sp.dim]
+        return x.narrow(sp.dim, index * width, width).contiguous()
+
+    ranges = [(lo * sp.unit, min(hi * sp.unit, plan.size)) for lo, hi in sp.bounds]
+    sizes = [max(0, b - a) for a, b in ranges]
+    start = ranges[index][0]
+    part = whole(gw)[start:start + sizes[index]]
+    if plan.dense:
+        ghat = all_reduce_mean(part, data)
+        return mine(_gather_parts(ghat, sizes, model)).to(g.dtype), None
+    m = whole(enc["q"])[start:start + part.numel()]
+    if part.numel():
+        ghat, m_new, _, _ = drive(ring_steps(part.reshape(sp.work), m.reshape(sp.work), t, comp,
+                                             beta, data, backend, use_fused))
+    else:
+        ghat, m_new = part, m
+    ghat = mine(_gather_parts(ghat, sizes, model))
+    m_new = mine(_gather_parts(m_new, sizes, model))
+    return ghat.to(g.dtype), {"q": m_new.reshape((1,) + local_store)}
+
+
+def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _TPLayout):
+    """Algorithm 1 over this rank's (1, *slice) gradients on a (data x model)
+    grid: the plan of each logical tensor (``plan_tensors`` at n = the data
+    size) mapped onto the rank (``plan_shards``), each tensor's part
+    reduced over the data group, the parts of a "part" tensor gathered over
+    the model group. Returns (ghat, new_state, stats): ``comm_bytes_per_
+    worker`` and ``comm_bytes_dense`` are the logical plan's (the stacked
+    step's), ``comm_bytes_per_shard`` this rank's share of the first."""
+    n = layout.data.size()
+    flat = tree.flatten_with_path(grads)
+    if tuple(p for p, _ in flat) != layout.paths:
+        raise ValueError("the gradient tree's leaves are not the model's")
+    plans = plan_tensors(tuple((p, s, n) for p, s in zip(layout.paths, layout.shapes)), sc_cfg,
+                         frozenset(sc_state.residues))
+    shards = plan_shards(plans, layout.specs, layout.mesh.shape["model"],
+                         layout.mesh.index("model"))
+    for sp, (path, g) in zip(shards, flat):
+        if tuple(g.shape[1:]) != sp.local_shape:
+            raise ValueError(f"gradient {path!r} is {tuple(g.shape[1:])}, this rank's slice of "
+                             f"{sp.plan.shape} is {sp.local_shape} (shard_train_state)")
+        if not sp.plan.dense:
+            q = sc_state.residues[path]["q"]
+            want = (1,) + ((math.prod(sp.local_shape),) if len(sp.plan.storage) == 1
+                           else sp.local_shape)
+            if tuple(q.shape) != want or q.dtype != torch.float32:
+                raise ValueError(f"residue {path!r} holds {tuple(q.shape)} {q.dtype}, want this "
+                                 f"rank's fp32 slice {want} (shard_train_state)")
+    device = flat[0][1].device
+    backend = resolve_backend(sc_cfg.backend, device)
+    fused = resolve_fused(sc_cfg.fused)
+    new_residues = dict(sc_state.residues)
+    ghat_leaves = []
+    for sp, (path, g) in zip(shards, flat):
+        ghat, new_enc = _tp_leaf(sp, g, sc_state.residues.get(path), layout, sc_state.t,
+                                 sc_cfg.beta, backend, fused)
+        ghat_leaves.append(ghat)
+        if new_enc is not None:
+            new_residues[path] = new_enc
+    stats = {"comm_bytes_per_worker": sum(p.bytes_payload for p in plans),
+             "comm_bytes_dense": sum(p.bytes_dense for p in plans),
+             "comm_bytes_per_shard": sum(sp.bytes_payload for sp in shards)}
+    return (tree.unflatten(grads, ghat_leaves),
+            ScaleComState(residues=new_residues, t=sc_state.t + 1), stats)
+
+
+def _tp_global_norm(ghat, layout: _TPLayout) -> torch.Tensor:
+    """``global_norm`` of the logical gradient from this rank's slices: a
+    split leaf's sum of squares all-reduced over the model group (one call
+    for all of them), a replicated leaf's counted once; summed in leaf
+    order."""
+    sq = [torch.sum(torch.square(g.to(torch.float32))) for g in tree.leaves(ghat)]
+    split = [i for i, d in enumerate(layout.dims) if d is not None]
+    if split:
+        total = tensor_parallel.all_reduce(torch.stack([sq[i] for i in split]), layout.model)
+        for j, i in enumerate(split):
+            sq[i] = total[j]
+    return torch.sqrt(sum(sq))
+
+
 def build_train_step(
     model,
     optimizer: Optimizer,
@@ -466,6 +680,7 @@ def build_train_step(
     compute_stats: bool = False,
     buckets: Any = None,
     group=None,
+    mesh=None,
 ) -> Callable[[TrainState, Any], Tuple[TrainState, Dict[str, Any]]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
@@ -501,12 +716,34 @@ def build_train_step(
     ``"obs/<key>"`` taps, the same on every rank) and ``buckets`` (packed,
     async collectives, bucket by bucket; see ``_group_reduce``). The dense
     mode stays one all-reduce over the whole group.
+
+    ``mesh``: a (data, model) grid of process groups
+    (``launch.mesh.make_test_mesh``), the tensor-parallel step, the
+    counterpart of the reference's step under the ``tp`` policy (the
+    ``fsdp`` policy is a later ROADMAP item). The ranks
+    of one data index are one of the ``n_workers`` (= the data size)
+    workers and take the same row of the batch; each holds its slice of
+    every parameter, optimizer leaf and of its worker's residues
+    (``shard_train_state(state, mesh=..., axes=...)``). The pass splits
+    attention's heads, the MLP's hidden units and the vocabulary over the
+    model group (``distributed.tensor_parallel``); the reduce plans each
+    logical tensor and runs over the data group on the rank's part of it
+    (``_tp_reduce``); the loss and auxs are averaged over the data group;
+    ``grad_norm`` is the logical gradient's; the dense mode all-reduces
+    each slice over the data group. It runs chunked clt_k, fused or not,
+    with fp32 residues, and ``mode="dense"``; any other compressor, codec,
+    ``groups``, buckets, telemetry, ``compute_stats`` or model family
+    raises, naming it.
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
-    if group is not None:
+    if mesh is not None:
+        _tp_check(model, sc_cfg, mode, compute_stats, mesh, n_workers, group)
+        layout = _tp_layout(model.abstract_params(), model.logical_axes(), mesh)
+        row = mesh.index("data")
+    elif group is not None:
         if n_workers != group.size():
             raise ValueError(
                 f"a train step over a process group runs one worker per rank: n_workers "
@@ -516,6 +753,43 @@ def build_train_step(
     # fp32 GEMMs without TF32, bf16 and fp16 ones accumulating in fp32, as
     # the JAX package's matmuls do whatever the model's compute dtype
     fp32_accumulation()
+
+    def update(state: TrainState, ghat, gnorm, loss, auxs, sc_state, stats):
+        """Clip, the optimizer's update and the metrics: the new state."""
+        if grad_clip is not None:
+            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
+            ghat = tree.tree_map(lambda g: g * scale, ghat)
+        lr = schedule(state.step)
+        params, opt_state = optimizer.update(ghat, state.opt_state, state.params, lr)
+        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                   **{k: torch.mean(v) for k, v in auxs.items()}, **stats}
+        return TrainState(params, opt_state, sc_state, state.step + 1), metrics
+
+    def tp_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
+        device = tree.leaves(state.params)[0].device
+        batch = _batch_on(batch, device)
+        _check_lead(batch, n_workers)
+        batch = {k: v[row:row + 1] for k, v in batch.items()}
+        if mode == "scalecom" and resolve_bucket_bytes(buckets, sc_cfg.bucket_bytes) is not None:
+            raise ValueError("the tensor-parallel train step runs unbucketed (buckets=None with "
+                             "$SCALECOM_TORCH_BUCKET_MB unset, or False)")
+        if mode == "scalecom":
+            loss, auxs, gpw = per_worker_grads(model, state.params, batch, 1, microbatches,
+                                               tp=layout.axis)
+        else:
+            loss, auxs, ghat = dense_grads(model, state.params, batch, tp=layout.axis)
+        if mode == "scalecom":
+            ghat, sc_state, stats = _tp_reduce(gpw, state.sc_state, sc_cfg, layout)
+            del gpw
+        else:
+            ghat = tree.tree_map(lambda g: all_reduce_mean(g, layout.data), ghat)
+            sc_state = ScaleComState(residues=state.sc_state.residues, t=state.sc_state.t + 1)
+            stats = {}
+        loss, auxs = _group_mean(loss, auxs, layout.data)
+        return update(state, ghat, _tp_global_norm(ghat, layout), loss, auxs, sc_state, stats)
+
+    if mesh is not None:
+        return tp_step
 
     def train_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         device = tree.leaves(state.params)[0].device
@@ -543,27 +817,33 @@ def build_train_step(
             stats = {}
         if group is not None:
             loss, auxs = _group_mean(loss, auxs, group)
-
-        gnorm = global_norm(ghat)
-        if grad_clip is not None:
-            scale = torch.clamp(grad_clip / torch.clamp(gnorm, min=1e-12), max=1.0)
-            ghat = tree.tree_map(lambda g: g * scale, ghat)
-
-        lr = schedule(state.step)
-        params, opt_state = optimizer.update(ghat, state.opt_state, state.params, lr)
-        metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr,
-                   **{k: torch.mean(v) for k, v in auxs.items()}, **stats}
-        return TrainState(params, opt_state, sc_state, state.step + 1), metrics
+        return update(state, ghat, global_norm(ghat), loss, auxs, sc_state, stats)
 
     return train_step
 
 
 def init_train_state(model, optimizer: Optimizer, sc_cfg: ScaleComConfig,
                      generator: torch.Generator, *, n_workers: int,
-                     device="cuda") -> TrainState:
+                     device="cuda", mesh=None) -> TrainState:
     """Random parameters from ``generator`` on ``device``, optimizer state and
-    zero ScaleCom residues."""
-    params = model.init(generator, device)
+    zero ScaleCom residues.
+
+    With ``mesh`` (a (data, model) grid): this rank's share for the
+    tensor-parallel step, without the stacked state: the rank's slices of
+    the parameters (``Model.init(mesh=...)``: each layer cut as it is drawn,
+    the same draws on every rank for the same generator state, so the
+    slices are the whole init's), the optimizer state on the slices, and a
+    zero fp32 residue slice for every tensor whose logical size reaches
+    ``min_size``."""
+    params = model.init(generator, device, mesh=mesh)
+    if mesh is not None:
+        if sc_cfg.residue_dtype != "fp32":
+            _tp_refuse(f"residue_dtype {sc_cfg.residue_dtype!r}", "codec")
+        sizes = {p: x.numel() for p, x in tree.flatten_with_path(model.abstract_params())}
+        sc_state = init_state(params, 1, "fp32", 0, sc_cfg.layout)
+        sc_state = ScaleComState({p: e for p, e in sc_state.residues.items()
+                                  if sizes[p] >= sc_cfg.min_size}, 0)
+        return TrainState(params, optimizer.init(params), sc_state, 0)
     sc_state = init_state(
         params, sc_cfg.n_workers(n_workers), sc_cfg.residue_dtype, sc_cfg.min_size,
         sc_cfg.layout,
@@ -571,14 +851,28 @@ def init_train_state(model, optimizer: Optimizer, sc_cfg: ScaleComConfig,
     return TrainState(params, optimizer.init(params), sc_state, 0)
 
 
-def shard_train_state(state: TrainState, rank: int, world: int,
-                      groups: Optional[int] = None) -> TrainState:
+def shard_train_state(state: TrainState, rank: Optional[int] = None,
+                      world: Optional[int] = None, groups: Optional[int] = None, *,
+                      mesh=None, axes=None) -> TrainState:
     """Rank ``rank``'s share of a worker-stacked TrainState over ``world``
     ranks: its own row of every field of every residue encoding (with
     ``groups=G``, the row of its group, ``rank // (world // G)``, of G
     rows), and copies of the replicated params and optimizer state (so a
     step on the share leaves ``state`` as it was). The step counter and
-    ScaleCom ``t`` carry over."""
+    ScaleCom ``t`` carry over.
+
+    With ``mesh`` (a (data, model) grid of process groups) and the model's
+    logical ``axes`` instead: this rank's share for the tensor-parallel
+    step (``build_train_step(mesh=...)``): its slice under the ``tp``
+    specs (``distributed.sharding``) of every parameter and optimizer leaf,
+    and of its worker's (its data index's) fp32 residue row, kept in the
+    layout's storage of the slice (flat: the slice flattened)."""
+    if mesh is not None:
+        if rank is not None or world is not None or groups is not None:
+            raise ValueError("a grid's share takes mesh= and axes=, not rank, world or groups")
+        return _shard_tp_state(state, mesh, axes)
+    if rank is None or world is None:
+        raise ValueError("shard_train_state takes rank and world, or mesh= and axes=")
     if not 0 <= rank < world:
         raise ValueError(f"rank {rank} is not in [0, {world})")
     if groups is not None and (groups < 1 or world % groups):
@@ -595,4 +889,38 @@ def shard_train_state(state: TrainState, rank: int, world: int,
         residues[path] = {k: v[row:row + 1].clone() for k, v in enc.items()}
     copy = lambda x: x.clone() if isinstance(x, torch.Tensor) else x  # noqa: E731
     return TrainState(tree.tree_map(copy, state.params), tree.tree_map(copy, state.opt_state),
+                      ScaleComState(residues=residues, t=state.sc_state.t), state.step)
+
+
+def _shard_tp_state(state: TrainState, mesh, axes) -> TrainState:
+    if axes is None:
+        raise ValueError("a grid's share needs the model's logical axes (Model.logical_axes())")
+    specs = specs_for_axes(state.params, axes, "tp", mesh)
+    by_path = dict(tree.flatten_with_path(specs))
+    shapes = {p: tuple(x.shape) for p, x in tree.flatten_with_path(state.params)}
+    paths = [p for p, _ in tree.flatten_with_path(state.params)]
+    rows, row = mesh.shape["data"], mesh.index("data")
+
+    def shard(tree_):
+        return tree.unflatten(tree_, [shard_of(x, by_path[p], mesh)
+                                      for p, x in tree.flatten_with_path(tree_)])
+
+    opt_state = {}
+    for key, val in state.opt_state.items():
+        same = isinstance(val, dict) and [p for p, _ in tree.flatten_with_path(val)] == paths
+        opt_state[key] = shard(val) if same else (
+            tree.tree_map(torch.clone, val) if isinstance(val, dict) else val)
+    residues = {}
+    for path, enc in state.sc_state.residues.items():
+        q = enc.get("q")
+        if set(enc) != {"q"} or q.dtype != torch.float32:
+            _tp_refuse(f"residues coded as {sorted(enc)} ({q.dtype if q is not None else None})",
+                       "codec")
+        if q.shape[0] != rows:
+            raise ValueError(f"residue {path!r} must hold rows of {rows} workers, got "
+                             f"{tuple(q.shape)}")
+        mine = shard_of(q[row].reshape(shapes[path]), by_path[path], mesh)
+        rowwise = q.dim() - 1 == len(shapes[path])
+        residues[path] = {"q": (mine if rowwise else mine.reshape(-1))[None]}
+    return TrainState(shard(state.params), opt_state,
                       ScaleComState(residues=residues, t=state.sc_state.t), state.step)
