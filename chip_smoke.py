@@ -2853,8 +2853,10 @@ def arch_hold(label: str, gpw, sc_state, sc_cfg, plans, fused: bool, workers: in
     torch backend's composition from the same inputs (``hold_reduce``; one
     tensor's composition alive at a time); the comm bytes of the whole equal
     the tensors' sum and nnz(ĝ)/k passes ``check_buildup``. The card's new
-    residues are parked in host memory meanwhile. Returns {path: nnz(ĝ)/k}
-    of the compressed tensors."""
+    residues are kept as digests: each tensor's reduce on the card alone
+    must give the held call's ĝ and residues bit for bit, and stands for it
+    against the composition. Returns {path: nnz(ĝ)/k} of the compressed
+    tensors."""
     import torch
 
     from repro_torch import tree
@@ -2870,10 +2872,11 @@ def arch_hold(label: str, gpw, sc_state, sc_cfg, plans, fused: bool, workers: in
                        (counter("fused_reduce" if fused else "ef_update"), n_compressed),
                        reps=5, warmup=1, what=f"[arch] {label} reduce")
     (ghat, new_state, stats), ms = host_ms(lambda: scalecom_reduce(gpw, sc_state, cfg_c))
-    # the card's new residues wait in host memory while the compositions run
-    # (starcoder2's are 17 GiB), and come back one tensor at a time
-    parked = {p: {k: v.cpu() for k, v in enc.items()} for p, enc in new_state.residues.items()}
-    t_new, gpw_device = new_state.t, tree.leaves(ghat)[0].device
+    # the held call's new residues (starcoder2's are 22.5 GB) digested and
+    # freed: each tensor's reduce runs again alone below, its ĝ and residues
+    # bitwise the held call's, and is held against the composition
+    kept = {p: {k: digest(v) for k, v in enc.items()} for p, enc in new_state.residues.items()}
+    t_new = new_state.t
     del new_state
     bound_ms, nbytes = reduce_bound(plans, workers)
     by_plan = {p.path: p for p in plans}
@@ -2883,17 +2886,20 @@ def arch_hold(label: str, gpw, sc_state, sc_cfg, plans, fused: bool, workers: in
     ratios = {}
     for path, one in leaf_trees(gpw):
         res = {path: sc_state.residues[path]} if path in sc_state.residues else {}
+        alone = scalecom_reduce(one, ScaleComState(residues=res, t=sc_state.t), cfg_c)
+        check(torch.equal(tree.leaves(alone[0])[0], card_ghat[path]) and alone[1].t == t_new
+              and {p: {k: digest(v) for k, v in enc.items()}
+                   for p, enc in alone[1].residues.items()} == {p: kept[p] for p in res},
+              f"[arch] {label} {path}: the tensor's reduce alone differs from the held call's")
         plain = scalecom_reduce(one, ScaleComState(residues=res, t=sc_state.t), cfg_t)
         comm += plain[2]["comm_bytes_per_worker"]
-        card = (tree.unflatten(one, [card_ghat[path]]),
-                ScaleComState(residues={p: {k: v.to(gpw_device) for k, v in parked.pop(p).items()}
-                                        for p in res}, t=t_new),
+        card = (tree.unflatten(one, [card_ghat[path]]), alone[1],
                 {"comm_bytes_per_worker": by_plan[path].bytes_payload})
         same, f, r = hold_reduce(card, plain, fused, CHUNK, "clt_k", f"[arch] {label} {path}")
         bitwise_n, flipped, rows = bitwise_n + same, flipped + f, rows + r
         if not by_plan[path].dense:
             ratios[path] = int(torch.count_nonzero(card_ghat[path])) / by_plan[path].k
-        del plain, card
+        del plain, card, alone
     check(comm == stats["comm_bytes_per_worker"],
           f"[arch] {label}: comm bytes {stats['comm_bytes_per_worker']} against the tensors' "
           f"{comm}")
@@ -2964,6 +2970,7 @@ def arch_phase(card_line: str) -> dict:
     base_cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
                               min_size=1024, warmup_steps=WARMUP)
     for spec in ARCH_RUNS:
+        t_arch = time.perf_counter()
         name, workers = spec.name, spec.workers
         full = registry.arch(name)
         cfg = dataclasses.replace(full, **spec.cut)
@@ -2996,6 +3003,7 @@ def arch_phase(card_line: str) -> dict:
                                        for s in range(WARMUP, STEPS)))
         params, sc_state, plans = run.state.params, run.state.sc_state, run.plans
         del run  # the momentum
+        t_trained = time.perf_counter()
         batch = {k: torch.as_tensor(v, device="cuda") for k, v in next(make_batches(
             cfg.vocab, workers, spec.local_batch, spec.seq, seed=1, **model_inputs(cfg))).items()}
         if spec.grads:
@@ -3021,6 +3029,7 @@ def arch_phase(card_line: str) -> dict:
                   f"clock on {card_line}")
         del params, batch
         torch.cuda.empty_cache()
+        t_grads = time.perf_counter()
         for fused in spec.holds:
             ratios = arch_hold(f"{name} {'fused' if fused else 'unfused'}", gpw, sc_state,
                                base_cfg, plans, fused, workers, card_line)
@@ -3030,6 +3039,10 @@ def arch_phase(card_line: str) -> dict:
                                   if "expert_" in p or "router" in p))
         del gpw, sc_state
         torch.cuda.empty_cache()
+        t_end = time.perf_counter()
+        print(f"[arch] {name}: {t_end - t_arch:.1f} s wall: training runs {t_trained - t_arch:.1f}, "
+              f"the gradient pass from the trained state {t_grads - t_trained:.1f}, the held "
+              f"reduces {t_end - t_grads:.1f}")
     missing = [k for k in ARCH_KERNELS if launched[k] == 0]
     check(not missing, f"[arch] {missing} never launched on the arch path")
     print(f"[arch] launches of the training runs: {launched}; phase "
@@ -4234,6 +4247,9 @@ SENT_KEYS = ("payload", "oracle", "intra", "stats", "telemetry")
 _BITS = {4: "int32", 2: "int16", 1: "uint8"}
 
 
+DIGEST_SPAN = 1 << 24
+
+
 def digest(x) -> list:
     """Two 64-bit sums of the bit patterns of a tensor (its elements' bits
     as integers) under fixed odd weights, one per element position (int64
@@ -4243,10 +4259,14 @@ def digest(x) -> list:
     import torch
 
     bits = x.contiguous().view(getattr(torch, _BITS[x.element_size()])).reshape(-1)
-    bits = bits.to(torch.int64)
-    i = torch.arange(bits.numel(), dtype=torch.int64, device=x.device)
-    return [int(torch.sum(bits * ((i * a + b) | 1))) for a, b in
-            ((0x5851F42D4C957F2D, 0x14057B7EF767814F), (0x2545F4914F6CDD1D, 0x1B03738712FAD5C9))]
+    sums = [0, 0]
+    for lo in range(0, bits.numel(), DIGEST_SPAN):  # int64 copies of a span at a time
+        part = bits[lo:lo + DIGEST_SPAN].to(torch.int64)
+        i = torch.arange(lo, lo + part.numel(), dtype=torch.int64, device=x.device)
+        for j, (a, b) in enumerate(((0x5851F42D4C957F2D, 0x14057B7EF767814F),
+                                    (0x2545F4914F6CDD1D, 0x1B03738712FAD5C9))):
+            sums[j] += int(torch.sum(part * ((i * a + b) | 1)))
+    return [(v + 2**63) % 2**64 - 2**63 for v in sums]  # the int64 sum, wrapped
 
 
 def exchange(row: list, rank: int, world: int, group=None) -> list:
@@ -4507,10 +4527,15 @@ def ring_leaders(run: RingRun, world: int) -> list:
     return out
 
 
-def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
+def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN, shared=None) -> dict:
     """A ``RingRun`` on one of ``RING_WORLD`` ranks: paper-transformer-base at
     full width through ``build_train_step(group=...)``, one worker per rank,
-    4 x 128 tokens a rank, chunk 64, beta 0.1. Each step is timed (host
+    4 x 128 tokens a rank, chunk 64, beta 0.1. ``shared``: the dense
+    warm-up's end, which the group step's dense path (one all-reduce a
+    tensor, whatever the configuration) reaches the same in every run of
+    ``RING_RUNS``: empty, the run fills it; filled, the run starts from its
+    parameters, optimizer state and counters with its own zero residues and
+    takes the compressed steps only. Each step is timed (host
     clock; the gradient pass and each kind of collective inside it between
     device syncs) with the kernels' launches counted; then rank 0 runs the
     single-process stacked step from the same state and the same gradients
@@ -4535,7 +4560,10 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer, schedule
     from repro_torch.optim.optimizer import Optimizer
-    from repro_torch.training import build_train_step, init_train_state, shard_train_state
+    from repro_torch.core.state import ScaleComState
+    from repro_torch.training import (
+        TrainState, build_train_step, init_train_state, shard_train_state,
+    )
     from repro_torch.training import train_step as ts
 
     group = dist.group.WORLD
@@ -4589,7 +4617,15 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
     steps, checks = [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for i in range(run.steps):
+    first = 0
+    if shared:  # the shared warm-up's end, this run's zero residues
+        first = run.warmup
+        state = TrainState(tree.tree_map(torch.clone, shared["params"]),
+                           tree.tree_map(torch.clone, shared["opt_state"]),
+                           ScaleComState(state.sc_state.residues, shared["t"]), shared["step"])
+        for _ in range(first):
+            next(batches)
+    for i in range(first, run.steps):
         mode = "scalecom" if i >= run.warmup else "dense"
         batch_np = next(batches)
         before = (tree.tree_map(torch.clone, state.params),
@@ -4644,6 +4680,10 @@ def ring_train_rank(rank: int, world: int, run: RingRun = RING_TRAIN) -> dict:
             ref_residues = checks[-1].pop("residues")
         last_grads = own_grads[0]
         del before, spy
+        if shared is not None and not shared and i == run.warmup - 1:
+            shared.update(params=tree.tree_map(torch.clone, state.params),
+                          opt_state=tree.tree_map(torch.clone, state.opt_state),
+                          t=state.sc_state.t, step=state.step)
     ts.per_worker_grads, ts.dense_grads = plain_grads
     peak = torch.cuda.max_memory_allocated()
     routes = {k: v - routes0[k] for k, v in frk.fused_select_update.routes.items()}
@@ -4910,21 +4950,19 @@ def ring_kernel_times(residues: dict, grads, run: RingRun, world: int) -> dict:
 
 def ring_dither_times(residues: dict, sc_cfg, run: RingRun, world: int):
     """Device ms and bytes of one step's stochastic-rounding draws on one
-    rank (``train_step._row_dither`` for each compressed tensor: the whole
+    rank (``core.state.row_dither`` for each compressed tensor: the whole
     (G, ...) stack drawn, this rank's row kept); None for a codec that
     rounds to nearest."""
-    from repro_torch.core.state import require_codec
-    from repro_torch.training import train_step as ts
+    from repro_torch.core.state import codec_key, row_dither
 
-    codec = require_codec(run.codec)
     G = run.groups or world
     storages = [(p, (int(enc["q"].shape[-1]),)) for p, enc in sorted(residues.items())]
     # the stored trailing size (padded for fp8_ec) draws the same shape
-    draws = [ts._row_dither(codec, p, 0, G, 0, st, device="cuda") for p, st in storages]
+    draws = [row_dither(run.codec, codec_key(p, 0), G, 0, st, "cuda") for p, st in storages]
     if draws[0] is None:
         return None
     sizes = [d.numel() for d in draws]
-    ms = device_ms(lambda: [ts._row_dither(codec, p, 0, G, 0, st, device="cuda")
+    ms = device_ms(lambda: [row_dither(run.codec, codec_key(p, 0), G, 0, st, "cuda")
                             for p, st in storages], what="[ring] dither draws")
     nbytes = 4 * G * sum(sizes)
     return {"ms": ms, "bytes": nbytes, "row_bytes": 4 * sum(sizes), "bound": bound(nbytes, 0)[0]}
@@ -4934,8 +4972,8 @@ def ring_rank(rank: int, world: int, store: str, conn) -> None:
     """One spawned rank of ``ring_phase``: joins the gloo group through the
     ``file://`` store, runs (a) on the first ``RING_REDUCE_RANKS`` ranks,
     then (b) and every run of ``RING_RUNS`` on all, then ``[tp]``'s
-    ``TP_RUNS`` (``tp_run_rank``), and sends its results to the parent. Any
-    failure exits non-zero."""
+    ``TP_RUNS`` (``tp_run_rank``) and ``TP_CONFIGS`` (``tp_configs_rank``),
+    and sends its results to the parent. Any failure exits non-zero."""
     sys.path.insert(0, SRC)
     import datetime
 
@@ -4954,11 +4992,13 @@ def ring_rank(rank: int, world: int, store: str, conn) -> None:
     torch.cuda.empty_cache()
     out["train"] = ring_train_rank(rank, world)
     out["runs"], out["run_s"] = [], []
+    shared = {}  # the dense warm-up's end, the first run's, for every later run
     for run in RING_RUNS:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        out["runs"].append(ring_train_rank(rank, world, run))
+        out["runs"].append(ring_train_rank(rank, world, run, shared))
         out["run_s"].append(time.perf_counter() - t0)
+    del shared
     # [tp]'s cells in the same warm processes (no second spawn, no second
     # first use of the card's libraries in each)
     out["tp"], out["tp_s"] = [], []
@@ -4967,6 +5007,8 @@ def ring_rank(rank: int, world: int, store: str, conn) -> None:
         t0 = time.perf_counter()
         out["tp"].append(tp_run_rank(rank, run))
         out["tp_s"].append(time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+    out["tp_configs"] = tp_configs_rank(rank)
     conn.send(out)
     conn.close()
     dist.destroy_process_group()
@@ -5012,9 +5054,10 @@ def ring_run_report(run: RingRun, tr: list, seconds: float, card_line: str) -> d
 
     tag = f"[ring:{run.label}] {run.name}"
     checks = tr[0]["checks"]
-    for i in range(run.steps):
-        rows = [x["steps"][i] for x in tr]
-        c = checks[i]
+    for j in range(len(checks)):
+        rows = [x["steps"][j] for x in tr]
+        c = checks[j]
+        i = c["step"]
         step = [x["step_ms"] for x in rows]
         kinds = {k: st.median(x["collective_ms"][k] for x in rows)
                  for k in CollectiveClock.KINDS}
@@ -5220,6 +5263,9 @@ def ring_phase(card_line: str) -> dict:
           + f" (rank 0 also holds the stacked step) on {card_line}")
 
     # the other configurations of the group step
+    print(f"[ring] the runs below after the first start from its dense warm-up step (the group "
+          f"step's dense path, one all-reduce a tensor, is every configuration's), each with "
+          f"its own zero residues, and take their compressed steps")
     for j, run in enumerate(RING_RUNS):
         launches = ring_run_report(run, [results[r]["runs"][j] for r in range(RING_WORLD)],
                                    results[0]["run_s"][j], card_line)
@@ -5227,7 +5273,8 @@ def ring_phase(card_line: str) -> dict:
             ring_launches[k] += launches[k]
     print(f"[ring] launches summed over the ranks and runs {ring_launches}; phase "
           f"{time.perf_counter() - t_phase:.1f} s wall, [tp]'s cells included "
-          f"({results[0]['tp_s'][0] + results[0]['tp_s'][1]:.1f} s on rank 0), on {card_line}")
+          f"({results[0]['tp_s'][0] + results[0]['tp_s'][1]:.1f} s on rank 0, and TP_CONFIGS "
+          f"{tp_configs_seconds(results[0]['tp_configs']):.1f}), on {card_line}")
     return ring_launches, results
 
 
@@ -5327,8 +5374,9 @@ def tp_expected_launches(shards, leader: bool, fused: bool) -> dict:
 def tp_kernel_holds(shards, gen) -> list:
     """Each kernel of the [tp] path on this rank's largest compressed part
     shapes (random inputs), bitwise against its plain version on the card:
-    chunk_argmax, ef_update, chunk_scatter, fused_select_update. Returns
-    [(rows, chunk)] held."""
+    chunk_argmax (a leader's select, and every rank's under local_topk),
+    ef_update, chunk_scatter, fused_select_update on its m + g and on its
+    keyed route (true_topk). Returns [(rows, chunk)] held."""
     import torch
 
     from repro_torch.kernels import chunk_topk as ct, ef_update as ek, fused_reduce as frk
@@ -5352,6 +5400,13 @@ def tp_kernel_holds(shards, gen) -> list:
         want = frk.fused_select_update_plain(m.reshape(-1), g.reshape(-1), BETA, chunk)
         check(all(bitwise(a, b) for a, b in zip(got, want)),
               f"[tp] fused_select_update at ({rows}, {chunk}) differs from its plain version")
+        # the keyed route (true_topk's leader selects on the worker mean)
+        key = torch.randn((rows * chunk,), generator=gen, device="cuda")
+        got = frk.fused_select_update(m.reshape(-1), g.reshape(-1), BETA, chunk, key=key)
+        want = frk.fused_select_update_plain(m.reshape(-1), g.reshape(-1), BETA, chunk, key=key)
+        check(all(bitwise(a, b) for a, b in zip(got, want)),
+              f"[tp] keyed fused_select_update at ({rows}, {chunk}) differs from its plain "
+              f"version")
     return parts
 
 
@@ -5453,9 +5508,9 @@ def tp_run_rank(rank: int, run: TPRun):
             t_sc = state.sc_state.t
             last = mode == "scalecom" and i == len(TP_MODES) - 1 and not fused
 
-            def capture(grads, sc_state, cfg_, layout_):
+            def capture(grads, sc_state, cfg_, layout_, *rest):
                 captured[:] = [tree.tree_map(torch.clone, grads), sc_state]
-                return real_reduce(grads, sc_state, cfg_, layout_)
+                return real_reduce(grads, sc_state, cfg_, layout_, *rest)
 
             if last:
                 ts._tp_reduce = capture
@@ -5630,17 +5685,458 @@ def tp_run_rank(rank: int, run: TPRun):
     return out
 
 
-def tp_phase(card_line: str, results: dict) -> dict:
+# [tp]'s configurations: every compressor, the exact path, the lossy codecs
+# and the reference's pod2 setting (fp8, groups=2, compute_stats) through
+# the tensor-parallel step, paper-transformer-base at full width on (4, 2)
+TP_CONFIG_GRID = (4, 2)
+TP_CODE_STEPS = 1  # a code's largest distance from the stacked step's, in steps of its format
+# the share of a lossy row's codes that may lie further off: each where m' is
+# near zero, its decoded value within TP_RESIDUE_TOL of the stacked row's
+TP_CODES_FAR = 1e-4
+# fp32 m' against the stacked step's: rtol, and atol as a share of the tensor's max |m'|
+TP_RESIDUE_TOL = dict(rtol=1e-5, atol_of_max=1e-5)
+TP_RESIDUE_SEED = 7
+
+
+@dataclasses.dataclass(frozen=True)
+class TPConfig:
+    """One configuration of ``TP_CONFIGS``: a compressed step from the
+    shared dense step's parameters, with seeded random residues in
+    ``codec``."""
+
+    label: str
+    compressor: str = "clt_k"
+    exact: bool = False
+    codec: str = "fp32"
+    groups: int | None = None
+    fused: bool = False
+    stats: bool = False
+
+
+# each compressor and each residue codec once: the codec's encode and decode
+# run beside the reduce and do not depend on which compressor it is
+TP_CONFIGS = (
+    TPConfig("true_topk, bf16", "true_topk", codec="bf16"),
+    TPConfig("true_topk fused, fp8_ec", "true_topk", codec="fp8_ec", fused=True),
+    TPConfig("local_topk, fp8", "local_topk", codec="fp8"),
+    TPConfig("random_k", "random_k"),
+    TPConfig("clt_k exact", exact=True),
+    TPConfig("pod2 fp8 groups=2 stats", codec="fp8", groups=2, stats=True),
+)
+
+
+def tp_config_launches(shards, config: TPConfig, leader: bool) -> dict:
+    """One compressed step's launches on a rank under ``config``: per
+    compressed tensor with a part on it, the select where the rank selects
+    (the leader for clt_k and true_topk, every rank for local_topk, none for
+    random_k) or, fused, the leader's fused_select_update; ef_update where
+    the rank does not run the fused launch; chunk_scatter on every rank; the
+    exact path none (its dense top-k is a sort)."""
+    if config.exact:
+        return dict.fromkeys(("chunk_argmax", "chunk_topm", "chunk_gather", "chunk_scatter",
+                              "ef_update", "fused_reduce", "fused_select_update"), 0)
+    want = tp_expected_launches(shards, leader, config.fused)
+    n_c = want["chunk_scatter"]
+    if config.compressor == "local_topk":
+        want["chunk_argmax"] = n_c
+    elif config.compressor == "random_k":
+        want["chunk_argmax"] = 0
+    return want
+
+
+def code_distance(a, b):
+    """Per element, how many steps of their format two codes of a
+    sign-magnitude float format (e4m3, bf16) lie apart."""
+    import torch
+
+    bits = {1: (torch.uint8, 0x80), 2: (torch.int16, 0x8000)}[a.element_size()]
+
+    def ordered(x):
+        v = x.view(bits[0]).to(torch.int32) & (bits[1] * 2 - 1)
+        mag = v & (bits[1] - 1)
+        return torch.where(v & bits[1] != 0, -mag, mag)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def tp_config_flips(config: TPConfig, key, ghat_tp, ghat_ref, chunk: int, k: int, skip) -> int:
+    """Rank 0: where the tensor-parallel step's logical ĝ has its support
+    elsewhere than the stacked step's, outside ``skip`` (the tensor's mask of
+    elements left out so far, flat, updated here): each such chunk (exact:
+    element) must lie at a near tie of the stacked step's selection key
+    (``key``: the leader's EF, or the mean's, flat; local_topk: every
+    worker's, (n, size)): the key's magnitudes at the step's lanes within
+    ``NEAR_TIE_RTOL`` of the selected ones. random_k draws the same offsets
+    and may differ nowhere. Returns the new flips, which join ``skip``."""
+    import torch
+
+    a, b = ghat_tp.reshape(-1) != 0, ghat_ref.reshape(-1) != 0
+    if config.exact:
+        diff = (a != b) & ~skip
+        if int(diff.sum()):
+            mag = key.reshape(-1).abs()
+            kth = torch.topk(mag, k).values[-1]
+            far = diff & ((mag - kth).abs() > NEAR_TIE_RTOL * kth)
+            check(not bool(far.any()), f"[tp:configs] {config.label}: {int(far.sum())} elements "
+                                       f"in one step's top-k and not the other's far from the "
+                                       f"k-th magnitude")
+        skip |= diff
+        return int(diff.sum())
+    pad = (-a.numel()) % chunk
+    rows = lambda x: torch.nn.functional.pad(x, (0, pad)).view(-1, chunk)  # noqa: E731
+    ca, cb, cs = rows(a), rows(b), rows(skip)
+    flip = (ca != cb).any(dim=1) & ~cs.any(dim=1)
+    n = int(flip.sum())
+    if n:
+        check(config.compressor != "random_k",
+              f"[tp:configs] random_k: {n} chunks drew other offsets than the stacked step")
+        mags = key.reshape(-1, key.shape[-1]).abs() if config.compressor == "local_topk" \
+            else key.reshape(1, -1).abs()
+        mags = torch.nn.functional.pad(mags, (0, pad)).view(mags.shape[0], -1, chunk)[:, flip]
+        top = mags.amax(dim=-1, keepdim=True)
+        lanes = (ca[flip] | cb[flip])[None]  # both steps' selected lanes
+        near = (mags >= (1 - NEAR_TIE_RTOL) * top) | ~lanes
+        check(bool(near.any(dim=0).all()),
+              f"[tp:configs] {config.label}: a chunk selects another lane than the stacked step "
+              f"without a near tie (rtol {NEAR_TIE_RTOL})")
+        cs[flip] = True
+        skip.copy_(cs.reshape(-1)[:skip.numel()])
+    return n
+
+
+def tp_configs_seconds(tc: dict) -> float:
+    """Rank 0's seconds in ``TP_CONFIGS``: the dense step and every
+    configuration."""
+    return tc["dense"]["seconds"] + sum(tc["seconds"])
+
+
+def tp_configs_rank(rank: int):
+    """``TP_CONFIGS`` on this rank of the (4, 2) grid, in ``[ring]``'s warm
+    processes: one dense tensor-parallel step from the init, then for each
+    configuration one compressed step from the dense step's parameters and
+    optimizer state, with residues drawn from ``TP_RESIDUE_SEED`` at the
+    scale of each tensor's dense-step gradient (its RMS), encoded by the
+    stacked codec and cut by ``shard_train_state(mesh=)``. Rank 0 runs the
+    stacked single-process step in the same configuration from the same
+    rows beside it and holds the logical parameters (gathered over its
+    model group) within ``TP_TOL`` outside near-tie chunks
+    (``tp_config_flips``); its residue row (joined from its slices): fp32
+    within ``TP_RESIDUE_TOL`` of the stacked row, a lossy codec's codes
+    within ``TP_CODE_STEPS`` of it but for at most ``TP_CODES_FAR`` of
+    them, whose decoded values lie within ``TP_RESIDUE_TOL``, and fp8's
+    scales within its rtol; and ``contraction_gamma``
+    against the stacked step's.
+    Every rank holds its launches (``tp_config_launches``), that its data
+    group's payload is the plan's share and the shares sum to the plan's
+    bytes. Returns the measurements, and rank 0's kernels at the new
+    routes' shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels, tree
+    from repro_torch.configs import registry
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.plan import plan_shards, plan_tensors
+    from repro_torch.core.scalecom import ScaleComConfig
+    from repro_torch.core.state import CODECS, ScaleComState
+    from repro_torch.data import make_batches
+    from repro_torch.distributed import ring, sharding, slices, tensor_parallel
+    from repro_torch.kernels import chunk_topk as ct, fused_reduce as frk
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import gather_shards
+    from repro_torch.optim import make_optimizer, schedule
+    from repro_torch.optim.optimizer import Optimizer
+    from repro_torch.training import TrainState, build_train_step, init_train_state
+    from repro_torch.training import train_step as ts
+
+    mesh = make_test_mesh(TP_CONFIG_GRID)
+    n, d_index, m_index = TP_CONFIG_GRID[0], mesh.index("data"), mesh.index("model")
+    cfg = registry.arch("paper-transformer-base")
+    model = build_model(cfg, compute_dtype="float32", loss_chunk=64)
+    abstract, axes = model.abstract_params(), model.logical_axes()
+    specs = sharding.specs_for_axes(abstract, axes, "tp", mesh)
+    layout = ts._tp_layout(abstract, axes, mesh)
+    batches = list(make_batches(cfg.vocab, n, 4, 128, seed=0, steps=3))
+    sched, base_opt = schedule.constant(0.05), make_optimizer("sgdm")
+    ghats, ref_grads = [], []
+
+    def spying(opt):
+        def update(grads, state, params, lr):
+            ghats.append(grads)
+            return opt.update(grads, state, params, lr)
+        return Optimizer(opt.init, update)
+
+    def sc_cfg(c: TPConfig):
+        return ScaleComConfig(compressor=CompressorConfig(c.compressor, chunk=CHUNK, exact=c.exact),
+                              beta=BETA, min_size=1024, residue_dtype=c.codec, groups=c.groups,
+                              fused=c.fused, layout="flat")
+
+    def clone(t):
+        return tree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, t)
+
+    t_dense = time.perf_counter()
+    first = TPConfig("dense")
+    state = init_train_state(model, base_opt, sc_cfg(first),
+                             torch.Generator(device="cuda").manual_seed(0), n_workers=n,
+                             device="cuda", mesh=mesh)
+    dense_fn = build_train_step(model, spying(base_opt), sched, sc_cfg(first), n_workers=n,
+                                mode="dense", mesh=mesh)
+    ring.reset_sent()
+    tensor_parallel.reset_sent()
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = dense_fn(state, batches[0])
+    dense_loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    out = {"dense": {"step_ms": (time.perf_counter() - t0) * 1e3, "loss": dense_loss,
+                     "model_bytes": sum(tensor_parallel.sent.values()),
+                     "payload": ring.payload_sent()}, "configs": [], "seconds": []}
+    stacked = None
+    if rank == 0:
+        stacked = init_train_state(model, base_opt, sc_cfg(first),
+                                   torch.Generator(device="cuda").manual_seed(0), n_workers=n,
+                                   device="cuda")
+        stacked, m_ref = build_train_step(model, base_opt, sched, sc_cfg(first), n_workers=n,
+                                          mode="dense")(stacked, batches[0])
+        check(abs(dense_loss - float(m_ref["loss"])) < TP_LOSS_TOL,
+              f"[tp:configs] dense step: loss {dense_loss} against the stacked {m_ref['loss']}")
+    out["dense"]["seconds"] = time.perf_counter() - t_dense
+    # the residues' scale, each compressed tensor's: the RMS of the dense
+    # step's gradient, its slices' squares summed over the model group (a
+    # replicated tensor's counted once), the same on every rank
+    big = [i for i, shape in enumerate(layout.shapes) if math.prod(shape) >= 1024]
+    g_dense = dict(tree.flatten_with_path(ghats[-1]))
+    sq = torch.stack([torch.sum(g_dense[layout.paths[i]].float() ** 2)
+                      / (TP_CONFIG_GRID[1] if layout.dims[i] is None else 1) for i in big])
+    sq = tensor_parallel.all_reduce(sq, mesh.group("model"))
+    sigma = {layout.paths[i]: float(torch.sqrt(v / math.prod(layout.shapes[i])))
+             for i, v in zip(big, sq)}
+    del g_dense
+    ghats.clear()
+    real_grads = ts.per_worker_grads
+
+    def spy_grads(*a, **k):
+        got = real_grads(*a, **k)
+        ref_grads.append(got[2])
+        return got
+
+    for config in TP_CONFIGS:
+        t_config = time.perf_counter()
+        c = sc_cfg(config)
+        G = config.groups or n
+        hier = None if config.groups is None else ring.make_hierarchy(
+            mesh.group("data"), config.groups, lines=mesh.lines("data"))
+        row = d_index if hier is None else hier.index
+        plans = plan_tensors(tuple((p, s, n) for p, s in zip(layout.paths, layout.shapes)), c,
+                             frozenset(sigma))
+        shards = plan_shards(plans, layout.specs, TP_CONFIG_GRID[1], m_index)
+        # the G stacked rows, the same on every rank, and this rank's share
+        gen = torch.Generator(device="cuda").manual_seed(TP_RESIDUE_SEED)
+        rows = {p.path: CODECS[config.codec].encode(
+            sigma[p.path] * torch.randn((G,) + p.storage, generator=gen, device="cuda"),
+            p.storage) for p in plans if not p.dense}
+        share = ts.shard_train_state(TrainState(abstract, {}, ScaleComState(rows, 0), 0),
+                                     mesh=mesh, axes=axes, groups=config.groups)
+        mine = TrainState(clone(state.params), clone(state.opt_state),
+                          ScaleComState(share.sc_state.residues, state.sc_state.t), state.step)
+        del share
+        fn = build_train_step(model, spying(base_opt), sched, c, n_workers=n, mode="scalecom",
+                              mesh=mesh, compute_stats=config.stats)
+        ref = ref_fn = None
+        if rank == 0:
+            ref = TrainState(clone(stacked.params), clone(stacked.opt_state),
+                             ScaleComState(rows, stacked.sc_state.t), stacked.step)
+            ref_fn = build_train_step(model, spying(base_opt), sched, c, n_workers=n,
+                                      mode="scalecom", compute_stats=config.stats)
+        del rows
+        # one compressed step (t = 1): a second step doubled the cell and
+        # pushed the whole script past its time limit
+        skip, flips = {}, 0
+        t_sc = mine.sc_state.t
+        ghats.clear()
+        ring.reset_sent()
+        tensor_parallel.reset_sent()
+        c0 = kernels.launches()
+        v0 = (ct.chunk_argmax.variants["vec4"], ct.chunk_scatter.variants["vec4"])
+        r0 = dict(frk.fused_select_update.routes)
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mine, metrics = fn(mine, batches[1])
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        c1 = kernels.launches()
+        launched = {k: c1[k] - c0[k] for k in c1}
+        vec4 = (ct.chunk_argmax.variants["vec4"] - v0[0],
+                ct.chunk_scatter.variants["vec4"] - v0[1])
+        leader = row == t_sc % G
+        want = tp_config_launches(shards, config, leader)
+        check(launched == want, f"[tp:configs] {config.label} rank {rank}: launches "
+                                f"{launched}, want {want}")
+        check(vec4 == (want["chunk_argmax"], want["chunk_scatter"]),
+              f"[tp:configs] {config.label} rank {rank}: vec4 launches {vec4}")
+        routes = {k: frk.fused_select_update.routes[k] - r0[k] for k in r0}
+        if config.fused:
+            route = "key" if config.compressor == "true_topk" else "sum"
+            check(routes[route] == want["fused_select_update"],
+                  f"[tp:configs] {config.label}: fused_select_update routes {routes}")
+        check(math.isfinite(loss), f"[tp:configs] {config.label}: loss {loss}")
+        model_bytes = sum(tensor_parallel.sent.values())
+        model_calls = sum(tensor_parallel.calls.values())
+        payload, share = ring.payload_sent(), metrics["comm_bytes_per_shard"]
+        table = exchange([d_index, m_index, payload, int(share * 8)], rank, RING_WORLD)
+        for m in range(TP_CONFIG_GRID[1]):
+            got = [t[2] for t in table if t[1] == m]
+            shares = {t[3] for t in table if t[1] == m}
+            check(len(shares) == 1 and sum(got) * 8 == n * shares.pop(),
+                  f"[tp:configs] {config.label}: model rank {m}'s data group sent "
+                  f"{got}, not its share")
+        check(sum({t[1]: t[3] for t in table}.values()) == metrics["comm_bytes_per_worker"] * 8,
+              f"[tp:configs] {config.label}: the shares do not sum to the plan's")
+        # rank 0: the stacked step beside it, and the holds
+        whole = ghat_whole = None
+        if d_index == 0:
+            whole = gather_shards(mine.params, specs, mesh)
+            ghat_whole = gather_shards(ghats[-1], specs, mesh)
+        joined = {}
+        if d_index == 0:  # rank 0's row, joined over its model group
+            joined = {p: slices.join(config.codec, e, layout.slice(layout.paths.index(p)),
+                                     "flat", mesh.group("model"))
+                      for p, e in mine.sc_state.residues.items()}
+        hold = {"step_ms": step_ms, "loss": loss, "payload": payload, "share": share,
+                "planned": metrics["comm_bytes_per_worker"], "model_bytes": model_bytes,
+                "model_calls": model_calls, "launches": launched}
+        if rank == 0:
+            before = ref.sc_state
+            ts.per_worker_grads = spy_grads
+            ghats.clear()
+            ref, m_ref = ref_fn(ref, batches[1])
+            ts.per_worker_grads = real_grads
+            gpw = dict(tree.flatten_with_path(ref_grads.pop()))
+            g_ref = dict(tree.flatten_with_path(ghats[-1]))
+            g_tp = dict(tree.flatten_with_path(ghat_whole))
+            codec = CODECS[config.codec]
+            for plan in plans:
+                if plan.dense:
+                    continue
+                path = plan.path
+                m_rows = codec.decode(before.residues[path], plan.storage)
+                g_rows = gpw[path].reshape(n, -1).to(torch.float32)
+                g_rows = torch.mean(g_rows.reshape(G, n // G, -1), dim=1)
+                ef = m_rows + g_rows
+                key = (ef if config.compressor == "local_topk" else
+                       torch.mean(ef, dim=0) if config.compressor == "true_topk" else
+                       ef[t_sc % G])
+                mask = skip.setdefault(path, torch.zeros(plan.size, dtype=torch.bool,
+                                                         device="cuda"))
+                flips += tp_config_flips(config, key, g_tp[path], g_ref[path], CHUNK,
+                                         plan.k, mask)
+                del m_rows, g_rows, ef, key
+            chunks = sum(p.n_chunks for p in plans if not p.dense)
+            check(flips <= max(8, chunks // 10_000),
+                  f"[tp:configs] {config.label}: {flips} near ties of {chunks}")
+            worst = 0.0
+            for (path, a), b in zip(tree.flatten_with_path(whole),
+                                    tree.leaves(ref.params)):
+                keep = (~skip[path].view(a.shape) if path in skip
+                        else torch.ones_like(a, dtype=torch.bool))
+                check(bool(torch.allclose(a[keep], b[keep], **TP_TOL)),
+                      f"[tp:configs] {config.label}: parameters {path} differ from "
+                      f"the stacked step's beyond rtol {TP_TOL['rtol']} / atol "
+                      f"{TP_TOL['atol']}")
+                worst = max(worst, float((a - b)[keep].abs().max()))
+            check(abs(loss - float(m_ref["loss"])) < TP_LOSS_TOL,
+                  f"[tp:configs] {config.label}: loss {loss} against "
+                  f"{float(m_ref['loss'])}")
+            # the residue row against the stacked step's, outside near ties:
+            # fp32 m' within TP_RESIDUE_TOL; a lossy row's codes within
+            # TP_CODE_STEPS steps of the stacked row's (at most TP_CODES_FAR
+            # of them further, and those decoded within TP_RESIDUE_TOL: the
+            # two passes' gradients round apart, and a near-zero m' spans
+            # many code steps in a small difference) and fp8's scales
+            # within its rtol
+            moved = far = total = 0
+            res_err = scale_err = 0.0
+            rtol, of_max = TP_RESIDUE_TOL["rtol"], TP_RESIDUE_TOL["atol_of_max"]
+            for path, enc in joined.items():
+                plan = next(p for p in plans if p.path == path)
+                ref_enc = {f: x[0:1] for f, x in ref.sc_state.residues[path].items()}
+                keep = ~skip[path]
+                if config.codec == "fp32":
+                    a, b = enc["q"][0][keep], ref_enc["q"][0][keep]
+                    top = float(b.abs().max())
+                    err = (a - b).abs()
+                    check(bool((err <= rtol * b.abs() + of_max * top).all()),
+                          f"[tp:configs] {config.label}: residue {path}: m' beyond rtol {rtol} "
+                          f"/ atol {of_max} of its max {top:.3e} from the stacked row's "
+                          f"(largest difference {float(err.max()):.3e})")
+                    res_err = max(res_err, float(err.max()) / top)
+                    del a, b, err
+                    continue
+                steps = code_distance(enc["q"][0, :plan.size],
+                                      ref_enc["q"][0, :plan.size])[keep]
+                moved += int((steps == 1).sum())
+                apart = steps > TP_CODE_STEPS
+                far += int(apart.sum())
+                total += steps.numel()
+                b = codec.decode(ref_enc, plan.storage)[0][keep]
+                top = float(b.abs().max())
+                b = b[apart]
+                err = (codec.decode(enc, plan.storage)[0][keep][apart] - b).abs()
+                check(bool((err <= rtol * b.abs() + of_max * top).all()),
+                      f"[tp:configs] {config.label}: residue {path}: a code more than "
+                      f"{TP_CODE_STEPS} step from the stacked row's decodes beyond rtol {rtol} / "
+                      f"atol {of_max} of its max {top:.3e} from it")
+                if len(err):
+                    res_err = max(res_err, float(err.max()) / top)
+                if "scale" in enc:
+                    sa, sb = enc["scale"], ref_enc["scale"]
+                    scale_err = max(scale_err, float(((sa - sb).abs() / sb).max()))
+                del steps, apart, b, err
+            check(far <= TP_CODES_FAR * total,
+                  f"[tp:configs] {config.label}: {far:,} of {total:,} residue codes more than "
+                  f"{TP_CODE_STEPS} step from the stacked row's (at most {TP_CODES_FAR:g} of them)")
+            check(scale_err <= rtol, f"[tp:configs] {config.label}: fp8 scales {scale_err:.3e} "
+                                     f"apart from the stacked row's, beyond rtol {rtol}")
+            gamma = None
+            if config.stats:
+                gamma = (float(metrics["contraction_gamma"]),
+                         float(m_ref["contraction_gamma"]))
+                check(abs(gamma[0] - gamma[1]) <= 1e-3 * abs(gamma[1]),
+                      f"[tp:configs] {config.label}: contraction_gamma {gamma[0]} against "
+                      f"the stacked step's {gamma[1]}")
+            hold.update(params_err=worst, flips=flips, codes_moved=moved, codes_far=far,
+                        codes=total, residue_err=res_err, scale_err=scale_err, gamma=gamma)
+            del gpw, g_ref, g_tp, before
+        del whole, ghat_whole, joined
+        out["configs"].append(hold)
+        del mine, fn, ref, ref_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        out["seconds"].append(time.perf_counter() - t_config)
+    if rank == 0:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        out["kernel_shapes"] = tp_kernel_holds(shards, gen)
+    return out
+
+
+
+def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
     """[tp]: prints what the ranks of ``ring_phase``'s spawn measured in
-    ``TP_RUNS`` (``tp_run_rank``, run there after ``RING_RUNS``) and returns
-    the kernels' launches summed over the ranks and passes."""
+    ``runs`` (``TP_RUNS``' cells, ``tp_run_rank``, run there after
+    ``RING_RUNS``) and ``TP_CONFIGS`` (``tp_configs_rank``), and returns the
+    kernels' launches summed over the ranks and passes."""
     import statistics as st
 
     print(f"[tp] {RING_WORLD} ranks ({RING_BACKEND}, one card; [ring]'s processes); each cell "
           f"trains 1 dense + 2 compressed steps (clt_k chunk {CHUNK}, beta {BETA}, min_size "
           f"1024, sgdm, lr 0.05), unfused and then fused, through build_train_step(mesh=...)")
     launches = dict.fromkeys(TP_KERNELS, 0)
-    for j, run in enumerate(TP_RUNS):
+    for j, run in enumerate(runs):
         tr = [results[r]["tp"][j] for r in range(RING_WORLD) if results[r]["tp"][j]]
         tag = run.tag
         checks = tr[0]["checks"]
@@ -5690,6 +6186,57 @@ def tp_phase(card_line: str, results: dict) -> dict:
                            for x in tr)
               + f" (rank 0 also holds the stacked step); {results[0]['tp_s'][j]:.1f} s on rank 0"
               f" on {card_line}")
+    tc = [results[r]["tp_configs"] for r in range(RING_WORLD)]
+    dense = [x["dense"] for x in tc]
+    print(f"[tp:configs] paper-transformer-base {TP_CONFIG_GRID[0]}x{TP_CONFIG_GRID[1]}, 4 x 128 "
+          f"tokens a worker, clt_k chunk {CHUNK} unless named, beta {BETA}, min_size 1024: one "
+          f"dense step (loss {dense[0]['loss']:.4f}; step ms median "
+          f"{st.median(x['step_ms'] for x in dense):.1f}; model axis "
+          f"{st.median(x['model_bytes'] for x in dense) / 1e6:.2f} MB a rank; "
+          f"{dense[0]['seconds']:.1f} s on rank 0 with the stacked step), then one compressed "
+          f"step of each configuration from its parameters, with residues drawn at each "
+          f"tensor's dense-gradient RMS and cut by shard_train_state; on {card_line}")
+    for j, config in enumerate(TP_CONFIGS):
+        rows = [x["configs"][j] for x in tc]
+        h = rows[0]
+        step = [x["step_ms"] for x in rows]
+        held = (f"params max abs err {h['params_err']:.3e} (rtol {TP_TOL['rtol']} / atol "
+                f"{TP_TOL['atol']}) outside {h['flips']} near-tie "
+                f"{'elements' if config.exact else 'chunks'}")
+        if h["codes"]:
+            held += (f", rank 0's residue codes: {h['codes_moved']:,} of {h['codes']:,} one step "
+                     f"from the stacked row's, {h['codes_far']:,} further (at most "
+                     f"{TP_CODES_FAR:g} of them; decoded within {h['residue_err']:.3e} of the "
+                     f"max, rtol {TP_RESIDUE_TOL['rtol']} / atol "
+                     f"{TP_RESIDUE_TOL['atol_of_max']} of it)")
+            if config.codec != "bf16":
+                held += f", fp8 scales within {h['scale_err']:.3e} (rtol {TP_RESIDUE_TOL['rtol']})"
+        else:
+            held += (f", rank 0's m' within {h['residue_err']:.3e} of its max of the stacked "
+                     f"row's (rtol {TP_RESIDUE_TOL['rtol']} / atol "
+                     f"{TP_RESIDUE_TOL['atol_of_max']} of the max)")
+        if h["gamma"] is not None:
+            held += f", contraction_gamma {h['gamma'][0]:.6f} (stacked {h['gamma'][1]:.6f})"
+        print(f"[tp:configs] {config.label}: loss {h['loss']:.4f}; step ms max {max(step):.1f} "
+              f"median {st.median(step):.1f} over {len(rows)} ranks; model axis a rank "
+              f"{st.median(x['model_calls'] for x in rows):.0f} gloo calls, "
+              f"{st.median(x['model_bytes'] for x in rows) / 1e6:.2f} MB (median); data axis "
+              f"payload a rank {st.median(x['payload'] for x in rows) / 1e6:.3f} MB (median), "
+              f"each data group's mean its model rank's share of the plan's "
+              f"{h['planned'] / 1e6:.3f} MB a worker; against the stacked step: {held}; "
+              f"launches as planned on every rank (rank 0: "
+              + (", ".join(f"{k} {v}" for k, v in h["launches"].items() if v) or "none")
+              + f"); on {card_line}")
+        print(f"[tp:configs] {config.label}: {tc[0]['seconds'][j]:.1f} s on rank 0 on {card_line}")
+        for x in rows:
+            for k in launches:
+                launches[k] += x["launches"][k]
+    print(f"[tp:configs] kernels at rank 0's part shapes (rows x chunk) "
+          + ", ".join(f"{r:,} x {c}" for r, c in tc[0]["kernel_shapes"])
+          + ": chunk_argmax (every rank's select under local_topk), ef_update, chunk_scatter, "
+          f"fused_select_update and its keyed route (true_topk's leader) bitwise their plain "
+          f"versions; {tp_configs_seconds(tc[0]):.1f} s on rank 0 in all, on "
+          f"{card_line}")
     print(f"[tp] launches summed over the ranks and passes {launches} on {card_line}")
     return launches
 

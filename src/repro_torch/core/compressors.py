@@ -41,6 +41,7 @@ __all__ = [
     "exact_k",
     "leader_pick",
     "random_draw",
+    "random_offsets",
     "select_indices",
 ]
 
@@ -126,29 +127,36 @@ def _select_true(ef, t: int, cfg: CompressorConfig, backend):
 
 
 def _select_random(ef, t: int, cfg: CompressorConfig, backend):
-    """Shared random offsets for step ``t``, (..., n_chunks[, topm]).
+    """Shared random offsets for step ``t`` over ef's per-worker view."""
+    del backend
+    return random_offsets(t, cfg, tuple(ef.shape[1:]), ef.device)
+
+
+def random_offsets(t: int, cfg: CompressorConfig, work: Sequence[int], device) -> torch.Tensor:
+    """random_k's shared offsets for step ``t`` over a work view ``work`` (the
+    per-tensor dims, chunks along the last): (*work[:-1], n_chunks[, topm]).
 
     When the trailing axis is no chunk multiple, the last chunk holds only
     ``size mod chunk`` real elements: draws are confined to them (topm == 1
     clamps the offset; topm > 1 ranks the past-the-end lanes below every real
     one), so no billed value is dropped from ĝ. Top-m draws are without
-    replacement: the top-m of uniform keys per chunk.
+    replacement: the top-m of uniform keys per chunk. A rank that holds part
+    of a tensor takes its chunks' rows of this draw over the whole tensor.
     """
-    del backend
-    lead = tuple(ef.shape[1:-1])  # per-tensor dims between the worker axis and chunks
-    size, chunk = ef.shape[-1], cfg.chunk
+    lead = tuple(work[:-1])  # per-tensor dims before the chunked axis
+    size, chunk = work[-1], cfg.chunk
     n_ch = num_chunks(size, chunk)
     tail = size - (n_ch - 1) * chunk  # real width of the last chunk
     if cfg.topm == 1:
-        idx = random_draw(t, lead + (n_ch,), ef.device, high=chunk)
+        idx = random_draw(t, lead + (n_ch,), device, high=chunk)
         if tail < chunk:
-            last = torch.arange(n_ch, device=ef.device) == n_ch - 1
+            last = torch.arange(n_ch, device=device) == n_ch - 1
             idx = torch.minimum(idx, torch.where(last, tail - 1, chunk - 1).to(torch.int32))
         return idx
-    r = random_draw(t, lead + (n_ch, chunk), ef.device)
+    r = random_draw(t, lead + (n_ch, chunk), device)
     if tail < chunk:
-        valid = (torch.arange(n_ch, device=ef.device)[:, None] < n_ch - 1) | (
-            torch.arange(chunk, device=ef.device)[None, :] < tail
+        valid = (torch.arange(n_ch, device=device)[:, None] < n_ch - 1) | (
+            torch.arange(chunk, device=device)[None, :] < tail
         )
         r = torch.where(valid, r, -1.0)
     return _top_k(r, cfg.topm)

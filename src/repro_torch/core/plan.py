@@ -276,9 +276,17 @@ class ShardPlan:
                      (chunks of a 1-D view, rows of a rowwise one, elements
                      of a dense tensor), and the parts are gathered over the
                      model axis
-    work:   the view this rank's reduce runs on ((size,), or rows)
-    bounds: [(lo, hi)] per model rank, in units (the "part" route)
-    unit:   elements per unit of ``bounds``
+            "exact"  the exact path (a dense top-k of ``exact_k`` over the
+                     logical tensor, split or not): every rank selects on
+                     the logical tensor, and the k offsets and values go
+                     over the data group in ``bounds``' ranges of them, one
+                     a model rank
+    work:   the view this rank's reduce runs on ((size,), or rows; the
+            exact route's the logical (size,))
+    bounds: [(lo, hi)] per model rank, in units (the "part" and "exact"
+            routes)
+    unit:   elements per unit of ``bounds`` (the exact route's units are
+            offsets)
     n_chunks, k, bytes_payload: this rank's share of the plan's
     """
 
@@ -336,11 +344,12 @@ def _shard_one(plan: TensorPlan, spec, parts: int, index: int) -> ShardPlan:
         lo, hi = bounds[index]
         return ShardPlan(plan, None, "part", local, (hi - lo,), bounds, 1, 0, 0, 4.0 * (hi - lo))
     comp = plan.comp
-    if comp.exact or comp.name != "clt_k":
-        raise ValueError(
-            f"tensor {plan.path!r}: the tensor-parallel reduce runs chunked clt_k; got "
-            f"{comp.name!r}{' exact' if comp.exact else ''} (ROADMAP: the other compressors "
-            f"across model shards)")
+    if comp.exact:
+        bounds = _even(plan.k, parts)
+        lo, hi = bounds[index]
+        c_lo, c_hi = _even(plan.n_chunks, parts)[index]
+        return ShardPlan(plan, dim, "exact", local, plan.work, bounds, 1, c_hi - c_lo, hi - lo,
+                         payload_bytes(comp, hi - lo, plan.groups) if hi > lo else 0.0)
     if dim is not None and _whole_chunks(plan, dim, parts):
         work = (size,) if len(plan.work) == 1 else local
         rows = 1
@@ -371,5 +380,5 @@ def plan_shards(plans, specs, parts: int, index: int) -> Tuple[ShardPlan, ...]:
     ``parts`` ranks: ``specs`` holds the leaves' sharding specs in the same
     order (``distributed.sharding``; the mesh axis "model" splits). Summed
     over the model ranks, the chunks, k and payload bytes are the logical
-    plan's. Raises for a compressed tensor that is not chunked clt_k."""
+    plan's, for every compressor and the exact path."""
     return tuple(_shard_one(p, tuple(s), parts, index) for p, s in zip(plans, specs))

@@ -53,17 +53,24 @@ from repro_torch.device import resolve_device
 __all__ = [
     "ResidueCodec",
     "CODECS",
+    "DITHERED",
+    "FP8_BLOCK",
     "ScaleComState",
+    "bf16_encode",
     "codec_dither",
     "codec_key",
     "codec_roundtrip_error",
     "codec_signature",
+    "fp8_blocks",
+    "fp8_quantize",
+    "fp8_scale",
     "init_state",
     "remap_state",
     "require_codec",
     "residue_bytes",
     "residue_signature",
     "resolve_layout",
+    "row_dither",
     "stochastic_round",
     "storage_shape",
 ]
@@ -76,7 +83,7 @@ _LAYOUTS = ("flat", "rowwise")
 
 _FP8_MAX = 448.0  # e4m3 finite max
 _FP8_ROUND_MAX = 464.0  # larger magnitudes round past 448: NaN in e4m3fn
-_FP8_CHUNK = 512  # flat-layout scale granularity
+FP8_BLOCK = 512  # flat-layout scale granularity
 _SR_SALT = 4  # the JAX package's stochastic-rounding salt
 
 
@@ -172,7 +179,7 @@ def stochastic_round(x: torch.Tensor, dither: torch.Tensor) -> torch.Tensor:
     return _to_bf16(torch.where(finite & torch.isfinite(out), out, f))
 
 
-def _bf16_encode(x: torch.Tensor, key) -> torch.Tensor:
+def bf16_encode(x: torch.Tensor, key) -> torch.Tensor:
     """bf16 of x: nearest for key None, else stochastic with the dither of
     ``key``, a ``codec_key`` or the int32 dither itself."""
     if key is None:
@@ -185,6 +192,24 @@ def _bf16_encode(x: torch.Tensor, key) -> torch.Tensor:
 
 
 # -- codecs ---------------------------------------------------------------------
+
+
+# the field each stochastically rounding codec draws its dither for
+DITHERED = {"bf16": "q", "fp8_ec": "c"}
+
+
+def row_dither(name: str, key: Tuple[str, int], rows: int, row: int, storage: Shape,
+               device) -> Union[torch.Tensor, None]:
+    """Row ``row`` of the dither the stacked reduce draws for ``key`` over
+    all ``rows`` residue rows of a tensor stored as ``storage``, or None for
+    a codec that rounds to nearest. Each rank draws the whole (rows, ...)
+    stack and keeps its row: the draw is not row-addressable, and a rank
+    that drew its own shape would not give the stacked step's codes."""
+    field = DITHERED.get(name)
+    if field is None:
+        return None
+    shape = require_codec(name).init(rows, storage, "meta")[field].shape
+    return codec_dither(key, shape, device)[row:row + 1]
 
 
 class ResidueCodec:
@@ -225,14 +250,35 @@ class _Bf16Codec(ResidueCodec):
 
     def encode(self, m, shape, *, key=None):
         del shape
-        return {"q": _bf16_encode(m, key)}
+        return {"q": bf16_encode(m, key)}
 
     def nbytes(self, n, shape):
         return n * math.prod(shape) * 2
 
 
 def _padded(size: int) -> int:
-    return -(-size // _FP8_CHUNK) * _FP8_CHUNK
+    return fp8_blocks(size) * FP8_BLOCK
+
+
+def fp8_blocks(size: int) -> int:
+    """The flat layout's fp8 scales for ``size`` elements: one a block of
+    ``FP8_BLOCK``, the last padded with zeros."""
+    return -(-size // FP8_BLOCK)
+
+
+def fp8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """The fp32 scale of each block or row whose largest magnitude is
+    ``amax``: amax / 448, and 1 where amax is 0."""
+    # a tensor divisor: PyTorch on the card multiplies by the reciprocal of a
+    # Python scalar, which is not the division JAX does
+    limit = torch.full((), _FP8_MAX, dtype=torch.float32, device=amax.device)
+    return torch.where(amax > 0, amax / limit, 1.0)
+
+
+def fp8_quantize(m: torch.Tensor, per: torch.Tensor) -> torch.Tensor:
+    """The e4m3 codes of fp32 ``m`` at ``per``, each element's scale (or one
+    that broadcasts to m)."""
+    return _to_e4m3(m / per)
 
 
 class _Fp8Codec(ResidueCodec):
@@ -245,7 +291,7 @@ class _Fp8Codec(ResidueCodec):
         shape = tuple(shape)
         if len(shape) == 1:
             p = _padded(shape[0])
-            q_shape, s_shape = (n, p), (n, p // _FP8_CHUNK)
+            q_shape, s_shape = (n, p), (n, p // FP8_BLOCK)
         else:
             q_shape, s_shape = (n,) + shape, (n,) + shape[:-1]
         return {
@@ -257,7 +303,7 @@ class _Fp8Codec(ResidueCodec):
         q, scale = enc["q"], enc["scale"]
         if len(shape) == 1:
             n, p = q.shape
-            x = q.to(torch.float32).reshape(n, -1, _FP8_CHUNK) * scale[..., None]
+            x = q.to(torch.float32).reshape(n, -1, FP8_BLOCK) * scale[..., None]
             return x.reshape(n, p)[:, : shape[0]]
         return q.to(torch.float32) * scale[..., None]
 
@@ -265,22 +311,18 @@ class _Fp8Codec(ResidueCodec):
         del key  # e4m3 stays nearest-rounded; fp8_ec carries the correction
         if len(shape) == 1:
             n, p = m.shape[0], _padded(shape[0])
-            mp = torch.nn.functional.pad(m, (0, p - shape[0])).reshape(n, -1, _FP8_CHUNK)
+            mp = torch.nn.functional.pad(m, (0, p - shape[0])).reshape(n, -1, FP8_BLOCK)
         else:
             mp = m
-        amax = torch.amax(torch.abs(mp), dim=-1)
-        # a tensor divisor: PyTorch on the card multiplies by the reciprocal
-        # of a Python scalar, which is not the division JAX does
-        limit = torch.full((), _FP8_MAX, dtype=torch.float32, device=m.device)
-        scale = torch.where(amax > 0, amax / limit, 1.0)
-        q = _to_e4m3(mp / scale[..., None])
+        scale = fp8_scale(torch.amax(torch.abs(mp), dim=-1))
+        q = fp8_quantize(mp, scale[..., None])
         return {"q": q.reshape(m.shape[0], -1) if len(shape) == 1 else q, "scale": scale}
 
     def nbytes(self, n, shape):
         size = math.prod(shape)
         if len(shape) == 1:
             p = _padded(size)
-            return n * (p + 4 * p // _FP8_CHUNK)
+            return n * (p + 4 * p // FP8_BLOCK)
         return n * (size + 4 * size // shape[-1])
 
 
@@ -306,7 +348,7 @@ class _Fp8EcCodec(_Fp8Codec):
         resid = m - super().decode(enc, shape)
         if len(shape) == 1:
             resid = torch.nn.functional.pad(resid, (0, enc["q"].shape[1] - shape[0]))
-        enc["c"] = _bf16_encode(resid, key)
+        enc["c"] = bf16_encode(resid, key)
         return enc
 
     def nbytes(self, n, shape):

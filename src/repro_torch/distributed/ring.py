@@ -147,15 +147,20 @@ class Hierarchy:
 _HIERARCHIES: dict = {}
 
 
-def make_hierarchy(world, groups: int) -> Hierarchy:
+def make_hierarchy(world, groups: int, lines=None) -> Hierarchy:
     """This rank's two process groups for ``groups`` = G groups over the
     ``world`` group's n ranks (the reference's ``_group_fold``: group i is
     ranks i*n/G .. (i+1)*n/G - 1).
 
-    ``dist.new_group`` is collective: every rank of the world calls this,
-    with the same G, and creates every subgroup in the same order, its own
-    or not. The result is cached per world and G, so later calls create
-    nothing. A G that does not divide n raises ValueError.
+    ``dist.new_group`` is collective: every rank of the default group calls
+    this, with the same G, and creates every subgroup in the same order, its
+    own or not. Where ``world`` is one of several groups of n ranks that
+    build their hierarchies at once (the data lines of a (data x model)
+    grid, one per model index), ``lines`` holds every such group's global
+    ranks, in the same order on every rank: each line's subgroups are
+    created on every rank, line by line. The result is cached per world and
+    G, so later calls create nothing. A G that does not divide n raises
+    ValueError.
     """
     n = world.size()
     if groups < 1 or n % groups:
@@ -165,17 +170,21 @@ def make_hierarchy(world, groups: int) -> Hierarchy:
     hit = _HIERARCHIES.get((id(world), groups))
     if hit is not None and hit[0] is world:
         return hit[1]
-    ranks = dist.get_process_group_ranks(world)
+    mine = dist.get_process_group_ranks(world)
     me, size = dist.get_rank(world), n // groups
     intra = inter = None
-    for i in range(groups):
-        pg = dist.new_group([ranks[i * size + j] for j in range(size)])
-        if me // size == i:
-            intra = pg
-    for j in range(size):
-        pg = dist.new_group([ranks[i * size + j] for i in range(groups)])
-        if me % size == j:
-            inter = pg
+    for ranks in (lines if lines is not None else [mine]):
+        here = list(ranks) == list(mine)
+        for i in range(groups):
+            pg = dist.new_group([ranks[i * size + j] for j in range(size)])
+            if here and me // size == i:
+                intra = pg
+        for j in range(size):
+            pg = dist.new_group([ranks[i * size + j] for i in range(groups)])
+            if here and me % size == j:
+                inter = pg
+    if intra is None:
+        raise ValueError(f"lines {lines} do not hold this rank's world {mine}")
     h = Hierarchy(size=size, index=me // size, intra=intra, inter=inter)
     _HIERARCHIES[(id(world), groups)] = (world, h)
     return h
@@ -349,13 +358,16 @@ def drive(steps):
 
 
 def ring_steps(g_local, m_local, t: int, cfg: CompressorConfig, beta: float, group, backend,
-               fused: bool = False):
+               fused: bool = False, draw=None):
     """Algorithm 1 for one tensor with the collectives of its compressor (the
     module docstring), as a generator of ``Collective`` rounds (``Flight``).
 
     g_local/m_local: this rank's fp32 gradient and residue in the plan's
     trailing-axis work view. ``fused`` (clt_k, true_topk): the leader's
     select and Eq. 5 update are one ``backend.fused_select_update``.
+    ``draw``: random_k's offsets for these rows where they are not the draw
+    over the rows' own shape (rows that are part of a larger tensor take
+    theirs from the whole tensor's draw); None draws over the rows.
     Returns (ghat, m_new, vals, idx): ĝ, identical on every rank; this
     rank's new residue, its values and the offsets it updated at (exact:
     k offsets into the tensor).
@@ -374,7 +386,7 @@ def ring_steps(g_local, m_local, t: int, cfg: CompressorConfig, beta: float, gro
         return torch.mean(dense, dim=0), m_new, vals, idx
     m_new = None
     if cfg.name == "random_k":
-        idx = select_indices(g_local[None], t, cfg, backend)
+        idx = select_indices(g_local[None], t, cfg, backend) if draw is None else draw
     else:
         key = None
         if cfg.name == "true_topk":

@@ -73,10 +73,10 @@ def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
-    """The sum of ``x`` over ``group`` in a new tensor (no autograd),
-    counted in ``sent``."""
-    return _all_reduce(x, group)
+def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="max"``: the maximum) of ``x`` over ``group`` in a new
+    tensor (no autograd), counted in ``sent``."""
+    return _all_reduce(x, group, dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:

@@ -57,6 +57,12 @@ class Mesh:
             raise ValueError(f"mesh {self.shape} is a layout only: it has no process groups")
         return self.groups[axis]
 
+    def lines(self, axis: str) -> Tuple[Tuple[int, ...], ...]:
+        """Every line along ``axis`` as the global ranks on it (the grid over
+        the world's first ranks, row-major), in the order ``make_test_mesh``
+        makes their groups: the same on every rank."""
+        return _lines(self.sizes, self.axis_names.index(axis))
+
     def index(self, axis: str) -> int:
         """This rank's coordinate on ``axis``."""
         if self.coords is None:
@@ -79,6 +85,16 @@ def _rank(coords: Sequence[int], sizes: Sequence[int]) -> int:
     return r
 
 
+def _lines(shape: Sequence[int], a: int) -> Tuple[Tuple[int, ...], ...]:
+    """The ranks of each line along axis ``a`` of the grid ``shape``."""
+    others = [s for i, s in enumerate(shape) if i != a]
+    out = []
+    for rest in range(math.prod(others)):
+        fixed = list(_coords(rest, others))
+        out.append(tuple(_rank(fixed[:a] + [i] + fixed[a:], shape) for i in range(shape[a])))
+    return tuple(out)
+
+
 def make_test_mesh(shape=(4, 2), axes=("data", "model"), *,
                    subset: bool = False) -> Optional[Mesh]:
     """The grid ``shape`` named ``axes`` over the default group's ranks
@@ -99,11 +115,8 @@ def make_test_mesh(shape=(4, 2), axes=("data", "model"), *,
     me = _coords(rank, shape) if rank < world else None
     groups = {}
     for a, name in enumerate(axes):
-        others = [s for i, s in enumerate(shape) if i != a]
-        for rest in range(math.prod(others)):
-            fixed = list(_coords(rest, others))
-            line = [_rank(fixed[:a] + [i] + fixed[a:], shape) for i in range(shape[a])]
-            group = dist.new_group(line)
+        for line in _lines(shape, a):
+            group = dist.new_group(list(line))
             if rank in line:
                 groups[name] = group
     return None if me is None else Mesh(axes, shape, dict(zip(axes, me)), groups)

@@ -13,8 +13,10 @@ bf16 parameter leaves carry across the same way.
 For the tensor-parallel step (``build_train_step(mesh=...)``):
 ``shards_from_jax`` gives a rank its slice of each parameter (under the
 specs of ``distributed.sharding.specs_for_axes``), ``train_state_shard_from_jax``
-its share of a worker-stacked ``TrainState``, and ``gather_shards`` puts the
-ranks' slices back together into the logical tree.
+its share of a worker-stacked ``TrainState`` (any residue codec, ``groups``),
+``train_state_from_shard`` the share back as the logical tree and the rank's
+residue row, and ``gather_shards`` puts the ranks' slices back together into
+the logical tree.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.distributed import sharding
 
 __all__ = ["params_from_jax", "decode_state_from_jax", "decode_state_to_numpy",
            "state_from_jax", "residue_bits", "shards_from_jax", "train_state_shard_from_jax",
-           "gather_shards"]
+           "train_state_from_shard", "gather_shards"]
 
 # numpy dtype name -> (its bits as a numpy dtype, the torch dtype they view as)
 _BY_BITS = {
@@ -113,11 +115,13 @@ def shards_from_jax(params, specs, mesh, device: Union[str, torch.device] = "cud
                                    for p, x in flat])
 
 
-def train_state_shard_from_jax(state, axes, mesh, device: Union[str, torch.device] = "cuda"):
+def train_state_shard_from_jax(state, axes, mesh, device: Union[str, torch.device] = "cuda",
+                               groups=None):
     """A worker-stacked ``repro.training.TrainState`` (params, an optimizer
-    state of params-like trees, fp32 residues) -> this rank's share for the
-    tensor-parallel step, as ``training.shard_train_state(mesh=...,
-    axes=...)`` gives it from the port's own."""
+    state of params-like trees, residues in any codec, G rows of them with
+    ``groups=G``) -> this rank's share for the tensor-parallel step, as
+    ``training.shard_train_state(mesh=..., axes=..., groups=...)`` gives it
+    from the port's own."""
     from repro_torch.training.train_step import TrainState, shard_train_state
 
     dev = resolve_device(device)
@@ -125,12 +129,39 @@ def train_state_shard_from_jax(state, axes, mesh, device: Union[str, torch.devic
                        {k: params_from_jax(v, "cpu") if isinstance(v, dict) else int(np.asarray(v))
                         for k, v in state.opt_state.items()},
                        state_from_jax(state.sc_state, "cpu"), int(np.asarray(state.step)))
-    mine = shard_train_state(whole, mesh=mesh, axes=axes)
+    mine = shard_train_state(whole, mesh=mesh, axes=axes, groups=groups)
     move = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x  # noqa: E731
     return TrainState(tree.tree_map(move, mine.params), tree.tree_map(move, mine.opt_state),
                       ScaleComState({p: {k: v.to(dev) for k, v in e.items()}
                                      for p, e in mine.sc_state.residues.items()},
                                     mine.sc_state.t), mine.step)
+
+
+def train_state_from_shard(local, specs, mesh):
+    """The inverse of ``train_state_shard_from_jax`` on this rank: its share
+    -> the logical parameters and optimizer state (``gather_shards``) and
+    its residue row (its worker's, or its group's) in the stacked codec's
+    fields and (1, *storage) shapes (``distributed.slices.join``; flat fp8
+    padded with zero codes; each residue's layout read off its storage,
+    ``slices.infer_layout``), for ``residue_bits`` to compare with the
+    reference's row. Collective over the mesh groups that split a tensor;
+    ``specs``: the parameters' tp specs (``sharding.specs_for_axes``)."""
+    from repro_torch.distributed import slices
+    from repro_torch.training.train_step import TrainState
+
+    params = gather_shards(local.params, specs, mesh)
+    opt_state = {k: gather_shards(v, specs, mesh) if isinstance(v, dict) else v
+                 for k, v in local.opt_state.items()}
+    by_path = dict(tree.flatten_with_path(specs))
+    shapes = {p: tuple(x.shape) for p, x in tree.flatten_with_path(params)}
+    parts, residues = mesh.shape["model"], {}
+    for path, enc in local.sc_state.residues.items():
+        split = [d for d, ax in sharding.split_dims(by_path[path]) if ax == "model"]
+        sl = slices.Slice(shapes[path], split[0] if split and parts > 1 else None, parts,
+                          mesh.index("model"))
+        residues[path] = slices.join(slices.codec_name(enc), enc, sl,
+                                     slices.infer_layout(enc, shapes[path]), mesh.group("model"))
+    return TrainState(params, opt_state, ScaleComState(residues, local.sc_state.t), local.step)
 
 
 def gather_shards(local, specs, mesh):

@@ -54,13 +54,16 @@ from repro_torch.core import overlap
 from repro_torch.core.overlap import resolve_bucket_bytes
 from repro_torch.core import state as state_codecs
 from repro_torch.core.metrics import hamming_distance_topk, spearman_rho, topk_overlap
-from repro_torch.core.plan import plan_shards, plan_tensors
+from repro_torch.core import compressors
+from repro_torch.core.filter import lowpass_update
+from repro_torch.core.plan import _even, plan_shards, plan_tensors
 from repro_torch.core.scalecom import _SIMILARITY_KEYS, ScaleComConfig, _const, scalecom_reduce
 from repro_torch.core.state import (
-    ScaleComState, codec_key, codec_signature, init_state, require_codec, residue_signature,
+    ScaleComState, codec_key, codec_signature, init_state, require_codec, resolve_layout,
+    residue_signature,
 )
 from repro_torch.device import fp32_accumulation
-from repro_torch.distributed import tensor_parallel
+from repro_torch.distributed import slices, tensor_parallel
 from repro_torch.distributed.ring import (
     Collective, Flight, all_reduce_mean, drive, group_fold, make_hierarchy, ring_steps,
 )
@@ -175,23 +178,6 @@ def dense_grads(model, params, batch, tp=None):
     grads = torch.autograd.grad(loss, tree.leaves(pg))
     return (loss.detach(), {k: v.detach() for k, v in aux.items()},
             tree.unflatten(params, list(grads)))
-
-
-# the field each stochastically rounding codec draws its dither for
-_DITHERED = {"bf16": "q", "fp8_ec": "c"}
-
-
-def _row_dither(codec, path: str, t: int, rows: int, row: int, storage, device):
-    """Row ``row`` of the dither the stacked reduce draws for ``(path, t)``
-    over all ``rows`` residue rows, or None for a codec that rounds to
-    nearest. Each rank draws the whole (rows, ...) stack and keeps its row:
-    the draw is not row-addressable, and a rank that drew its own shape
-    would not give the stacked step's codes."""
-    field = _DITHERED.get(codec.name)
-    if field is None:
-        return None
-    shape = codec.init(rows, storage, "meta")[field].shape
-    return state_codecs.codec_dither(codec_key(path, t), shape, device)[row:row + 1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,8 +315,8 @@ def _leaf_steps(plan, g: torch.Tensor, enc, ctx: _GroupCtx):
     ghat, m_new, vals, idx = out
     new_enc = ctx.codec.encode(
         m_new.reshape((1,) + plan.storage), plan.storage,
-        key=_row_dither(ctx.codec, plan.path, ctx.t, plan.groups, ctx.row, plan.storage,
-                        g.device))
+        key=state_codecs.row_dither(ctx.codec.name, codec_key(plan.path, ctx.t), plan.groups,
+                                    ctx.row, plan.storage, g.device))
     ghat = ghat.reshape(plan.shape)
     sums = None
     if ctx.want_ef:
@@ -467,9 +453,8 @@ def _group_mean(loss: torch.Tensor, auxs: Dict, group) -> Tuple[torch.Tensor, Di
 # what the tensor-parallel step does not run yet, and the ROADMAP queue item
 # that takes it up
 _TP_LATER = {
-    "compressor": "1, the other compressors across model shards",
-    "codec": "2, the lossy codecs and groups",
-    "groups": "2, the lossy codecs and groups",
+    "buckets": "2b, buckets and telemetry under tp",
+    "telemetry": "2b, buckets and telemetry under tp",
 }
 
 
@@ -500,6 +485,11 @@ class _TPLayout:
     def model(self):
         return self.mesh.group("model")
 
+    def slice(self, i: int) -> slices.Slice:
+        """Leaf ``i``'s slice on this rank."""
+        return slices.Slice(self.shapes[i], self.dims[i], self.mesh.shape["model"],
+                            self.mesh.index("model"))
+
 
 def _tp_layout(abstract, axes, mesh) -> _TPLayout:
     """The layout of a parameter tree (tensors or ``meta`` shapes, logical)
@@ -509,8 +499,7 @@ def _tp_layout(abstract, axes, mesh) -> _TPLayout:
     specs = tree.leaves(spec_tree)
     flat = tree.flatten_with_path(abstract)
     split = mesh.shape["model"] > 1
-    dims = tuple(next((d for d, ax in enumerate(s) if ax == "model"), None) if split else None
-                 for s in specs)
+    dims = tuple(_split_dim(s) if split else None for s in specs)
     axis = tensor_parallel.ModelAxis(mesh.group("model"), mesh.index("model"),
                                      mesh.shape["model"],
                                      split_axes(spec_tree, axes) if split else frozenset())
@@ -518,8 +507,11 @@ def _tp_layout(abstract, axes, mesh) -> _TPLayout:
                      tuple(specs), dims, axis)
 
 
-def _tp_check(model, sc_cfg: ScaleComConfig, mode: str, compute_stats: bool, mesh,
-              n_workers: int, group) -> None:
+def _split_dim(spec) -> Optional[int]:
+    return next((d for d, ax in enumerate(spec) if ax == "model"), None)
+
+
+def _tp_check(model, sc_cfg: ScaleComConfig, mode: str, mesh, n_workers: int, group) -> None:
     """Raises, naming it, for what the tensor-parallel step does not run."""
     if group is not None:
         raise ValueError("pass the grid as mesh= (its data group is the workers' group), "
@@ -531,18 +523,37 @@ def _tp_check(model, sc_cfg: ScaleComConfig, mode: str, compute_stats: bool, mes
         raise ValueError(f"n_workers ({n_workers}) must equal the grid's data size "
                          f"({mesh.shape['data']}): the ranks of one data index are one worker")
     require_tp_family(model.cfg)
-    if mode != "scalecom":
-        return
-    comp = sc_cfg.compressor
-    if comp.name != "clt_k" or comp.exact:
-        _tp_refuse(f"compressor {comp.name!r}{' exact' if comp.exact else ''}", "compressor")
-    if sc_cfg.residue_dtype != "fp32":
-        _tp_refuse(f"residue_dtype {sc_cfg.residue_dtype!r}", "codec")
-    if sc_cfg.groups is not None:
-        _tp_refuse(f"groups={sc_cfg.groups}", "groups")
-    if sc_cfg.telemetry or compute_stats:
-        raise ValueError("the tensor-parallel train step does not run telemetry or "
-                         "compute_stats (ROADMAP, sharded step)")
+    if mode == "scalecom" and sc_cfg.telemetry:
+        _tp_refuse("telemetry", "telemetry")
+
+
+@dataclasses.dataclass(frozen=True)
+class _TPCtx:
+    """What every tensor of one tensor-parallel reduce shares."""
+
+    codec: str
+    layout: str  # the residues' chunk layout, resolved
+    beta: float
+    t: int
+    backend: Any
+    fused: bool
+    across: Any  # the data group, or with groups its inter group: the compressor's reduce
+    hierarchy: Any
+    row: int  # this rank's residue row among the stacked step's
+    mesh: Any
+    want_ef: bool  # compute_stats: the worker-mean EF for contraction gamma
+
+    @property
+    def model(self):
+        return self.mesh.group("model")
+
+    @property
+    def index(self) -> int:
+        return self.mesh.index("model")
+
+    @property
+    def parts(self) -> int:
+        return self.mesh.shape["model"]
 
 
 def _gather_parts(part: torch.Tensor, sizes, group) -> torch.Tensor:
@@ -556,66 +567,206 @@ def _gather_parts(part: torch.Tensor, sizes, group) -> torch.Tensor:
     return torch.cat([rows[i, :n] for i, n in enumerate(sizes)])
 
 
-def _tp_leaf(sp, g: torch.Tensor, enc, layout: _TPLayout, t: int, beta: float, backend,
-             fused: bool):
-    """One tensor of the tensor-parallel reduce on this rank (``ShardPlan``
-    ``sp``): (ĝ of its slice, its new residue slice or None)."""
-    plan, data, model = sp.plan, layout.data, layout.model
-    n = data.size()
-    gw = g[0].to(torch.float32)
-    if sp.route == "dense":
-        return all_reduce_mean(gw, data).to(g.dtype), None
-    comp = plan.comp
-    use_fused = fused and comp is not None and comp.name in FUSABLE_MODES
-    local_store = enc["q"].shape[1:] if enc is not None else None
-    if sp.route == "local":
-        m = enc["q"].reshape(sp.work)
-        ghat, m_new, _, _ = drive(ring_steps(gw.reshape(sp.work), m, t, comp, beta, data,
-                                             backend, use_fused))
-        return ghat.reshape(sp.local_shape).to(g.dtype), {"q": m_new.reshape((1,) + local_store)}
+def _gather_cols(part: torch.Tensor, sizes, group) -> torch.Tensor:
+    """``_gather_parts`` of (n, sizes[i]) columns: the (n, sum(sizes))
+    concatenation along the last dim."""
+    n = part.shape[0]
+    flat = _gather_parts(part.t().contiguous(), [s * n for s in sizes], group)
+    return flat.reshape(-1, n).t()
 
-    # "part": this rank's units of the logical tensor, then every rank's parts
+
+def _stat_sums(ef: torch.Tensor, ghat: torch.Tensor, ctx: _TPCtx) -> torch.Tensor:
+    """(||ef_mean - ĝ||², ||ef_mean||²) over this rank's elements: the
+    worker-mean EF all-reduced over the compressor's group
+    (``sent["stats"]``)."""
+    ef_mean = all_reduce_mean(ef, ctx.across, "stats")
+    return torch.stack([torch.sum((ef_mean - ghat) ** 2), torch.sum(ef_mean**2)])
+
+
+def _tp_draw(sp, sl: slices.Slice, ctx: _TPCtx, device) -> torch.Tensor:
+    """random_k's offsets at this rank's chunks: the draw over the logical
+    tensor's work view (``compressors.random_offsets``), the rows of the
+    rank's chunks ("local": its slice's, "part": its range's)."""
+    plan = sp.plan
+    whole = compressors.random_offsets(ctx.t, plan.comp, plan.work, device)
+    tail = tuple(whole.shape[len(plan.work):])  # (topm,) past top-1
+    if sp.route == "part":  # its range of chunks (flat) or of rows (rowwise)
+        lo, hi = sp.bounds[ctx.index]
+        return whole.flatten(0, max(0, len(plan.work) - 2))[lo:hi]
+    if len(plan.work) == 1:  # flat: the slice's runs of whole chunks
+        outer = math.prod(plan.shape[:sp.dim])
+        runs = whole.reshape((outer, ctx.parts, -1) + tail)[:, ctx.index]
+        return runs.reshape((-1,) + tail).contiguous()
+    if sp.dim < len(plan.shape) - 1:  # rowwise: whole rows
+        return sl.cut(whole).contiguous()
+    per = sp.local_shape[-1] // plan.comp.chunk  # rowwise: runs of whole chunks a row
+    return whole.narrow(len(plan.shape) - 1, ctx.index * per, per).contiguous()
+
+
+def _tp_run(sp, sl, work: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
+    """The compressor's reduce (``ring.ring_steps``) over the compressor's
+    group on this rank's rows ``work`` of the logical work view: (ĝ, m',
+    the stats' partial sums or None)."""
+    comp = sp.plan.comp
+    draw = _tp_draw(sp, sl, ctx, work.device) if comp.name == "random_k" else None
+    ghat, m_new, _, _ = drive(ring_steps(work, m, ctx.t, comp, ctx.beta, ctx.across,
+                                         ctx.backend, ctx.fused and comp.name in FUSABLE_MODES,
+                                         draw=draw))
+    return ghat, m_new, _stat_sums(m + work, ghat, ctx) if ctx.want_ef else None
+
+
+def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
+    """The exact path (``comp.exact``) for this rank's slice, as a round
+    generator: the logical EF gathered over the model group, the dense
+    top-k of ``exact_k`` over it (``compressors._top_k``, ties to the lower
+    logical offset, as ``ring._exact_steps`` and the stacked path take it),
+    and the offsets and values over the compressor's group in this model
+    rank's range of the k (``sp.bounds``), the ranges gathered back over the
+    model group. clt_k: the leader's top-k; true_topk: the top-k of the
+    oracle's mean (all-reduced part by part: the slice, or of a replicated
+    tensor a range of it); random_k: the shared draw; local_topk: each
+    rank's own, all_gathered. Returns (ĝ slice, m' slice, the stats'
+    partial sums or None, the k logical offsets this rank updated at)."""
+    plan, comp = sp.plan, sp.plan.comp
+    model, group = ctx.model, ctx.across
+    n, me, size, k = group.size(), dist.get_rank(group), plan.size, plan.k
+    lo, hi = sp.bounds[ctx.index]
+    sizes = [b - a for a, b in sp.bounds]
+    ef = m + gw
+    dev = ef.device
+    if sp.dim is None:  # a replicated tensor: its own part is a range of elements
+        ranges = _even(size, ctx.parts)
+        a, b = ranges[ctx.index]
+
+        def own(x):
+            return x.reshape(-1)[a:b]
+
+        def whole(x_own):
+            return _gather_parts(x_own, [hi_ - lo_ for lo_, hi_ in ranges], model)
+
+        ef_whole = ef.reshape(-1)
+    else:
+        def own(x):
+            return x.reshape(-1)
+
+        def whole(x_own):
+            return tensor_parallel.all_gather(x_own.reshape(sp.local_shape), sp.dim,
+                                              model).reshape(-1)
+
+        ef_whole = whole(ef)
+
+    def mine(x):  # the logical tensor, flat -> this rank's slice
+        return sl.cut(x.reshape(plan.shape))
+
+    if comp.name == "local_topk":
+        idx = compressors._top_k(ef_whole.abs(), k)
+        vals = ef_whole[idx.long()]
+        if hi > lo:
+            got_idx, got_vals = yield [Collective("all_gather", idx[lo:hi], group, "indices"),
+                                       Collective("all_gather", vals[lo:hi], group, "values")]
+        else:
+            got_idx = idx.new_zeros((n, 0))
+            got_vals = vals.new_zeros((n, 0))
+        dense = torch.zeros((n, size), dtype=ef.dtype, device=dev)
+        dense = dense.scatter(1, _gather_cols(got_idx, sizes, model).long(),
+                              _gather_cols(got_vals, sizes, model))
+        ghat = torch.mean(dense, dim=0)
+    else:
+        if comp.name == "random_k":
+            idx = compressors._top_k(compressors.random_draw(ctx.t, (size,), dev), k)
+        else:
+            leader = int(ctx.t) % n
+            key = ef_whole
+            if comp.name == "true_topk":
+                (total,) = yield [Collective("all_reduce", own(ef), group, "oracle", pack=False)]
+                key = whole(total / n) if me == leader else None
+            part = (compressors._top_k(key.abs(), k)[lo:hi] if me == leader else
+                    torch.empty(hi - lo, dtype=torch.int32, device=dev))
+            if hi > lo:
+                (part,) = yield [Collective("broadcast", part, group, "indices", src=leader)]
+            idx = _gather_parts(part, sizes, model)
+        vals = ef_whole[idx.long()]
+        total = vals[lo:hi]
+        if hi > lo:
+            (total,) = yield [Collective("all_reduce", total, group, "values")]
+        ghat = torch.zeros(size, dtype=ef.dtype, device=dev)
+        ghat[idx.long()] = _gather_parts(total / n, sizes, model)
+    own_dense = torch.zeros(size, dtype=ef.dtype, device=dev).scatter(0, idx.long(), vals)
+    m_new = lowpass_update(m, gw, mine(own_dense), ctx.beta)
+    sums = None
+    if ctx.want_ef:
+        sums = _stat_sums(own(ef) if sp.dim is None else ef.reshape(-1),
+                          own(ghat) if sp.dim is None else mine(ghat).reshape(-1), ctx)
+    return mine(ghat), m_new, sums, idx
+
+
+def _tp_leaf(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
+    """One tensor of the tensor-parallel reduce on this rank (``ShardPlan``
+    ``sp``): (ĝ of its slice, its new residue slice or None, the stats'
+    partial sums or None). With a hierarchy the gradient is averaged over
+    the rank's group first (``ring.group_fold``, on the slice)."""
+    plan = sp.plan
+    gw = g[0].to(torch.float32)
+    if ctx.hierarchy is not None:
+        gw = drive(group_fold(gw, ctx.hierarchy))
+    if sp.route == "dense":
+        return all_reduce_mean(gw, ctx.across).to(g.dtype), None, None
+    model, index = ctx.model, ctx.index
+
     def whole(x):  # this rank's slice -> the logical tensor, flat
         x = x.reshape(sp.local_shape)
         if sp.dim is not None:
             x = tensor_parallel.all_gather(x, sp.dim, model)
         return x.reshape(-1)
 
-    index = layout.mesh.index("model")
-
     def mine(x):  # the logical tensor, flat -> this rank's slice
-        x = x.reshape(plan.shape)
-        if sp.dim is None:
-            return x
-        width = sp.local_shape[sp.dim]
-        return x.narrow(sp.dim, index * width, width).contiguous()
+        return sl.cut(x.reshape(plan.shape)).contiguous()
 
-    ranges = [(lo * sp.unit, min(hi * sp.unit, plan.size)) for lo, hi in sp.bounds]
-    sizes = [max(0, b - a) for a, b in ranges]
-    start = ranges[index][0]
-    part = whole(gw)[start:start + sizes[index]]
-    if plan.dense:
-        ghat = all_reduce_mean(part, data)
-        return mine(_gather_parts(ghat, sizes, model)).to(g.dtype), None
-    m = whole(enc["q"])[start:start + part.numel()]
-    if part.numel():
-        ghat, m_new, _, _ = drive(ring_steps(part.reshape(sp.work), m.reshape(sp.work), t, comp,
-                                             beta, data, backend, use_fused))
-    else:
-        ghat, m_new = part, m
-    ghat = mine(_gather_parts(ghat, sizes, model))
-    m_new = mine(_gather_parts(m_new, sizes, model))
-    return ghat.to(g.dtype), {"q": m_new.reshape((1,) + local_store)}
+    if sp.route == "part":  # every rank's elements of the logical tensor, in order
+        ranges = [(lo * sp.unit, min(hi * sp.unit, plan.size)) for lo, hi in sp.bounds]
+        sizes = [max(0, b - a) for a, b in ranges]
+        start = ranges[index][0]
+    if plan.dense:  # replicated: its element range, gathered
+        ghat = all_reduce_mean(whole(gw)[start:start + sizes[index]], ctx.across)
+        return mine(_gather_parts(ghat, sizes, model)).to(g.dtype), None, None
+    m = slices.decode(ctx.codec, enc, sl, ctx.layout).reshape(sp.local_shape)
+    if sp.route == "exact":
+        ghat, m_new, sums, _ = drive(_tp_exact_steps(sp, sl, gw, m, ctx))
+    elif sp.route == "local":
+        ghat, m_new, sums = _tp_run(sp, sl, gw.reshape(sp.work), m.reshape(sp.work), ctx)
+    else:  # "part": this rank's units of the logical tensor, then every rank's parts
+        part = whole(gw)[start:start + sizes[index]]
+        m_part = whole(m)[start:start + sizes[index]]
+        if part.numel():
+            ghat, m_new, sums = _tp_run(sp, sl, part.reshape(sp.work), m_part.reshape(sp.work),
+                                        ctx)
+        else:
+            ghat, m_new, sums = part, m_part, None
+        ghat = mine(_gather_parts(ghat, sizes, model))
+        m_new = mine(_gather_parts(m_new, sizes, model))
+    store = (1,) + tuple(enc["q"].shape[1:])
+    dither = slices.row_dither(ctx.codec, codec_key(plan.path, ctx.t), plan.groups, ctx.row, sl,
+                               ctx.layout, g.device)
+    new_enc = slices.encode(ctx.codec, m_new.reshape(store), sl, ctx.layout, dither, model)
+    return ghat.reshape(sp.local_shape).to(g.dtype), new_enc, sums
 
 
-def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _TPLayout):
+def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _TPLayout,
+               hierarchy=None, compute_stats: bool = False):
     """Algorithm 1 over this rank's (1, *slice) gradients on a (data x model)
     grid: the plan of each logical tensor (``plan_tensors`` at n = the data
-    size) mapped onto the rank (``plan_shards``), each tensor's part
-    reduced over the data group, the parts of a "part" tensor gathered over
-    the model group. Returns (ghat, new_state, stats): ``comm_bytes_per_
-    worker`` and ``comm_bytes_dense`` are the logical plan's (the stacked
-    step's), ``comm_bytes_per_shard`` this rank's share of the first."""
+    size, G = ``sc_cfg.groups`` or n) mapped onto the rank (``plan_shards``),
+    each tensor's part reduced over the data group (with ``hierarchy``: a
+    mean over the rank's group, then the compressor's reduce over its inter
+    group), the parts of a "part" tensor gathered over the model group, the
+    exact path's offsets and values in ranges of its k; the rank's residue
+    slice decoded and m' encoded in any codec (``distributed.slices``).
+    Returns (ghat, new_state, stats): ``comm_bytes_per_worker`` and
+    ``comm_bytes_dense`` are the logical plan's (the stacked step's),
+    ``comm_bytes_per_shard`` this rank's share of the first, and with
+    ``compute_stats`` ``contraction_gamma`` over the logical tensors (each
+    rank's partial sums over the elements it reduces, summed over the model
+    group in one all-reduce)."""
     n = layout.data.size()
     flat = tree.flatten_with_path(grads)
     if tuple(p for p, _ in flat) != layout.paths:
@@ -624,31 +775,42 @@ def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _
                          frozenset(sc_state.residues))
     shards = plan_shards(plans, layout.specs, layout.mesh.shape["model"],
                          layout.mesh.index("model"))
-    for sp, (path, g) in zip(shards, flat):
+    codec, lay = sc_cfg.residue_dtype, resolve_layout(sc_cfg.layout)
+    for i, (sp, (path, g)) in enumerate(zip(shards, flat)):
         if tuple(g.shape[1:]) != sp.local_shape:
             raise ValueError(f"gradient {path!r} is {tuple(g.shape[1:])}, this rank's slice of "
                              f"{sp.plan.shape} is {sp.local_shape} (shard_train_state)")
         if not sp.plan.dense:
-            q = sc_state.residues[path]["q"]
-            want = (1,) + ((math.prod(sp.local_shape),) if len(sp.plan.storage) == 1
-                           else sp.local_shape)
-            if tuple(q.shape) != want or q.dtype != torch.float32:
-                raise ValueError(f"residue {path!r} holds {tuple(q.shape)} {q.dtype}, want this "
-                                 f"rank's fp32 slice {want} (shard_train_state)")
+            enc = sc_state.residues[path]
+            got = tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in enc.items()))
+            want = slices.signature(codec, layout.slice(i), lay)
+            if got != want:
+                raise ValueError(f"residue {path!r} holds {got}, want this rank's {codec} slice "
+                                 f"{want} (shard_train_state)")
     device = flat[0][1].device
-    backend = resolve_backend(sc_cfg.backend, device)
-    fused = resolve_fused(sc_cfg.fused)
+    ctx = _TPCtx(codec=codec, layout=lay, beta=sc_cfg.beta, t=sc_state.t,
+                 backend=resolve_backend(sc_cfg.backend, device), fused=resolve_fused(sc_cfg.fused),
+                 across=layout.data if hierarchy is None else hierarchy.inter,
+                 hierarchy=hierarchy,
+                 row=layout.mesh.index("data") if hierarchy is None else hierarchy.index,
+                 mesh=layout.mesh, want_ef=compute_stats)
     new_residues = dict(sc_state.residues)
-    ghat_leaves = []
-    for sp, (path, g) in zip(shards, flat):
-        ghat, new_enc = _tp_leaf(sp, g, sc_state.residues.get(path), layout, sc_state.t,
-                                 sc_cfg.beta, backend, fused)
+    ghat_leaves, sums = [], []
+    for i, (sp, (path, g)) in enumerate(zip(shards, flat)):
+        ghat, new_enc, part = _tp_leaf(sp, g, sc_state.residues.get(path), ctx, layout.slice(i))
         ghat_leaves.append(ghat)
         if new_enc is not None:
             new_residues[path] = new_enc
+        if part is not None:
+            sums.append(part)
     stats = {"comm_bytes_per_worker": sum(p.bytes_payload for p in plans),
              "comm_bytes_dense": sum(p.bytes_dense for p in plans),
              "comm_bytes_per_shard": sum(sp.bytes_payload for sp in shards)}
+    if compute_stats:
+        total = (torch.sum(torch.stack(sums), dim=0) if sums else
+                 torch.zeros(2, dtype=torch.float32, device=device))
+        total = tensor_parallel.all_reduce(total, layout.model)
+        stats["contraction_gamma"] = total[0] / torch.clamp_min(total[1], 1e-30)
     return (tree.unflatten(grads, ghat_leaves),
             ScaleComState(residues=new_residues, t=sc_state.t + 1), stats)
 
@@ -730,19 +892,23 @@ def build_train_step(
     logical tensor and runs over the data group on the rank's part of it
     (``_tp_reduce``); the loss and auxs are averaged over the data group;
     ``grad_norm`` is the logical gradient's; the dense mode all-reduces
-    each slice over the data group. It runs chunked clt_k, fused or not,
-    with fp32 residues, and ``mode="dense"``; any other compressor, codec,
-    ``groups``, buckets, telemetry, ``compute_stats`` or model family
-    raises, naming it.
+    each slice over the data group. It runs what the reference's sharded
+    step runs: every compressor, chunked or exact, fused or not, every
+    residue codec (``distributed.slices``), ``groups`` (the hierarchies of
+    every data line, built on every rank: ``ring.make_hierarchy(lines=)``)
+    and ``compute_stats``, and ``mode="dense"``. Buckets, telemetry and
+    the families other than dense and vlm raise, naming their ROADMAP item.
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if mesh is not None:
-        _tp_check(model, sc_cfg, mode, compute_stats, mesh, n_workers, group)
+        _tp_check(model, sc_cfg, mode, mesh, n_workers, group)
         layout = _tp_layout(model.abstract_params(), model.logical_axes(), mesh)
         row = mesh.index("data")
+        hierarchy = (None if sc_cfg.groups is None else
+                     make_hierarchy(layout.data, sc_cfg.groups, lines=mesh.lines("data")))
     elif group is not None:
         if n_workers != group.size():
             raise ValueError(
@@ -771,15 +937,17 @@ def build_train_step(
         _check_lead(batch, n_workers)
         batch = {k: v[row:row + 1] for k, v in batch.items()}
         if mode == "scalecom" and resolve_bucket_bytes(buckets, sc_cfg.bucket_bytes) is not None:
-            raise ValueError("the tensor-parallel train step runs unbucketed (buckets=None with "
-                             "$SCALECOM_TORCH_BUCKET_MB unset, or False)")
+            raise ValueError(f"the tensor-parallel train step runs unbucketed (buckets=None with "
+                             f"$SCALECOM_TORCH_BUCKET_MB unset, or False; ROADMAP, sharded step "
+                             f"item {_TP_LATER['buckets']})")
         if mode == "scalecom":
             loss, auxs, gpw = per_worker_grads(model, state.params, batch, 1, microbatches,
                                                tp=layout.axis)
         else:
             loss, auxs, ghat = dense_grads(model, state.params, batch, tp=layout.axis)
         if mode == "scalecom":
-            ghat, sc_state, stats = _tp_reduce(gpw, state.sc_state, sc_cfg, layout)
+            ghat, sc_state, stats = _tp_reduce(gpw, state.sc_state, sc_cfg, layout, hierarchy,
+                                               compute_stats)
             del gpw
         else:
             ghat = tree.tree_map(lambda g: all_reduce_mean(g, layout.data), ghat)
@@ -833,17 +1001,18 @@ def init_train_state(model, optimizer: Optimizer, sc_cfg: ScaleComConfig,
     the parameters (``Model.init(mesh=...)``: each layer cut as it is drawn,
     the same draws on every rank for the same generator state, so the
     slices are the whole init's), the optimizer state on the slices, and a
-    zero fp32 residue slice for every tensor whose logical size reaches
+    zero residue slice in ``sc_cfg.residue_dtype``'s codec, every field
+    (``distributed.slices``), for every tensor whose logical size reaches
     ``min_size``."""
     params = model.init(generator, device, mesh=mesh)
     if mesh is not None:
-        if sc_cfg.residue_dtype != "fp32":
-            _tp_refuse(f"residue_dtype {sc_cfg.residue_dtype!r}", "codec")
-        sizes = {p: x.numel() for p, x in tree.flatten_with_path(model.abstract_params())}
-        sc_state = init_state(params, 1, "fp32", 0, sc_cfg.layout)
-        sc_state = ScaleComState({p: e for p, e in sc_state.residues.items()
-                                  if sizes[p] >= sc_cfg.min_size}, 0)
-        return TrainState(params, optimizer.init(params), sc_state, 0)
+        layout = _tp_layout(model.abstract_params(), model.logical_axes(), mesh)
+        lay = resolve_layout(sc_cfg.layout)
+        dev = tree.leaves(params)[0].device
+        residues = {p: slices.init(sc_cfg.residue_dtype, layout.slice(i), lay, dev)
+                    for i, p in enumerate(layout.paths)
+                    if math.prod(layout.shapes[i]) >= sc_cfg.min_size}
+        return TrainState(params, optimizer.init(params), ScaleComState(residues, 0), 0)
     sc_state = init_state(
         params, sc_cfg.n_workers(n_workers), sc_cfg.residue_dtype, sc_cfg.min_size,
         sc_cfg.layout,
@@ -865,12 +1034,14 @@ def shard_train_state(state: TrainState, rank: Optional[int] = None,
     logical ``axes`` instead: this rank's share for the tensor-parallel
     step (``build_train_step(mesh=...)``): its slice under the ``tp``
     specs (``distributed.sharding``) of every parameter and optimizer leaf,
-    and of its worker's (its data index's) fp32 residue row, kept in the
-    layout's storage of the slice (flat: the slice flattened)."""
+    and of its worker's residue row (with ``groups=G``, the row of its
+    group, ``data index // (data size // G)``, of G rows), every field of
+    any codec cut to the slice (``distributed.slices.cut``: the codes at
+    the slice's logical positions, fp8's flat scales whole)."""
     if mesh is not None:
-        if rank is not None or world is not None or groups is not None:
-            raise ValueError("a grid's share takes mesh= and axes=, not rank, world or groups")
-        return _shard_tp_state(state, mesh, axes)
+        if rank is not None or world is not None:
+            raise ValueError("a grid's share takes mesh=, axes= and groups, not rank or world")
+        return _shard_tp_state(state, mesh, axes, groups)
     if rank is None or world is None:
         raise ValueError("shard_train_state takes rank and world, or mesh= and axes=")
     if not 0 <= rank < world:
@@ -892,14 +1063,19 @@ def shard_train_state(state: TrainState, rank: Optional[int] = None,
                       ScaleComState(residues=residues, t=state.sc_state.t), state.step)
 
 
-def _shard_tp_state(state: TrainState, mesh, axes) -> TrainState:
+def _shard_tp_state(state: TrainState, mesh, axes, groups: Optional[int]) -> TrainState:
     if axes is None:
         raise ValueError("a grid's share needs the model's logical axes (Model.logical_axes())")
     specs = specs_for_axes(state.params, axes, "tp", mesh)
     by_path = dict(tree.flatten_with_path(specs))
     shapes = {p: tuple(x.shape) for p, x in tree.flatten_with_path(state.params)}
-    paths = [p for p, _ in tree.flatten_with_path(state.params)]
-    rows, row = mesh.shape["data"], mesh.index("data")
+    parts = mesh.shape["model"]
+    n = mesh.shape["data"]
+    if groups is not None and (groups < 1 or n % groups):
+        raise ValueError(f"{n} workers not divisible into {groups} groups: a grid of {n} data "
+                         f"ranks needs n % groups == 0 (G={groups})")
+    rows = n if groups is None else groups
+    row = mesh.index("data") if groups is None else mesh.index("data") // (n // groups)
 
     def shard(tree_):
         return tree.unflatten(tree_, [shard_of(x, by_path[p], mesh)
@@ -907,20 +1083,19 @@ def _shard_tp_state(state: TrainState, mesh, axes) -> TrainState:
 
     opt_state = {}
     for key, val in state.opt_state.items():
-        same = isinstance(val, dict) and [p for p, _ in tree.flatten_with_path(val)] == paths
+        same = isinstance(val, dict) and [p for p, _ in tree.flatten_with_path(val)] == list(
+            shapes)
         opt_state[key] = shard(val) if same else (
             tree.tree_map(torch.clone, val) if isinstance(val, dict) else val)
     residues = {}
     for path, enc in state.sc_state.residues.items():
-        q = enc.get("q")
-        if set(enc) != {"q"} or q.dtype != torch.float32:
-            _tp_refuse(f"residues coded as {sorted(enc)} ({q.dtype if q is not None else None})",
-                       "codec")
-        if q.shape[0] != rows:
+        if any(v.shape[0] != rows for v in enc.values()):
             raise ValueError(f"residue {path!r} must hold rows of {rows} workers, got "
-                             f"{tuple(q.shape)}")
-        mine = shard_of(q[row].reshape(shapes[path]), by_path[path], mesh)
-        rowwise = q.dim() - 1 == len(shapes[path])
-        residues[path] = {"q": (mine if rowwise else mine.reshape(-1))[None]}
+                             f"{ {k: tuple(v.shape) for k, v in enc.items()} }")
+        sl = slices.Slice(shapes[path], _split_dim(by_path[path]) if parts > 1 else None, parts,
+                          mesh.index("model"))
+        residues[path] = slices.cut(slices.codec_name(enc),
+                                    {k: v[row:row + 1] for k, v in enc.items()}, sl,
+                                    slices.infer_layout(enc, shapes[path]))
     return TrainState(shard(state.params), opt_state,
                       ScaleComState(residues=residues, t=state.sc_state.t), state.step)

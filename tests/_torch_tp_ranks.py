@@ -150,7 +150,8 @@ def _refusals(job: dict, mesh) -> dict:
             fn = build_train_step(model, opt, schedule.constant(LR), _sc_cfg(**cfg_kw),
                                   mode="scalecom", mesh=mesh,
                                   **{"n_workers": mesh.shape["data"], **step_kw})
-            whole = ts.init_train_state(model, opt, _sc_cfg(), torch.Generator().manual_seed(0),
+            whole = ts.init_train_state(model, opt, _sc_cfg(**cfg_kw),
+                                        torch.Generator().manual_seed(0),
                                         n_workers=mesh.shape["data"], device="cpu")
             fn(shard_train_state(whole, mesh=mesh, axes=model.logical_axes()),
                job["batch"])

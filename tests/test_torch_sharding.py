@@ -170,28 +170,37 @@ def test_production_mesh_is_a_layout():
         Mesh(("data", "data"), (2, 2))
 
 
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("compressor", ["clt_k", "true_topk", "local_topk", "random_k"])
 @pytest.mark.parametrize("arch,chunk", [("paper-transformer-base", 64), ("starcoder2-3b", 64)])
-def test_shard_plans_sum_to_the_logical_plan(arch, chunk):
-    """The full-width plans on a model axis of 2: chunks, k and payload
-    summed over the model ranks equal the logical plan's; paper-transformer-
-    base's lm_head has chunks across its column slices (37000 % 64 = 8) and
-    runs in parts, its tok_embed (row slices) where it lies."""
+def test_shard_plans_sum_to_the_logical_plan(arch, chunk, compressor, exact):
+    """The full-width plans on a model axis of 2, for every compressor and
+    the exact path: chunks, k and payload summed over the model ranks equal
+    the logical plan's; paper-transformer-base's lm_head has chunks across
+    its column slices (37000 % 64 = 8) and runs in parts, its tok_embed (row
+    slices) where it lies; an exact tensor takes the exact route, split or
+    not, its k in ranges of the model ranks."""
     model = build_model(registry.arch(arch))
     abstract, axes = model.abstract_params(), model.logical_axes()
     mesh = Mesh(("data", "model"), (4, 2))
     specs = tree.leaves(sharding.specs_for_axes(abstract, axes, "tp", mesh))
-    cfg = ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=chunk), min_size=1024)
+    cfg = ScaleComConfig(compressor=CompressorConfig(compressor, chunk=chunk, exact=exact),
+                         min_size=1024)
     flat = tree.flatten_with_path(abstract)
     plans = plan_tensors(tuple((p, tuple(x.shape), 4) for p, x in flat), cfg,
                          frozenset(p for p, x in flat if x.numel() >= 1024))
     shards = [plan_shards(plans, specs, 2, i) for i in range(2)]
     routes = {p.path: s.route for p, s in zip(plans, shards[0])}
-    if arch == "paper-transformer-base":
+    if exact:
+        assert {routes[p.path] for p in plans if not p.dense} == {"exact"}
+    elif arch == "paper-transformer-base":
         assert routes["['lm_head']"] == "part" and routes["['tok_embed']"] == "local"
         assert routes["['blocks']['mlp_up']"] == "local"
     else:
         assert routes["['lm_head']"] == "local"
-    assert routes["['ln_final_scale']"] == "part"  # replicated and dense: reduced in halves
+    # replicated: reduced in halves, unless exact and compressed
+    ln = next(p for p in plans if p.path == "['ln_final_scale']")
+    assert routes[ln.path] == ("exact" if exact and not ln.dense else "part")
     for j, plan in enumerate(plans):
         mine = [s[j] for s in shards]
         assert sum(s.n_chunks for s in mine) == plan.n_chunks, plan.path
@@ -199,14 +208,6 @@ def test_shard_plans_sum_to_the_logical_plan(arch, chunk):
         assert sum(s.bytes_payload for s in mine) == pytest.approx(plan.bytes_payload, rel=1e-12)
         if mine[0].route == "local":
             assert all(s.local_shape[s.dim] * 2 == plan.shape[s.dim] for s in mine)
-
-
-def test_shard_plan_refuses_other_compressors():
-    cfg = ScaleComConfig(compressor=CompressorConfig("true_topk", chunk=16), min_size=16)
-    plans = plan_tensors((("['w']", (64, 32), 2),), cfg, frozenset({"['w']"}))
-    with pytest.raises(ValueError, match="runs chunked clt_k; got 'true_topk'"):
-        plan_shards(plans, [(None, "model")], 2, 0)
-    assert np.isclose(sum(s.bytes_payload for i in range(2) for s in plan_shards(
-        plan_tensors((("['w']", (64, 32), 2),), ScaleComConfig(
-            compressor=CompressorConfig("clt_k", chunk=16), min_size=16), frozenset({"['w']"})),
-        [(None, "model")], 2, i)), 4.0 * 128 + 2.0 * 128)
+        if mine[0].route == "exact":
+            assert [s.bounds[i] for i, s in enumerate(mine)] == [
+                (0, plan.k // 2 + plan.k % 2), (plan.k // 2 + plan.k % 2, plan.k)]

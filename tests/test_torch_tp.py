@@ -31,7 +31,8 @@ the test's temporary directory) form a (2 data, 2 model) grid, then a
   cross-entropy and embedding against the whole-vocabulary ones, and
   starcoder2-3b SMOKE's loss and gradients with its 64 kv columns split 16
   a rank (half a head) against the unsplit ones.
-- Every configuration outside the slice raises, naming it.
+- Buckets, telemetry, the other families and a wrong ``n_workers`` raise,
+  naming them.
 """
 
 import concurrent.futures
@@ -92,29 +93,21 @@ RED_TS = (0, 1)
 # how each compressed leaf of RED is reduced (core.plan.ShardPlan.route)
 ROUTES = {"['a']": "part", "['b']": "local", "['c']": "part", "['f']": "local"}
 
-# (label, arch, ScaleComConfig fields, build_train_step keywords, environment)
+# (label, arch, ScaleComConfig fields, build_train_step keywords, environment):
+# what the step still refuses (every compressor, the exact path, every codec,
+# groups and compute_stats run: tests/test_torch_tp_configs.py)
 REFUSALS = [
-    ("true_topk", ARCHS[0], {"compressor": CompressorConfig("true_topk", chunk=CHUNK)}, {}, {}),
-    ("local_topk", ARCHS[0], {"compressor": CompressorConfig("local_topk", chunk=CHUNK)}, {}, {}),
-    ("random_k", ARCHS[0], {"compressor": CompressorConfig("random_k", chunk=CHUNK)}, {}, {}),
-    ("exact", ARCHS[0], {"compressor": CompressorConfig("clt_k", chunk=CHUNK, exact=True)}, {},
-     {}),
-    ("bf16", ARCHS[0], {"residue_dtype": "bf16"}, {}, {}),
-    ("fp8", ARCHS[0], {"residue_dtype": "fp8"}, {}, {}),
-    ("groups", ARCHS[0], {"groups": 1}, {}, {}),
     ("buckets", ARCHS[0], {}, {"buckets": True}, {}),
     ("buckets_env", ARCHS[0], {}, {}, {"SCALECOM_TORCH_BUCKET_MB": "4"}),
     ("telemetry", ARCHS[0], {"telemetry": True}, {}, {}),
-    ("compute_stats", ARCHS[0], {}, {"compute_stats": True}, {}),
+    ("telemetry_fp8", ARCHS[0], {"telemetry": True, "residue_dtype": "fp8"}, {}, {}),
     ("moe", "phi3.5-moe-42b-a6.6b", {}, {}, {}),
     ("ssm", "rwkv6-3b", {}, {}, {}),
     ("n_workers", ARCHS[0], {}, {"n_workers": 4}, {}),
 ]
-REFUSED = {"true_topk": "compressor 'true_topk'", "local_topk": "compressor 'local_topk'",
-           "random_k": "compressor 'random_k'", "exact": "compressor 'clt_k' exact",
-           "bf16": "residue_dtype 'bf16'", "fp8": "residue_dtype 'fp8'", "groups": "groups=1",
-           "buckets": "runs unbucketed", "buckets_env": "runs unbucketed",
-           "telemetry": "telemetry or compute_stats", "compute_stats": "telemetry or compute_stats",
+REFUSED = {"buckets": "runs unbucketed", "buckets_env": "runs unbucketed",
+           "telemetry": "does not run telemetry (ROADMAP, sharded step item 2b",
+           "telemetry_fp8": "does not run telemetry (ROADMAP, sharded step item 2b",
            "moe": "the 'moe' family",
            "ssm": "the 'ssm' family", "n_workers": "n_workers (4) must equal the grid's data size"}
 

@@ -1,0 +1,94 @@
+"""``chip_smoke.py``'s ``TP_CONFIGS`` alone on the card: the tensor-parallel
+step's six configurations at paper-transformer-base's full width.
+
+Builds the kernels once (``repro_torch.kernels.build.library``), spawns
+``chip_smoke.RING_WORLD`` (8) ranks on the one card, joined by gloo through
+a ``file://`` store in a temporary directory, each running
+``chip_smoke.tp_configs_rank`` on a (4 data, 2 model) grid, and prints what
+they measured as the whole script does (``chip_smoke.tp_phase``'s
+``[tp:configs]`` lines). A rank that fails, or ranks that outlast
+``TIMEOUT_S`` seconds, exit non-zero. Prints the card's name and power limit
+first.
+
+    python3 tools/tp_configs.py
+"""
+
+import datetime
+import multiprocessing
+import os
+import subprocess
+import sys
+import tempfile
+import time
+from multiprocessing import connection
+
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir)
+sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+import chip_smoke as cs  # noqa: E402
+
+TIMEOUT_S = 700  # from the spawn to the last rank's result
+
+
+def rank_main(rank: int, world: int, store: str, conn) -> None:
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(cs.RING_BACKEND, init_method=f"file://{store}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=cs.RING_TIMEOUT_S))
+    conn.send({"tp": [], "tp_s": [], "tp_configs": cs.tp_configs_rank(rank)})
+    dist.destroy_process_group()
+
+
+def main() -> int:
+    sys.stdout.reconfigure(line_buffering=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown card"
+    print(card)
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.library()
+    print(f"[build] {time.perf_counter() - t0:.1f} s")
+    world = cs.RING_WORLD
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        pipes = [ctx.Pipe(duplex=False) for _ in range(world)]
+        procs = [ctx.Process(target=rank_main,
+                             args=(r, world, os.path.join(tmp, "store"), pipes[r][1]))
+                 for r in range(world)]
+        t1 = time.perf_counter()
+        results, deadline = {}, time.monotonic() + TIMEOUT_S
+        try:
+            for p in procs:
+                p.start()
+            while len(results) < world:
+                pending = [r for r in range(world) if r not in results]
+                if time.monotonic() > deadline:
+                    print(f"ranks {pending} did not finish within {TIMEOUT_S} s",
+                          file=sys.stderr)
+                    return 1
+                connection.wait([pipes[r][0] for r in pending]
+                                + [procs[r].sentinel for r in pending], 5)
+                for r in pending:
+                    if pipes[r][0].poll():
+                        results[r] = pipes[r][0].recv()
+                    elif procs[r].exitcode not in (None, 0):
+                        print(f"rank {r} failed (exit code {procs[r].exitcode})",
+                              file=sys.stderr)
+                        return 1
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join()
+    print(f"[tp:configs] the ranks took {time.perf_counter() - t1:.1f} s from the spawn")
+    cs.tp_phase(card, results, runs=())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
