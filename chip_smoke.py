@@ -154,15 +154,15 @@ Phases, each fatal on failure:
      idle share and the pass's peak beside the fp32 run's;
   9. ``[arch]``, the registry's model families at full width, depth cut
      (``ARCH_RUNS``), their initial weights drawn on the card:
-     starcoder2-3b (RMSNorm / SwiGLU, GQA with 2 KV heads) at 2 of 30
+     starcoder2-3b (RMSNorm / SwiGLU, GQA with 2 KV heads) at 3 of 30
      layers, 8 workers, unfused and then fused; phi3.5-moe-42b-a6.6b (16
      experts, top-2) at 1 of 32 layers, 2 workers, fused; rwkv6-3b (the
      RWKV-6 time loop) at 2 of 32 layers, 8 workers, unfused and fused;
-     recurrentgemma-2b (RG-LRU and local attention; one stacked unit and
-     one un-stacked tail layer) at 4 of 26 layers, 2 workers of 1 x 2304
-     positions, fused; whisper-medium at 2 + 2 of 24 + 24 layers, 8
+     recurrentgemma-2b (RG-LRU and local attention; three stacked units and
+     one un-stacked tail layer) at 10 of 26 layers, 2 workers of 1 x 2304
+     positions, fused; whisper-medium at 10 + 10 of 24 + 24 layers, 8
      workers of 4 x 128 text positions over 1500 stub frames, fused; and
-     internvl2-26b at 1 of 48 layers, 2 workers of 4 x (256 stub vision +
+     internvl2-26b at 2 of 48 layers, 2 workers of 4 x (256 stub vision +
      128 text) positions, fused. Each trained by ``run_training`` for 2
      dense and 3 compressed steps with its launches held to the plan,
      every select, scatter and fused launch vec4, the comm-bytes and
@@ -283,8 +283,9 @@ Phases, each fatal on failure:
      the reference's ``tp`` policy), run by ``[ring]``'s 8 ranks after
      ``RING_RUNS``; ``TP_RUNS``: paper-transformer-base at full
      width on a (4 data, 2 model) grid and starcoder2-3b at full width, 2
-     layers, on (2, 2) (the world's first 4 ranks), each 1 dense + 2
-     compressed steps unfused and then fused (``tp_run_rank``). Each step's
+     layers, on (2, 2) (the world's first 4 ranks), 1 dense + 2 (paper) or
+     1 (starcoder2) compressed steps unfused and then fused
+     (``tp_run_rank``). Each step's
      launches per rank as planned (the leader's select, or fused its
      ``fused_select_update``; ef_update and chunk_scatter; all vec4), the
      data replicas' parameters bitwise (digests), each data group's
@@ -299,7 +300,14 @@ Phases, each fatal on failure:
      cuda backend bitwise torch backend, unfused and fused; the four
      kernels at rank 0's part shapes bitwise their plain versions. Prints
      step ms, the model axis's gloo calls and bytes against the data axis's
-     payload, and the peak per rank. These launches stand under
+     payload, and the peak per rank. Then ``TP_CONFIGS`` (``[tp:configs]``,
+     ``tp_configs_rank``): one compressed step of each compressor, codec,
+     the exact path and pod2 from seeded residues, held to the stacked step
+     on rank 0, and three twins of them with buckets (25 MB with overlap; 4
+     MB without) and telemetry, whose m' and offsets must be their twin's
+     bit for bit and whose taps must be the stacked step's; and ``[tp:nan]``
+     (``tp_nan_check``), a NaN in an fp8 block and row that cross the model
+     slices coded as the stacked codec codes it. These launches stand under
      ``tp_launches`` in the JSON line. A ``[time]`` line gives each phase's
      seconds.
 
@@ -2672,6 +2680,8 @@ class ArchRun:
 # workers of 256 vision + 128 text positions. The next cut of these three
 # trained alone (tools/arch_cuts.py) at 76.0, 76.0 and 77.6 GiB: with the
 # 2.50 GiB the main path leaves, 78.5, 78.5 and 80.1 of the card's 79.18.
+# rwkv6-3b and whisper-medium, the two slowest runs, now train at half those
+# depths (2, and 10 + 10), for the whole script's time limit.
 ARCH_RUNS = (
     ArchRun("starcoder2-3b", dict(n_layers=3), 8, (False, True),
             before="64.42 GiB unfused, 59.85 GiB fused at 2 layers"),
@@ -2685,12 +2695,12 @@ ARCH_RUNS = (
     # the batched pass and the loop stood up to 5.4e-3 of a leaf's largest
     # value apart from the trained state, 1.3e-2 from the initial one (CPU,
     # d 1024: 2.7e-5; ROADMAP Queue 3). A batching fault would be O(1).
-    ArchRun("rwkv6-3b", dict(n_layers=4), 8, (False, True), grads=True,
+    ArchRun("rwkv6-3b", dict(n_layers=2), 8, (False, True), grads=True,
             grad_tol=dict(rtol=1e-5, atol=1e-7, atol_of_max=2e-2),
             before="62.02 GiB at 2 layers"),
     ArchRun("recurrentgemma-2b", dict(n_layers=10), 2, (True,), holds=(True,), local_batch=1,
             seq=2304, before="75.25 GiB at 4 layers"),
-    ArchRun("whisper-medium", dict(n_layers=20, encoder_layers=20), 8, (True,), holds=(True,),
+    ArchRun("whisper-medium", dict(n_layers=10, encoder_layers=10), 8, (True,), holds=(True,),
             before="66.73 GiB at 2 + 2 layers"),
     ArchRun("internvl2-26b", dict(n_layers=2), 2, (True,), holds=(True,),
             before="53.86 GiB at 1 layer"),
@@ -5298,14 +5308,16 @@ TP_KERNELS = ("chunk_argmax", "ef_update", "chunk_scatter", "fused_select_update
 class TPRun:
     """One cell of ``[tp]``: an arch at full width (``layers``: the depth it
     is cut to, None for its own) on a (data, model) grid over the world's
-    first ranks, ``batch`` x ``seq`` tokens a worker, 1 dense + 2
-    compressed steps, unfused and then fused."""
+    first ranks, ``batch`` x ``seq`` tokens a worker, the steps of
+    ``modes`` (1 dense + 2 compressed by default), unfused and then
+    fused."""
 
     arch: str
     grid: tuple
     layers: int | None
     batch: int
     seq: int
+    modes: tuple = TP_MODES
 
     @property
     def tag(self) -> str:
@@ -5314,7 +5326,10 @@ class TPRun:
 
 TP_RUNS = (
     TPRun("paper-transformer-base", (4, 2), None, 4, 128),  # the main path's model and batch
-    TPRun("starcoder2-3b", (2, 2), 2, 2, 128),  # GQA, 2 kv heads: one a model rank
+    # GQA, 2 kv heads: one a model rank; one compressed step a pass (the
+    # paper cell and TP_CONFIGS take the steps from nonzero residues), which
+    # keeps the whole script inside its time limit on the slowest host seen
+    TPRun("starcoder2-3b", (2, 2), 2, 2, 128, ("dense", "scalecom")),
 )
 
 
@@ -5504,9 +5519,9 @@ def tp_run_rank(rank: int, run: TPRun):
         rows = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        for i, mode in enumerate(TP_MODES):
+        for i, mode in enumerate(run.modes):
             t_sc = state.sc_state.t
-            last = mode == "scalecom" and i == len(TP_MODES) - 1 and not fused
+            last = mode == "scalecom" and i == len(run.modes) - 1 and not fused
 
             def capture(grads, sc_state, cfg_, layout_, *rest):
                 captured[:] = [tree.tree_map(torch.clone, grads), sc_state]
@@ -5711,10 +5726,17 @@ class TPConfig:
     groups: int | None = None
     fused: bool = False
     stats: bool = False
+    buckets: int = 0  # the bucket size in bytes; 0 runs unbucketed
+    overlap: bool = True
+    telemetry: bool = False  # with metrics_every=1
+    twin: str | None = None  # the configuration whose m', scales and offsets it must equal
 
 
 # each compressor and each residue codec once: the codec's encode and decode
-# run beside the reduce and do not depend on which compressor it is
+# run beside the reduce and do not depend on which compressor it is; then
+# three twins of earlier entries, from the same seeded residues, that add
+# buckets and telemetry and must leave m', the scales and the offsets as
+# their twin's
 TP_CONFIGS = (
     TPConfig("true_topk, bf16", "true_topk", codec="bf16"),
     TPConfig("true_topk fused, fp8_ec", "true_topk", codec="fp8_ec", fused=True),
@@ -5722,7 +5744,101 @@ TP_CONFIGS = (
     TPConfig("random_k", "random_k"),
     TPConfig("clt_k exact", exact=True),
     TPConfig("pod2 fp8 groups=2 stats", codec="fp8", groups=2, stats=True),
+    TPConfig("pod2 fp8 groups=2 stats, 25 MB buckets", codec="fp8", groups=2, stats=True,
+             buckets=25 << 20, twin="pod2 fp8 groups=2 stats"),
+    TPConfig("true_topk, bf16, 4 MB buckets, overlap off", "true_topk", codec="bf16",
+             buckets=4 << 20, overlap=False, twin="true_topk, bf16"),
+    TPConfig("true_topk fused, fp8_ec, telemetry", "true_topk", codec="fp8_ec", fused=True,
+             telemetry=True, twin="true_topk fused, fp8_ec"),
 )
+TP_TWINNED = frozenset(c.twin for c in TP_CONFIGS if c.twin is not None)
+TP_TAPPED = frozenset(c.twin for c in TP_CONFIGS if c.twin is not None and c.telemetry)
+# a NaN in a residue block (flat fp8) or row (rowwise fp8_ec) that crosses
+# the model slices, held by model rank 1: a (rows, cols) leaf split on its
+# last dim, whose flat blocks of 512 cross the slices, and the NaN's place
+TP_NAN_SHAPE, TP_NAN_AT = (128, 1000), (5, 700)
+
+
+class TPSpies:
+    """Inside ``with``, on one rank of the tensor-parallel step: the offsets
+    each tensor's reduce updated at (``ring_steps``' and
+    ``_tp_exact_steps``' returns, copied), and the gloo calls this rank made
+    over any group but ``model`` (the data axis's, its subgroups' under
+    ``groups`` included)."""
+
+    def __init__(self, ts, dist, model):
+        self.ts, self.dist, self.model = ts, dist, model
+
+    def __enter__(self):
+        self.offsets, self.data_calls = [], 0
+        ts, dist = self.ts, self.dist
+        self._real = (ts.ring_steps, ts._tp_exact_steps, dist.all_reduce, dist.broadcast,
+                      dist.all_gather)
+
+        def offsets(fn):
+            def spy(*args, **kwargs):
+                out = yield from fn(*args, **kwargs)
+                self.offsets.append(out[3].clone())
+                return out
+            return spy
+
+        def counted(fn):
+            def call(*args, **kwargs):
+                self.data_calls += kwargs.get("group") is not self.model
+                return fn(*args, **kwargs)
+            return call
+
+        ts.ring_steps, ts._tp_exact_steps = offsets(self._real[0]), offsets(self._real[1])
+        dist.all_reduce, dist.broadcast, dist.all_gather = (counted(f) for f in self._real[2:])
+        return self
+
+    def __exit__(self, *exc):
+        (self.ts.ring_steps, self.ts._tp_exact_steps, self.dist.all_reduce, self.dist.broadcast,
+         self.dist.all_gather) = self._real
+        return False
+
+
+def tp_nan_check(mesh) -> dict:
+    """On every rank of the grid: ``slices.encode`` of a logical residue row
+    of ``TP_NAN_SHAPE`` (split on its last dim over the model group) with
+    one NaN at ``TP_NAN_AT``, on model rank 1, in a block (flat fp8) and a
+    row (rowwise fp8_ec) that cross the slices; each rank codes its slice
+    (nearest rounding), and the slices joined over the model group must be
+    the stacked codec's encode of the row, every field bitwise, the NaN's
+    block or row at scale 1.0 (so the card's ``scatter_reduce(..., "amax")``,
+    the flat partial amax, keeps the NaN too)."""
+    import torch
+
+    from repro_torch.core.state import CODECS
+    from repro_torch.distributed import slices
+
+    model = mesh.group("model")
+    parts, index = mesh.shape["model"], mesh.index("model")
+    rows, cols = TP_NAN_SHAPE
+    r, c = TP_NAN_AT
+    check(c // (cols // parts) == 1, "[tp:nan] the NaN must lie on model rank 1")
+    sl = slices.Slice(TP_NAN_SHAPE, 1, parts, index)
+    gen = torch.Generator(device="cuda").manual_seed(TP_RESIDUE_SEED)
+    row = torch.randn((1,) + TP_NAN_SHAPE, generator=gen, device="cuda")
+    row[0, r, c] = float("nan")
+    out = {}
+    for codec, layout in (("fp8", "flat"), ("fp8_ec", "rowwise")):
+        store = (rows * cols,) if layout == "flat" else TP_NAN_SHAPE
+        logical = row.reshape((1,) + store)
+        m = slices.cut("fp32", {"q": logical}, sl, layout)["q"]
+        joined = slices.join(codec, slices.encode(codec, m, sl, layout, None, model), sl, layout,
+                             model)
+        want = CODECS[codec].encode(logical, store)
+        check(sorted(joined) == sorted(want), f"[tp:nan] {codec} {layout}: fields {sorted(joined)}")
+        for field, x in want.items():
+            check(torch.equal(joined[field].view(torch.uint8), x.view(torch.uint8)),
+                  f"[tp:nan] {codec} {layout}: {field} differs from the stacked codec's encode "
+                  f"on rank {index} of the model group")
+        at = (r * cols + c) // 512 if layout == "flat" else r
+        scale = float(want["scale"].reshape(-1)[at])
+        check(scale == 1.0, f"[tp:nan] {codec} {layout}: the NaN's scale {scale}, not 1.0")
+        out[codec] = {"scales": want["scale"].numel()}
+    return out
 
 
 def tp_config_launches(shards, config: TPConfig, leader: bool) -> dict:
@@ -5818,18 +5934,25 @@ def tp_configs_rank(rank: int):
     scale of each tensor's dense-step gradient (its RMS), encoded by the
     stacked codec and cut by ``shard_train_state(mesh=)``. Rank 0 runs the
     stacked single-process step in the same configuration from the same
-    rows beside it and holds the logical parameters (gathered over its
+    rows beside it (a twin takes its twin's, which runs with telemetry
+    where the twin adds it: the twin's m' and offsets are its twin's, and
+    its ĝ theirs but for the order of the packed sums) and holds the
+    logical parameters (gathered over its
     model group) within ``TP_TOL`` outside near-tie chunks
     (``tp_config_flips``); its residue row (joined from its slices): fp32
     within ``TP_RESIDUE_TOL`` of the stacked row, a lossy codec's codes
     within ``TP_CODE_STEPS`` of it but for at most ``TP_CODES_FAR`` of
     them, whose decoded values lie within ``TP_RESIDUE_TOL``, and fp8's
     scales within its rtol; and ``contraction_gamma``
-    against the stacked step's.
+    against the stacked step's; with telemetry, the taps against the
+    stacked step's by ``taps_held``' rule, ``fused_launches`` apart.
     Every rank holds its launches (``tp_config_launches``), that its data
     group's payload is the plan's share and the shares sum to the plan's
-    bytes. Returns the measurements, and rank 0's kernels at the new
-    routes' shapes."""
+    bytes, a twin's m' (every field) and offsets bitwise its twin's by
+    digest (``TPSpies``; the gloo calls of the data axis counted there
+    too), and the taps the same on every rank; then ``tp_nan_check``.
+    Returns the measurements, and rank 0's kernels at the new routes'
+    shapes."""
     import torch
     import torch.distributed as dist
 
@@ -5870,7 +5993,8 @@ def tp_configs_rank(rank: int):
     def sc_cfg(c: TPConfig):
         return ScaleComConfig(compressor=CompressorConfig(c.compressor, chunk=CHUNK, exact=c.exact),
                               beta=BETA, min_size=1024, residue_dtype=c.codec, groups=c.groups,
-                              fused=c.fused, layout="flat")
+                              fused=c.fused, layout="flat", overlap=c.overlap,
+                              telemetry=c.telemetry, metrics_every=int(c.telemetry))
 
     def clone(t):
         return tree.tree_map(lambda x: x.clone() if isinstance(x, torch.Tensor) else x, t)
@@ -5922,6 +6046,8 @@ def tp_configs_rank(rank: int):
         ref_grads.append(got[2])
         return got
 
+    twins = {}  # label -> its digests, for a later twin
+    stacked_of = {}  # rank 0: label -> its stacked step, for a later twin
     for config in TP_CONFIGS:
         t_config = time.perf_counter()
         c = sc_cfg(config)
@@ -5943,13 +6069,18 @@ def tp_configs_rank(rank: int):
                           ScaleComState(share.sc_state.residues, state.sc_state.t), state.step)
         del share
         fn = build_train_step(model, spying(base_opt), sched, c, n_workers=n, mode="scalecom",
-                              mesh=mesh, compute_stats=config.stats)
+                              mesh=mesh, compute_stats=config.stats,
+                              buckets=config.buckets or False)
         ref = ref_fn = None
-        if rank == 0:
+        if rank == 0 and config.twin is None:
             ref = TrainState(clone(stacked.params), clone(stacked.opt_state),
                              ScaleComState(rows, stacked.sc_state.t), stacked.step)
-            ref_fn = build_train_step(model, spying(base_opt), sched, c, n_workers=n,
-                                      mode="scalecom", compute_stats=config.stats)
+            # a twin that adds telemetry takes this stacked step's taps
+            ref_cfg = (dataclasses.replace(c, telemetry=True, metrics_every=1)
+                       if config.label in TP_TAPPED else c)
+            ref_fn = build_train_step(model, spying(base_opt), sched, ref_cfg, n_workers=n,
+                                      mode="scalecom", compute_stats=config.stats,
+                                      buckets=config.buckets or False)
         del rows
         # one compressed step (t = 1): a second step doubled the cell and
         # pushed the whole script past its time limit
@@ -5964,9 +6095,10 @@ def tp_configs_rank(rank: int):
         dist.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mine, metrics = fn(mine, batches[1])
-        loss = float(metrics["loss"])
-        torch.cuda.synchronize()
+        with TPSpies(ts, dist, mesh.group("model")) as spies:
+            mine, metrics = fn(mine, batches[1])
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
         c1 = kernels.launches()
         launched = {k: c1[k] - c0[k] for k in c1}
@@ -6008,15 +6140,43 @@ def tp_configs_rank(rank: int):
                       for p, e in mine.sc_state.residues.items()}
         hold = {"step_ms": step_ms, "loss": loss, "payload": payload, "share": share,
                 "planned": metrics["comm_bytes_per_worker"], "model_bytes": model_bytes,
-                "model_calls": model_calls, "launches": launched}
+                "model_calls": model_calls, "data_calls": spies.data_calls,
+                "launches": launched}
+        # this rank's m' (every field) and offsets, by digest, against its twin's
+        if config.twin is not None or config.label in TP_TWINNED:
+            twins[config.label] = {
+                "residues": [(p, f, digest(v)) for p in sorted(mine.sc_state.residues)
+                             for f, v in sorted(mine.sc_state.residues[p].items())],
+                "offsets": sorted(digest(i) + [list(i.shape)] for i in spies.offsets)}
+        del spies
+        if config.twin is not None:
+            check(twins[config.label] == twins[config.twin],
+                  f"[tp:configs] {config.label} rank {rank}: m', scales or offsets differ from "
+                  f"{config.twin}'s")
+        taps_ = sorted(k for k in metrics if k.startswith("obs/"))
+        check(bool(taps_) == config.telemetry, f"[tp:configs] {config.label}: taps {taps_[:3]}")
+        if taps_:  # the same values on every rank of the grid
+            table = exchange(digest(torch.stack([torch.as_tensor(metrics[k], device="cuda")
+                                                 for k in taps_])), rank, RING_WORLD)
+            check(all(row == table[0] for row in table),
+                  f"[tp:configs] {config.label}: the taps differ between ranks")
+            launches_tap = ts._leader_launches(c.compressor, config.fused)
+            fl = {float(metrics[k]) for k in taps_ if k.startswith("obs/fused_launches{")}
+            check(fl == {launches_tap}, f"[tp:configs] {config.label}: fused_launches {fl}")
+            hold["taps"] = {"all_keys": len(taps_), "fused_launches": launches_tap}
         if rank == 0:
-            before = ref.sc_state
-            ts.per_worker_grads = spy_grads
-            ghats.clear()
-            ref, m_ref = ref_fn(ref, batches[1])
-            ts.per_worker_grads = real_grads
-            gpw = dict(tree.flatten_with_path(ref_grads.pop()))
-            g_ref = dict(tree.flatten_with_path(ghats[-1]))
+            if config.twin is None:
+                before = ref.sc_state
+                ts.per_worker_grads = spy_grads
+                ghats.clear()
+                ref, m_ref = ref_fn(ref, batches[1])
+                ts.per_worker_grads = real_grads
+                gpw = dict(tree.flatten_with_path(ref_grads.pop()))
+                g_ref = dict(tree.flatten_with_path(ghats[-1]))
+                if config.label in TP_TWINNED:
+                    stacked_of[config.label] = before, ref, m_ref, gpw, g_ref
+            else:  # its twin's stacked step: the same rows, m' and offsets
+                before, ref, m_ref, gpw, g_ref = stacked_of.pop(config.twin)
             g_tp = dict(tree.flatten_with_path(ghat_whole))
             codec = CODECS[config.codec]
             for plan in plans:
@@ -6101,6 +6261,14 @@ def tp_configs_rank(rank: int):
                   f"{TP_CODE_STEPS} step from the stacked row's (at most {TP_CODES_FAR:g} of them)")
             check(scale_err <= rtol, f"[tp:configs] {config.label}: fp8 scales {scale_err:.3e} "
                                      f"apart from the stacked row's, beyond rtol {rtol}")
+            if taps_:  # the stacked step's taps, fused_launches apart (its one fused launch)
+                keep = lambda d: {k: v for k, v in d.items()  # noqa: E731
+                                  if not k.startswith("obs/fused_launches{")}
+                stacked_fl = {float(m_ref[k]) for k in m_ref if k.startswith("obs/fused_launches{")}
+                check(stacked_fl == {1.0}, f"[tp:configs] {config.label}: the stacked step's "
+                                           f"fused_launches {stacked_fl}")
+                hold["taps"].update(taps_held(keep(metrics), keep(m_ref),
+                                              f"[tp:configs] {config.label}"))
             gamma = None
             if config.stats:
                 gamma = (float(metrics["contraction_gamma"]),
@@ -6118,6 +6286,7 @@ def tp_configs_rank(rank: int):
         torch.cuda.empty_cache()
         dist.barrier()
         out["seconds"].append(time.perf_counter() - t_config)
+    out["nan"] = tp_nan_check(mesh)
     if rank == 0:
         gen = torch.Generator(device="cuda").manual_seed(1)
         out["kernel_shapes"] = tp_kernel_holds(shards, gen)
@@ -6133,15 +6302,16 @@ def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
     import statistics as st
 
     print(f"[tp] {RING_WORLD} ranks ({RING_BACKEND}, one card; [ring]'s processes); each cell "
-          f"trains 1 dense + 2 compressed steps (clt_k chunk {CHUNK}, beta {BETA}, min_size "
-          f"1024, sgdm, lr 0.05), unfused and then fused, through build_train_step(mesh=...)")
+          f"trains 1 dense step and its compressed ones (clt_k chunk {CHUNK}, beta {BETA}, "
+          f"min_size 1024, sgdm, lr 0.05), unfused and then fused, through "
+          f"build_train_step(mesh=...)")
     launches = dict.fromkeys(TP_KERNELS, 0)
     for j, run in enumerate(runs):
         tr = [results[r]["tp"][j] for r in range(RING_WORLD) if results[r]["tp"][j]]
         tag = run.tag
         checks = tr[0]["checks"]
         for fused in ("unfused", "fused"):
-            for i, mode in enumerate(TP_MODES):
+            for i, mode in enumerate(run.modes):
                 rows = [x["steps"][fused][i] for x in tr]
                 step = [x["step_ms"] for x in rows]
                 calls = rows[0]["model_calls"]
@@ -6227,6 +6397,29 @@ def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
               f"launches as planned on every rank (rank 0: "
               + (", ".join(f"{k} {v}" for k, v in h["launches"].items() if v) or "none")
               + f"); on {card_line}")
+        if config.twin is not None:
+            i = next(i for i, x in enumerate(TP_CONFIGS) if x.label == config.twin)
+            twin = [x["configs"][i] for x in tc]
+            print(f"[tp:configs] {config.label} against its twin {config.twin!r} from the same "
+                  f"seeded residues: m' (every field, fp8 scales included) and offsets bitwise "
+                  f"the twin's on every rank by digest; step ms median "
+                  f"{st.median(step):.1f} (twin {st.median(x['step_ms'] for x in twin):.1f}); "
+                  f"model axis a rank {st.median(x['model_calls'] for x in rows):.0f} gloo calls, "
+                  f"{st.median(x['model_bytes'] for x in rows) / 1e6:.2f} MB (twin "
+                  f"{st.median(x['model_calls'] for x in twin):.0f}, "
+                  f"{st.median(x['model_bytes'] for x in twin) / 1e6:.2f} MB); data axis a rank "
+                  f"{st.median(x['data_calls'] for x in rows):.0f} gloo calls (twin "
+                  f"{st.median(x['data_calls'] for x in twin):.0f}); on {card_line}")
+        if "taps" in h:
+            tp_ = h["taps"]
+            print(f"[tp:configs] {config.label}: {tp_['all_keys']} taps, the same on every rank (by "
+                  f"digest), against the stacked step's with telemetry on rank 0: within rtol "
+                  f"{TAP_TOL['rtol']} / atol {TAP_TOL['atol']} (worst relative "
+                  f"{tp_['worst_rel']:.3e}), {tp_['moved']} of {tp_['ranked']} rank-based "
+                  f"similarity taps beyond it and within 0.01; fused_launches "
+                  f"{tp_['fused_launches']:g} a tensor (the leader's fused_select_update and "
+                  f"chunk_scatter) where the stacked step taps its one fused launch; on "
+                  f"{card_line}")
         print(f"[tp:configs] {config.label}: {tc[0]['seconds'][j]:.1f} s on rank 0 on {card_line}")
         for x in rows:
             for k in launches:
@@ -6237,6 +6430,13 @@ def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
           f"fused_select_update and its keyed route (true_topk's leader) bitwise their plain "
           f"versions; {tp_configs_seconds(tc[0]):.1f} s on rank 0 in all, on "
           f"{card_line}")
+    nan = tc[0]["nan"]
+    print(f"[tp:nan] slices.encode on each of the {RING_WORLD} ranks of a residue row "
+          f"{TP_NAN_SHAPE[0]} x {TP_NAN_SHAPE[1]} split on its last dim, a NaN on model rank 1 "
+          f"in a block (flat fp8, {nan['fp8']['scales']} scales) and a row (rowwise fp8_ec, "
+          f"{nan['fp8_ec']['scales']} scales) that cross the slices: the joined codes and scales "
+          f"bitwise the stacked codec's encode, the NaN's scale 1.0 (the flat partial amax's "
+          f"scatter_reduce keeps the NaN); on {card_line}")
     print(f"[tp] launches summed over the ranks and passes {launches} on {card_line}")
     return launches
 

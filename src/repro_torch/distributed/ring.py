@@ -76,7 +76,9 @@ dense one). Outside the payload, ``"oracle"`` counts true_topk's dense
 all-reduce of ef, ``"intra"`` the rank's own rows into ``group_fold``,
 ``"stats"`` the all-reduce of ef that ``compute_stats`` needs for
 contraction gamma and ``"telemetry"`` what the taps send (that all-reduce,
-when only they need it, and the taps' own).
+when only they need it, and the taps' own). A ``Collective`` of kind
+``"model"`` (the tensor-parallel step's model axis) counts in
+``tensor_parallel.sent`` and ``calls`` instead, one call per packed call.
 """
 
 from __future__ import annotations
@@ -92,11 +94,12 @@ from repro_torch.core import compressors
 from repro_torch.core.chunked import num_chunks
 from repro_torch.core.compressors import CompressorConfig, exact_k, random_draw, select_indices
 from repro_torch.core.filter import lowpass_update
+from repro_torch.distributed import tensor_parallel
 
 __all__ = [
     "Collective", "Flight", "Hierarchy", "all_reduce_mean", "clt_ring_reduce", "drive",
     "group_fold", "make_hierarchy", "make_ring_reducer", "payload_sent", "reset_sent",
-    "ring_reduce", "ring_steps", "sent",
+    "ring_reduce", "ring_rounds", "ring_steps", "sent",
 ]
 
 # bytes this process has put into collectives as their source
@@ -221,7 +224,8 @@ class Collective:
              every other rank a tensor of its shape and dtype
     group:   the process group
     kind:    the ``sent`` key its bytes count under (a broadcast's on the
-             source only)
+             source only); "model": the model axis's count
+             (``tensor_parallel.sent`` and ``calls``), outside ``sent``
     src:     a broadcast's source, as a rank of ``group``
     pack:    whether a bucket may lay it end to end with its others of the
              same op, group, source, dtype and kind and make one call of
@@ -251,7 +255,13 @@ class _Call:
         source = c0.op != "broadcast" or me == c0.src
         for c in members:
             if c.op != "broadcast" or me == c.src:
-                sent[c.kind] += c.tensor.numel() * c.tensor.element_size()
+                nbytes = c.tensor.numel() * c.tensor.element_size()
+                if c.kind == "model":
+                    tensor_parallel.sent[c.op] += nbytes
+                else:
+                    sent[c.kind] += nbytes
+        if c0.kind == "model":
+            tensor_parallel.calls[c0.op] += 1
         if len(members) > 1:
             total = sum(c.tensor.numel() for c in members)
             buf = (torch.cat([c.tensor.reshape(-1) for c in members]) if source else
@@ -407,6 +417,15 @@ def ring_steps(g_local, m_local, t: int, cfg: CompressorConfig, beta: float, gro
         m_new, vals = backend.ef_update(m_local, g_local, idx, beta, chunk, topm)
     (total,) = yield [Collective("all_reduce", vals, group, "values")]
     return backend.scatter(total / n, idx, chunk, size, topm), m_new, vals, idx
+
+
+def ring_rounds(cfg: CompressorConfig) -> int:
+    """The rounds ``ring_steps`` yields for ``cfg``, exact or not, on every
+    rank: the oracle's all-reduce (true_topk), the leader's broadcast of the
+    offsets (clt_k, true_topk), then the values' all-reduce (local_topk:
+    the all-gather of offsets and values). A rank with no part of a tensor
+    yields as many empty rounds, so that a bucket's packed calls match."""
+    return 1 + (cfg.name in ("clt_k", "true_topk")) + (cfg.name == "true_topk")
 
 
 def _exact_steps(g_local, m_local, t: int, cfg: CompressorConfig, beta: float, group):

@@ -22,9 +22,11 @@ slice, field by field, in the layout's storage:
 
 ``decode`` gives the slice's fp32 residue; ``encode`` codes an fp32 slice
 so that each code is the one the stacked reduce gives at the same logical
-position: the scale of a block or row that crosses slices is the maximum
-over the model group of each rank's partial amax (one all-reduce of the
-scales), and the stochastic rounding takes the dither at the slice's
+position: the scale of a block or row that crosses slices is ``torch.amax``
+over every model rank's partial amax (one all-gather of them, a round of
+``encode_steps``), so that a NaN anywhere in the block gives the stacked
+codec's scale of 1 (a MAX all-reduce over gloo drops a NaN from any rank
+but the first), and the stochastic rounding takes the dither at the slice's
 logical positions of the draw over the whole stack (``row_dither``).
 ``cut`` and ``join`` move a logical row's encoding to a slice and back.
 """
@@ -40,9 +42,10 @@ import torch
 from repro_torch.core import state as state_codecs
 from repro_torch.core.state import FP8_BLOCK, bf16_encode, fp8_blocks, fp8_quantize, fp8_scale
 from repro_torch.distributed import tensor_parallel
+from repro_torch.distributed.ring import Collective, drive
 
-__all__ = ["Slice", "codec_name", "init", "signature", "decode", "encode", "row_dither", "cut",
-           "join", "infer_layout"]
+__all__ = ["Slice", "codec_name", "init", "signature", "decode", "encode", "encode_steps",
+           "row_dither", "cut", "join", "infer_layout"]
 
 Shape = Tuple[int, ...]
 Enc = Dict[str, torch.Tensor]
@@ -177,7 +180,17 @@ def encode(name: str, m: torch.Tensor, sl: Slice, layout: str, dither=None,
     """Code the fp32 slice ``m`` (1, *storage): ``dither`` the slice's
     stochastic-rounding bits (``row_dither``; None rounds to nearest),
     ``model`` the model group, over which a scale that crosses the slices
-    takes its maximum."""
+    takes its maximum (``encode_steps`` with blocking calls)."""
+    return drive(encode_steps(name, m, sl, layout, dither, model))
+
+
+def encode_steps(name: str, m: torch.Tensor, sl: Slice, layout: str, dither=None, model=None):
+    """``encode`` as a round generator (``ring.Flight``): where a block or
+    row crosses the slices, one round that all-gathers every model rank's
+    partial amax (counted as the model axis's, ``tensor_parallel.sent``),
+    whose ``torch.amax`` keeps a NaN as the stacked codec's does (the flat
+    layout's partial amax, a ``scatter_reduce`` "amax", keeps one on the CPU
+    and on the card). Returns the encoding."""
     layout = _storage_layout(sl, layout)
     if name == "fp32":
         return {"q": m}
@@ -191,7 +204,8 @@ def encode(name: str, m: torch.Tensor, sl: Slice, layout: str, dither=None,
     else:
         amax = torch.amax(m.abs(), dim=-1)
     if sl.crosses(layout):
-        amax = tensor_parallel.all_reduce(amax, model, op="max")
+        (rows,) = yield [Collective("all_gather", amax, model, "model")]
+        amax = torch.amax(rows, dim=0)
     scale = fp8_scale(amax)
     per = scale[:, blocks] if flat else scale[..., None]
     q = fp8_quantize(m, per)

@@ -27,7 +27,8 @@ group and the logical axes that the layout splits over it; ``Model.loss``
 takes it as ``tp=`` and hands it to each layer, which splits its work where
 ``tp.over(<logical axis>)`` says so. ``sent`` counts the bytes this process
 has put into model-axis collectives and ``calls`` the collectives, by
-operation.
+operation: these operators', and the tensor-parallel reduce's (a
+``ring.Collective`` of kind "model", one call per packed call).
 """
 
 from __future__ import annotations
@@ -73,10 +74,10 @@ def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(parts, dim=dim)
 
 
-def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
-    """The sum (``op="max"``: the maximum) of ``x`` over ``group`` in a new
-    tensor (no autograd), counted in ``sent``."""
-    return _all_reduce(x, group, dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
+def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` in a new tensor (no autograd),
+    counted in ``sent``."""
+    return _all_reduce(x, group)
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:

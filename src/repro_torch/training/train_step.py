@@ -51,7 +51,6 @@ import torch.distributed as dist
 from repro_torch import tree
 from repro_torch.backends import FUSABLE_MODES, resolve_backend, resolve_fused
 from repro_torch.core import overlap
-from repro_torch.core.overlap import resolve_bucket_bytes
 from repro_torch.core import state as state_codecs
 from repro_torch.core.metrics import hamming_distance_topk, spearman_rho, topk_overlap
 from repro_torch.core import compressors
@@ -65,7 +64,8 @@ from repro_torch.core.state import (
 from repro_torch.device import fp32_accumulation
 from repro_torch.distributed import slices, tensor_parallel
 from repro_torch.distributed.ring import (
-    Collective, Flight, all_reduce_mean, drive, group_fold, make_hierarchy, ring_steps,
+    Collective, Flight, all_reduce_mean, drive, group_fold, make_hierarchy, ring_rounds,
+    ring_steps,
 )
 from repro_torch.distributed.sharding import shard_of, specs_for_axes, split_axes
 from repro_torch.kernels.fused_reduce import select_update_fits
@@ -226,6 +226,20 @@ def _leader_launches(comp, use_fused: bool) -> float:
     return 2.0 if comp.name == "random_k" else 3.0
 
 
+def _payload_bytes(comp, n_vals: int, n_idx: int, n: int) -> float:
+    """The per-worker wire bytes of a payload of ``n_vals`` values and
+    ``n_idx`` offsets over n workers, as the stacked reduce's
+    ``bytes_measured`` tap counts them: each worker's values, and its
+    own offsets (local_topk), none (random_k) or its 1/n of the leader's."""
+    if comp.name == "local_topk":
+        index_bytes = 4.0 * n_idx
+    elif comp.name == "random_k":
+        index_bytes = 0.0
+    else:
+        index_bytes = 4.0 * n_idx / n
+    return 4.0 * n_vals + index_bytes
+
+
 def _leaf_taps(plan, ctx: _GroupCtx, ef, ef_mean, vals, idx, ghat, m_new, new_enc,
                use_fused: bool):
     """One tensor's taps over the group, under ``core.scalecom._tap_execute``'s
@@ -241,14 +255,9 @@ def _leaf_taps(plan, ctx: _GroupCtx, ef, ef_mean, vals, idx, ghat, m_new, new_en
     taps.tap("fused", _const(1.0 if use_fused else 0.0, dev), path=plan.path,
              compressor=comp.name)
     taps.tap("fused_launches", _const(_leader_launches(comp, use_fused), dev), path=plan.path)
-    if comp.name == "local_topk":
-        index_bytes = 4.0 * idx.numel()
-    elif comp.name == "random_k":
-        index_bytes = 0.0
-    else:
-        index_bytes = 4.0 * idx.numel() / n
     labels = dict(path=plan.path, compressor=comp.name)
-    taps.tap("bytes_measured", _const(4.0 * vals.numel() + index_bytes, dev), **labels)
+    taps.tap("bytes_measured", _const(_payload_bytes(comp, vals.numel(), idx.numel(), n), dev),
+             **labels)
     taps.tap("bytes_planned", _const(plan.bytes_payload, dev), **labels)
     taps.tap("buildup_nnz", torch.count_nonzero(ghat).to(torch.float32), path=plan.path)
     taps.tap("buildup_k", _const(plan.k, dev), path=plan.path)
@@ -364,6 +373,44 @@ def _group_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, group,
     return ghat, new_state, stats
 
 
+def _run_steps(steps: list, schedule, device, sc_cfg: ScaleComConfig, collected) -> list:
+    """Each tensor's round generator run to its end; their results in leaf
+    order. Unbucketed (``schedule`` None): one after another in leaf order,
+    each collective a blocking call (``ring.drive``). Bucketed: the bucket
+    taps, then each bucket one async ``ring.Flight``, the buckets advanced
+    round by round in schedule order (``overlap.run_buckets``: on the side
+    stream with ``sc_cfg.overlap``, whose results, and the taps in
+    ``collected``, are handed over to the caller's stream)."""
+    results: list = [None] * len(steps)
+    if schedule is None:
+        for i, one in enumerate(steps):
+            results[i] = drive(one)
+        return results
+    for b in schedule:
+        if taps.active():
+            taps.tap("bucket_staged_leaves", _const(len(b.leaf_ids), device),
+                     bucket=b.index, overlap=sc_cfg.overlap)
+            taps.tap("bucket_bytes_dense", _const(b.bytes_dense, device), bucket=b.index)
+            taps.tap("bucket_bytes_payload", _const(b.bytes_payload, device), bucket=b.index)
+    flights = {b.index: Flight([steps[i] for i in b.leaf_ids], async_op=True) for b in schedule}
+    live, caller = schedule, None
+    while live:
+        busy = set()
+
+        def advance(b):
+            if flights[b.index].advance():
+                busy.add(b.index)
+
+        caller = overlap.run_buckets(live, advance, device, sc_cfg.overlap) or caller
+        live = tuple(b for b in live if b.index in busy)
+    for b in schedule:
+        for i, out in zip(b.leaf_ids, flights[b.index].out):
+            results[i] = out
+    if caller is not None:
+        overlap.hand_over([results, collected], caller)
+    return results
+
+
 def _group_reduce_body(grads, sc_state, sc_cfg, group, hierarchy, compute_stats, buckets,
                        collected):
     n = group.size()
@@ -390,36 +437,8 @@ def _group_reduce_body(grads, sc_state, sc_cfg, group, hierarchy, compute_stats,
         ef_kind="stats" if compute_stats else "telemetry", metrics_every=sc_cfg.metrics_every)
     steps = [_leaf_steps(plan, g, sc_state.residues.get(path), ctx)
              for plan, (path, g) in zip(plans, flat)]
-    schedule = overlap.resolve_buckets(buckets, sc_cfg, plans)
-    results: list = [None] * len(flat)
-    if schedule is None:
-        for i, one in enumerate(steps):
-            results[i] = drive(one)
-    else:
-        for b in schedule:
-            if taps.active():
-                taps.tap("bucket_staged_leaves", _const(len(b.leaf_ids), device),
-                         bucket=b.index, overlap=sc_cfg.overlap)
-                taps.tap("bucket_bytes_dense", _const(b.bytes_dense, device), bucket=b.index)
-                taps.tap("bucket_bytes_payload", _const(b.bytes_payload, device),
-                         bucket=b.index)
-        flights = {b.index: Flight([steps[i] for i in b.leaf_ids], async_op=True)
-                   for b in schedule}
-        live, caller = schedule, None
-        while live:
-            busy = set()
-
-            def advance(b):
-                if flights[b.index].advance():
-                    busy.add(b.index)
-
-            caller = overlap.run_buckets(live, advance, device, sc_cfg.overlap) or caller
-            live = tuple(b for b in live if b.index in busy)
-        for b in schedule:
-            for i, out in zip(b.leaf_ids, flights[b.index].out):
-                results[i] = out
-        if caller is not None:
-            overlap.hand_over([results, collected], caller)
+    results = _run_steps(steps, overlap.resolve_buckets(buckets, sc_cfg, plans), device, sc_cfg,
+                         collected)
     new_residues = dict(sc_state.residues)
     ghat_leaves = []
     sq_err = sq_all = 0.0
@@ -449,18 +468,6 @@ def _group_mean(loss: torch.Tensor, auxs: Dict, group) -> Tuple[torch.Tensor, Di
 
 
 # -- the tensor-parallel step ----------------------------------------------------
-
-# what the tensor-parallel step does not run yet, and the ROADMAP queue item
-# that takes it up
-_TP_LATER = {
-    "buckets": "2b, buckets and telemetry under tp",
-    "telemetry": "2b, buckets and telemetry under tp",
-}
-
-
-def _tp_refuse(what: str, item: str) -> None:
-    raise ValueError(f"the tensor-parallel train step does not run {what} (ROADMAP, sharded "
-                     f"step item {_TP_LATER[item]})")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -511,7 +518,7 @@ def _split_dim(spec) -> Optional[int]:
     return next((d for d, ax in enumerate(spec) if ax == "model"), None)
 
 
-def _tp_check(model, sc_cfg: ScaleComConfig, mode: str, mesh, n_workers: int, group) -> None:
+def _tp_check(model, mesh, n_workers: int, group) -> None:
     """Raises, naming it, for what the tensor-parallel step does not run."""
     if group is not None:
         raise ValueError("pass the grid as mesh= (its data group is the workers' group), "
@@ -523,8 +530,6 @@ def _tp_check(model, sc_cfg: ScaleComConfig, mode: str, mesh, n_workers: int, gr
         raise ValueError(f"n_workers ({n_workers}) must equal the grid's data size "
                          f"({mesh.shape['data']}): the ranks of one data index are one worker")
     require_tp_family(model.cfg)
-    if mode == "scalecom" and sc_cfg.telemetry:
-        _tp_refuse("telemetry", "telemetry")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -541,7 +546,9 @@ class _TPCtx:
     hierarchy: Any
     row: int  # this rank's residue row among the stacked step's
     mesh: Any
-    want_ef: bool  # compute_stats: the worker-mean EF for contraction gamma
+    want_ef: bool  # the worker-mean EF, for contraction gamma (stats or taps)
+    ef_kind: str  # the ``sent`` key its all-reduce counts under
+    metrics_every: int
 
     @property
     def model(self):
@@ -556,31 +563,78 @@ class _TPCtx:
         return self.mesh.shape["model"]
 
 
-def _gather_parts(part: torch.Tensor, sizes, group) -> torch.Tensor:
+def _call(c: Collective):
+    """One collective as a round generator: its result."""
+    (got,) = yield [c]
+    return got
+
+
+def _one_round(steps):
+    """Generators of at most one round each, run side by side as exactly one
+    round (an empty one where none of them yields): their results."""
+    out: list = [None] * len(steps)
+    live, calls = [], []
+    for i, one in enumerate(steps):
+        try:
+            req = list(next(one))
+        except StopIteration as stop:
+            out[i] = stop.value
+            continue
+        live.append((i, one, len(req)))
+        calls += req
+    got = yield calls
+    at = 0
+    for i, one, size in live:
+        try:
+            one.send(got[at:at + size])
+        except StopIteration as stop:
+            out[i] = stop.value
+        else:
+            raise RuntimeError("a step of more than one round in _one_round")
+        at += size
+    return out
+
+
+def _idle(rounds: int):
+    """``rounds`` rounds without a collective: a rank with no part of a
+    tensor keeps its rounds in step with the ranks that have one."""
+    for _ in range(rounds):
+        yield []
+
+
+def _model_gather(x: torch.Tensor, dim: int, group):
+    """Every model rank's ``x`` concatenated along ``dim`` in rank order (a
+    round: one all-gather, the model axis's count)."""
+    rows = yield from _call(Collective("all_gather", x.contiguous(), group, "model"))
+    return rows.movedim(0, dim).flatten(dim, dim + 1)
+
+
+def _gather_parts(part: torch.Tensor, sizes, group):
     """The flat concatenation of every model rank's ``part`` (``sizes[i]``
-    elements on rank i): padded to the longest, one all_gather."""
+    elements on rank i): padded to the longest, one all-gather (a round)."""
     width = max(sizes)
     flat = part.reshape(-1)
     if flat.numel() < width:
         flat = torch.cat([flat, flat.new_zeros(width - flat.numel())])
-    rows = tensor_parallel.all_gather(flat[None], 0, group)
+    rows = yield from _call(Collective("all_gather", flat, group, "model"))
     return torch.cat([rows[i, :n] for i, n in enumerate(sizes)])
 
 
-def _gather_cols(part: torch.Tensor, sizes, group) -> torch.Tensor:
+def _gather_cols(part: torch.Tensor, sizes, group):
     """``_gather_parts`` of (n, sizes[i]) columns: the (n, sum(sizes))
     concatenation along the last dim."""
     n = part.shape[0]
-    flat = _gather_parts(part.t().contiguous(), [s * n for s in sizes], group)
+    flat = yield from _gather_parts(part.t().contiguous(), [s * n for s in sizes], group)
     return flat.reshape(-1, n).t()
 
 
-def _stat_sums(ef: torch.Tensor, ghat: torch.Tensor, ctx: _TPCtx) -> torch.Tensor:
-    """(||ef_mean - ĝ||², ||ef_mean||²) over this rank's elements: the
-    worker-mean EF all-reduced over the compressor's group
-    (``sent["stats"]``)."""
-    ef_mean = all_reduce_mean(ef, ctx.across, "stats")
-    return torch.stack([torch.sum((ef_mean - ghat) ** 2), torch.sum(ef_mean**2)])
+def _stat_sums(ef: torch.Tensor, ghat: torch.Tensor, ctx: _TPCtx):
+    """(||ef_mean - ĝ||², ||ef_mean||²) over this rank's elements, and
+    ef_mean: the worker-mean EF all-reduced over the compressor's group
+    (a round; ``sent[ctx.ef_kind]``, its own call in a bucket)."""
+    total = yield from _call(Collective("all_reduce", ef, ctx.across, ctx.ef_kind, pack=False))
+    ef_mean = total / ctx.across.size()
+    return torch.stack([torch.sum((ef_mean - ghat) ** 2), torch.sum(ef_mean**2)]), ef_mean
 
 
 def _tp_draw(sp, sl: slices.Slice, ctx: _TPCtx, device) -> torch.Tensor:
@@ -605,14 +659,19 @@ def _tp_draw(sp, sl: slices.Slice, ctx: _TPCtx, device) -> torch.Tensor:
 
 def _tp_run(sp, sl, work: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
     """The compressor's reduce (``ring.ring_steps``) over the compressor's
-    group on this rank's rows ``work`` of the logical work view: (ĝ, m',
-    the stats' partial sums or None)."""
+    group on this rank's rows ``work`` of the logical work view, as a round
+    generator: (ĝ, m', the stats' partial sums or None, the payload's
+    per-worker bytes, ef_mean or None)."""
     comp = sp.plan.comp
     draw = _tp_draw(sp, sl, ctx, work.device) if comp.name == "random_k" else None
-    ghat, m_new, _, _ = drive(ring_steps(work, m, ctx.t, comp, ctx.beta, ctx.across,
-                                         ctx.backend, ctx.fused and comp.name in FUSABLE_MODES,
-                                         draw=draw))
-    return ghat, m_new, _stat_sums(m + work, ghat, ctx) if ctx.want_ef else None
+    ghat, m_new, vals, idx = yield from ring_steps(
+        work, m, ctx.t, comp, ctx.beta, ctx.across, ctx.backend,
+        ctx.fused and comp.name in FUSABLE_MODES, draw=draw)
+    sums = ef_mean = None
+    if ctx.want_ef:
+        sums, ef_mean = yield from _stat_sums(m + work, ghat, ctx)
+    return (ghat, m_new, sums, _payload_bytes(comp, vals.numel(), idx.numel(), ctx.across.size()),
+            ef_mean)
 
 
 def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
@@ -625,8 +684,10 @@ def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
     model group. clt_k: the leader's top-k; true_topk: the top-k of the
     oracle's mean (all-reduced part by part: the slice, or of a replicated
     tensor a range of it); random_k: the shared draw; local_topk: each
-    rank's own, all_gathered. Returns (ĝ slice, m' slice, the stats'
-    partial sums or None, the k logical offsets this rank updated at)."""
+    rank's own, all_gathered. A rank with an empty range, or no leader's
+    gather to join, yields an empty round in its place. Returns (ĝ slice,
+    m' slice, the stats' partial sums or None, the k logical offsets this
+    rank updated at, the payload's per-worker bytes, ef_mean or None)."""
     plan, comp = sp.plan, sp.plan.comp
     model, group = ctx.model, ctx.across
     n, me, size, k = group.size(), dist.get_rank(group), plan.size, plan.k
@@ -650,10 +711,10 @@ def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
             return x.reshape(-1)
 
         def whole(x_own):
-            return tensor_parallel.all_gather(x_own.reshape(sp.local_shape), sp.dim,
-                                              model).reshape(-1)
+            x = yield from _model_gather(x_own.reshape(sp.local_shape), sp.dim, model)
+            return x.reshape(-1)
 
-        ef_whole = whole(ef)
+        ef_whole = yield from whole(ef)
 
     def mine(x):  # the logical tensor, flat -> this rank's slice
         return sl.cut(x.reshape(plan.shape))
@@ -665,12 +726,13 @@ def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
             got_idx, got_vals = yield [Collective("all_gather", idx[lo:hi], group, "indices"),
                                        Collective("all_gather", vals[lo:hi], group, "values")]
         else:
+            yield []
             got_idx = idx.new_zeros((n, 0))
             got_vals = vals.new_zeros((n, 0))
+        cols_idx = yield from _gather_cols(got_idx, sizes, model)
+        cols_vals = yield from _gather_cols(got_vals, sizes, model)
         dense = torch.zeros((n, size), dtype=ef.dtype, device=dev)
-        dense = dense.scatter(1, _gather_cols(got_idx, sizes, model).long(),
-                              _gather_cols(got_vals, sizes, model))
-        ghat = torch.mean(dense, dim=0)
+        ghat = torch.mean(dense.scatter(1, cols_idx.long(), cols_vals), dim=0)
     else:
         if comp.name == "random_k":
             idx = compressors._top_k(compressors.random_draw(ctx.t, (size,), dev), k)
@@ -678,45 +740,143 @@ def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
             leader = int(ctx.t) % n
             key = ef_whole
             if comp.name == "true_topk":
-                (total,) = yield [Collective("all_reduce", own(ef), group, "oracle", pack=False)]
-                key = whole(total / n) if me == leader else None
+                total = yield from _call(Collective("all_reduce", own(ef), group, "oracle",
+                                                    pack=False))
+                if me == leader:
+                    key = yield from whole(total / n)
+                else:
+                    yield []
             part = (compressors._top_k(key.abs(), k)[lo:hi] if me == leader else
                     torch.empty(hi - lo, dtype=torch.int32, device=dev))
             if hi > lo:
-                (part,) = yield [Collective("broadcast", part, group, "indices", src=leader)]
-            idx = _gather_parts(part, sizes, model)
+                part = yield from _call(Collective("broadcast", part, group, "indices",
+                                                   src=leader))
+            else:
+                yield []
+            idx = yield from _gather_parts(part, sizes, model)
         vals = ef_whole[idx.long()]
         total = vals[lo:hi]
         if hi > lo:
-            (total,) = yield [Collective("all_reduce", total, group, "values")]
+            total = yield from _call(Collective("all_reduce", total, group, "values"))
+        else:
+            yield []
         ghat = torch.zeros(size, dtype=ef.dtype, device=dev)
-        ghat[idx.long()] = _gather_parts(total / n, sizes, model)
+        ghat[idx.long()] = yield from _gather_parts(total / n, sizes, model)
     own_dense = torch.zeros(size, dtype=ef.dtype, device=dev).scatter(0, idx.long(), vals)
     m_new = lowpass_update(m, gw, mine(own_dense), ctx.beta)
-    sums = None
+    sums = ef_mean = None
     if ctx.want_ef:
-        sums = _stat_sums(own(ef) if sp.dim is None else ef.reshape(-1),
-                          own(ghat) if sp.dim is None else mine(ghat).reshape(-1), ctx)
-    return mine(ghat), m_new, sums, idx
+        sums, ef_mean = yield from _stat_sums(
+            own(ef) if sp.dim is None else ef.reshape(-1),
+            own(ghat) if sp.dim is None else mine(ghat).reshape(-1), ctx)
+    return (mine(ghat), m_new, sums, idx, _payload_bytes(comp, hi - lo, hi - lo, n), ef_mean)
 
 
-def _tp_leaf(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
+def _tp_taps(sp, sl, ctx: _TPCtx, ef, ef_mean, whole, lift, ghat, m_new, new_enc, sums,
+             payload: float, use_fused: bool):
+    """One tensor's taps on the grid, under ``core.scalecom._tap_execute``'s
+    keys, as a generator of two rounds: each value the stacked step's for
+    the logical tensor, the same on every rank. ``ef`` and ``m_new`` are
+    this rank's slices (a replicated tensor's whole), ``ghat`` its slice of
+    ĝ, ``ef_mean`` the worker-mean EF over the elements it reduced (its
+    part; ``lift`` gathers the parts into the logical tensor, ``whole`` the
+    slices), ``sums`` their contraction sums, ``payload`` its share of the
+    per-worker bytes.
+
+    Round 1 all-reduces over the model group (the model axis's count) this
+    rank's share of bytes_measured and of the contraction sums, and of a
+    split tensor the nonzeros of ĝ and the codec roundtrip's two squared
+    norms (a replicated tensor's are whole on every rank: counted on model
+    rank 0); on sampled steps it gathers the logical EF and worker mean.
+    Round 2 all-reduces the squared norms over the compressor's group, and
+    on sampled steps, as the group step does, the unit EFs for the
+    pairwise cosine, and broadcasts the Hamming, energy and Spearman taps
+    that the group's rank 0 computes from the logical tensors
+    (``sent["telemetry"]``). ``fused_launches`` is the leader's launches
+    (``_leader_launches``), where the stacked step taps its one fused
+    launch: 2 on the fused_select_update route, not 1, and 2 for random_k,
+    not 3."""
+    plan, comp, dev = sp.plan, sp.plan.comp, ghat.device
+    n = ctx.across.size()
+    taps.tap("fused", _const(1.0 if use_fused else 0.0, dev), path=plan.path,
+             compressor=comp.name)
+    taps.tap("fused_launches", _const(_leader_launches(comp, use_fused), dev), path=plan.path)
+    decoded = slices.decode(ctx.codec, new_enc, sl, ctx.layout)
+    m_row = m_new.reshape(decoded.shape)
+    counted = sp.dim is not None or ctx.index == 0
+    zero = _const(0.0, dev)
+    mine = torch.stack([
+        _const(payload, dev),
+        torch.count_nonzero(ghat).to(torch.float32) if counted else zero,
+        torch.sum((decoded - m_row) ** 2) if counted else zero,
+        torch.sum(m_row**2) if counted else zero,
+        *(sums if sums is not None else (zero, zero))])
+    similarity = ctx.metrics_every > 0 and n >= 2
+    sampled = similarity and ctx.t % ctx.metrics_every == 0
+    first = [_call(Collective("all_reduce", mine, ctx.model, "model"))]
+    if sampled:
+        first += [whole(ef), lift(ef_mean)]
+    got = yield from _one_round(first)
+    total = got[0]
+    labels = dict(path=plan.path, compressor=comp.name)
+    taps.tap("bytes_measured", total[0], **labels)
+    taps.tap("bytes_planned", _const(plan.bytes_payload, dev), **labels)
+    taps.tap("buildup_nnz", total[1], path=plan.path)
+    taps.tap("buildup_k", _const(plan.k, dev), path=plan.path)
+    taps.tap("contraction_gamma", total[4] / torch.clamp_min(total[5], 1e-30), path=plan.path)
+    calls = [Collective("all_reduce", total[2:4], ctx.across, "telemetry")]
+    if sampled:
+        x, y = got[1], got[2]
+        u = x / torch.clamp_min(torch.linalg.norm(x), 1e-30)
+        calls.append(Collective("all_reduce", torch.cat([u, torch.sum(u * u)[None]]),
+                                ctx.across, "telemetry"))
+        k = max(1, min(plan.k, x.numel()))
+        ranked = (torch.stack([hamming_distance_topk(x, y, k), topk_overlap(x, y, k),
+                               spearman_rho(x, y)]) if dist.get_rank(ctx.across) == 0 else
+                  torch.empty(3, dtype=torch.float32, device=dev))
+        calls.append(Collective("broadcast", ranked, ctx.across, "telemetry", src=0))
+    got = yield calls
+    taps.tap("codec_roundtrip_err",
+             torch.sqrt(got[0][0]) / torch.clamp_min(torch.sqrt(got[0][1]), 1e-30),
+             path=plan.path, codec=ctx.codec)
+    if similarity:
+        if sampled:
+            s = got[1][:-1]
+            report = [1.0 - (torch.sum(s * s) - got[1][-1]) / (n * (n - 1))] + list(got[2])
+        else:
+            report = [_const(0.0, dev) for _ in _SIMILARITY_KEYS]
+        taps.tap("similarity_sampled", _const(1.0 if sampled else 0.0, dev), path=plan.path)
+        for name, value in zip(_SIMILARITY_KEYS, report):
+            taps.tap(name, value, path=plan.path)
+
+
+def _tp_leaf_steps(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
     """One tensor of the tensor-parallel reduce on this rank (``ShardPlan``
-    ``sp``): (ĝ of its slice, its new residue slice or None, the stats'
-    partial sums or None). With a hierarchy the gradient is averaged over
-    the rank's group first (``ring.group_fold``, on the slice)."""
+    ``sp``) as a round generator (``ring.Flight``): every collective of the
+    data axis and of the model axis, the codec's amax gather included, is a
+    yielded ``Collective``. Every rank of the grid yields the same number
+    of rounds for a tensor, and in each round the same collectives over
+    each of its groups (a rank with no part of the tensor yields empty
+    rounds in place of its reduce's), so the calls of a bucket's packed
+    rounds match on every rank. With a hierarchy the gradient is averaged
+    over the rank's group first (``ring.group_fold``, on the slice); the
+    taps last (``_tp_taps``) when they are collected. Returns (ĝ of its
+    slice, its new residue slice or None, the stats' partial sums or
+    None)."""
     plan = sp.plan
+    n = ctx.across.size()
     gw = g[0].to(torch.float32)
     if ctx.hierarchy is not None:
-        gw = drive(group_fold(gw, ctx.hierarchy))
+        gw = yield from group_fold(gw, ctx.hierarchy)
     if sp.route == "dense":
-        return all_reduce_mean(gw, ctx.across).to(g.dtype), None, None
+        total = yield from _call(Collective("all_reduce", gw, ctx.across, "dense"))
+        return (total / n).to(g.dtype), None, None
     model, index = ctx.model, ctx.index
 
-    def whole(x):  # this rank's slice -> the logical tensor, flat
+    def whole(x):  # this rank's slice -> the logical tensor, flat (a round where split)
         x = x.reshape(sp.local_shape)
         if sp.dim is not None:
-            x = tensor_parallel.all_gather(x, sp.dim, model)
+            x = yield from _model_gather(x, sp.dim, model)
         return x.reshape(-1)
 
     def mine(x):  # the logical tensor, flat -> this rank's slice
@@ -727,32 +887,53 @@ def _tp_leaf(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
         sizes = [max(0, b - a) for a, b in ranges]
         start = ranges[index][0]
     if plan.dense:  # replicated: its element range, gathered
-        ghat = all_reduce_mean(whole(gw)[start:start + sizes[index]], ctx.across)
-        return mine(_gather_parts(ghat, sizes, model)).to(g.dtype), None, None
+        gw_whole = yield from whole(gw)
+        total = yield from _call(Collective("all_reduce", gw_whole[start:start + sizes[index]],
+                                            ctx.across, "dense"))
+        ghat = yield from _gather_parts(total / n, sizes, model)
+        return mine(ghat).to(g.dtype), None, None
     m = slices.decode(ctx.codec, enc, sl, ctx.layout).reshape(sp.local_shape)
     if sp.route == "exact":
-        ghat, m_new, sums, _ = drive(_tp_exact_steps(sp, sl, gw, m, ctx))
+        ghat, m_new, sums, _, payload, ef_mean = yield from _tp_exact_steps(sp, sl, gw, m, ctx)
+
+        def lift(y):  # ef_mean over the rank's own elements -> the logical tensor
+            if sp.dim is None:
+                return _gather_parts(y, [b - a for a, b in _even(plan.size, ctx.parts)], model)
+            return whole(y)
     elif sp.route == "local":
-        ghat, m_new, sums = _tp_run(sp, sl, gw.reshape(sp.work), m.reshape(sp.work), ctx)
+        ghat, m_new, sums, payload, ef_mean = yield from _tp_run(
+            sp, sl, gw.reshape(sp.work), m.reshape(sp.work), ctx)
+        lift = whole
     else:  # "part": this rank's units of the logical tensor, then every rank's parts
-        part = whole(gw)[start:start + sizes[index]]
-        m_part = whole(m)[start:start + sizes[index]]
+        gw_whole = yield from whole(gw)
+        m_whole = yield from whole(m)
+        part = gw_whole[start:start + sizes[index]]
+        m_part = m_whole[start:start + sizes[index]]
         if part.numel():
-            ghat, m_new, sums = _tp_run(sp, sl, part.reshape(sp.work), m_part.reshape(sp.work),
-                                        ctx)
+            ghat, m_new, sums, payload, ef_mean = yield from _tp_run(
+                sp, sl, part.reshape(sp.work), m_part.reshape(sp.work), ctx)
         else:
-            ghat, m_new, sums = part, m_part, None
-        ghat = mine(_gather_parts(ghat, sizes, model))
-        m_new = mine(_gather_parts(m_new, sizes, model))
+            yield from _idle(ring_rounds(plan.comp) + ctx.want_ef)
+            ghat, m_new, sums, payload, ef_mean = part, m_part, None, 0.0, part
+        ghat = mine((yield from _gather_parts(ghat, sizes, model)))
+        m_new = mine((yield from _gather_parts(m_new, sizes, model)))
+
+        def lift(y):
+            return _gather_parts(y, sizes, model)
     store = (1,) + tuple(enc["q"].shape[1:])
     dither = slices.row_dither(ctx.codec, codec_key(plan.path, ctx.t), plan.groups, ctx.row, sl,
                                ctx.layout, g.device)
-    new_enc = slices.encode(ctx.codec, m_new.reshape(store), sl, ctx.layout, dither, model)
+    new_enc = yield from slices.encode_steps(ctx.codec, m_new.reshape(store), sl, ctx.layout,
+                                             dither, model)
+    if taps.active():
+        use_fused = ctx.fused and sp.route != "exact" and plan.comp.name in FUSABLE_MODES
+        yield from _tp_taps(sp, sl, ctx, m + gw, ef_mean, whole, lift, ghat, m_new, new_enc, sums,
+                            payload, use_fused)
     return ghat.reshape(sp.local_shape).to(g.dtype), new_enc, sums
 
 
 def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _TPLayout,
-               hierarchy=None, compute_stats: bool = False):
+               hierarchy=None, compute_stats: bool = False, buckets: Any = False):
     """Algorithm 1 over this rank's (1, *slice) gradients on a (data x model)
     grid: the plan of each logical tensor (``plan_tensors`` at n = the data
     size, G = ``sc_cfg.groups`` or n) mapped onto the rank (``plan_shards``),
@@ -761,12 +942,38 @@ def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _
     group), the parts of a "part" tensor gathered over the model group, the
     exact path's offsets and values in ranges of its k; the rank's residue
     slice decoded and m' encoded in any codec (``distributed.slices``).
+
+    ``buckets`` (``core.overlap.resolve_buckets``; None/"auto" reads
+    $SCALECOM_TORCH_BUCKET_MB): the schedule of the logical plans, the
+    stacked step's, the same on every rank. Unbucketed, each tensor's round
+    generator (``_tp_leaf_steps``) runs in leaf order with blocking calls.
+    Bucketed, each bucket is one async ``ring.Flight`` advanced round by
+    round as the group step's are (``_run_steps``; on the side stream with
+    ``overlap``): the payload, the taps and the gathers of both axes go
+    packed, one call per round, group and kind, while the oracle's and the
+    stats' all-reduces keep their own calls. Offsets and m' are the
+    unbucketed step's bits; ĝ sums its packed values in another order.
+
     Returns (ghat, new_state, stats): ``comm_bytes_per_worker`` and
     ``comm_bytes_dense`` are the logical plan's (the stacked step's),
     ``comm_bytes_per_shard`` this rank's share of the first, and with
     ``compute_stats`` ``contraction_gamma`` over the logical tensors (each
     rank's partial sums over the elements it reduces, summed over the model
-    group in one all-reduce)."""
+    group in one all-reduce). With ``sc_cfg.telemetry`` the taps come back
+    as ``"obs/<key>"`` entries under the stacked reduce's keys, each the
+    stacked step's value for the logical tensor and the same on every rank
+    (``_tp_taps``; ``fused_launches`` counts the leader's launches), and
+    ĝ, m' and the offsets are the bits of telemetry off."""
+    with taps.collect() if sc_cfg.telemetry else contextlib.nullcontext() as collected:
+        ghat, new_state, stats = _tp_reduce_body(grads, sc_state, sc_cfg, layout, hierarchy,
+                                                 compute_stats, buckets, collected)
+    for key in sorted(collected or ()):
+        stats[f"obs/{key}"] = collected[key]
+    return ghat, new_state, stats
+
+
+def _tp_reduce_body(grads, sc_state, sc_cfg, layout, hierarchy, compute_stats, buckets,
+                    collected):
     n = layout.data.size()
     flat = tree.flatten_with_path(grads)
     if tuple(p for p, _ in flat) != layout.paths:
@@ -793,11 +1000,16 @@ def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _
                  across=layout.data if hierarchy is None else hierarchy.inter,
                  hierarchy=hierarchy,
                  row=layout.mesh.index("data") if hierarchy is None else hierarchy.index,
-                 mesh=layout.mesh, want_ef=compute_stats)
+                 mesh=layout.mesh, want_ef=compute_stats or sc_cfg.telemetry,
+                 ef_kind="stats" if compute_stats else "telemetry",
+                 metrics_every=sc_cfg.metrics_every)
+    steps = [_tp_leaf_steps(sp, g, sc_state.residues.get(path), ctx, layout.slice(i))
+             for i, (sp, (path, g)) in enumerate(zip(shards, flat))]
+    results = _run_steps(steps, overlap.resolve_buckets(buckets, sc_cfg, plans), device, sc_cfg,
+                         collected)
     new_residues = dict(sc_state.residues)
     ghat_leaves, sums = [], []
-    for i, (sp, (path, g)) in enumerate(zip(shards, flat)):
-        ghat, new_enc, part = _tp_leaf(sp, g, sc_state.residues.get(path), ctx, layout.slice(i))
+    for (path, _), (ghat, new_enc, part) in zip(flat, results):
         ghat_leaves.append(ghat)
         if new_enc is not None:
             new_residues[path] = new_enc
@@ -895,16 +1107,20 @@ def build_train_step(
     each slice over the data group. It runs what the reference's sharded
     step runs: every compressor, chunked or exact, fused or not, every
     residue codec (``distributed.slices``), ``groups`` (the hierarchies of
-    every data line, built on every rank: ``ring.make_hierarchy(lines=)``)
-    and ``compute_stats``, and ``mode="dense"``. Buckets, telemetry and
-    the families other than dense and vlm raise, naming their ROADMAP item.
+    every data line, built on every rank: ``ring.make_hierarchy(lines=)``),
+    ``compute_stats``, ``buckets`` (the logical plans' schedule, each
+    bucket's collectives of both axes packed and async, as the group
+    step's; see ``_tp_reduce``), ``telemetry`` (the stacked step's
+    ``"obs/<key>"`` taps for the logical tensors, the same on every rank
+    of the grid) and ``mode="dense"``. The families other than dense and
+    vlm raise, naming their ROADMAP item.
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if mesh is not None:
-        _tp_check(model, sc_cfg, mode, mesh, n_workers, group)
+        _tp_check(model, mesh, n_workers, group)
         layout = _tp_layout(model.abstract_params(), model.logical_axes(), mesh)
         row = mesh.index("data")
         hierarchy = (None if sc_cfg.groups is None else
@@ -936,10 +1152,6 @@ def build_train_step(
         batch = _batch_on(batch, device)
         _check_lead(batch, n_workers)
         batch = {k: v[row:row + 1] for k, v in batch.items()}
-        if mode == "scalecom" and resolve_bucket_bytes(buckets, sc_cfg.bucket_bytes) is not None:
-            raise ValueError(f"the tensor-parallel train step runs unbucketed (buckets=None with "
-                             f"$SCALECOM_TORCH_BUCKET_MB unset, or False; ROADMAP, sharded step "
-                             f"item {_TP_LATER['buckets']})")
         if mode == "scalecom":
             loss, auxs, gpw = per_worker_grads(model, state.params, batch, 1, microbatches,
                                                tp=layout.axis)
@@ -947,7 +1159,7 @@ def build_train_step(
             loss, auxs, ghat = dense_grads(model, state.params, batch, tp=layout.axis)
         if mode == "scalecom":
             ghat, sc_state, stats = _tp_reduce(gpw, state.sc_state, sc_cfg, layout, hierarchy,
-                                               compute_stats)
+                                               compute_stats, buckets)
             del gpw
         else:
             ghat = tree.tree_map(lambda g: all_reduce_mean(g, layout.data), ghat)

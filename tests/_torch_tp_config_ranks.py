@@ -7,8 +7,8 @@ in a gloo group through a ``file://`` store, as a (2 data, 2 model) grid.
 thread, and puts JAX's draws in place of the port's: ``core.compressors.
 random_draw`` (random_k) and ``core.state.codec_dither`` (stochastic
 rounding) look the requested (step, shape) up in the job, and a draw the
-job does not hold raises. It runs the teacher-forced reduces of the first
-job, then the whole steps of the second, and sends back numpy arrays and
+job does not hold raises. It runs the teacher-forced reduces and NaN encodes of
+the first job, then the whole steps of the second, and sends back numpy arrays and
 plain values. A failure raises, and the process exits non-zero.
 """
 
@@ -25,7 +25,7 @@ from repro_torch.core import state as tstate
 from repro_torch.core.compressors import CompressorConfig
 from repro_torch.core.scalecom import ScaleComConfig
 from repro_torch.core.state import ScaleComState
-from repro_torch.distributed import ring, sharding, tensor_parallel
+from repro_torch.distributed import ring, sharding, slices, tensor_parallel
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import build_model
 from repro_torch.models.convert import (
@@ -139,6 +139,27 @@ def _reduces(job: dict, mesh) -> dict:
     return out
 
 
+def _nan_encodes(job: dict, mesh) -> dict:
+    """``slices.encode`` (nearest rounding) of each logical residue row of
+    leaf "a" in the job's NaN cases: every rank codes its slice of the row,
+    one NaN in a block (flat) or row (rowwise) that crosses the slices,
+    held by the model rank the case names. The slice's fields and the row
+    they join back to (``slices.join``), as bits."""
+    abstract = {k: torch.empty(s, device="meta") for k, s in job["shapes"].items()}
+    layout = ts._tp_layout(abstract, job["axes"], mesh)
+    sl = layout.slice(layout.paths.index("['a']"))
+    model = mesh.group("model")
+    out = {}
+    for (codec, lay, holder), row in job["nan"].items():
+        m = slices.cut("fp32", {"q": torch.from_numpy(row)}, sl, lay)["q"]
+        enc = slices.encode(codec, m, sl, lay, None, model)
+        joined = slices.join(codec, enc, sl, lay, model)
+        out[(codec, lay, holder)] = {
+            "slice": residue_bits(ScaleComState({"a": enc}, 0))["a"],
+            "row": residue_bits(ScaleComState({"a": joined}, 0))["a"]}
+    return out
+
+
 def _steps(job: dict, mesh) -> dict:
     """Whole steps from each labelled JAX state: this rank's parameter
     slices, the ĝ slices its optimizer received, the metrics, the counted
@@ -218,7 +239,7 @@ def rank_main(rank: int, world: int, store: str, conn) -> None:
     grid = make_test_mesh((2, 2))
     _install_draws(job["draws"], job["dithers"])
     result = {"coords": dict(grid.coords), "reduce": _reduces(job["reduce"], grid),
-              "inits": _inits(grid)}
+              "inits": _inits(grid), "nan": _nan_encodes(job["reduce"], grid)}
     steps = conn.recv()
     _install_draws({}, steps["dithers"])
     result["steps"] = _steps(steps, grid)

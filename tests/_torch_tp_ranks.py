@@ -98,7 +98,7 @@ def _reduce(job: dict, mesh) -> dict:
     """The teacher-forced reduce: this rank's slice of its worker's
     gradient and residue (the job's whole ones) through ``_tp_reduce`` at
     each t; the offsets each part's reduce used, captured from
-    ``train_step.drive``, and the results."""
+    ``train_step.ring_steps``, and the results."""
     shapes, axes = job["shapes"], job["axes"]
     abstract = {k: torch.empty(s, device="meta") for k, s in shapes.items()}
     layout = ts._tp_layout(abstract, axes, mesh)
@@ -111,15 +111,15 @@ def _reduce(job: dict, mesh) -> dict:
     grads = {k: sharding.shard_of(torch.from_numpy(g[row]), specs[f"['{k}']"], mesh)[None]
              for k, g in job["grads"].items()}
     captured = []
-    real = ts.drive
+    real = ts.ring_steps
 
-    def spy(steps):
-        out = real(steps)
+    def spy(*args, **kwargs):
+        out = yield from real(*args, **kwargs)
         captured.append(_np(out[3]))
         return out
 
     out = {}
-    ts.drive = spy
+    ts.ring_steps = spy
     try:
         for t in job["ts"]:
             for fused in (False, True):
@@ -133,7 +133,7 @@ def _reduce(job: dict, mesh) -> dict:
                     "payload": ring.payload_sent(), "stats": {k: float(v) for k, v in
                                                               stats.items()}}
     finally:
-        ts.drive = real
+        ts.ring_steps = real
     out["share"] = {p: _np(e["q"]) for p, e in mine.sc_state.residues.items()}
     return out
 

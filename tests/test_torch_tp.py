@@ -31,8 +31,7 @@ the test's temporary directory) form a (2 data, 2 model) grid, then a
   cross-entropy and embedding against the whole-vocabulary ones, and
   starcoder2-3b SMOKE's loss and gradients with its 64 kv columns split 16
   a rank (half a head) against the unsplit ones.
-- Buckets, telemetry, the other families and a wrong ``n_workers`` raise,
-  naming them.
+- The other families and a wrong ``n_workers`` raise, naming them.
 """
 
 import concurrent.futures
@@ -95,20 +94,14 @@ ROUTES = {"['a']": "part", "['b']": "local", "['c']": "part", "['f']": "local"}
 
 # (label, arch, ScaleComConfig fields, build_train_step keywords, environment):
 # what the step still refuses (every compressor, the exact path, every codec,
-# groups and compute_stats run: tests/test_torch_tp_configs.py)
+# groups and compute_stats run: tests/test_torch_tp_configs.py; buckets and
+# telemetry: tests/test_torch_tp_paths.py)
 REFUSALS = [
-    ("buckets", ARCHS[0], {}, {"buckets": True}, {}),
-    ("buckets_env", ARCHS[0], {}, {}, {"SCALECOM_TORCH_BUCKET_MB": "4"}),
-    ("telemetry", ARCHS[0], {"telemetry": True}, {}, {}),
-    ("telemetry_fp8", ARCHS[0], {"telemetry": True, "residue_dtype": "fp8"}, {}, {}),
     ("moe", "phi3.5-moe-42b-a6.6b", {}, {}, {}),
     ("ssm", "rwkv6-3b", {}, {}, {}),
     ("n_workers", ARCHS[0], {}, {"n_workers": 4}, {}),
 ]
-REFUSED = {"buckets": "runs unbucketed", "buckets_env": "runs unbucketed",
-           "telemetry": "does not run telemetry (ROADMAP, sharded step item 2b",
-           "telemetry_fp8": "does not run telemetry (ROADMAP, sharded step item 2b",
-           "moe": "the 'moe' family",
+REFUSED = {"moe": "the 'moe' family",
            "ssm": "the 'ssm' family", "n_workers": "n_workers (4) must equal the grid's data size"}
 
 

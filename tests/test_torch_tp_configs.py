@@ -34,6 +34,9 @@ ranks in the job, in place of the port's own draws.
   step from JAX's where the intra-group mean rounds differently.
   ``contraction_gamma`` against JAX's. The payload each data group counted
   is its share of the plan, the shares summing to JAX's bytes.
+- A NaN in a block or row of fp8's scales that crosses the slices (flat
+  fp8 and rowwise fp8_ec, on leaf "a", held by model rank 0 or 1): the codes
+  and scales bitwise JAX's stacked encode (scale 1.0 there).
 - The share: ``shard_train_state(mesh=, groups=)`` of every codec's stacked
   residues, joined back (``train_state_from_shard``), bitwise JAX's row;
   ``init_train_state(mesh=)`` of every codec, with and without groups, the
@@ -132,6 +135,13 @@ COMPRESSOR_CASES = [(label, t) for label in COMPRESSOR_LABELS for t in REDUCES[l
 CODEC_LABELS = ("bf16", "fp8", "fp8_ec", "rowwise_fp8", "rowwise_fp8_ec")
 CODEC_CASES = [(label, t) for label in CODEC_LABELS for t in REDUCES[label][6]]
 GAMMA_LABELS = ("true_topk", "true_topk_exact", "local_topk_exact", "groups_fp8")
+
+# a NaN in leaf "a" (split on its last dim, 12 columns a model rank) at row 5,
+# in a flat fp8 block and a rowwise row that cross the slices: column by the
+# model rank that holds it
+NAN_COLUMN = {0: 3, 1: 15}
+NAN_CASES = [(codec, layout, holder) for codec, layout in (("fp8", "flat"), ("fp8_ec", "rowwise"))
+             for holder in NAN_COLUMN]
 
 # the whole steps: label: (compressor, codec, groups, compute_stats, modes)
 STEP_CHUNK, STEP_LR, STEP_T = 128, 0.05, 3
@@ -240,7 +250,12 @@ def _reduce_job(rng) -> dict:
                 if codec in ("bf16", "fp8_ec"):
                     st = _dithered(codec, G, shape, layout)
                     dithers[(f"['{k}']", t, st)] = _jax_dither(f"['{k}']", t, st)
-    return {"grads": grads, "residues": residues, "draws": draws, "dithers": dithers}
+    nan = {}
+    for codec, layout, holder in NAN_CASES:
+        row = rng.standard_normal((1,) + TREE["a"][0]).astype(np.float32)
+        row[0, 5, NAN_COLUMN[holder]] = np.nan
+        nan[(codec, layout, holder)] = row.reshape((1,) + _storage(TREE["a"][0], layout))
+    return {"grads": grads, "residues": residues, "draws": draws, "dithers": dithers, "nan": nan}
 
 
 def _fold(x: np.ndarray, G: int) -> jnp.ndarray:
@@ -398,7 +413,7 @@ def world(tmp_path_factory):
                "reduce": {"shapes": {k: s for k, (s, _) in TREE.items()},
                           "axes": {k: a for k, (_, a) in TREE.items()}, "grads": red["grads"],
                           "residues": red["residues"], "configs": REDUCES, "chunk": CHUNK,
-                          "beta": BETA, "min_size": MIN_SIZE}}
+                          "beta": BETA, "min_size": MIN_SIZE, "nan": red["nan"]}}
         for parent, _ in pipes:
             parent.send(job)
         # the references in threads beside each other (XLA compiles, and
@@ -727,6 +742,31 @@ def test_tp_step_matches_reference(world, label, mode):
         total = runs[0]["metrics"]["comm_bytes_per_worker"]
         assert sum(shares) == total
         assert np.float32(total) == np.float32(ref["metrics"]["comm_bytes_per_worker"])
+
+
+@pytest.mark.parametrize("codec,layout,holder", NAN_CASES)
+def test_tp_fp8_nan_in_a_crossing_block_is_the_stacked_encode(world, codec, layout, holder):
+    """A NaN in a block (flat fp8) or row (rowwise fp8_ec) that crosses the
+    slices of leaf "a", on model rank ``holder``: every rank's slice codes,
+    joined into the row, and every field of the slice, bitwise JAX's
+    stacked encode of the logical row (the block's or row's scale 1.0,
+    where the NaN's amax is no positive number)."""
+    row = world["red"]["nan"][(codec, layout, holder)]
+    store = _storage(TREE["a"][0], layout)
+    # eagerly: jitted, XLA's CPU divides by 448 through its reciprocal and
+    # contracts fp8_ec's m - q * scale into an FMA
+    want = jax.tree.map(np.asarray, jstate.CODECS[codec].encode(jnp.asarray(row), store))
+    at = 5 if layout == "rowwise" else (5 * TREE["a"][0][1] + NAN_COLUMN[holder]) // 512
+    assert want["scale"].reshape(-1)[at] == 1.0
+    for (d, m), res in world["ranks"].items():
+        got = res["nan"][(codec, layout, holder)]
+        assert sorted(got["row"]) == sorted(want)
+        for field, x in want.items():
+            np.testing.assert_array_equal(got["row"][field], _bits(x),
+                                          err_msg=f"{codec} {layout} {field} rank {(d, m)}")
+            np.testing.assert_array_equal(got["slice"][field][0],
+                                          _cut_row(field, _bits(x)[0], "['a']", m, layout),
+                                          err_msg=f"{codec} {layout} {field} slice")
 
 
 @pytest.mark.parametrize("groups", [None, 1])

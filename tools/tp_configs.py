@@ -1,5 +1,5 @@
 """``chip_smoke.py``'s ``TP_CONFIGS`` alone on the card: the tensor-parallel
-step's six configurations at paper-transformer-base's full width.
+step's configurations at paper-transformer-base's full width.
 
 Builds the kernels once (``repro_torch.kernels.build.library``), spawns
 ``chip_smoke.RING_WORLD`` (8) ranks on the one card, joined by gloo through
