@@ -164,7 +164,8 @@ Phases, each fatal on failure:
      workers of 4 x 128 text positions over 1500 stub frames, fused; and
      internvl2-26b at 2 of 48 layers, 2 workers of 4 x (256 stub vision +
      128 text) positions, fused. Each trained by ``run_training`` for 2
-     dense and 3 compressed steps with its launches held to the plan,
+     dense and 2 compressed steps (``ARCH_STEPS``) with its launches held
+     to the plan,
      every select, scatter and fused launch vec4, the comm-bytes and
      build-up invariants on every compressed step and a finite loss; step
      ms and peak memory. From each trained state a fused reduce (and for
@@ -184,8 +185,8 @@ Phases, each fatal on failure:
      the next: paper-transformer-base (6 layers), starcoder2-3b (30),
      rwkv6-3b (32), recurrentgemma-2b (26, a 2304-position prompt past its
      2048-position window) and whisper-medium (24 + 24 over 1500 stub
-     frames) at full depth; phi3.5-moe-42b-a6.6b at 8 of 32 and
-     internvl2-26b at 24 of 48 layers (256 stub vision tokens), whose fp32
+     frames) at full depth; phi3.5-moe-42b-a6.6b at 2 of 32 and
+     internvl2-26b at 6 of 48 layers (256 stub vision tokens), whose fp32
      weights do not fit whole. 4 prompts of 64 tokens, 32 greedy tokens
      through ``build_serve_fns`` and ``launch.serve.generate``, twice
      (equal tokens): prefill ms (first call and warm), decode ms a token
@@ -217,9 +218,9 @@ Phases, each fatal on failure:
      Then at paper-transformer-base's full width, at each example's own
      settings (``example_run``): ``[examples:table2]`` (quickstart's: dense,
      clt_k beta 1, and the same in bf16 compute over fp32 parameters;
-     ``TABLE2_STEPS`` = 30 of its 60 steps), ``[examples:table3]``
+     ``TABLE2_STEPS`` = 15 of its 60 steps), ``[examples:table3]``
      (large_batch_lowpass's 16 workers at lr 0.2: dense, beta 1, beta 0.1;
-     ``TABLE3_STEPS`` = 40 of its 80 steps) and ``[examples:multipod]`` (its
+     ``TABLE3_STEPS`` = 16 of its 80 steps) and ``[examples:multipod]`` (its
      assertions).
      Each run prints the loss every 10 steps, step ms, the largest
      nnz(ĝ)/k, the bytes and the peak; it holds every compressed step's
@@ -282,20 +283,25 @@ Phases, each fatal on failure:
   12. ``[tp]``, the tensor-parallel step (``build_train_step(mesh=...)``,
      the reference's ``tp`` policy), run by ``[ring]``'s 8 ranks after
      ``RING_RUNS``; ``TP_RUNS``: paper-transformer-base at full
-     width on a (4 data, 2 model) grid and starcoder2-3b at full width, 2
-     layers, on (2, 2) (the world's first 4 ranks), 1 dense + 2 (paper) or
-     1 (starcoder2) compressed steps unfused and then fused
-     (``tp_run_rank``). Each step's
+     width on a (4 data, 2 model) grid; starcoder2-3b (2 layers),
+     phi3.5-moe (1 layer: experts split 8 a rank, fp8 residues) and
+     rwkv6-3b (1 layer: 20 heads a rank) at full width on (2, 2) (the
+     world's first 4 ranks), 1 dense + 2 (paper) or 1 compressed steps
+     unfused and then fused (``tp_run_rank``). Each step's
      launches per rank as planned (the leader's select, or fused its
      ``fused_select_update``; ef_update and chunk_scatter; all vec4), the
      data replicas' parameters bitwise (digests), each data group's
      payload the plan's share and the shares summing to the plan's bytes;
-     in the unfused pass rank 0 runs the stacked single-process step from
-     the same init and batches and holds the logical parameters (gathered
-     over its model group) within ``TP_TOL`` outside the chunks that
-     selected another lane at a near tie (both steps' ef at the two lanes,
-     ``NEAR_TIE_RTOL``; counted and printed), the loss within
-     ``TP_LOSS_TOL``; the fused pass's parameters bitwise the unfused
+     after both passes rank 0 runs the stacked single-process step from
+     the same init and batches (a full-width grid and its stacked step do
+     not fit on the card together: the unfused pass keeps the logical
+     parameters, ĝ and the leaders' ef in host memory) and holds the
+     logical parameters (gathered over its model group) within
+     ``TP_TOL`` (rwkv6-3b: plus 2e-2 of a leaf's largest change, its group
+     norm's rounding) outside the chunks that selected another lane at a
+     near tie (both steps' ef at the two lanes, ``NEAR_TIE_RTOL``; counted
+     and printed), the loss within ``TP_LOSS_TOL``, MoE's aux losses within
+     1e-4 and its dropped choices equal; the fused pass's parameters bitwise the unfused
      pass's; the last compressed step's reduce teacher-forced on every rank,
      cuda backend bitwise torch backend, unfused and fused; the four
      kernels at rank 0's part shapes bitwise their plain versions. Prints
@@ -2707,6 +2713,9 @@ ARCH_RUNS = (
 )
 # every training run: dense warm-up steps, then compressed ones up to STEPS
 WARMUP, STEPS = 2, 5
+# [arch]'s runs take one compressed step fewer (the second from nonzero
+# residues), which keeps the whole script inside its time limit
+ARCH_STEPS = 4
 # the kernels a CLT-k reduce launches, unfused and fused: the arch path's
 ARCH_KERNELS = ("chunk_argmax", "chunk_scatter", "ef_update", "fused_reduce")
 
@@ -2998,7 +3007,7 @@ def arch_phase(card_line: str) -> dict:
             torch.cuda.reset_peak_memory_stats()
             label = f"{name} {'fused' if fused else 'unfused'}"
             run = train_run(cfg, model, opt, sched, dataclasses.replace(base_cfg, fused=fused),
-                            workers, STEPS, label, card_line, f"[arch] {label}",
+                            workers, ARCH_STEPS, label, card_line, f"[arch] {label}",
                             spec.local_batch, spec.seq,
                             torch.Generator(device="cuda").manual_seed(0))
             peaks[label] = torch.cuda.max_memory_allocated()
@@ -3010,7 +3019,7 @@ def arch_phase(card_line: str) -> dict:
                 if "expert_" in p.path:
                     print(f"[arch] {label} {p.path}: nnz(ĝ)/k per compressed step "
                           + " / ".join(f"{int(run.nnz[s][i]) / p.k:.6f}"
-                                       for s in range(WARMUP, STEPS)))
+                                       for s in range(WARMUP, ARCH_STEPS)))
         params, sc_state, plans = run.state.params, run.state.sc_state, run.plans
         del run  # the momentum
         t_trained = time.perf_counter()
@@ -3180,7 +3189,8 @@ class ServeRun:
 # The [serve] phase: serving needs no gradients, worker copies or residues,
 # so the four archs whose fp32 weights fit run at full depth. phi3.5-moe
 # (1.30 G parameters a layer, 167 GB in all) and internvl2-26b (0.39 G a
-# layer, 79 GB) do not fit one card: they keep ~43 GB of layers.
+# layer, 79 GB) do not fit one card: they keep ~10 GB of layers (2 and 6:
+# deeper cuts fit, but the script's time limit is shared with [tp])
 SERVE_RUNS = (
     ServeRun("paper-transformer-base", dict(n_layers=2)),
     ServeRun("starcoder2-3b", dict(n_layers=2)),
@@ -3189,10 +3199,10 @@ SERVE_RUNS = (
     # attention layers' caches wrap as rings
     ServeRun("recurrentgemma-2b", dict(n_layers=3), prompt=2304),
     ServeRun("whisper-medium", dict(n_layers=2, encoder_layers=2)),
-    ServeRun("phi3.5-moe-42b-a6.6b", dict(n_layers=1), dict(n_layers=8),
-             "1.30 G parameters a layer: 32 layers are 167 GB of fp32 weights, 8 are ~43 GB"),
-    ServeRun("internvl2-26b", dict(n_layers=1), dict(n_layers=24),
-             "0.39 G parameters a layer: 48 layers are 79 GB of fp32 weights, 24 are ~42 GB"),
+    ServeRun("phi3.5-moe-42b-a6.6b", dict(n_layers=1), dict(n_layers=2),
+             "1.30 G parameters a layer: 32 layers are 167 GB of fp32 weights, 2 are ~11 GB"),
+    ServeRun("internvl2-26b", dict(n_layers=1), dict(n_layers=6),
+             "0.39 G parameters a layer: 48 layers are 79 GB of fp32 weights, 6 are ~10 GB"),
 )
 # the reference's prefill/decode consistency tolerance (tests/test_models_smoke.py)
 SERVE_CONSISTENCY_TOL = dict(rtol=2e-3, atol=2e-3)
@@ -3846,13 +3856,14 @@ QUICKSTART_CPU = {"none": 4.200640678405762, "clt_k": 4.920510768890381}
 # a worker mean sums in another order on the card; over 55 compressed steps
 # a near-tie CLT-k pick can flip and compound, which the dense arm cannot
 QUICKSTART_RTOL = {"none": 1e-3, "clt_k": 1e-2}
-# [examples:table3]'s full-width runs take 40 of large_batch_lowpass's 80
-# steps, to keep the script inside its time limit: their losses are
-# findings, printed and not held
-TABLE3_STEPS = 40
-# and [examples:table2]'s take 30 of quickstart's 60, for the same reason
-# (quickstart as written keeps its 60 steps: it is held to the CPU record)
-TABLE2_STEPS = 30
+# [examples:table3]'s full-width runs take 16 of large_batch_lowpass's 80
+# steps (8 dense + 8 compressed), to keep the script inside its time limit:
+# their losses are findings, printed and not held
+TABLE3_STEPS = 16
+# and [examples:table2]'s take 15 of quickstart's 60 (5 + 10), for the same
+# reason (quickstart as written keeps its 60 steps: it is held to the CPU
+# record)
+TABLE2_STEPS = 15
 EXAMPLE_LOSS_EVERY = 10  # steps between the losses a full-width run prints
 
 
@@ -5283,7 +5294,7 @@ def ring_phase(card_line: str) -> dict:
             ring_launches[k] += launches[k]
     print(f"[ring] launches summed over the ranks and runs {ring_launches}; phase "
           f"{time.perf_counter() - t_phase:.1f} s wall, [tp]'s cells included "
-          f"({results[0]['tp_s'][0] + results[0]['tp_s'][1]:.1f} s on rank 0, and TP_CONFIGS "
+          f"({sum(results[0]['tp_s']):.1f} s on rank 0, and TP_CONFIGS "
           f"{tp_configs_seconds(results[0]['tp_configs']):.1f}), on {card_line}")
     return ring_launches, results
 
@@ -5309,8 +5320,12 @@ class TPRun:
     """One cell of ``[tp]``: an arch at full width (``layers``: the depth it
     is cut to, None for its own) on a (data, model) grid over the world's
     first ranks, ``batch`` x ``seq`` tokens a worker, the steps of
-    ``modes`` (1 dense + 2 compressed by default), unfused and then
-    fused."""
+    ``modes`` (1 dense + 2 compressed by default), unfused and then fused,
+    with ``codec`` residues. ``rounding_of_max``: the share of a leaf's
+    largest gradient that the two passes' rounding may reach (RWKV-6's
+    group norm: ``ARCH_RUNS``' rwkv6 note), added to the parameters' atol
+    as that share of the leaf's largest change in the step, and to the
+    near-tie rule's as that share of the leaf's largest |ef|."""
 
     arch: str
     grid: tuple
@@ -5318,6 +5333,8 @@ class TPRun:
     batch: int
     seq: int
     modes: tuple = TP_MODES
+    codec: str = "fp32"
+    rounding_of_max: float = 0.0
 
     @property
     def tag(self) -> str:
@@ -5325,11 +5342,20 @@ class TPRun:
 
 
 TP_RUNS = (
-    TPRun("paper-transformer-base", (4, 2), None, 4, 128),  # the main path's model and batch
-    # GQA, 2 kv heads: one a model rank; one compressed step a pass (the
-    # paper cell and TP_CONFIGS take the steps from nonzero residues), which
-    # keeps the whole script inside its time limit on the slowest host seen
+    # the main path's model and batch; every cell takes one compressed step a
+    # pass (TP_CONFIGS take theirs from nonzero residues), which keeps the
+    # whole script inside its time limit on the slowest host seen
+    TPRun("paper-transformer-base", (4, 2), None, 4, 128, ("dense", "scalecom")),
+    # GQA, 2 kv heads: one a model rank
     TPRun("starcoder2-3b", (2, 2), 2, 2, 128, ("dense", "scalecom")),
+    # 16 experts, 8 a model rank; lm_head's 32,064 columns 16,032 a rank,
+    # reduced in parts (16032 % 64 = 32). fp8 residues: with fp32 ones each
+    # rank holds six 3.13 GB copies of its slices at the reduce (parameters,
+    # momentum, gradient, old and new residue, ĝ), 75 GB for the grid beside
+    # 8 CUDA contexts (PERF.md's reckoning)
+    TPRun("phi3.5-moe-42b-a6.6b", (2, 2), 1, 2, 128, ("dense", "scalecom"), codec="fp8"),
+    # 40 heads of 64, 20 a model rank, every split leaf reduced where it lies
+    TPRun("rwkv6-3b", (2, 2), 1, 2, 64, ("dense", "scalecom"), rounding_of_max=2e-2),
 )
 
 
@@ -5425,25 +5451,130 @@ def tp_kernel_holds(shards, gen) -> list:
     return parts
 
 
+def tp_host_whole(tree_, specs, mesh, rank: int):
+    """The logical tree from this data line's slices, in host memory on the
+    line's model rank 0 (None on the others), leaf by leaf: each slice is
+    copied to the host and gathered there (gloo on CPU tensors), so no
+    whole leaf is ever on the card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+
+    group, first = mesh.group("model"), mesh.index("model") == 0
+    dst = rank - mesh.index("model")  # the line's model rank 0 (row-major grid)
+    out = {}
+    for (path, x), spec in zip(tree.flatten_with_path(tree_), tree.leaves(specs)):
+        part = x.detach().to("cpu", copy=True)  # a copy: the optimizer writes in place
+        dim = next((d for d, ax in enumerate(spec) if ax == "model"), None)
+        if dim is None:
+            if first:
+                out[path] = part
+            continue
+        parts = [torch.empty_like(part) for _ in range(mesh.shape["model"])] if first else None
+        dist.gather(part, parts, dst=dst, group=group)
+        if first:
+            out[path] = torch.cat(parts, dim=dim)
+    return out if first else None
+
+
+def tp_host_support(tree_, specs, mesh, rank: int):
+    """The logical flat offsets of each leaf's nonzero elements (ĝ's
+    selections: 1/chunk of the elements), gathered in host memory on this
+    data line's model rank 0 (None on the others): each rank's offsets in
+    its slice, mapped to the logical tensor's."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import tree
+
+    group, index, parts = mesh.group("model"), mesh.index("model"), mesh.shape["model"]
+    first, dst = index == 0, rank - index
+    out = {}
+    for (path, x), spec in zip(tree.flatten_with_path(tree_), tree.leaves(specs)):
+        dim = next((d for d, ax in enumerate(spec) if ax == "model"), None)
+        if dim is None:
+            if first:
+                out[path] = torch.nonzero(x.reshape(-1)).reshape(-1).to("cpu")
+            continue
+        inner, width = math.prod(x.shape[dim + 1:]), x.shape[dim]
+        at = torch.nonzero(x.reshape(-1)).reshape(-1)
+        at = (at // (width * inner) * (parts * width * inner) + index * width * inner
+              + at % (width * inner)).to("cpu")
+        counts = [torch.zeros(1, dtype=torch.int64) for _ in range(parts)] if first else None
+        dist.gather(torch.tensor([at.numel()]), counts, dst=dst, group=group)
+        top = torch.tensor([0 if counts is None else max(int(c) for c in counts)])
+        dist.broadcast(top, dst, group=group)
+        padded = torch.nn.functional.pad(at, (0, int(top) - at.numel()))
+        got = [torch.empty_like(padded) for _ in range(parts)] if first else None
+        dist.gather(padded, got, dst=dst, group=group)
+        if first:
+            out[path] = torch.cat([g[:int(c)] for g, c in zip(got, counts)])
+    return out if first else None
+
+
+def tp_leader_ef(layout, before: dict, grads, codec: str) -> dict:
+    """This leader rank's ef (its residue slice decoded, plus its gradient
+    slice), flat by residue path, in host memory."""
+    from repro_torch import tree
+    from repro_torch.distributed import slices
+
+    g = dict(tree.flatten_with_path(grads))
+    out = {}
+    for i, path in enumerate(layout.paths):
+        if path in before:
+            m = slices.decode(codec, before[path], layout.slice(i), "flat").reshape(-1)
+            out[path] = (m[:g[path].numel()] + g[path].reshape(-1)).to("cpu")
+    return out
+
+
+def tp_params_held(whole: dict, stacked, lr: float, run, skip: dict, tag: str, i: int) -> float:
+    """The logical parameters (``whole``, path -> tensor, on the card or in
+    host memory) against the stacked step's, within ``TP_TOL`` outside the
+    near-tie chunks of ``skip``, plus ``run.rounding_of_max`` of the leaf's
+    largest change in the step (lr times its largest momentum). Returns the
+    largest difference held."""
+    import torch
+
+    from repro_torch import tree
+
+    worst = 0.0
+    moms = dict(tree.flatten_with_path(stacked.opt_state["m"]))
+    for path, b in tree.flatten_with_path(stacked.params):
+        a = whole[path].to(b.device)
+        keep = ~skip[path] if path in skip else torch.ones_like(a, dtype=torch.bool)
+        atol = TP_TOL["atol"] + run.rounding_of_max * lr * float(moms[path].abs().max())
+        check(bool(torch.allclose(a[keep], b[keep], rtol=TP_TOL["rtol"], atol=atol)),
+              f"{tag} step {i}: parameters {path} differ from the stacked step's beyond "
+              f"rtol {TP_TOL['rtol']} / atol {atol:.3e}")
+        worst = max(worst, float((a - b)[keep].abs().max()))
+        del a, keep
+    return worst
+
+
 def tp_run_rank(rank: int, run: TPRun):
     """One ``TPRun`` on this rank: its grid's ranks train the arch through
     ``build_train_step(mesh=...)``, unfused then fused from the same init,
     each step timed with its launches, model-axis calls and bytes and
-    payload counted; rank 0 (data 0, model 0) runs the stacked
-    single-process step from the same init and batches during the unfused
-    pass and holds the logical parameters (gathered over its model group)
-    within ``TP_TOL``, up to counted near-tie chunks, and the loss within
-    ``TP_LOSS_TOL``; every rank's parameters are bitwise its data replicas'
-    and, fused, bitwise the unfused pass's; each data group's payload the
-    plan's share; the last compressed step's reduce teacher-forced, cuda
-    backend bitwise torch backend, unfused and fused; the kernels at the
-    rank's part shapes against their plain versions. Ranks outside the
-    grid return None."""
+    payload counted; after both passes, once the grid's state is gone,
+    rank 0 (data 0, model 0) runs the stacked single-process step from the
+    same init and batches (a full-width cell's grid and stacked step do
+    not fit on the card together) and, against the logical parameters, ĝ
+    and the leaders' ef that the unfused pass kept in host memory, holds
+    the logical parameters within ``TP_TOL``, up to counted near-tie
+    chunks, the loss within ``TP_LOSS_TOL`` and MoE's aux (load-balance and
+    z losses within 1e-4, the dropped choices equal); every rank's
+    parameters are bitwise its data replicas' and, fused, bitwise the
+    unfused pass's; each data group's payload the plan's share; the last
+    compressed step's reduce teacher-forced, cuda backend bitwise torch
+    backend, unfused and fused; the kernels at the rank's part shapes
+    against their plain versions. Ranks outside the grid return None."""
     import torch
     import torch.distributed as dist
 
     from repro_torch import kernels, tree
     from repro_torch.configs import registry
+    from repro_torch.core import state as cstate
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.core.plan import plan_shards, plan_tensors
     from repro_torch.core.scalecom import ScaleComConfig
@@ -5452,7 +5583,6 @@ def tp_run_rank(rank: int, run: TPRun):
     from repro_torch.kernels import chunk_topk as ct
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import build_model
-    from repro_torch.models.convert import gather_shards
     from repro_torch.optim import make_optimizer, schedule
     from repro_torch.optim.optimizer import Optimizer
     from repro_torch.training import build_train_step, init_train_state
@@ -5473,8 +5603,11 @@ def tp_run_rank(rank: int, run: TPRun):
     specs = sharding.specs_for_axes(abstract, axes, "tp", mesh)
     layout = ts._tp_layout(abstract, axes, mesh)
     batches = list(make_batches(cfg.vocab, n, run.batch, run.seq, seed=0, steps=3))
-    sched = schedule.constant(0.05)
+    lr = 0.05
+    sched = schedule.constant(lr)
     base_opt = make_optimizer("sgdm")
+    moe_keys = ("moe_lb_loss", "moe_z_loss", "moe_dropped_frac")
+    choices = cfg.n_layers * run.batch * run.seq * (cfg.moe_topk or 0) * n
     ghats = []
 
     def spying(opt):
@@ -5485,17 +5618,89 @@ def tp_run_rank(rank: int, run: TPRun):
 
     def sc_cfg(fused: bool, backend="auto"):
         return ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
-                              min_size=1024, fused=fused, backend=backend)
+                              min_size=1024, residue_dtype=run.codec, fused=fused,
+                              backend=backend)
 
     def new_state(fused: bool, **kw):
         return init_train_state(model, base_opt, sc_cfg(fused),
                                 torch.Generator(device="cuda").manual_seed(0), n_workers=n,
                                 device="cuda", **kw)
 
-    out = {"steps": {}, "checks": [], "peak": {}}
-    plain_digests, stacked, skip, flipped = [], None, {}, 0
-    captured, own_grads, ref_grads = [], [], []
+    def stacked_ef(ref_before, gpw, path, t_sc):
+        """The stacked step's leader ef of ``path``, flat."""
+        enc = ref_before.residues[path]
+        row = {k: v[t_sc % n:t_sc % n + 1] for k, v in enc.items()}
+        m = cstate.CODECS[run.codec].decode(row, (gpw[path][0].numel(),)).reshape(-1)
+        return m + gpw[path][t_sc % n].reshape(-1)
+
+    def held_flips(cand, lookup, i):
+        """The near-tie rule on the flipped chunks ``cand`` (rank 0's: (leaf,
+        the stacked lane's element, the step's lane's, their stacked ef, the
+        leaf's largest stacked |ef|)), each element's own ef looked up on
+        the leader's model rank whose slice holds it (``lookup(path, at)``),
+        into ``skip``; returns the number held."""
+        count = torch.tensor([len(cand)], dtype=torch.int64)
+        dist.broadcast(count, 0, group=members)
+        where = (torch.tensor([c[:3] for c in cand], dtype=torch.int64).reshape(-1, 3)
+                 if rank == 0 else torch.zeros((int(count), 3), dtype=torch.int64))
+        mine = torch.zeros((int(count), 2), dtype=torch.float64)
+        if int(count):
+            dist.broadcast(where, 0, group=members)
+        if int(count) and lookup is not None:
+            for f, (leaf, pa, pb) in enumerate(where.tolist()):
+                path, dim = layout.paths[leaf], layout.dims[leaf]
+                width = layout.shapes[leaf][dim] // run.grid[1] if dim is not None else 0
+                for j, pos in enumerate((pa, pb)):
+                    at = tp_local_index(pos, layout.shapes[leaf], dim, width, m_index)
+                    if at >= 0 and (dim is not None or m_index == 0):
+                        mine[f, j] = lookup(path, at)  # the reduce's ef, fp32
+        if int(count):
+            dist.all_reduce(mine, group=members)
+        if rank == 0:
+            for (leaf, pa, pb, ra, rb, top), (ta, tb) in zip(cand, mine.tolist()):
+                slack = run.rounding_of_max * top
+                close = all(abs(x - y) <= NEAR_TIE_RTOL * abs(y) + slack for x, y in
+                            ((ta, ra), (tb, rb)))
+                explained = abs(ra) - abs(rb) <= abs(ta - ra) + abs(tb - rb)
+                check(close and explained and abs(ta) <= abs(tb),
+                      f"{tag} step {i}: {layout.paths[leaf]} elements {pa} / {pb}: the "
+                      f"stacked step's ef {ra!r} / {rb!r}, this step's {ta!r} / {tb!r}: "
+                      f"another lane without a near tie (rtol {NEAR_TIE_RTOL}, slack {slack:.3e})")
+                mask = skip.setdefault(layout.paths[leaf], torch.zeros(
+                    layout.shapes[leaf], dtype=torch.bool, device="cuda")).view(-1)
+                mask[pa // CHUNK * CHUNK:(pa // CHUNK + 1) * CHUNK] = True
+        return len(cand)
+
+    def flip_candidates(ref_before, ref_gpw, support, t_sc):
+        """(``held_flips``' cand) for ĝ's logical nonzero offsets
+        ``support`` (``tp_host_support``) against the stacked step's ef."""
+        cand = []
+        for path in ref_before.residues:
+            ef = stacked_ef(ref_before, ref_gpw, path, t_sc)
+            g = torch.zeros_like(ef).index_fill_(0, support[path].to(ef.device), 1.0)
+            top = float(ef.abs().max())
+            for c, a, b in zip(*tp_flip_lanes(g, ef, CHUNK)):
+                pa, pb = c * CHUNK + a, c * CHUNK + b
+                cand.append((layout.paths.index(path), pa, pb, float(ef[pa]), float(ef[pb]), top))
+            del ef, g
+        return cand
+
+    out = {"steps": {}, "checks": [], "peak": {}, "aux": [],
+           "seconds": dict.fromkeys(("init", "steps", "holds", "kept", "teacher", "stacked",
+                                     "kernels"), 0.0)}
+    secs, clock = out["seconds"], [time.perf_counter()]
+
+    def lap(key: str) -> None:
+        """Seconds since the last lap, under ``key``."""
+        now = time.perf_counter()
+        secs[key] += now - clock[0]
+        clock[0] = now
+
+    plain_digests, stacked, fns_ref, skip, flipped = [], None, None, {}, 0
+    captured, own_ef, ref_grads = [], [], []
+    kept = []  # per unfused step, what the stacked step is held to after the passes
     real_reduce, real_grads = ts._tp_reduce, ts.per_worker_grads
+    chunks = sum(-(-math.prod(sh) // CHUNK) for sh in layout.shapes)
 
     def spy_grads(into: list):
         def call(*a, **k):
@@ -5503,6 +5708,48 @@ def tp_run_rank(rank: int, run: TPRun):
             into.append(got[2])
             return got
         return call
+
+    def stacked_step(i, mode, t_sc, support, lookup):
+        """Rank 0's stacked step ``i`` and the flips' rule (collective over
+        the grid); returns the stacked step's metrics on rank 0."""
+        nonlocal stacked, flipped
+        cand, m_ref = [], None
+        if rank == 0:
+            if mode == "scalecom":
+                ref_before = stacked.sc_state
+                ts.per_worker_grads = spy_grads(ref_grads)
+            ghats.clear()
+            stacked, m_ref = fns_ref[mode](stacked, batches[i])
+            ts.per_worker_grads = real_grads
+            if mode == "scalecom":
+                gpw = dict(tree.flatten_with_path(ref_grads.pop()))
+                cand = flip_candidates(ref_before, gpw, support, t_sc)
+                del gpw, ref_before
+        if mode == "scalecom":
+            flipped += held_flips(cand, lookup, i)
+            if rank == 0:
+                check(flipped <= max(8, chunks // 10_000),
+                      f"{tag} step {i}: {flipped} chunks selected another lane than the "
+                      f"stacked step, of {chunks}")
+        return m_ref
+
+    def held_step(i, whole, m_ref, loss, aux):
+        loss_err = abs(loss - float(m_ref["loss"]))
+        check(loss_err < TP_LOSS_TOL, f"{tag} step {i}: loss {loss} against the stacked "
+                                      f"step's {float(m_ref['loss'])}")
+        worst = tp_params_held(whole, stacked, lr, run, skip, tag, i)
+        if choices:
+            ref_aux = {k: float(m_ref[k]) for k in moe_keys}
+            for k in moe_keys[:2]:
+                check(abs(aux[k] - ref_aux[k]) <= 1e-4 * abs(ref_aux[k]),
+                      f"{tag} step {i}: {k} {aux[k]!r} against the stacked step's {ref_aux[k]!r}")
+            drops = [round(x["moe_dropped_frac"] * choices) for x in (aux, ref_aux)]
+            check(drops[0] == drops[1], f"{tag} step {i}: {drops[0]} choices dropped, the "
+                                        f"stacked step {drops[1]}")
+            out["aux"].append({"step": i, **aux, "drops": drops[0], "ref": ref_aux})
+        out["checks"].append({"step": i, "params_err": worst, "loss_err": loss_err,
+                              "flipped": flipped})
+
     for fused in (False, True):
         state = new_state(fused, mesh=mesh)
         residue_paths = frozenset(state.sc_state.residues)
@@ -5510,7 +5757,6 @@ def tp_run_rank(rank: int, run: TPRun):
                              sc_cfg(fused), residue_paths)
         shards = plan_shards(plans, layout.specs, run.grid[1], m_index)
         if rank == 0 and not fused:
-            stacked = new_state(False)
             fns_ref = {mode: build_train_step(model, spying(base_opt), sched, sc_cfg(False),
                                               n_workers=n, mode=mode) for mode in ("dense",
                                                                                    "scalecom")}
@@ -5519,19 +5765,37 @@ def tp_run_rank(rank: int, run: TPRun):
         rows = []
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        lap("init")
         for i, mode in enumerate(run.modes):
             t_sc = state.sc_state.t
             last = mode == "scalecom" and i == len(run.modes) - 1 and not fused
+            copy_s = []
 
-            def capture(grads, sc_state, cfg_, layout_, *rest):
-                captured[:] = [tree.tree_map(torch.clone, grads), sc_state]
-                return real_reduce(grads, sc_state, cfg_, layout_, *rest)
+            def capture(grads, sc_state, cfg_, layout_, *rest, **kw):
+                # to host memory (timed apart): at full width the card has no room
+                torch.cuda.synchronize()
+                c0 = time.perf_counter()
+                captured[:] = [tree.tree_map(lambda g: g.to("cpu", copy=True), grads),
+                               sc_state]
+                copy_s.append(time.perf_counter() - c0)
+                return real_reduce(grads, sc_state, cfg_, layout_, *rest, **kw)
 
             if last:
                 ts._tp_reduce = capture
-            own_before = state.sc_state.residues
-            if mode == "scalecom" and not fused:
-                ts.per_worker_grads = spy_grads(own_grads)
+            if mode == "scalecom" and not fused and d_index == t_sc % n:
+                # the leader's ef to host memory (timed apart), before the
+                # reduce consumes the gradients
+                own_before = state.sc_state.residues
+
+                def leader_grads(*a, **k):
+                    got = real_grads(*a, **k)
+                    torch.cuda.synchronize()
+                    c0 = time.perf_counter()
+                    own_ef.append(tp_leader_ef(layout, own_before, got[2], run.codec))
+                    copy_s.append(time.perf_counter() - c0)
+                    return got
+
+                ts.per_worker_grads = leader_grads
             ghats.clear()
             ring.reset_sent()
             tensor_parallel.reset_sent()
@@ -5543,9 +5807,10 @@ def tp_run_rank(rank: int, run: TPRun):
             state, metrics = fns[mode](state, batches[i])
             loss = float(metrics["loss"])
             torch.cuda.synchronize()
-            step_ms = (time.perf_counter() - t0) * 1e3
+            step_ms = (time.perf_counter() - t0 - sum(copy_s)) * 1e3
             ts._tp_reduce = real_reduce
             ts.per_worker_grads = real_grads
+            lap("steps")
             c1 = kernels.launches()
             launched = {k: c1[k] - c0[k] for k in c1}
             vec4 = (ct.chunk_argmax.variants["vec4"] - v0[0],
@@ -5559,10 +5824,12 @@ def tp_run_rank(rank: int, run: TPRun):
             check(math.isfinite(loss), f"{tag} step {i} rank {rank}: loss {loss}")
             payload = ring.payload_sent()
             share = metrics.get("comm_bytes_per_shard", 0.0)
+            aux = {k: float(metrics[k]) for k in moe_keys if k in metrics}
             rows.append({"mode": mode, "step_ms": step_ms, "loss": loss, "launches": launched,
                          "model_calls": dict(tensor_parallel.calls),
                          "model_bytes": dict(tensor_parallel.sent), "payload": payload,
-                         "share": share, "planned": metrics.get("comm_bytes_per_worker", 0.0)})
+                         "share": share, "planned": metrics.get("comm_bytes_per_worker", 0.0),
+                         "aux": aux})
             # data replicas bitwise; fused bitwise the unfused pass
             row = [x for p in tree.leaves(state.params) for x in digest(p)]
             table = exchange(row + [d_index, m_index, payload], rank, size, members)
@@ -5585,115 +5852,74 @@ def tp_run_rank(rank: int, run: TPRun):
                 shares = exchange([int(share * 8)], rank, size, members)
                 check(sum(s[0] for s in shares) / 8 / n == metrics["comm_bytes_per_worker"],
                       f"{tag} step {i}: the model ranks' shares do not sum to the plan's bytes")
+            lap("holds")
             if fused:
                 continue
-            # the stacked step on rank 0, and the logical parameters against it
-            whole = ghat_whole = None
+            # the logical parameters and ĝ's support to rank 0's host memory,
+            # the leaders' ef to their own: the stacked step comes after the passes
+            kept.append({"mode": mode, "t": t_sc, "loss": loss, "aux": aux, "whole": None,
+                         "ghat": None, "ef": None})
             if d_index == 0:
-                whole = gather_shards(state.params, specs, mesh)
+                kept[-1]["whole"] = tp_host_whole(state.params, specs, mesh, rank)
                 if mode == "scalecom":
-                    ghat_whole = gather_shards(ghats[-1], specs, mesh)
-            cand = []  # (leaf, the stacked lane's element, the step's lane's, their stacked ef)
-            if rank == 0:
-                if mode == "scalecom":
-                    ref_before = stacked.sc_state
-                    ts.per_worker_grads = spy_grads(ref_grads)
-                ghats.clear()
-                stacked, m_ref = fns_ref[mode](stacked, batches[i])
-                ts.per_worker_grads = real_grads
-                if mode == "scalecom":
-                    gpw = dict(tree.flatten_with_path(ref_grads.pop()))
-                    g_tp = dict(tree.flatten_with_path(ghat_whole))
-                    for path, enc in ref_before.residues.items():
-                        ef = enc["q"][t_sc % n] + gpw[path][t_sc % n].reshape(-1)
-                        for c, a, b in zip(*tp_flip_lanes(g_tp[path], ef, CHUNK)):
-                            pa, pb = c * CHUNK + a, c * CHUNK + b
-                            cand.append((layout.paths.index(path), pa, pb, float(ef[pa]),
-                                         float(ef[pb])))
-                    del gpw, g_tp, ref_before, ef
-            if mode == "scalecom":
-                # the step's own ef at each flipped chunk's two lanes, from the
-                # leader's ranks (each element on the model rank whose slice
-                # holds it)
-                count = torch.tensor([len(cand)], dtype=torch.int64)
-                dist.broadcast(count, 0, group=members)
-                where = (torch.tensor([c[:3] for c in cand], dtype=torch.int64).reshape(-1, 3)
-                         if rank == 0 else torch.zeros((int(count), 3), dtype=torch.int64))
-                mine = torch.zeros((int(count), 2), dtype=torch.float64)
-                if int(count):
-                    dist.broadcast(where, 0, group=members)
-                if int(count) and d_index == t_sc % n:
-                    grads = dict(tree.flatten_with_path(own_grads[0]))
-                    for f, (leaf, pa, pb) in enumerate(where.tolist()):
-                        path, dim = layout.paths[leaf], layout.dims[leaf]
-                        width = layout.shapes[leaf][dim] // run.grid[1] if dim is not None else 0
-                        m_, g_ = own_before[path]["q"][0].reshape(-1), grads[path][0].reshape(-1)
-                        for j, pos in enumerate((pa, pb)):
-                            at = tp_local_index(pos, layout.shapes[leaf], dim, width, m_index)
-                            if at >= 0 and (dim is not None or m_index == 0):
-                                mine[f, j] = float(m_[at] + g_[at])  # the reduce's ef, fp32
-                    del grads
-                if int(count):
-                    dist.all_reduce(mine, group=members)
-                if rank == 0:
-                    for (leaf, pa, pb, ra, rb), (ta, tb) in zip(cand, mine.tolist()):
-                        close = all(abs(x - y) <= NEAR_TIE_RTOL * abs(y) for x, y in
-                                    ((ta, ra), (tb, rb)))
-                        explained = abs(ra) - abs(rb) <= abs(ta - ra) + abs(tb - rb)
-                        check(close and explained and abs(ta) <= abs(tb),
-                              f"{tag} step {i}: {layout.paths[leaf]} elements {pa} / {pb}: the "
-                              f"stacked step's ef {ra!r} / {rb!r}, this step's {ta!r} / {tb!r}: "
-                              f"another lane without a near tie (rtol {NEAR_TIE_RTOL})")
-                        mask = skip.setdefault(layout.paths[leaf], torch.zeros(
-                            layout.shapes[leaf], dtype=torch.bool, device="cuda")).view(-1)
-                        mask[pa // CHUNK * CHUNK:(pa // CHUNK + 1) * CHUNK] = True
-                    flipped += len(cand)
-                    chunks = sum(-(-math.prod(sh) // CHUNK) for sh in layout.shapes)
-                    check(flipped <= max(8, chunks // 10_000),
-                          f"{tag} step {i}: {flipped} chunks selected another lane than the "
-                          f"stacked step, of {chunks}")
-            own_grads.clear()
-            if rank != 0:
-                continue
-            worst = 0.0
-            for (path, a), b in zip(tree.flatten_with_path(whole), tree.leaves(stacked.params)):
-                keep = ~skip[path] if path in skip else torch.ones_like(a, dtype=torch.bool)
-                check(bool(torch.allclose(a[keep], b[keep], **TP_TOL)),
-                      f"{tag} step {i}: parameters {path} differ from the stacked step's beyond "
-                      f"rtol {TP_TOL['rtol']} / atol {TP_TOL['atol']}")
-                worst = max(worst, float((a - b)[keep].abs().max()))
-            loss_err = abs(loss - float(m_ref["loss"]))
-            check(loss_err < TP_LOSS_TOL, f"{tag} step {i}: loss {loss} against the stacked "
-                                          f"step's {float(m_ref['loss'])}")
-            out["checks"].append({"step": i, "params_err": worst, "loss_err": loss_err,
-                                  "flipped": flipped})
-            del whole, ghat_whole
+                    kept[-1]["ghat"] = tp_host_support(ghats[-1], specs, mesh, rank)
+            if own_ef:
+                kept[-1]["ef"] = own_ef.pop()
+            lap("kept")
         out["steps"]["fused" if fused else "unfused"] = rows
         out["peak"]["fused" if fused else "unfused"] = torch.cuda.max_memory_allocated()
         if not fused:
-            stacked = None
+            del state
+            ghats.clear()
             gc.collect()
             torch.cuda.empty_cache()
             # the last compressed step's reduce, teacher-forced: the cuda
             # backend's bits against the torch backend's, unfused and fused
             # (by digest, one reduce's outputs alive at a time)
             grads, before = captured
+            grads = tree.tree_map(lambda g: g.to("cuda"), grads)
             for f in (False, True):
                 bits = []
                 for b in ("cuda", "torch"):
                     ghat, new, _ = ts._tp_reduce(grads, before, sc_cfg(f, b), layout)
                     bits.append([digest(x) for x in tree.leaves(ghat)]
-                                + [digest(new.residues[p]["q"]) for p in sorted(new.residues)])
+                                + [digest(new.residues[p][k]) for p in sorted(new.residues)
+                                   for k in sorted(new.residues[p])])
                     del ghat, new
                 check(bits[0] == bits[1], f"{tag} rank {rank}: the teacher-forced "
                                           f"{'fused' if f else 'unfused'} reduce differs between "
                                           f"the cuda and torch backends")
             captured.clear()
             del grads, before
-        del state, fns
+            lap("teacher")
+        else:
+            del state
+        del fns
+        ghats.clear()
         gc.collect()
         torch.cuda.empty_cache()
+    # the stacked step on rank 0 from the same init and batches, now that the
+    # grid's state is gone, against what the unfused pass kept
+    dist.barrier(group=members)
+    torch.cuda.reset_peak_memory_stats()
+    if rank == 0:
+        stacked = new_state(False)
+    for i, k in enumerate(kept):
+        ef = k["ef"]
+        m_ref = stacked_step(i, k["mode"], k["t"], k["ghat"],
+                             (lambda path, at: float(ef[path][at])) if ef else None)
+        if rank == 0:
+            held_step(i, k["whole"], m_ref, k["loss"], k["aux"])
+        kept[i] = None
+    out["peak"]["stacked"] = torch.cuda.max_memory_allocated()
+    stacked = fns_ref = None
+    ghats.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier(group=members)  # rank 0's stacked state is gone before the kernels' holds
+    lap("stacked")
     out["kernel_shapes"] = tp_kernel_holds(shards, torch.Generator(device="cuda").manual_seed(rank))
+    lap("kernels")
     out["n_compressed"] = sum(1 for sp in shards if not sp.plan.dense and sp.k > 0)
     out["routes"] = {r: sum(1 for sp in shards if sp.route == r) for r in ("dense", "local", "part")}
     dist.barrier(group=members)
@@ -6351,11 +6577,20 @@ def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
               + ", ".join(f"{r:,} x {c}" for r, c in tr[0]["kernel_shapes"])
               + ": chunk_argmax, ef_update, chunk_scatter and fused_select_update bitwise their "
               f"plain versions; on {card_line}")
-        print(f"{tag} peak allocated GiB by rank, unfused / fused: "
+        for a in tr[0]["aux"]:
+            print(f"{tag} step {a['step']} MoE aux on rank 0 against the stacked step's: "
+                  f"moe_lb_loss {a['moe_lb_loss']:.6f} ({a['ref']['moe_lb_loss']:.6f}), "
+                  f"moe_z_loss {a['moe_z_loss']:.6f} ({a['ref']['moe_z_loss']:.6f}), "
+                  f"{a['drops']} choices dropped (the same), within 1e-4; on {card_line}")
+        print(f"{tag} {run.codec} residues; peak allocated GiB by rank, unfused / fused: "
               + " / ".join(f"{x['peak']['unfused'] / 2**30:.2f}, {x['peak']['fused'] / 2**30:.2f}"
                            for x in tr)
-              + f" (rank 0 also holds the stacked step); {results[0]['tp_s'][j]:.1f} s on rank 0"
-              f" on {card_line}")
+              + f" (rank 0's stacked step, run after the grid's passes, "
+              f"{tr[0]['peak']['stacked'] / 2**30:.2f}); {results[0]['tp_s'][j]:.1f} s on rank 0 ("
+              + ", ".join(f"{k} {v:.1f}" for k, v in tr[0]["seconds"].items())
+              + f") on {card_line}")
+    if "tp_configs" not in results[0]:  # a caller that ran the cells alone
+        return launches
     tc = [results[r]["tp_configs"] for r in range(RING_WORLD)]
     dense = [x["dense"] for x in tc]
     print(f"[tp:configs] paper-transformer-base {TP_CONFIG_GRID[0]}x{TP_CONFIG_GRID[1]}, 4 x 128 "

@@ -158,7 +158,8 @@ def _to_e4m3(x: torch.Tensor) -> torch.Tensor:
     """fp32 -> e4m3fn rounding to nearest even; NaN, +-inf and |x| > 464
     (which round past 448) -> 0x7f with x's sign, as ml_dtypes."""
     q = torch.clamp(x, -_FP8_MAX, _FP8_MAX).to(torch.float8_e4m3fn).view(torch.uint8)
-    bad = torch.isnan(x) | (torch.abs(x) > _FP8_ROUND_MAX)
+    # |x| > 464 as two comparisons: no fp32 temporary of x's size
+    bad = torch.isnan(x) | (x > _FP8_ROUND_MAX) | (x < -_FP8_ROUND_MAX)
     return torch.where(bad, _sign_code(x, 0x7F, 0x80, torch.uint8), q).view(
         torch.float8_e4m3fn)
 

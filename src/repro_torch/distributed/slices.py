@@ -156,7 +156,7 @@ def signature(name: str, sl: Slice, layout: str) -> Tuple:
 
 
 def _blocks(sl: Slice, device) -> torch.Tensor:
-    return sl.flat_ids(device) // FP8_BLOCK
+    return sl.flat_ids(device).div_(FP8_BLOCK, rounding_mode="floor")  # in place: one int64 copy
 
 
 def decode(name: str, enc: Enc, sl: Slice, layout: str) -> torch.Tensor:
@@ -208,6 +208,7 @@ def encode_steps(name: str, m: torch.Tensor, sl: Slice, layout: str, dither=None
         amax = torch.amax(rows, dim=0)
     scale = fp8_scale(amax)
     per = scale[:, blocks] if flat else scale[..., None]
+    blocks = None  # one int64 an element: freed before the quantize's temporaries
     q = fp8_quantize(m, per)
     enc = {"q": q, "scale": scale}
     if name == "fp8_ec":

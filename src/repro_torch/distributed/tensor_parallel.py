@@ -40,7 +40,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["ModelAxis", "sent", "calls", "reset_sent", "all_reduce", "all_gather",
-           "copy_to_model", "reduce_from_model", "gather_from_model", "max_over_model",
+           "copy_to_model", "reduce_from_model", "gather_from_model", "gather_replicated",
+           "max_over_model",
            "vocab_embed", "vocab_xent"]
 
 sent = {"all_reduce": 0, "all_gather": 0}
@@ -150,6 +151,29 @@ class _Gather(torch.autograd.Function):
         return _Gather.apply(_batched(x, bdim), d, group), 0
 
 
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(x, dim, group):
+        return _all_gather(x, dim, group)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, ctx.dim, ctx.group = inputs
+        ctx.width = x.shape[ctx.dim]
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, dist.get_rank(ctx.group) * ctx.width, ctx.width), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, dim, group):
+        bdim = in_dims[0]
+        if bdim is None:
+            return _GatherReplicated.apply(x, dim, group), None
+        d = dim % (x.dim() - 1) + 1
+        return _GatherReplicated.apply(_batched(x, bdim), d, group), 0
+
+
 class _Max(torch.autograd.Function):
     @staticmethod
     def forward(x, group):
@@ -180,6 +204,10 @@ def gather_from_model(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return _Gather.apply(x, dim, group)
 
 
+def gather_replicated(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    return _GatherReplicated.apply(x, dim, group)
+
+
 def max_over_model(x: torch.Tensor, group) -> torch.Tensor:
     return _Max.apply(x.detach(), group)
 
@@ -188,7 +216,8 @@ def max_over_model(x: torch.Tensor, group) -> torch.Tensor:
 class ModelAxis:
     """The model group of a pass: its process group, this rank's index and
     the group's size in it, and ``split``, the logical axes ("vocab",
-    "heads", "kv", "mlp") whose leaves the layout splits over the group."""
+    "heads", "kv", "mlp", "experts") whose leaves the layout splits over
+    the group."""
 
     group: object
     index: int
@@ -208,6 +237,15 @@ class ModelAxis:
 
     def gather(self, x, dim: int):
         return gather_from_model(x, dim, self.group)
+
+    def gather_replicated(self, x, dim: int):
+        return gather_replicated(x, dim, self.group)
+
+    def narrow(self, x, dim: int):
+        """This rank's slice of ``x`` along ``dim`` (a view), ``x.shape[dim]``
+        split evenly over the group."""
+        width = x.shape[dim] // self.size
+        return x.narrow(dim, self.index * width, width)
 
     def max(self, x):
         return max_over_model(x, self.group)

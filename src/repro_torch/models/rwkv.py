@@ -18,6 +18,18 @@ the gate, the output and the channel mix in the compute dtype (``dtype``,
 each weight cast at use); the decay, the bonus ``u``, r/k/v of the
 recurrence, the group norm and the state in fp32.
 
+Under a model axis (``tp``, the reference's ``tp`` policy: ``heads`` and
+``mlp`` over "model") a rank runs its own heads: ``tm_wr/wk/wv/wg`` and
+``cm_wr`` by columns, ``tm_wo`` by rows (its products summed over the
+group), ``tm_u`` and the state by heads; the channel mix's ``cm_wk`` by
+columns and ``cm_wv`` by rows. The ddlerp, the decay's adapter and the
+group norm's scale are replicated but read per head: the whole decay and
+the whole scale are computed on every rank and pass through ``copy``
+before they are narrowed to the rank's channels, so their gradients sum
+over the group into the whole one on every rank. The channel mix's gate is
+gathered whole (``gather_replicated``), as every rank multiplies the whole
+output by it.
+
 The recurrence is a Python loop over the sequence in fp32, every op out of
 place, so ``torch.func.vmap`` over the workers takes it without a fallback.
 Autograd keeps each step's state for the backward pass (the reference's
@@ -86,21 +98,30 @@ def _shift(x: Tensor, x_last: Tensor) -> Tensor:
 
 
 def time_mix(cfg, p, x: Tensor, state: Dict[str, Tensor], *,
-             dtype: torch.dtype) -> Tuple[Tensor, Dict[str, Tensor]]:
-    """x: (B, S, D); state: {"s": (B, H, hd, hd), "x_prev": (B, D)}, fp32."""
+             dtype: torch.dtype, tp=None) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """x: (B, S, D); state: {"s": (B, H, hd, hd), "x_prev": (B, D)}, fp32.
+    With ``tp`` (a ``tensor_parallel.ModelAxis``) that splits ``heads`` the
+    rank runs its H/M heads, and the state it returns holds only those."""
+    tp = tp and tp.over("heads")
     B, S, D = x.shape
     hd = cfg.ssm_head_dim
-    H = D // hd
     f32 = torch.float32
     xr, xk, xv, xg, xw = _ddlerp(p, x, _shift(x, state["x_prev"]), dtype)
+    wd = p["tm_w0"].to(f32) + (xw.to(f32) @ p["tm_wd_a"].to(f32)) @ p["tm_wd_b"].to(f32)
+    w = torch.exp(-torch.exp(wd))  # decay in (0, 1)
+    gn = p["tm_gn"].to(f32)
+    s = state["s"]
+    if tp is not None:
+        xr, xk, xv, xg = (tp.copy(y) for y in (xr, xk, xv, xg))
+        w, gn = tp.narrow(tp.copy(w), -1), tp.narrow(tp.copy(gn), -1)
+        s = tp.narrow(s, 1)
+    H = w.shape[-1] // hd  # this rank's heads
     r = (xr @ p["tm_wr"].to(dtype)).reshape(B, S, H, hd).to(f32)
     k = (xk @ p["tm_wk"].to(dtype)).reshape(B, S, H, hd).to(f32)
     v = (xv @ p["tm_wv"].to(dtype)).reshape(B, S, H, hd).to(f32)
     g = F.silu(xg @ p["tm_wg"].to(dtype))
-    wd = p["tm_w0"].to(f32) + (xw.to(f32) @ p["tm_wd_a"].to(f32)) @ p["tm_wd_b"].to(f32)
-    w = torch.exp(-torch.exp(wd)).reshape(B, S, H, hd)  # decay in (0, 1)
+    w = w.reshape(B, S, H, hd)
     u = p["tm_u"].to(f32)  # (H, hd)
-    s = state["s"]
     ys = []
     for t in range(S):
         rt, kt, vt = r[:, t], k[:, t], v[:, t]  # (B, H, hd)
@@ -112,28 +133,47 @@ def time_mix(cfg, p, x: Tensor, state: Dict[str, Tensor], *,
     y = torch.stack(ys, dim=1)  # (B, S, H, hd)
     # per-head group norm
     y = y * torch.rsqrt(torch.mean(y * y, dim=-1, keepdim=True) + 1e-6)
-    y = y.reshape(B, S, D) * p["tm_gn"].to(f32)
+    y = y.reshape(B, S, H * hd) * gn
     out = (y.to(dtype) * g) @ p["tm_wo"].to(dtype)
+    if tp is not None:
+        out = tp.reduce(out)
     return out, {"s": s, "x_prev": x[:, -1, :].to(f32)}
 
 
 def channel_mix(cfg, p, x: Tensor, x_prev: Tensor, *,
-                dtype: torch.dtype) -> Tuple[Tensor, Tensor]:
+                dtype: torch.dtype, tp=None) -> Tuple[Tensor, Tensor]:
+    """With ``tp`` (a ``tensor_parallel.ModelAxis``): where it splits
+    ``heads`` the rank's ``cm_wr`` columns give its part of the gate,
+    gathered whole; where it splits ``mlp`` its ``cm_wk`` columns and
+    ``cm_wv`` rows give a partial sum."""
     mu = p["cm_mu"].to(dtype)
     xs = _shift(x, x_prev)
     xk = x + (xs - x) * mu[0]
     xr = x + (xs - x) * mu[1]
+    mlp, tp = tp and tp.over("mlp"), tp and tp.over("heads")
+    if mlp is not None:
+        xk = mlp.copy(xk)
+    if tp is not None:
+        xr = tp.copy(xr)
     k = torch.square(torch.relu(xk @ p["cm_wk"].to(dtype)))
     r = torch.sigmoid(xr @ p["cm_wr"].to(dtype))
-    return r * (k @ p["cm_wv"].to(dtype)), x[:, -1, :].to(torch.float32)
+    kv = k @ p["cm_wv"].to(dtype)
+    if mlp is not None:
+        kv = mlp.reduce(kv)
+    if tp is not None:
+        r = tp.gather_replicated(r, -1)
+    return r * kv, x[:, -1, :].to(torch.float32)
 
 
-def rwkv_block_train(cfg, p, x: Tensor, state, *, dtype: torch.dtype) -> Tuple[Tensor, Dict]:
-    """The pre-norm time mix, then the pre-norm channel mix, each residual."""
-    h, new_tm = time_mix(cfg, p, common.apply_norm(cfg, x, p, "ln_tm"), state["tm"], dtype=dtype)
+def rwkv_block_train(cfg, p, x: Tensor, state, *, dtype: torch.dtype,
+                     tp=None) -> Tuple[Tensor, Dict]:
+    """The pre-norm time mix, then the pre-norm channel mix, each residual.
+    ``tp``: a ``tensor_parallel.ModelAxis`` (module docstring)."""
+    h, new_tm = time_mix(cfg, p, common.apply_norm(cfg, x, p, "ln_tm"), state["tm"], dtype=dtype,
+                         tp=tp)
     x = x + h
     h, cm_prev = channel_mix(cfg, p, common.apply_norm(cfg, x, p, "ln_cm"), state["cm_x_prev"],
-                             dtype=dtype)
+                             dtype=dtype, tp=tp)
     return x + h, {"tm": new_tm, "cm_x_prev": cm_prev}
 
 

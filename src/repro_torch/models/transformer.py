@@ -73,7 +73,7 @@ Tensor = torch.Tensor
 __all__ = ["Model", "build_model", "DTYPES", "MOE_LB_COEF", "MOE_Z_COEF"]
 
 # the families whose loss runs split over a model axis (``tensor_parallel``)
-TP_FAMILIES = ("dense", "vlm")
+TP_FAMILIES = ("dense", "vlm", "moe", "ssm")
 
 
 def require_tp_family(cfg: ArchConfig) -> None:
@@ -82,8 +82,8 @@ def require_tp_family(cfg: ArchConfig) -> None:
     if cfg.arch_type not in TP_FAMILIES:
         raise ValueError(
             f"the tensor-parallel pass runs the {'/'.join(TP_FAMILIES)} families, not the "
-            f"{cfg.arch_type!r} family of {cfg.name} (ROADMAP, sharded step item 4, MoE's "
-            f"experts axis, and the other families)")
+            f"{cfg.arch_type!r} family of {cfg.name} (ROADMAP, sharded step item 4, the "
+            f"hybrid and the encoder-decoder)")
 
 MOE_LB_COEF = 0.01
 MOE_Z_COEF = 1e-3
@@ -123,14 +123,17 @@ def _apply_mlp(cfg, p, x, dtype, tp=None):
 
 
 def _block_train(cfg, p, x, positions, kind, *, dtype, window, enc_out=None,
-                 enc_pos=None, remat=True, tp=None) -> Tuple[Tensor, Dict[str, Tensor]]:
+                 enc_pos=None, remat=True, tp=None,
+                 data_group=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """One block forward in ``dtype``. Returns (x, aux); aux is empty but
     for MoE. ``remat`` rematerialises attention's query chunks; ``tp`` (a
-    ``tensor_parallel.ModelAxis``) splits attention and the MLP over the
-    model group (dense blocks)."""
+    ``tensor_parallel.ModelAxis``) splits attention, the MLP, MoE's experts
+    (or their hidden columns) and RWKV-6's heads over the model group;
+    ``data_group`` routes MoE tokens over a global batch split across data
+    ranks (``Model.loss``)."""
     if kind == "ssm":
         state = rwkv.init_rwkv_state(cfg, x.shape[0], x.device)
-        x, _ = rwkv.rwkv_block_train(cfg, p, x, state, dtype=dtype)
+        x, _ = rwkv.rwkv_block_train(cfg, p, x, state, dtype=dtype, tp=tp)
         return x, {}
     if kind == "rec":
         state = rglru.init_rglru_state(cfg, x.shape[0], x.device)
@@ -146,7 +149,8 @@ def _block_train(cfg, p, x, positions, kind, *, dtype, window, enc_out=None,
         x = x + attn.attention_train(cfg, p, xn, positions, dtype=dtype, kv_x=enc_out,
                                      kv_positions=enc_pos, prefix="cross", remat=remat)
     if kind == "moe":
-        h, aux = moe.moe_ffn(cfg, p, common.apply_norm(cfg, x, p, "ln_mlp"), dtype=dtype)
+        h, aux = moe.moe_ffn(cfg, p, common.apply_norm(cfg, x, p, "ln_mlp"), dtype=dtype, tp=tp,
+                             data_group=data_group)
         return x + h, aux
     return _apply_mlp(cfg, p, x, dtype, tp), {}
 
@@ -288,7 +292,7 @@ class Model:
             x = step(_layer(layers, i), x, pos)
         return common.apply_norm(cfg, x, ep, "ln_enc_final"), pos
 
-    def loss(self, params, batch, tp=None) -> Tuple[Tensor, Dict[str, Tensor]]:
+    def loss(self, params, batch, tp=None, data_group=None) -> Tuple[Tensor, Dict[str, Tensor]]:
         """Mean token cross-entropy of ``batch`` (tokens/labels/mask (B, S); a
         VLM's ``vision`` (B, Tv, D), an encoder-decoder's ``frames`` (B, T, D)),
         plus ``MOE_LB_COEF`` x the load-balance loss and ``MOE_Z_COEF`` x the
@@ -302,7 +306,15 @@ class Model:
         With ``tp`` (a ``tensor_parallel.ModelAxis``; the ``TP_FAMILIES``
         only) ``params`` are this rank's slices and the pass splits the
         embedding, attention, the MLP and the cross-entropy over the model
-        group where ``tp.split`` names their logical axes."""
+        group where ``tp.split`` names their logical axes: MoE's experts (or
+        each expert's hidden columns) and RWKV-6's heads too.
+
+        With ``data_group`` (a process group of data ranks, each passing
+        its row of one global batch: a dense step split over ranks) MoE
+        layers route over the global batch, as the reference's pass over
+        the folded batch does (``models.moe``); the mean over the ranks of
+        the loss, auxs and gradients is then the global pass's. The other
+        families' passes are separable by rows and ignore it."""
         cfg, dt = self.cfg, self.compute_dtype
         remat = self.remat
         auxs = []
@@ -344,7 +356,7 @@ class Model:
                 kind = cfg._layer_kinds()[0]
                 step = self._step(lambda pl, x, positions: list(_block_train(
                     cfg, pl, x, positions, kind, dtype=dt, window=self._window(kind),
-                    remat=remat, tp=tp)))
+                    remat=remat, tp=tp, data_group=data_group)))
                 for i in range(cfg.n_layers):
                     x, aux = step(_layer(params["blocks"], i), x, positions)
                     auxs.append(aux)

@@ -169,12 +169,16 @@ def per_worker_grads_loop(model, params, batch, n_workers: int):
             tree.unflatten(params, stacked))
 
 
-def dense_grads(model, params, batch, tp=None):
+def dense_grads(model, params, batch, tp=None, data_group=None):
     """(loss, aux, grads) of the loss over the folded global batch; ``tp``
-    goes to ``model.loss``."""
+    goes to ``model.loss``. With ``data_group`` the batch is this rank's
+    row of the global one, each rank of the group holding one, and the pass
+    routes MoE tokens over the global batch (``Model.loss(data_group=)``):
+    the ranks' mean is the global pass's."""
     folded = {k: v.reshape((-1,) + tuple(v.shape[2:])) for k, v in batch.items()}
     pg = _with_grad(params)
-    loss, aux = model.loss(pg, folded) if tp is None else model.loss(pg, folded, tp=tp)
+    kw = {k: v for k, v in (("tp", tp), ("data_group", data_group)) if v is not None}
+    loss, aux = model.loss(pg, folded, **kw)
     grads = torch.autograd.grad(loss, tree.leaves(pg))
     return (loss.detach(), {k: v.detach() for k, v in aux.items()},
             tree.unflatten(params, list(grads)))
@@ -933,7 +937,8 @@ def _tp_leaf_steps(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
 
 
 def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _TPLayout,
-               hierarchy=None, compute_stats: bool = False, buckets: Any = False):
+               hierarchy=None, compute_stats: bool = False, buckets: Any = False,
+               consume: bool = False):
     """Algorithm 1 over this rank's (1, *slice) gradients on a (data x model)
     grid: the plan of each logical tensor (``plan_tensors`` at n = the data
     size, G = ``sc_cfg.groups`` or n) mapped onto the rank (``plan_shards``),
@@ -963,17 +968,31 @@ def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _
     as ``"obs/<key>"`` entries under the stacked reduce's keys, each the
     stacked step's value for the logical tensor and the same on every rank
     (``_tp_taps``; ``fused_launches`` counts the leader's launches), and
-    ĝ, m' and the offsets are the bits of telemetry off."""
+    ĝ, m' and the offsets are the bits of telemetry off.
+
+    ``consume``: ``grads`` is the step's own tree, whose leaves the reduce
+    sets to None once it holds them, so that each slice is freed when its
+    tensor is reduced: at the reduce's end a rank holds ĝ and no second
+    copy of the gradient (a full-width slice's worth less at the peak)."""
     with taps.collect() if sc_cfg.telemetry else contextlib.nullcontext() as collected:
         ghat, new_state, stats = _tp_reduce_body(grads, sc_state, sc_cfg, layout, hierarchy,
-                                                 compute_stats, buckets, collected)
+                                                 compute_stats, buckets, collected, consume)
     for key in sorted(collected or ()):
         stats[f"obs/{key}"] = collected[key]
     return ghat, new_state, stats
 
 
+def _drop_leaves(t) -> None:
+    """Every leaf of a tree of dicts and lists set to None, in place."""
+    for k in (t if isinstance(t, dict) else range(len(t))):
+        if isinstance(t[k], (dict, list)):
+            _drop_leaves(t[k])
+        else:
+            t[k] = None
+
+
 def _tp_reduce_body(grads, sc_state, sc_cfg, layout, hierarchy, compute_stats, buckets,
-                    collected):
+                    collected, consume):
     n = layout.data.size()
     flat = tree.flatten_with_path(grads)
     if tuple(p for p, _ in flat) != layout.paths:
@@ -1005,11 +1024,15 @@ def _tp_reduce_body(grads, sc_state, sc_cfg, layout, hierarchy, compute_stats, b
                  metrics_every=sc_cfg.metrics_every)
     steps = [_tp_leaf_steps(sp, g, sc_state.residues.get(path), ctx, layout.slice(i))
              for i, (sp, (path, g)) in enumerate(zip(shards, flat))]
+    paths = [p for p, _ in flat]
+    flat = g = None  # each leaf now lives in its tensor's generator (and in grads)
+    if consume:
+        _drop_leaves(grads)
     results = _run_steps(steps, overlap.resolve_buckets(buckets, sc_cfg, plans), device, sc_cfg,
                          collected)
     new_residues = dict(sc_state.residues)
     ghat_leaves, sums = [], []
-    for (path, _), (ghat, new_enc, part) in zip(flat, results):
+    for path, (ghat, new_enc, part) in zip(paths, results):
         ghat_leaves.append(ghat)
         if new_enc is not None:
             new_residues[path] = new_enc
@@ -1099,7 +1122,8 @@ def build_train_step(
     workers and take the same row of the batch; each holds its slice of
     every parameter, optimizer leaf and of its worker's residues
     (``shard_train_state(state, mesh=..., axes=...)``). The pass splits
-    attention's heads, the MLP's hidden units and the vocabulary over the
+    attention's heads, the MLP's hidden units, MoE's experts (or each
+    expert's hidden units), RWKV-6's heads and the vocabulary over the
     model group (``distributed.tensor_parallel``); the reduce plans each
     logical tensor and runs over the data group on the rank's part of it
     (``_tp_reduce``); the loss and auxs are averaged over the data group;
@@ -1112,8 +1136,9 @@ def build_train_step(
     bucket's collectives of both axes packed and async, as the group
     step's; see ``_tp_reduce``), ``telemetry`` (the stacked step's
     ``"obs/<key>"`` taps for the logical tensors, the same on every rank
-    of the grid) and ``mode="dense"``. The families other than dense and
-    vlm raise, naming their ROADMAP item.
+    of the grid) and ``mode="dense"``, for the dense, vlm, moe and ssm
+    families; the hybrid and the encoder-decoder raise, naming their
+    ROADMAP item.
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
@@ -1156,10 +1181,11 @@ def build_train_step(
             loss, auxs, gpw = per_worker_grads(model, state.params, batch, 1, microbatches,
                                                tp=layout.axis)
         else:
-            loss, auxs, ghat = dense_grads(model, state.params, batch, tp=layout.axis)
+            loss, auxs, ghat = dense_grads(model, state.params, batch, tp=layout.axis,
+                                           data_group=layout.data)
         if mode == "scalecom":
             ghat, sc_state, stats = _tp_reduce(gpw, state.sc_state, sc_cfg, layout, hierarchy,
-                                               compute_stats, buckets)
+                                               compute_stats, buckets, consume=True)
             del gpw
         else:
             ghat = tree.tree_map(lambda g: all_reduce_mean(g, layout.data), ghat)
@@ -1190,7 +1216,7 @@ def build_train_step(
             )
             del gpw
         else:
-            loss, auxs, ghat = dense_grads(model, state.params, batch)
+            loss, auxs, ghat = dense_grads(model, state.params, batch, data_group=group)
             if group is not None:
                 ghat = tree.tree_map(lambda g: all_reduce_mean(g, group), ghat)
             sc_state = ScaleComState(residues=state.sc_state.residues, t=state.sc_state.t + 1)

@@ -31,7 +31,8 @@ the test's temporary directory) form a (2 data, 2 model) grid, then a
   cross-entropy and embedding against the whole-vocabulary ones, and
   starcoder2-3b SMOKE's loss and gradients with its 64 kv columns split 16
   a rank (half a head) against the unsplit ones.
-- The other families and a wrong ``n_workers`` raise, naming them.
+- The hybrid and encoder-decoder families and a wrong ``n_workers`` raise,
+  naming them.
 """
 
 import concurrent.futures
@@ -95,14 +96,15 @@ ROUTES = {"['a']": "part", "['b']": "local", "['c']": "part", "['f']": "local"}
 # (label, arch, ScaleComConfig fields, build_train_step keywords, environment):
 # what the step still refuses (every compressor, the exact path, every codec,
 # groups and compute_stats run: tests/test_torch_tp_configs.py; buckets and
-# telemetry: tests/test_torch_tp_paths.py)
+# telemetry: tests/test_torch_tp_paths.py; the MoE and RWKV-6 families:
+# tests/test_torch_tp_families.py)
 REFUSALS = [
-    ("moe", "phi3.5-moe-42b-a6.6b", {}, {}, {}),
-    ("ssm", "rwkv6-3b", {}, {}, {}),
+    ("hybrid", "recurrentgemma-2b", {}, {}, {}),
+    ("encdec", "whisper-medium", {}, {}, {}),
     ("n_workers", ARCHS[0], {}, {"n_workers": 4}, {}),
 ]
-REFUSED = {"moe": "the 'moe' family",
-           "ssm": "the 'ssm' family", "n_workers": "n_workers (4) must equal the grid's data size"}
+REFUSED = {"hybrid": "the 'hybrid' family", "encdec": "the 'audio' family",
+           "n_workers": "n_workers (4) must equal the grid's data size"}
 
 
 def _jcfg() -> JCfg:
@@ -517,6 +519,8 @@ def test_tp_refuses_what_it_does_not_run(world, label):
         msg = res["refusals"][label]
         assert msg is not None, f"{label} ran a step"
         assert REFUSED[label] in msg, msg
+        if label != "n_workers":
+            assert "sharded step item 4" in msg, msg
 
 
 def test_tp_init_is_the_stacked_inits_share(world):
