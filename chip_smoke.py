@@ -157,12 +157,12 @@ Phases, each fatal on failure:
      starcoder2-3b (RMSNorm / SwiGLU, GQA with 2 KV heads) at 3 of 30
      layers, 8 workers, unfused and then fused; phi3.5-moe-42b-a6.6b (16
      experts, top-2) at 1 of 32 layers, 2 workers, fused; rwkv6-3b (the
-     RWKV-6 time loop) at 2 of 32 layers, 8 workers, unfused and fused;
-     recurrentgemma-2b (RG-LRU and local attention; three stacked units and
-     one un-stacked tail layer) at 10 of 26 layers, 2 workers of 1 x 2304
-     positions, fused; whisper-medium at 10 + 10 of 24 + 24 layers, 8
-     workers of 4 x 128 text positions over 1500 stub frames, fused; and
-     internvl2-26b at 2 of 48 layers, 2 workers of 4 x (256 stub vision +
+     RWKV-6 time loop) at 1 of 32 layers, 8 workers of 4 x 64 positions,
+     unfused and fused; recurrentgemma-2b (RG-LRU and local attention; a
+     stacked unit and one un-stacked tail layer) at 4 of 26 layers, 2
+     workers of 1 x 2304 positions, fused; whisper-medium at 4 + 4 of 24 +
+     24 layers, 8 workers of 4 x 128 text positions over 1500 stub frames,
+     fused; and internvl2-26b at 1 of 48 layers, 2 workers of 4 x (256 stub vision +
      128 text) positions, fused. Each trained by ``run_training`` for 2
      dense and 2 compressed steps (``ARCH_STEPS``) with its launches held
      to the plan,
@@ -204,7 +204,7 @@ Phases, each fatal on failure:
      ``[serve]``'s timings, the weight-read bound at 2 bytes a weight; every
      matrix product of a decode step on bf16 operands but RWKV-6's fp32
      ones; prefill/decode consistency at each run's fixed tolerance, for
-     rwkv6-3b also at 1 to 16 layers; the greedy tokens' agreement with an
+     rwkv6-3b also at 1, 2 and 4 layers; the greedy tokens' agreement with an
      fp32 run of the same draw where one fits;
   10c. ``[examples]``, the reference's five examples ported in
      ``examples_torch/`` (``examples_phase``), each loaded by path. As
@@ -284,26 +284,32 @@ Phases, each fatal on failure:
      the reference's ``tp`` policy), run by ``[ring]``'s 8 ranks after
      ``RING_RUNS``; ``TP_RUNS``: paper-transformer-base at full
      width on a (4 data, 2 model) grid; starcoder2-3b (2 layers),
-     phi3.5-moe (1 layer: experts split 8 a rank, fp8 residues) and
-     rwkv6-3b (1 layer: 20 heads a rank) at full width on (2, 2) (the
-     world's first 4 ranks), 1 dense + 2 (paper) or 1 compressed steps
-     unfused and then fused (``tp_run_rank``). Each step's
+     phi3.5-moe (1 layer: experts split 8 a rank, fp8 residues),
+     rwkv6-3b (1 layer: 20 heads a rank), recurrentgemma-2b (4 layers:
+     RG-LRU channels 1,280 a rank, fp8 residues, unfused only) and
+     whisper-medium (2 + 2 layers over 1500 frames: encoder, self- and
+     cross-attention heads 8 a rank, the odd vocabulary whole on every
+     rank, fused only) at full width on (2, 2) (the world's first 4 ranks),
+     1 dense + 1 compressed step, unfused and then fused unless named
+     (``tp_run_rank``). Each step's
      launches per rank as planned (the leader's select, or fused its
      ``fused_select_update``; ef_update and chunk_scatter; all vec4), the
-     data replicas' parameters bitwise (digests), each data group's
+     data replicas' parameters bitwise (digests), the replicated leaves'
+     (computed whole on every rank) bitwise across the model ranks too,
+     with their gradients on every compressed step, each data group's
      payload the plan's share and the shares summing to the plan's bytes;
-     after both passes rank 0 runs the stacked single-process step from
+     after the passes rank 0 runs the stacked single-process step from
      the same init and batches (a full-width grid and its stacked step do
-     not fit on the card together: the unfused pass keeps the logical
+     not fit on the card together: the first pass keeps the logical
      parameters, ĝ and the leaders' ef in host memory) and holds the
      logical parameters (gathered over its model group) within
      ``TP_TOL`` (rwkv6-3b: plus 2e-2 of a leaf's largest change, its group
      norm's rounding) outside the chunks that selected another lane at a
      near tie (both steps' ef at the two lanes, ``NEAR_TIE_RTOL``; counted
      and printed), the loss within ``TP_LOSS_TOL``, MoE's aux losses within
-     1e-4 and its dropped choices equal; the fused pass's parameters bitwise the unfused
-     pass's; the last compressed step's reduce teacher-forced on every rank,
-     cuda backend bitwise torch backend, unfused and fused; the four
+     1e-4 and its dropped choices equal; a second pass's parameters bitwise
+     the first's; the last compressed step's reduce teacher-forced on every rank,
+     cuda backend bitwise torch backend, in the cell's passes; the four
      kernels at rank 0's part shapes bitwise their plain versions. Prints
      step ms, the model axis's gloo calls and bytes against the data axis's
      payload, and the peak per rank. Then ``TP_CONFIGS`` (``[tp:configs]``,
@@ -2686,8 +2692,9 @@ class ArchRun:
 # workers of 256 vision + 128 text positions. The next cut of these three
 # trained alone (tools/arch_cuts.py) at 76.0, 76.0 and 77.6 GiB: with the
 # 2.50 GiB the main path leaves, 78.5, 78.5 and 80.1 of the card's 79.18.
-# rwkv6-3b and whisper-medium, the two slowest runs, now train at half those
-# depths (2, and 10 + 10), for the whole script's time limit.
+# For the whole script's time limit the runs now train shallower: rwkv6-3b
+# at 1 layer over 64 positions, recurrentgemma-2b at 4 (a rec, rec, attn
+# unit and the tail), whisper-medium at 4 + 4 and internvl2-26b at 1.
 ARCH_RUNS = (
     ArchRun("starcoder2-3b", dict(n_layers=3), 8, (False, True),
             before="64.42 GiB unfused, 59.85 GiB fused at 2 layers"),
@@ -2701,14 +2708,14 @@ ARCH_RUNS = (
     # the batched pass and the loop stood up to 5.4e-3 of a leaf's largest
     # value apart from the trained state, 1.3e-2 from the initial one (CPU,
     # d 1024: 2.7e-5; ROADMAP Queue 3). A batching fault would be O(1).
-    ArchRun("rwkv6-3b", dict(n_layers=2), 8, (False, True), grads=True,
-            grad_tol=dict(rtol=1e-5, atol=1e-7, atol_of_max=2e-2),
+    ArchRun("rwkv6-3b", dict(n_layers=1), 8, (False, True), grads=True,
+            grad_tol=dict(rtol=1e-5, atol=1e-7, atol_of_max=2e-2), seq=64,
             before="62.02 GiB at 2 layers"),
-    ArchRun("recurrentgemma-2b", dict(n_layers=10), 2, (True,), holds=(True,), local_batch=1,
+    ArchRun("recurrentgemma-2b", dict(n_layers=4), 2, (True,), holds=(True,), local_batch=1,
             seq=2304, before="75.25 GiB at 4 layers"),
-    ArchRun("whisper-medium", dict(n_layers=10, encoder_layers=10), 8, (True,), holds=(True,),
+    ArchRun("whisper-medium", dict(n_layers=4, encoder_layers=4), 8, (True,), holds=(True,),
             before="66.73 GiB at 2 + 2 layers"),
-    ArchRun("internvl2-26b", dict(n_layers=2), 2, (True,), holds=(True,),
+    ArchRun("internvl2-26b", dict(n_layers=1), 2, (True,), holds=(True,),
             before="53.86 GiB at 1 layer"),
 )
 # every training run: dense warm-up steps, then compressed ones up to STEPS
@@ -3235,7 +3242,7 @@ BF16_SERVE_REL = 3e-2
 BF16_SWEEP_HELD = 4
 BF16_SERVE_RUNS = (
     ServeRun("paper-transformer-base", dtype="bfloat16", rel_tol=BF16_SERVE_REL),
-    ServeRun("rwkv6-3b", dtype="bfloat16", rel_tol=0.25, sweep=(1, 2, 4, 8, 16)),
+    ServeRun("rwkv6-3b", dtype="bfloat16", rel_tol=0.25, sweep=(1, 2, 4)),
     ServeRun("internvl2-26b", dtype="bfloat16", rel_tol=BF16_SERVE_REL),
 )
 
@@ -5313,19 +5320,29 @@ TP_LOSS_TOL = 1e-3
 # them by up to ~1e-3 of themselves; a wrong gradient moves them by ~1)
 NEAR_TIE_RTOL = 1e-2
 TP_KERNELS = ("chunk_argmax", "ef_update", "chunk_scatter", "fused_select_update")
+# leaves whose gradient is zero in exact arithmetic: a k bias adds q·b to all
+# of a query's scores, which the softmax cancels, so its gradient is rounding
+# noise (whisper-medium's: ~1e-10 beside lm_head's ~1e-2 on the card) and
+# any lane of a chunk is a tie; the near-tie rule then holds only that the
+# leaf stays noise, below TP_ZERO_SHARE of the largest leaf's |ef|
+TP_ZERO_GRADIENT = ("['attn_bk']", "['cross_bk']")
+TP_ZERO_SHARE = 1e-5
 
 
 @dataclasses.dataclass(frozen=True)
 class TPRun:
     """One cell of ``[tp]``: an arch at full width (``layers``: the depth it
-    is cut to, None for its own) on a (data, model) grid over the world's
-    first ranks, ``batch`` x ``seq`` tokens a worker, the steps of
-    ``modes`` (1 dense + 2 compressed by default), unfused and then fused,
-    with ``codec`` residues. ``rounding_of_max``: the share of a leaf's
-    largest gradient that the two passes' rounding may reach (RWKV-6's
-    group norm: ``ARCH_RUNS``' rwkv6 note), added to the parameters' atol
-    as that share of the leaf's largest change in the step, and to the
-    near-tie rule's as that share of the leaf's largest |ef|."""
+    is cut to, None for its own; an encoder-decoder's encoder too) on a
+    (data, model) grid over the world's first ranks, ``batch`` x ``seq``
+    tokens a worker (over ``encoder_seq`` stub frames), the steps of
+    ``modes`` (1 dense + 2 compressed by default), in the passes of
+    ``passes`` (False unfused, True fused; the first pass is held against
+    the stacked step, a second bitwise against the first), with ``codec``
+    residues. ``rounding_of_max``: the share of a leaf's largest gradient
+    that the two passes' rounding may reach (RWKV-6's group norm:
+    ``ARCH_RUNS``' rwkv6 note), added to the parameters' atol as that
+    share of the leaf's largest change in the step, and to the near-tie
+    rule's as that share of the leaf's largest |ef|."""
 
     arch: str
     grid: tuple
@@ -5335,6 +5352,7 @@ class TPRun:
     modes: tuple = TP_MODES
     codec: str = "fp32"
     rounding_of_max: float = 0.0
+    passes: tuple = (False, True)
 
     @property
     def tag(self) -> str:
@@ -5356,6 +5374,34 @@ TP_RUNS = (
     TPRun("phi3.5-moe-42b-a6.6b", (2, 2), 1, 2, 128, ("dense", "scalecom"), codec="fp8"),
     # 40 heads of 64, 20 a model rank, every split leaf reduced where it lies
     TPRun("rwkv6-3b", (2, 2), 1, 2, 64, ("dense", "scalecom"), rounding_of_max=2e-2),
+    # the hybrid: one (rec, rec, attn) unit and a tail rec layer; RG-LRU
+    # channels 1,280 a model rank, 5 q heads beside half of the one kv head
+    # (the gather route), MLP 3,840, tok_embed rows and lm_head columns
+    # 128,000 (128000 % 64 = 0: no chunk crosses the slices). 1,659,440,640
+    # parameters, 829,731,840 a rank: 3.32 GB of fp32, phi3.5-moe's scale,
+    # so fp8 residues for its reason (six copies at the reduce); the unfused
+    # pass only (the fused pass is held bitwise to it on the CPU and by the
+    # cells above). Its lm_head gradients span 1.8e-2 (a label's row) to
+    # ~1e-7 (most of its 256,000 columns), and where a chunk holds only
+    # small ones rounding orders its lanes: on the card (H100, 700 W) a lane
+    # at 4.3e-5 of the leaf's largest |ef| moved by 1.1 % of itself (4.8e-7
+    # of the largest) and swapped. Two batchings of the same unsplit pass
+    # (1 and 2 workers) stood up to 6.3e-6 of a leaf's largest gradient
+    # apart, the split pass up to 5.1e-6 from the unsplit one
+    # (tools/tp_grad_gap.py): the slack is 1e-5
+    TPRun("recurrentgemma-2b", (2, 2), 4, 2, 128, ("dense", "scalecom"), codec="fp8",
+          rounding_of_max=1e-5, passes=(False,)),
+    # the encoder-decoder: 2 + 2 layers over 1500 stub frames, 8 heads a
+    # rank in the encoder's, the decoder's self- and cross-attention (the
+    # local route); its odd vocabulary (51,865) keeps tok_embed and lm_head
+    # whole on every rank. 165,003,264 parameters, 135,625,728 a rank (0.54
+    # GB), 106,248,192 of them the whole vocabulary tables; the fused pass
+    # only. Its k biases' gradients are noise (TP_ZERO_GRADIENT); for the rest
+    # the slack is recurrentgemma's: two batchings of the unsplit pass stood
+    # up to 2.6e-6 of a leaf's largest gradient apart, the split pass up to
+    # 1.6e-6 from the unsplit one (tools/tp_grad_gap.py)
+    TPRun("whisper-medium", (2, 2), 2, 2, 128, ("dense", "scalecom"), rounding_of_max=1e-5,
+          passes=(True,)),
 )
 
 
@@ -5455,7 +5501,9 @@ def tp_host_whole(tree_, specs, mesh, rank: int):
     """The logical tree from this data line's slices, in host memory on the
     line's model rank 0 (None on the others), leaf by leaf: each slice is
     copied to the host and gathered there (gloo on CPU tensors), so no
-    whole leaf is ever on the card."""
+    whole leaf is ever on the card. Each leaf is (its slices in model rank
+    order, the dim they join on; None: replicated, one), joined where it is
+    held (``tp_params_held``)."""
     import torch
     import torch.distributed as dist
 
@@ -5469,12 +5517,12 @@ def tp_host_whole(tree_, specs, mesh, rank: int):
         dim = next((d for d, ax in enumerate(spec) if ax == "model"), None)
         if dim is None:
             if first:
-                out[path] = part
+                out[path] = [part], None
             continue
         parts = [torch.empty_like(part) for _ in range(mesh.shape["model"])] if first else None
         dist.gather(part, parts, dst=dst, group=group)
         if first:
-            out[path] = torch.cat(parts, dim=dim)
+            out[path] = parts, dim
     return out if first else None
 
 
@@ -5529,8 +5577,8 @@ def tp_leader_ef(layout, before: dict, grads, codec: str) -> dict:
 
 
 def tp_params_held(whole: dict, stacked, lr: float, run, skip: dict, tag: str, i: int) -> float:
-    """The logical parameters (``whole``, path -> tensor, on the card or in
-    host memory) against the stacked step's, within ``TP_TOL`` outside the
+    """The logical parameters (``whole``, ``tp_host_whole``'s slices in host
+    memory, joined on the card) against the stacked step's, within ``TP_TOL`` outside the
     near-tie chunks of ``skip``, plus ``run.rounding_of_max`` of the leaf's
     largest change in the step (lr times its largest momentum). Returns the
     largest difference held."""
@@ -5541,7 +5589,8 @@ def tp_params_held(whole: dict, stacked, lr: float, run, skip: dict, tag: str, i
     worst = 0.0
     moms = dict(tree.flatten_with_path(stacked.opt_state["m"]))
     for path, b in tree.flatten_with_path(stacked.params):
-        a = whole[path].to(b.device)
+        parts, dim = whole[path]
+        a = torch.cat([x.to(b.device) for x in parts], dim=dim or 0)
         keep = ~skip[path] if path in skip else torch.ones_like(a, dtype=torch.bool)
         atol = TP_TOL["atol"] + run.rounding_of_max * lr * float(moms[path].abs().max())
         check(bool(torch.allclose(a[keep], b[keep], rtol=TP_TOL["rtol"], atol=atol)),
@@ -5554,18 +5603,21 @@ def tp_params_held(whole: dict, stacked, lr: float, run, skip: dict, tag: str, i
 
 def tp_run_rank(rank: int, run: TPRun):
     """One ``TPRun`` on this rank: its grid's ranks train the arch through
-    ``build_train_step(mesh=...)``, unfused then fused from the same init,
-    each step timed with its launches, model-axis calls and bytes and
-    payload counted; after both passes, once the grid's state is gone,
+    ``build_train_step(mesh=...)``, in the run's passes (unfused then fused
+    by default) from the same init, each step timed with its launches,
+    model-axis calls and bytes and payload counted; after the passes, once
+    the grid's state is gone,
     rank 0 (data 0, model 0) runs the stacked single-process step from the
     same init and batches (a full-width cell's grid and stacked step do
     not fit on the card together) and, against the logical parameters, ĝ
-    and the leaders' ef that the unfused pass kept in host memory, holds
+    and the leaders' ef that the first pass kept in host memory, holds
     the logical parameters within ``TP_TOL``, up to counted near-tie
     chunks, the loss within ``TP_LOSS_TOL`` and MoE's aux (load-balance and
     z losses within 1e-4, the dropped choices equal); every rank's
-    parameters are bitwise its data replicas' and, fused, bitwise the
-    unfused pass's; each data group's payload the plan's share; the last
+    parameters are bitwise its data replicas' and, in a second pass,
+    bitwise the first pass's; the replicated leaves' parameters and
+    gradients bitwise across the model ranks; each data group's payload
+    the plan's share; the last
     compressed step's reduce teacher-forced, cuda backend bitwise torch
     backend, unfused and fused; the kernels at the rank's part shapes
     against their plain versions. Ranks outside the grid return None."""
@@ -5578,7 +5630,7 @@ def tp_run_rank(rank: int, run: TPRun):
     from repro_torch.core.compressors import CompressorConfig
     from repro_torch.core.plan import plan_shards, plan_tensors
     from repro_torch.core.scalecom import ScaleComConfig
-    from repro_torch.data import make_batches
+    from repro_torch.data import make_batches, model_inputs
     from repro_torch.distributed import ring, sharding, tensor_parallel
     from repro_torch.kernels import chunk_topk as ct
     from repro_torch.launch.mesh import make_test_mesh
@@ -5596,13 +5648,15 @@ def tp_run_rank(rank: int, run: TPRun):
     tag = run.tag
     cfg = registry.arch(run.arch)
     if run.layers:
-        cfg = dataclasses.replace(cfg, n_layers=run.layers)
+        cfg = dataclasses.replace(cfg, n_layers=run.layers,
+                                  encoder_layers=run.layers if cfg.is_encdec else 0)
     model = build_model(cfg, compute_dtype="float32", loss_chunk=64)
     n, d_index, m_index = run.grid[0], mesh.index("data"), mesh.index("model")
     abstract, axes = model.abstract_params(), model.logical_axes()
     specs = sharding.specs_for_axes(abstract, axes, "tp", mesh)
     layout = ts._tp_layout(abstract, axes, mesh)
-    batches = list(make_batches(cfg.vocab, n, run.batch, run.seq, seed=0, steps=3))
+    batches = list(make_batches(cfg.vocab, n, run.batch, run.seq, seed=0, steps=3,
+                                **model_inputs(cfg)))
     lr = 0.05
     sched = schedule.constant(lr)
     base_opt = make_optimizer("sgdm")
@@ -5662,10 +5716,23 @@ def tp_run_rank(rank: int, run: TPRun):
                 close = all(abs(x - y) <= NEAR_TIE_RTOL * abs(y) + slack for x, y in
                             ((ta, ra), (tb, rb)))
                 explained = abs(ra) - abs(rb) <= abs(ta - ra) + abs(tb - rb)
+                if layout.paths[leaf].endswith(TP_ZERO_GRADIENT):
+                    # every lane a tie: rounding noise, far below the other leaves'
+                    check(top <= TP_ZERO_SHARE * ef_top[0],
+                          f"{tag} step {i}: {layout.paths[leaf]}'s largest |ef| {top!r} is "
+                          f"not rounding noise beside the largest leaf's {ef_top[0]!r}")
+                    close = explained = True
+                    zero_flips[0] += 1
+                else:
+                    # the two steps' ef gap at the flipped lanes, as a share of the
+                    # leaf's largest |ef| (what rounding_of_max bounds)
+                    gap = max(abs(ta - ra), abs(tb - rb)) / top if top else 0.0
+                    flip_gap[0] = max(flip_gap[0], gap)
                 check(close and explained and abs(ta) <= abs(tb),
                       f"{tag} step {i}: {layout.paths[leaf]} elements {pa} / {pb}: the "
-                      f"stacked step's ef {ra!r} / {rb!r}, this step's {ta!r} / {tb!r}: "
-                      f"another lane without a near tie (rtol {NEAR_TIE_RTOL}, slack {slack:.3e})")
+                      f"stacked step's ef {ra!r} / {rb!r}, this step's {ta!r} / {tb!r}, the "
+                      f"leaf's largest |ef| {top!r}: another lane without a near tie (rtol "
+                      f"{NEAR_TIE_RTOL}, slack {slack:.3e})")
                 mask = skip.setdefault(layout.paths[leaf], torch.zeros(
                     layout.shapes[leaf], dtype=torch.bool, device="cuda")).view(-1)
                 mask[pa // CHUNK * CHUNK:(pa // CHUNK + 1) * CHUNK] = True
@@ -5679,6 +5746,7 @@ def tp_run_rank(rank: int, run: TPRun):
             ef = stacked_ef(ref_before, ref_gpw, path, t_sc)
             g = torch.zeros_like(ef).index_fill_(0, support[path].to(ef.device), 1.0)
             top = float(ef.abs().max())
+            ef_top[0] = max(ef_top[0], top)
             for c, a, b in zip(*tp_flip_lanes(g, ef, CHUNK)):
                 pa, pb = c * CHUNK + a, c * CHUNK + b
                 cand.append((layout.paths.index(path), pa, pb, float(ef[pa]), float(ef[pb]), top))
@@ -5697,6 +5765,9 @@ def tp_run_rank(rank: int, run: TPRun):
         clock[0] = now
 
     plain_digests, stacked, fns_ref, skip, flipped = [], None, None, {}, 0
+    flip_gap = [0.0]  # the largest ef gap at a flipped lane, of its leaf's largest |ef|
+    zero_flips = [0]  # of the flipped chunks, those in TP_ZERO_GRADIENT's leaves
+    ef_top = [0.0]  # the largest |ef| of any leaf in the stacked step
     captured, own_ef, ref_grads = [], [], []
     kept = []  # per unfused step, what the stacked step is held to after the passes
     real_reduce, real_grads = ts._tp_reduce, ts.per_worker_grads
@@ -5748,15 +5819,21 @@ def tp_run_rank(rank: int, run: TPRun):
                                         f"stacked step {drops[1]}")
             out["aux"].append({"step": i, **aux, "drops": drops[0], "ref": ref_aux})
         out["checks"].append({"step": i, "params_err": worst, "loss_err": loss_err,
-                              "flipped": flipped})
+                              "flipped": flipped, "flip_gap": flip_gap[0],
+                              "zero_flips": zero_flips[0]})
 
-    for fused in (False, True):
+    # the replicated leaves (every rank computes them whole): their digest
+    # columns in a row of parameter digests (two a leaf)
+    whole_cols = [2 * j + k for j, dim in enumerate(layout.dims) if dim is None for k in (0, 1)]
+    grad_rows = []  # per compressed step, the digests of the replicated leaves' gradients
+    for fused in run.passes:
+        first = fused == run.passes[0]  # the pass held against the stacked step
         state = new_state(fused, mesh=mesh)
         residue_paths = frozenset(state.sc_state.residues)
         plans = plan_tensors(tuple((p, s, n) for p, s in zip(layout.paths, layout.shapes)),
                              sc_cfg(fused), residue_paths)
         shards = plan_shards(plans, layout.specs, run.grid[1], m_index)
-        if rank == 0 and not fused:
+        if rank == 0 and fns_ref is None:
             fns_ref = {mode: build_train_step(model, spying(base_opt), sched, sc_cfg(False),
                                               n_workers=n, mode=mode) for mode in ("dense",
                                                                                    "scalecom")}
@@ -5768,7 +5845,7 @@ def tp_run_rank(rank: int, run: TPRun):
         lap("init")
         for i, mode in enumerate(run.modes):
             t_sc = state.sc_state.t
-            last = mode == "scalecom" and i == len(run.modes) - 1 and not fused
+            last = mode == "scalecom" and i == len(run.modes) - 1 and first
             copy_s = []
 
             def capture(grads, sc_state, cfg_, layout_, *rest, **kw):
@@ -5782,20 +5859,25 @@ def tp_run_rank(rank: int, run: TPRun):
 
             if last:
                 ts._tp_reduce = capture
-            if mode == "scalecom" and not fused and d_index == t_sc % n:
-                # the leader's ef to host memory (timed apart), before the
-                # reduce consumes the gradients
+            if mode == "scalecom":
+                # the replicated leaves' gradient digests and, on the first
+                # pass's leader, its ef to host memory (timed apart), before
+                # the reduce consumes the gradients
                 own_before = state.sc_state.residues
+                leader = first and d_index == t_sc % n
 
-                def leader_grads(*a, **k):
+                def spied_grads(*a, leader=leader, own_before=own_before, **k):
                     got = real_grads(*a, **k)
                     torch.cuda.synchronize()
                     c0 = time.perf_counter()
-                    own_ef.append(tp_leader_ef(layout, own_before, got[2], run.codec))
+                    grad_rows.append([x for g, dim in zip(tree.leaves(got[2]), layout.dims)
+                                      if dim is None for x in digest(g)])
+                    if leader:
+                        own_ef.append(tp_leader_ef(layout, own_before, got[2], run.codec))
                     copy_s.append(time.perf_counter() - c0)
                     return got
 
-                ts.per_worker_grads = leader_grads
+                ts.per_worker_grads = spied_grads
             ghats.clear()
             ring.reset_sent()
             tensor_parallel.reset_sent()
@@ -5830,14 +5912,26 @@ def tp_run_rank(rank: int, run: TPRun):
                          "model_bytes": dict(tensor_parallel.sent), "payload": payload,
                          "share": share, "planned": metrics.get("comm_bytes_per_worker", 0.0),
                          "aux": aux})
-            # data replicas bitwise; fused bitwise the unfused pass
+            # data replicas bitwise; the replicated leaves bitwise across the
+            # model ranks too, their gradients first; a second pass bitwise the first
             row = [x for p in tree.leaves(state.params) for x in digest(p)]
             table = exchange(row + [d_index, m_index, payload], rank, size, members)
             for other in table:
                 if other[-3] != d_index and other[-2] == m_index:
                     check(other[:-3] == row, f"{tag} step {i}: rank {rank}'s parameters differ "
                                              f"from its data replica's")
-            if fused:
+                if other[-3] == d_index and other[-2] != m_index:
+                    check([other[c] for c in whole_cols] == [row[c] for c in whole_cols],
+                          f"{tag} step {i}: rank {rank}'s replicated parameters differ from "
+                          f"model rank {other[-2]}'s")
+            if mode == "scalecom":
+                grads_row = grad_rows.pop()
+                for other in exchange(grads_row + [d_index], rank, size, members):
+                    if other[-1] == d_index:
+                        check(other[:-1] == grads_row, f"{tag} step {i}: rank {rank}'s "
+                                                       f"replicated leaves' gradients differ "
+                                                       f"from its model ranks'")
+            if not first:
                 check(row == plain_digests[i], f"{tag} fused step {i} rank {rank}: parameters "
                                                f"differ from the unfused pass's")
             else:
@@ -5853,7 +5947,7 @@ def tp_run_rank(rank: int, run: TPRun):
                 check(sum(s[0] for s in shares) / 8 / n == metrics["comm_bytes_per_worker"],
                       f"{tag} step {i}: the model ranks' shares do not sum to the plan's bytes")
             lap("holds")
-            if fused:
+            if not first:
                 continue
             # the logical parameters and ĝ's support to rank 0's host memory,
             # the leaders' ef to their own: the stacked step comes after the passes
@@ -5868,17 +5962,17 @@ def tp_run_rank(rank: int, run: TPRun):
             lap("kept")
         out["steps"]["fused" if fused else "unfused"] = rows
         out["peak"]["fused" if fused else "unfused"] = torch.cuda.max_memory_allocated()
-        if not fused:
+        if first:
             del state
             ghats.clear()
             gc.collect()
             torch.cuda.empty_cache()
             # the last compressed step's reduce, teacher-forced: the cuda
-            # backend's bits against the torch backend's, unfused and fused
-            # (by digest, one reduce's outputs alive at a time)
+            # backend's bits against the torch backend's, in the cell's
+            # passes (by digest, one reduce's outputs alive at a time)
             grads, before = captured
             grads = tree.tree_map(lambda g: g.to("cuda"), grads)
-            for f in (False, True):
+            for f in run.passes:
                 bits = []
                 for b in ("cuda", "torch"):
                     ghat, new, _ = ts._tp_reduce(grads, before, sc_cfg(f, b), layout)
@@ -5922,6 +6016,7 @@ def tp_run_rank(rank: int, run: TPRun):
     lap("kernels")
     out["n_compressed"] = sum(1 for sp in shards if not sp.plan.dense and sp.k > 0)
     out["routes"] = {r: sum(1 for sp in shards if sp.route == r) for r in ("dense", "local", "part")}
+    out["n_whole"] = len(whole_cols) // 2
     dist.barrier(group=members)
     return out
 
@@ -6529,26 +6624,29 @@ def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
 
     print(f"[tp] {RING_WORLD} ranks ({RING_BACKEND}, one card; [ring]'s processes); each cell "
           f"trains 1 dense step and its compressed ones (clt_k chunk {CHUNK}, beta {BETA}, "
-          f"min_size 1024, sgdm, lr 0.05), unfused and then fused, through "
+          f"min_size 1024, sgdm, lr 0.05), unfused and then fused unless named, through "
           f"build_train_step(mesh=...)")
     launches = dict.fromkeys(TP_KERNELS, 0)
     for j, run in enumerate(runs):
         tr = [results[r]["tp"][j] for r in range(RING_WORLD) if results[r]["tp"][j]]
         tag = run.tag
         checks = tr[0]["checks"]
-        for fused in ("unfused", "fused"):
+        passes = ["fused" if f else "unfused" for f in run.passes]
+        for fused in passes:
             for i, mode in enumerate(run.modes):
                 rows = [x["steps"][fused][i] for x in tr]
                 step = [x["step_ms"] for x in rows]
                 calls = rows[0]["model_calls"]
                 mb = st.median(sum(x["model_bytes"].values()) for x in rows)
                 held = ""
-                if fused == "unfused":
+                if fused == passes[0]:
                     c = checks[i]
                     held = (f"; the logical parameters against the stacked step's: max abs err "
                             f"{c['params_err']:.3e} (rtol {TP_TOL['rtol']} / atol "
-                            f"{TP_TOL['atol']}) outside {c['flipped']} near-tie chunks so far, "
-                            f"loss err {c['loss_err']:.3e}")
+                            f"{TP_TOL['atol']}) outside {c['flipped']} near-tie chunks so far "
+                            f"(ef gaps at their lanes up to {c['flip_gap']:.3e} of the leaf's "
+                            f"largest; {c['zero_flips']} of them in the k biases, zero but for "
+                            f"rounding), loss err {c['loss_err']:.3e}")
                 else:
                     held = "; parameters bitwise the unfused pass's on every rank"
                 print(f"{tag} {fused} step {i} {mode}: loss {rows[0]['loss']:.4f}; step ms max "
@@ -6559,7 +6657,8 @@ def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
                       f"{st.median(x['payload'] for x in rows) / 1e6:.3f} MB (median)"
                       + (f", the plan's logical bytes {rows[0]['planned'] / 1e6:.3f} MB a worker"
                          if mode == "scalecom" else " (the dense all-reduce of its slices)")
-                      + f"{held}; data replicas bitwise; on {card_line}")
+                      + f"{held}; data replicas bitwise, the replicated leaves across model "
+                        f"ranks too; on {card_line}")
             for x in tr:
                 for row in x["steps"][fused]:
                     for k in launches:
@@ -6571,8 +6670,11 @@ def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
               f"a rank; the payload of each data group the plan's share and the shares summing "
               f"to the plan's bytes on every compressed step; launches as planned on every rank "
               f"(the leader's select, ef_update and chunk_scatter; fused the leader's "
-              f"fused_select_update), all vec4; the last compressed step's reduce teacher-forced "
-              f"on every rank: cuda backend == torch backend, bitwise, unfused and fused")
+              f"fused_select_update), all vec4; the {tr[0]['n_whole']} replicated leaves "
+              f"(computed whole on every rank) bitwise across the model ranks, their gradients "
+              f"on every compressed step and the parameters on every step; the last compressed "
+              f"step's reduce teacher-forced on every rank: cuda backend == torch backend, "
+              f"bitwise, {' and '.join(passes)}")
         print(f"{tag} kernels at rank 0's part shapes (rows x chunk) "
               + ", ".join(f"{r:,} x {c}" for r, c in tr[0]["kernel_shapes"])
               + ": chunk_argmax, ef_update, chunk_scatter and fused_select_update bitwise their "
@@ -6582,9 +6684,8 @@ def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
                   f"moe_lb_loss {a['moe_lb_loss']:.6f} ({a['ref']['moe_lb_loss']:.6f}), "
                   f"moe_z_loss {a['moe_z_loss']:.6f} ({a['ref']['moe_z_loss']:.6f}), "
                   f"{a['drops']} choices dropped (the same), within 1e-4; on {card_line}")
-        print(f"{tag} {run.codec} residues; peak allocated GiB by rank, unfused / fused: "
-              + " / ".join(f"{x['peak']['unfused'] / 2**30:.2f}, {x['peak']['fused'] / 2**30:.2f}"
-                           for x in tr)
+        print(f"{tag} {run.codec} residues; peak allocated GiB by rank, {' / '.join(passes)}: "
+              + " / ".join(", ".join(f"{x['peak'][f] / 2**30:.2f}" for f in passes) for x in tr)
               + f" (rank 0's stacked step, run after the grid's passes, "
               f"{tr[0]['peak']['stacked'] / 2**30:.2f}); {results[0]['tp_s'][j]:.1f} s on rank 0 ("
               + ", ".join(f"{k} {v:.1f}" for k, v in tr[0]["seconds"].items())

@@ -246,6 +246,10 @@ def _execute(plan: TensorPlan, gw: torch.Tensor, enc, codec, beta: float, t: int
         else:
             vmean = torch.mean(vals, dim=0)  # the all-reduce of k values
             ghat = backend.scatter(vmean, idx, comp.chunk, C, comp.topm)
+    if not (taps.active() or compute_stats):
+        # read no more: freed before the encode's full-size temporaries (at a
+        # vocabulary table over workers, each is GBs)
+        m = ef = None
     new_enc = codec.encode(new_m.reshape((G,) + plan.storage), plan.storage,
                            key=codec_key(plan.path, t))
     if taps.active():

@@ -159,6 +159,26 @@ def _blocks(sl: Slice, device) -> torch.Tensor:
     return sl.flat_ids(device).div_(FP8_BLOCK, rounding_mode="floor")  # in place: one int64 copy
 
 
+def _whole_blocks(sl: Slice, device) -> Optional[torch.Tensor]:
+    """Where the slice's flat order is whole fp8 blocks in runs that start
+    at a block boundary (each index of the dims before the split one gives
+    one run), the logical block of each of the slice's blocks, in order
+    (one int64 per 512 elements: the slice's elements then view as
+    (1, blocks, 512)); else None, and each element needs its own block id
+    (``_blocks``)."""
+    if sl.dim is None:
+        return torch.arange(sl.size // FP8_BLOCK, device=device) if sl.size % FP8_BLOCK == 0 \
+            else None
+    outer = math.prod(sl.shape[:sl.dim])
+    inner = math.prod(sl.shape[sl.dim + 1:])
+    run, span = sl.width * inner, sl.shape[sl.dim] * inner
+    if run % FP8_BLOCK or span % FP8_BLOCK:
+        return None
+    per = run // FP8_BLOCK
+    return (torch.arange(outer, device=device)[:, None] * (span // FP8_BLOCK) + sl.index * per
+            + torch.arange(per, device=device)[None, :]).reshape(-1)
+
+
 def decode(name: str, enc: Enc, sl: Slice, layout: str) -> torch.Tensor:
     """The slice's fp32 residue, (1, *storage), as the stacked codec's decode
     gives it at the same positions."""
@@ -167,7 +187,12 @@ def decode(name: str, enc: Enc, sl: Slice, layout: str) -> torch.Tensor:
     if name in ("fp32", "bf16"):
         return q.to(torch.float32)
     if layout == "flat":
-        x = q.to(torch.float32) * enc["scale"][:, _blocks(sl, q.device)]
+        ids = _whole_blocks(sl, q.device)
+        if ids is not None:
+            x = (q.to(torch.float32).view(1, -1, FP8_BLOCK) * enc["scale"][:, ids, None]).view(
+                q.shape)
+        else:
+            x = q.to(torch.float32) * enc["scale"][:, _blocks(sl, q.device)]
     else:
         x = q.to(torch.float32) * enc["scale"][..., None]
     if name == "fp8_ec":
@@ -197,22 +222,30 @@ def encode_steps(name: str, m: torch.Tensor, sl: Slice, layout: str, dither=None
     if name == "bf16":
         return {"q": bf16_encode(m, dither)}
     flat = layout == "flat"
-    if flat:
-        blocks = _blocks(sl, m.device)
+    ids = _whole_blocks(sl, m.device) if flat else None
+    if ids is not None:  # whole blocks: each block's amax from a (1, blocks, 512) view
+        x = m.reshape(1, -1, FP8_BLOCK)
+        amax = torch.zeros((1, fp8_blocks(sl.size)), dtype=torch.float32,
+                           device=m.device).index_copy_(1, ids, torch.amax(x.abs(), dim=-1))
+    elif flat:
+        x, blocks = m, _blocks(sl, m.device)
         amax = torch.zeros((1, fp8_blocks(sl.size)), dtype=torch.float32,
                            device=m.device).scatter_reduce(1, blocks[None], m.abs(), "amax")
     else:
-        amax = torch.amax(m.abs(), dim=-1)
+        x, amax = m, torch.amax(m.abs(), dim=-1)
     if sl.crosses(layout):
         (rows,) = yield [Collective("all_gather", amax, model, "model")]
         amax = torch.amax(rows, dim=0)
     scale = fp8_scale(amax)
-    per = scale[:, blocks] if flat else scale[..., None]
-    blocks = None  # one int64 an element: freed before the quantize's temporaries
-    q = fp8_quantize(m, per)
-    enc = {"q": q, "scale": scale}
+    if ids is not None:
+        per = scale[:, ids, None]
+    else:
+        per = scale[:, blocks] if flat else scale[..., None]
+        blocks = None  # one int64 an element: freed before the quantize's temporaries
+    q = fp8_quantize(x, per)
+    enc = {"q": q.view(m.shape), "scale": scale}
     if name == "fp8_ec":
-        enc["c"] = bf16_encode(m - q.to(torch.float32) * per, dither)
+        enc["c"] = bf16_encode((x - q.to(torch.float32) * per).view(m.shape), dither)
     return enc
 
 

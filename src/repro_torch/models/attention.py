@@ -121,14 +121,16 @@ def attention_train(cfg, p, x: Tensor, positions: Tensor, *, dtype: torch.dtype,
     ``kv_x`` (B, T, D) and ``kv_positions`` (T,) it is cross-attention: K and V
     come from ``kv_x``, and it is never causal and never rotated. ``remat``
     rematerialises each query chunk (``attention_core``). With ``tp`` (a
-    ``tensor_parallel.ModelAxis`` that splits "heads") self-attention runs
-    on this rank's heads (``_attention_tp``). A layout that splits "kv" with
-    the heads whole raises: nothing in the reference's rules gives that for
-    the archs of the registry, and a rank would read every kv head."""
+    ``tensor_parallel.ModelAxis`` that splits "heads") self- or
+    cross-attention runs on this rank's heads (``_attention_tp``). A layout
+    that splits "kv" with the heads whole raises: nothing in the
+    reference's rules gives that for the archs of the registry, and a rank
+    would read every kv head."""
     cross = kv_x is not None
-    if tp is not None and not cross and tp.over("heads"):
-        return _attention_tp(cfg, p, x, positions, tp, dtype=dtype, causal=causal,
-                             window=window, rope=rope, prefix=prefix, remat=remat)
+    if tp is not None and tp.over("heads"):
+        return _attention_tp(cfg, p, x, positions, tp, dtype=dtype, causal=causal and not cross,
+                             window=window, rope=rope and not cross, prefix=prefix, remat=remat,
+                             kv_x=kv_x, kv_positions=kv_positions)
     if tp is not None and tp.over("kv"):
         raise ValueError(f"{prefix}_wk: kv columns split over the model axis with the heads "
                          f"whole: not supported")
@@ -143,10 +145,15 @@ def attention_train(cfg, p, x: Tensor, positions: Tensor, *, dtype: torch.dtype,
 
 
 def _attention_tp(cfg, p, x: Tensor, positions: Tensor, tp, *, dtype: torch.dtype, causal: bool,
-                  window: Optional[int], rope: bool, prefix: str, remat: bool) -> Tensor:
-    """Self-attention on this rank's heads (``distributed.tensor_parallel``):
+                  window: Optional[int], rope: bool, prefix: str, remat: bool,
+                  kv_x: Optional[Tensor] = None,
+                  kv_positions: Optional[Tensor] = None) -> Tensor:
+    """Self-attention, or with ``kv_x`` (B, T, D) and ``kv_positions`` (T,)
+    cross-attention, on this rank's heads (``distributed.tensor_parallel``):
     ``wq``/``wk``/``wv`` and their biases column-parallel, ``wo``
-    row-parallel, its products summed over the model group.
+    row-parallel, its products summed over the model group. Q's columns
+    come from the model copy of ``x``, K's and V's from that of ``kv_x``
+    (the encoder's output: its cotangent is summed over the group).
 
     Where the rank's q heads are whole and meet exactly its own kv heads
     (GQA groups not cut), attention is local. Otherwise (the reference's
@@ -155,41 +162,43 @@ def _attention_tp(cfg, p, x: Tensor, positions: Tensor, tp, *, dtype: torch.dtyp
     made whole on every rank, from the ranks' column slices
     (``gather_from_model``) or, replicated, from this rank's own product
     with its cotangent summed over the group (``copy_to_model`` on the
-    product, which reads ``x`` itself and not its model copy), attention
-    runs over all heads and the rank keeps the output columns of its ``wo``
-    rows. Either way every activation that several ranks read has its
-    cotangent summed over the model group."""
+    product, which reads the input itself and not its model copy),
+    attention runs over all heads and the rank keeps the output columns of
+    its ``wo`` rows. Either way every activation that several ranks read
+    has its cotangent summed over the model group."""
     B, S, _ = x.shape
+    cross = kv_x is not None
+    src, kv_pos = (kv_x, kv_positions) if cross else (x, positions)
+    T = src.shape[1]
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
     kv_split = tp.over("kv") is not None
     q_cols, kv_cols = H * hd // tp.size, KV * hd // (tp.size if kv_split else 1)
     xp = tp.copy(x)
+    sp = (tp.copy(src) if cross else xp) if kv_split else None  # K's and V's columns' input
 
-    def proj(name, src):
-        y = src @ p[f"{prefix}_w{name}"].to(dtype)
+    def proj(name, inp):
+        y = inp @ p[f"{prefix}_w{name}"].to(dtype)
         return y + p[f"{prefix}_b{name}"].to(dtype) if cfg.qkv_bias else y
 
     hq, hk = q_cols // hd, kv_cols // hd
-    if kv_split and q_cols % hd == 0 and kv_cols % hd == 0 and hq == (H // KV) * hk:
-        q, k, v = proj("q", xp), proj("k", xp), proj("v", xp)
-        q, k, v = q.reshape(B, S, hq, hd), k.reshape(B, S, hk, hd), v.reshape(B, S, hk, hd)
-        if rope:
-            q = common.apply_rope(q, positions, cfg.rope_theta)
-            k = common.apply_rope(k, positions, cfg.rope_theta)
-        out = attention_core(q, k, v, positions, positions, causal=causal, window=window,
-                             remat=remat).reshape(B, S, q_cols)
+    local = kv_split and q_cols % hd == 0 and kv_cols % hd == 0 and hq == (H // KV) * hk
+    if local:
+        q, k, v = proj("q", xp), proj("k", sp), proj("v", sp)
+        q, k, v = q.reshape(B, S, hq, hd), k.reshape(B, T, hk, hd), v.reshape(B, T, hk, hd)
     else:
         q = tp.gather(proj("q", xp), -1)
         if kv_split:
-            k, v = tp.gather(proj("k", xp), -1), tp.gather(proj("v", xp), -1)
+            k, v = tp.gather(proj("k", sp), -1), tp.gather(proj("v", sp), -1)
         else:
-            k, v = tp.copy(proj("k", x)), tp.copy(proj("v", x))
-        q, k, v = q.reshape(B, S, H, hd), k.reshape(B, S, KV, hd), v.reshape(B, S, KV, hd)
-        if rope:
-            q = common.apply_rope(q, positions, cfg.rope_theta)
-            k = common.apply_rope(k, positions, cfg.rope_theta)
-        out = attention_core(q, k, v, positions, positions, causal=causal, window=window,
-                             remat=remat).reshape(B, S, H * hd)
+            k, v = tp.copy(proj("k", src)), tp.copy(proj("v", src))
+        q, k, v = q.reshape(B, S, H, hd), k.reshape(B, T, KV, hd), v.reshape(B, T, KV, hd)
+    if rope:
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, kv_pos, cfg.rope_theta)
+    out = attention_core(q, k, v, positions, kv_pos, causal=causal, window=window,
+                         remat=remat)
+    out = out.reshape(B, S, q.shape[2] * hd)
+    if not local:
         out = out.narrow(-1, tp.index * q_cols, q_cols)
     return tp.reduce(out @ p[f"{prefix}_wo"].to(dtype))
 

@@ -22,6 +22,14 @@ The recurrence is a first-order linear scan, computed here in ⌈log₂ S⌉
 out-of-place rounds with the reference's combine (a1·a2, a2·b1 + b2): a
 sequential loop would be thousands of launches at long sequence. Its sums
 run in another order than ``lax.associative_scan``'s.
+
+Under a model axis (``tp``, the reference's ``tp`` policy: "heads" over
+"model") a rank runs its own channels: ``ln_rec`` whole, then one
+``copy`` of the normed input feeding the four column-parallel products
+(``rec_in_gate``, ``rec_in_x``, ``rec_wa``, ``rec_wx``), the depthwise conv,
+the decay and the scan on the rank's columns of ``rec_conv``,
+``rec_conv_b`` and ``rec_lambda`` (channel-local: no collective), and
+``rec_out`` by rows, its product summed over the group.
 """
 
 from __future__ import annotations
@@ -80,21 +88,31 @@ def _rglru_scan(a: Tensor, bx: Tensor, h0: Tensor) -> Tensor:
 
 
 def rglru_block(cfg, p, x: Tensor, state: Dict[str, Tensor], *,
-                dtype: torch.dtype) -> Tuple[Tensor, Dict[str, Tensor]]:
+                dtype: torch.dtype, tp=None) -> Tuple[Tensor, Dict[str, Tensor]]:
     """x: (B, S, D); state: {"h": (B, D), "conv": (B, W-1, D)}, fp32. Returns
-    the residual x + out and the new state."""
+    the residual x + out and the new state. With ``tp`` (a
+    ``tensor_parallel.ModelAxis``) that splits "heads" the rank runs its
+    D/M channels (module docstring) from its channels of ``state``, and
+    the state it returns holds only those."""
+    tp = tp and tp.over("heads")
     f32 = torch.float32
     xn = common.apply_norm(cfg, x, p, "ln_rec")
+    h0, tail = state["h"], state["conv"]
+    if tp is not None:
+        xn = tp.copy(xn)
+        h0, tail = tp.narrow(h0, -1), tp.narrow(tail, -1)
     # jax.nn.gelu's default is the tanh approximation
     gate = F.gelu(xn @ p["rec_in_gate"].to(dtype), approximate="tanh")
     u, new_tail = _conv1d_causal(xn @ p["rec_in_x"].to(dtype), p["rec_conv"].to(dtype),
-                                 p["rec_conv_b"].to(dtype), state["conv"])
+                                 p["rec_conv_b"].to(dtype), tail)
     r = torch.sigmoid((xn @ p["rec_wa"].to(dtype)).to(f32))
     i = torch.sigmoid((xn @ p["rec_wx"].to(dtype)).to(f32))
     a = torch.exp(-cfg.rglru_c * F.softplus(p["rec_lambda"].to(f32)) * r)
     bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * u.to(f32))
-    h = _rglru_scan(a, bx, state["h"])
+    h = _rglru_scan(a, bx, h0)
     out = (h.to(dtype) * gate) @ p["rec_out"].to(dtype)
+    if tp is not None:
+        out = tp.reduce(out)
     return x + out, {"h": h[:, -1, :], "conv": new_tail.to(f32)}
 
 

@@ -72,19 +72,6 @@ Tensor = torch.Tensor
 
 __all__ = ["Model", "build_model", "DTYPES", "MOE_LB_COEF", "MOE_Z_COEF"]
 
-# the families whose loss runs split over a model axis (``tensor_parallel``)
-TP_FAMILIES = ("dense", "vlm", "moe", "ssm")
-
-
-def require_tp_family(cfg: ArchConfig) -> None:
-    """Raises, naming it, for a family whose pass is not split over a model
-    axis yet."""
-    if cfg.arch_type not in TP_FAMILIES:
-        raise ValueError(
-            f"the tensor-parallel pass runs the {'/'.join(TP_FAMILIES)} families, not the "
-            f"{cfg.arch_type!r} family of {cfg.name} (ROADMAP, sharded step item 4, the "
-            f"hybrid and the encoder-decoder)")
-
 MOE_LB_COEF = 0.01
 MOE_Z_COEF = 1e-3
 
@@ -137,8 +124,8 @@ def _block_train(cfg, p, x, positions, kind, *, dtype, window, enc_out=None,
         return x, {}
     if kind == "rec":
         state = rglru.init_rglru_state(cfg, x.shape[0], x.device)
-        x, _ = rglru.rglru_block(cfg, p, x, state, dtype=dtype)
-        return _apply_mlp(cfg, p, x, dtype), {}
+        x, _ = rglru.rglru_block(cfg, p, x, state, dtype=dtype, tp=tp)
+        return _apply_mlp(cfg, p, x, dtype, tp), {}
     xn = common.apply_norm(cfg, x, p, "ln_attn")
     x = x + attn.attention_train(cfg, p, xn, positions, dtype=dtype, causal=kind != "enc",
                                  window=window,
@@ -147,7 +134,7 @@ def _block_train(cfg, p, x, positions, kind, *, dtype, window, enc_out=None,
     if kind == "encdec_dec":
         xn = common.apply_norm(cfg, x, p, "ln_cross")
         x = x + attn.attention_train(cfg, p, xn, positions, dtype=dtype, kv_x=enc_out,
-                                     kv_positions=enc_pos, prefix="cross", remat=remat)
+                                     kv_positions=enc_pos, prefix="cross", remat=remat, tp=tp)
     if kind == "moe":
         h, aux = moe.moe_ffn(cfg, p, common.apply_norm(cfg, x, p, "ln_mlp"), dtype=dtype, tp=tp,
                              data_group=data_group)
@@ -278,8 +265,9 @@ class Model:
         ``remat``, else as it is."""
         return common.remat(body) if self.remat else body
 
-    def _encode(self, params, frames: Tensor) -> Tuple[Tensor, Tensor]:
-        """The Whisper encoder over stub frame embeddings. frames: (B, T, D)."""
+    def _encode(self, params, frames: Tensor, tp=None) -> Tuple[Tensor, Tensor]:
+        """The Whisper encoder over stub frame embeddings. frames: (B, T, D).
+        ``tp`` splits its attention and MLP over the model group."""
         cfg, dt = self.cfg, self.compute_dtype
         T = frames.shape[1]
         x = frames.to(dt) + common.sinusoidal_positions(T, cfg.d_model, frames.device).to(dt)
@@ -287,7 +275,8 @@ class Model:
         ep = params["encoder"]
         layers = {k: v for k, v in ep.items() if not k.startswith("ln_enc_final")}
         step = self._step(lambda pl, x, pos: _block_train(cfg, pl, x, pos, "enc", dtype=dt,
-                                                          window=None, remat=self.remat)[0])
+                                                          window=None, remat=self.remat,
+                                                          tp=tp)[0])
         for i in range(cfg.encoder_layers):
             x = step(_layer(layers, i), x, pos)
         return common.apply_norm(cfg, x, ep, "ln_enc_final"), pos
@@ -303,11 +292,14 @@ class Model:
         layers are not) is rematerialised, as are attention's query chunks
         and the cross-entropy's chunks, where the reference checkpoints.
 
-        With ``tp`` (a ``tensor_parallel.ModelAxis``; the ``TP_FAMILIES``
-        only) ``params`` are this rank's slices and the pass splits the
-        embedding, attention, the MLP and the cross-entropy over the model
-        group where ``tp.split`` names their logical axes: MoE's experts (or
-        each expert's hidden columns) and RWKV-6's heads too.
+        With ``tp`` (a ``tensor_parallel.ModelAxis``) ``params`` are this
+        rank's slices and the pass splits the embedding, attention (the
+        encoder's, the decoder's self- and cross-attention), the MLP and
+        the cross-entropy over the model group where ``tp.split`` names
+        their logical axes: MoE's experts (or each expert's hidden columns),
+        RWKV-6's heads and the RG-LRU's channels too. What the layout keeps
+        whole (a vocabulary the model size does not divide, the norms) every
+        rank computes whole.
 
         With ``data_group`` (a process group of data ranks, each passing
         its row of one global batch: a dense step split over ranks) MoE
@@ -318,21 +310,20 @@ class Model:
         cfg, dt = self.cfg, self.compute_dtype
         remat = self.remat
         auxs = []
-        if tp is not None:
-            require_tp_family(cfg)
         if cfg.is_encdec:
-            enc_out, enc_pos = self._encode(params, batch["frames"])
-            x = common.embed_tokens(params, batch["tokens"], dt)
+            enc_out, enc_pos = self._encode(params, batch["frames"], tp)
+            x = common.embed_tokens(params, batch["tokens"], dt, tp and tp.over("vocab"))
             x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, x.device).to(dt)
             positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
             labels, mask = batch["labels"], batch["mask"].to(torch.float32)
             step = self._step(lambda pl, x, positions, enc_out, enc_pos: _block_train(
                 cfg, pl, x, positions, "encdec_dec", dtype=dt, window=cfg.sliding_window,
-                enc_out=enc_out, enc_pos=enc_pos, remat=remat)[0])
+                enc_out=enc_out, enc_pos=enc_pos, remat=remat, tp=tp)[0])
             for i in range(cfg.n_layers):
                 # each layer reads enc_out through a view of its own, so its K and V
                 # cotangents are summed before they join the other layers', with
-                # remat or without (and as the reference's scan sums them)
+                # remat or without (and as the reference's scan sums them); under
+                # tp the layer's model copy of it sums them over the model group
                 x = step(_layer(params["decoder"], i), x, positions, enc_out.view_as(enc_out),
                          enc_pos)
         else:
@@ -343,7 +334,8 @@ class Model:
                 def unit(up, x, positions):
                     for pos, kind in enumerate(cfg.hybrid_pattern):
                         x, _ = _block_train(cfg, up[f"u{pos}_{kind}"], x, positions, kind,
-                                            dtype=dt, window=self._window(kind), remat=remat)
+                                            dtype=dt, window=self._window(kind), remat=remat,
+                                            tp=tp)
                     return x
 
                 step = self._step(unit)
@@ -351,7 +343,8 @@ class Model:
                     x = step(_layer(params["units"], u), x, positions)
                 for i, kind in enumerate(tail_kinds):
                     x, _ = _block_train(cfg, params["tail"][f"layer_{i}_{kind}"], x, positions,
-                                        kind, dtype=dt, window=self._window(kind), remat=remat)
+                                        kind, dtype=dt, window=self._window(kind), remat=remat,
+                                        tp=tp)
             else:
                 kind = cfg._layer_kinds()[0]
                 step = self._step(lambda pl, x, positions: list(_block_train(

@@ -69,7 +69,6 @@ from repro_torch.distributed.ring import (
 )
 from repro_torch.distributed.sharding import shard_of, specs_for_axes, split_axes
 from repro_torch.kernels.fused_reduce import select_update_fits
-from repro_torch.models.transformer import require_tp_family
 from repro_torch.obs import taps
 from repro_torch.optim.optimizer import Optimizer
 
@@ -533,7 +532,6 @@ def _tp_check(model, mesh, n_workers: int, group) -> None:
     if n_workers != mesh.shape["data"]:
         raise ValueError(f"n_workers ({n_workers}) must equal the grid's data size "
                          f"({mesh.shape['data']}): the ranks of one data index are one worker")
-    require_tp_family(model.cfg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -925,15 +923,20 @@ def _tp_leaf_steps(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
         def lift(y):
             return _gather_parts(y, sizes, model)
     store = (1,) + tuple(enc["q"].shape[1:])
+    dtype, device = g.dtype, g.device
+    if not taps.active():
+        # read no more: freed before the encode's full-size temporaries (at a
+        # vocabulary table's slice, each is GBs)
+        g = gw = m = gw_whole = m_whole = part = m_part = None
     dither = slices.row_dither(ctx.codec, codec_key(plan.path, ctx.t), plan.groups, ctx.row, sl,
-                               ctx.layout, g.device)
+                               ctx.layout, device)
     new_enc = yield from slices.encode_steps(ctx.codec, m_new.reshape(store), sl, ctx.layout,
                                              dither, model)
     if taps.active():
         use_fused = ctx.fused and sp.route != "exact" and plan.comp.name in FUSABLE_MODES
         yield from _tp_taps(sp, sl, ctx, m + gw, ef_mean, whole, lift, ghat, m_new, new_enc, sums,
                             payload, use_fused)
-    return ghat.reshape(sp.local_shape).to(g.dtype), new_enc, sums
+    return ghat.reshape(sp.local_shape).to(dtype), new_enc, sums
 
 
 def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _TPLayout,
@@ -1123,8 +1126,8 @@ def build_train_step(
     every parameter, optimizer leaf and of its worker's residues
     (``shard_train_state(state, mesh=..., axes=...)``). The pass splits
     attention's heads, the MLP's hidden units, MoE's experts (or each
-    expert's hidden units), RWKV-6's heads and the vocabulary over the
-    model group (``distributed.tensor_parallel``); the reduce plans each
+    expert's hidden units), RWKV-6's heads, the RG-LRU's channels and the
+    vocabulary over the model group (``distributed.tensor_parallel``); the reduce plans each
     logical tensor and runs over the data group on the rank's part of it
     (``_tp_reduce``); the loss and auxs are averaged over the data group;
     ``grad_norm`` is the logical gradient's; the dense mode all-reduces
@@ -1136,9 +1139,10 @@ def build_train_step(
     bucket's collectives of both axes packed and async, as the group
     step's; see ``_tp_reduce``), ``telemetry`` (the stacked step's
     ``"obs/<key>"`` taps for the logical tensors, the same on every rank
-    of the grid) and ``mode="dense"``, for the dense, vlm, moe and ssm
-    families; the hybrid and the encoder-decoder raise, naming their
-    ROADMAP item.
+    of the grid) and ``mode="dense"``, for every family of the registry
+    (the encoder-decoder's encoder and cross-attention split as the
+    decoder's self-attention); a vocabulary the model size does not divide
+    stays whole on every rank.
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")

@@ -9,6 +9,7 @@ parent's pipe, runs every case with the others and sends back numpy arrays
 and plain values. A failure raises, and the process exits non-zero.
 """
 
+import dataclasses
 import datetime
 from types import SimpleNamespace
 
@@ -64,8 +65,10 @@ def sc_cfg(**kw) -> ScaleComConfig:
                           min_size=MIN_SIZE, backend="torch", **kw)
 
 
-def model_of(arch: str):
-    return build_model(registry.smoke(arch), compute_dtype="float32", loss_chunk=16)
+def model_of(arch: str, overrides=None):
+    """The arch's SMOKE model, with ``overrides`` of its config fields."""
+    return build_model(dataclasses.replace(registry.smoke(arch), **(overrides or {})),
+                       compute_dtype="float32", loss_chunk=16)
 
 
 def _jax_state(job: dict, codec: str) -> SimpleNamespace:
@@ -133,7 +136,7 @@ def _run(job: dict, mesh, label: str) -> list:
     the counted payload and model-axis calls; for the plain run also each
     compressed step's per-worker gradients, the microbatched pass's, the
     model-axis collectives in order and the router's near ties."""
-    model = model_of(job["arch"])
+    model = model_of(job["arch"], job.get("overrides"))
     cfg_kw, step_kw = RUNS[label]
     codec = cfg_kw.get("residue_dtype", "fp32")
     base = make_optimizer("sgdm")
@@ -224,13 +227,13 @@ def _group_dense(job: dict) -> dict:
             "metrics": {k: float(v) for k, v in metrics.items()}}
 
 
-def _round_trip(arch: str, mesh) -> dict:
+def _round_trip(arch: str, mesh, overrides=None) -> dict:
     """Per codec: a whole stacked state (random parameters, residues of
     random values encoded by the codec, nearest rounding) through
     ``shard_train_state(mesh=)`` and back through ``train_state_from_shard``:
     whether the parameters and momentum come back bitwise and the rank's
     residue row bitwise the stacked row, every field."""
-    model = model_of(arch)
+    model = model_of(arch, overrides)
     opt = make_optimizer("sgdm")
     n = mesh.shape["data"]
     specs = sharding.specs_for_axes(model.abstract_params(), model.logical_axes(), "tp", mesh)

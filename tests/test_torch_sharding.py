@@ -10,7 +10,8 @@ Python (no process group).
   a mesh's ``axis_names`` and ``shape``, so a ``launch.mesh.Mesh`` layout
   serves both.
 - ``split_axes``, the logical axes a tensor-parallel pass splits, against
-  the reference's tp specs for the families that pass runs, and
+  the reference's tp specs for every arch, which axes split at full width
+  for the hybrid and the encoder-decoder at model 2 to 16, and
   ``Model.init(mesh=...)`` against the whole init's slices.
 - ``shard_of``, the production layouts, and ``core.plan.plan_shards`` at
   full width: paper-transformer-base's lm_head (512 x 37000, chunk 64) has
@@ -35,7 +36,6 @@ from repro_torch.core.scalecom import ScaleComConfig
 from repro_torch.distributed import sharding
 from repro_torch.launch.mesh import Mesh, make_production_mesh
 from repro_torch.models import build_model
-from repro_torch.models.transformer import TP_FAMILIES
 
 MESHES = {
     "4x2": Mesh(("data", "model"), (4, 2)),
@@ -79,10 +79,7 @@ def test_specs_match_reference(arch):
             assert got == want, (name, policy)
 
 
-TP_ARCHS = [a for a in registry.ARCHS if registry.arch(a).arch_type in TP_FAMILIES]
-
-
-@pytest.mark.parametrize("arch", TP_ARCHS)
+@pytest.mark.parametrize("arch", registry.ARCHS)
 def test_split_axes_match_reference(arch):
     """The logical axes a tp layout splits over "model", from the port's
     specs, are those the reference's PartitionSpecs put on "model", leaf by
@@ -113,6 +110,35 @@ def test_split_axes_match_reference(arch):
         got = sharding.split_axes(specs, axes)
         assert got == want, name
         assert got <= {"vocab", "heads", "kv", "mlp", "experts"}, name
+
+
+# arch -> model size -> (the logical axes split, kv columns a rank)
+FULL_WIDTH_SPLITS = {
+    # 2,560 channels and 10 heads of 256 divide by every size; its one kv
+    # head's 256 columns go 128 / 64 / 32 / 16 a rank; 256,000 vocabulary rows
+    "recurrentgemma-2b": {m: ({"heads", "kv", "mlp", "vocab"}, 256 // m) for m in (2, 4, 8, 16)},
+    # a vocabulary of 51,865 (odd) stays whole at every size
+    "whisper-medium": {m: ({"heads", "kv", "mlp"}, 1024 // m) for m in (2, 4, 8, 16)},
+}
+
+
+@pytest.mark.parametrize("model_size", [2, 4, 8, 16])
+@pytest.mark.parametrize("arch", list(FULL_WIDTH_SPLITS))
+def test_split_axes_at_full_width_hybrid_encdec(arch, model_size):
+    """The full-width hybrid and encoder-decoder at model 2, 4, 8 and 16:
+    the axes split, a rank's kv columns, and whisper-medium's vocabulary
+    tables whole."""
+    model = build_model(registry.arch(arch))
+    mesh = Mesh(("data", "model"), (1, model_size))
+    specs = sharding.specs_for_axes(model.abstract_params(), model.logical_axes(), "tp", mesh)
+    want, kv_cols = FULL_WIDTH_SPLITS[arch][model_size]
+    assert sharding.split_axes(specs, model.logical_axes()) == want
+    flat = dict(tree.flatten_with_path(specs))
+    shapes = {p: tuple(x.shape) for p, x in tree.flatten_with_path(model.abstract_params())}
+    wk = next(p for p in flat if p.endswith("['attn_wk']"))
+    assert shapes[wk][-1] // model_size == kv_cols and flat[wk][-1] == "model"
+    if "vocab" not in want:
+        assert flat["['tok_embed']"] == (None, None) and flat["['lm_head']"] == (None, None)
 
 
 def test_split_axes_refuses_an_axis_split_in_one_leaf_only():

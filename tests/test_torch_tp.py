@@ -31,8 +31,7 @@ the test's temporary directory) form a (2 data, 2 model) grid, then a
   cross-entropy and embedding against the whole-vocabulary ones, and
   starcoder2-3b SMOKE's loss and gradients with its 64 kv columns split 16
   a rank (half a head) against the unsplit ones.
-- The hybrid and encoder-decoder families and a wrong ``n_workers`` raise,
-  naming them.
+- A wrong ``n_workers`` raises, naming it.
 """
 
 import concurrent.futures
@@ -94,17 +93,15 @@ RED_TS = (0, 1)
 ROUTES = {"['a']": "part", "['b']": "local", "['c']": "part", "['f']": "local"}
 
 # (label, arch, ScaleComConfig fields, build_train_step keywords, environment):
-# what the step still refuses (every compressor, the exact path, every codec,
+# what the step refuses (every compressor, the exact path, every codec,
 # groups and compute_stats run: tests/test_torch_tp_configs.py; buckets and
 # telemetry: tests/test_torch_tp_paths.py; the MoE and RWKV-6 families:
-# tests/test_torch_tp_families.py)
+# tests/test_torch_tp_families.py; the hybrid and the encoder-decoder:
+# tests/test_torch_tp_hybrid_encdec.py)
 REFUSALS = [
-    ("hybrid", "recurrentgemma-2b", {}, {}, {}),
-    ("encdec", "whisper-medium", {}, {}, {}),
     ("n_workers", ARCHS[0], {}, {"n_workers": 4}, {}),
 ]
-REFUSED = {"hybrid": "the 'hybrid' family", "encdec": "the 'audio' family",
-           "n_workers": "n_workers (4) must equal the grid's data size"}
+REFUSED = {"n_workers": "n_workers (4) must equal the grid's data size"}
 
 
 def _jcfg() -> JCfg:
@@ -519,8 +516,6 @@ def test_tp_refuses_what_it_does_not_run(world, label):
         msg = res["refusals"][label]
         assert msg is not None, f"{label} ran a step"
         assert REFUSED[label] in msg, msg
-        if label != "n_workers":
-            assert "sharded step item 4" in msg, msg
 
 
 def test_tp_init_is_the_stacked_inits_share(world):

@@ -49,23 +49,16 @@ the test process meanwhile, one arch a thread.
 import concurrent.futures
 import multiprocessing
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 import _torch_arch_parity as parity
 import _torch_tp_family_ranks as ranks
-from repro.configs import registry as jregistry
-from repro.core import state as jstate
-from repro.core.compressors import CompressorConfig as JComp
-from repro.core.scalecom import ScaleComConfig as JCfg
-from repro.data import make_batches as jmake_batches
-from repro.models import build_model as jbuild
-from repro.optim import make_optimizer as jmake_opt
-from repro.optim import schedule as jschedule
-from repro.training import init_train_state as jinit
-from repro.training.train_step import build_train_step as jbuild_step
+from _torch_tp_refs import arch_job as _arch_job
+from _torch_tp_refs import flips as _flips
+from _torch_tp_refs import specs_of
+from _torch_tp_refs import take_slice as _slice
+from _torch_tp_refs import whole as _whole
 from repro_torch import tree
 from repro_torch.configs import registry
 from repro_torch.distributed.sharding import specs_for_axes, split_axes
@@ -82,11 +75,6 @@ CHUNK, LR = ranks.CHUNK, ranks.LR
 STEP_TOL = dict(rtol=2e-4, atol=1e-5)  # tests/test_distributed.py:75-76
 GRAD_TOL = parity.TOL
 UNSPLIT_TOL = dict(rtol=1e-4, atol=1e-6)
-# a chunk may select another lane than the reference only where the two
-# runs' ef, this close at both lanes, explain the swap (chip_smoke.py's
-# [tp] rule): at SMOKE width RWKV-6's group norm sets the two frameworks'
-# gradients ~1e-4 apart (ROADMAP Queue 3), enough to swap a chunk's lanes
-NEAR_TIE_RTOL = 1e-2
 MAX_FLIPS = 8
 TIMEOUT_S = 300
 # the runs of each (arch, grid): fp8 residues and buckets once a family
@@ -104,71 +92,6 @@ LAYOUTS = {(MOE[0], GRID): ["experts", "heads", "kv", "vocab"],
            (MOE[1], GRID): ["experts", "heads", "kv", "vocab"],
            ("rwkv6-3b", GRID): ["heads", "mlp", "vocab"],
            (LINE_ARCH, LINE): ["mlp"]}
-
-
-def _jcfg(codec: str) -> JCfg:
-    return JCfg(compressor=JComp("clt_k", chunk=CHUNK), beta=ranks.BETA, min_size=ranks.MIN_SIZE,
-                residue_dtype=codec, backend="jnp", fused=False, layout="flat")
-
-
-def _flat(t) -> dict:
-    return {jax.tree_util.keystr(p): np.asarray(v)
-            for p, v in jax.tree_util.tree_flatten_with_path(t)[0]}
-
-
-def _arch_job(arch: str, n: int, codecs, modes=MODES, local_b=2):
-    """The carried-across state and batches of one arch at ``n`` workers,
-    and a function that runs the reference on them: per codec, the params
-    after each step, the metrics and, before each compressed step, the
-    leader's ef and the per-worker gradients."""
-    jmodel = jbuild(jregistry.smoke(arch), compute_dtype="float32", loss_chunk=16)
-    jopt = jmake_opt("sgdm")
-    js0 = jinit(jmodel, jopt, _jcfg("fp32"), jax.random.PRNGKey(0), n_workers=n)[0]
-    zeros = {c: jstate.init_state(js0.params, n, c, ranks.MIN_SIZE, "flat") for c in codecs}
-    params = jax.tree.map(np.asarray, js0.params)
-    if jmodel.cfg.arch_type == "ssm":
-        params = parity.perturb_constants(params, 0)
-    batches = list(jmake_batches(512, n, local_b, 32, seed=1, steps=3))
-    job = {"arch": arch, "params": params, "opt_m": jax.tree.map(np.asarray, js0.opt_state["m"]),
-           "residues": {c: jax.tree.map(np.asarray, z.residues) for c, z in zeros.items()},
-           "t": int(js0.sc_state.t), "step": int(js0.step), "batches": batches}
-    assert modes[0] == "dense" and set(modes[1:]) <= {"scalecom"}
-
-    def run():
-        grads_fn = jax.jit(jax.vmap(jax.grad(jmodel.loss, has_aux=True), in_axes=(None, 0)))
-        dense = jax.jit(jbuild_step(jmodel, jopt, jschedule.constant(LR), _jcfg("fp32"),
-                                    n_workers=n, mode="dense"))
-        js = type(js0)(params=jax.tree.map(jnp.asarray, params), opt_state=js0.opt_state,
-                       sc_state=zeros["fp32"], step=js0.step)
-        warm, metrics = dense(js, batches[0])
-        # the dense step leaves the residues as they were: each codec's run
-        # takes its zero residues from there
-        first = {"params": _flat(warm.params), "ef": None, "sel": None, "grads": None,
-                 "metrics": {k: float(v) for k, v in metrics.items()}}
-        out = {}
-        for codec in codecs:
-            fn = jax.jit(jbuild_step(jmodel, jopt, jschedule.constant(LR), _jcfg(codec),
-                                     n_workers=n, mode="scalecom"))
-            js = type(warm)(params=warm.params, opt_state=warm.opt_state,
-                            sc_state=jstate.ScaleComState(zeros[codec].residues, warm.sc_state.t),
-                            step=warm.step)
-            steps = [first]
-            for batch in batches[1:len(modes)]:
-                m_before = _flat(js.opt_state["m"])
-                g = _flat(grads_fn(js.params, batch)[0])
-                lead = int(js.sc_state.t) % n
-                ef = {p: np.asarray(jstate.CODECS[codec].decode(e, (g[p][0].size,)))[lead]
-                      + g[p][lead].reshape(-1) for p, e in js.sc_state.residues.items()}
-                js, metrics = fn(js, batch)
-                # the lanes the step selected: where m' = 0.9 m + ĝ is not 0.9 m
-                m_after = _flat(js.opt_state["m"])
-                sel = {p: (m_after[p] != np.float32(0.9) * m_before[p]).reshape(-1) for p in ef}
-                steps.append({"params": _flat(js.params), "ef": ef, "sel": sel, "grads": g,
-                              "metrics": {k: float(v) for k, v in metrics.items()}})
-            out[codec] = steps
-        return out
-
-    return job, run
 
 
 @pytest.fixture(scope="module")
@@ -216,24 +139,7 @@ def world(tmp_path_factory):
 
 
 def _specs(arch: str, grid) -> dict:
-    model = build_model(registry.smoke(arch))
-    return dict(tree.flatten_with_path(specs_for_axes(
-        model.abstract_params(), model.logical_axes(), "tp", Mesh(("data", "model"), grid))))
-
-
-def _slice(x: np.ndarray, spec, coords: dict, grid) -> np.ndarray:
-    sizes = dict(zip(("data", "model"), grid))
-    for d, ax in enumerate(spec):
-        if ax is not None:
-            w = x.shape[d] // sizes[ax]
-            x = np.take(x, range(coords[ax] * w, (coords[ax] + 1) * w), axis=d)
-    return x
-
-
-def _whole(per_model: list, spec) -> np.ndarray:
-    """The logical array from the slices of model ranks 0, 1, ..."""
-    dims = [d for d, ax in enumerate(spec) if ax == "model"]
-    return np.concatenate(per_model, axis=dims[0]) if dims else per_model[0]
+    return specs_of(build_model(registry.smoke(arch)), grid)
 
 
 def _by_coords(world, grid) -> dict:
@@ -241,33 +147,6 @@ def _by_coords(world, grid) -> dict:
     if grid == GRID:
         return {(r["coords"]["data"], r["coords"]["model"]): r for r in world["ranks"]}
     return {(r["line"]["data"], r["line"]["model"]): r for r in world["ranks"] if "line" in r}
-
-
-def _flips(ghat: np.ndarray, ef: np.ndarray, own: np.ndarray, sel: np.ndarray) -> np.ndarray:
-    """Chunks where the step's ĝ has its lane elsewhere than the
-    reference's selection (``sel``, the lanes its step updated; ``ef``, the
-    leader's ef recomputed apart, may order an exact tie otherwise). Each must be
-    a near tie that the two runs' ef explain: the step's own ef (``own``,
-    its leader's residue plus gradient) within ``NEAR_TIE_RTOL`` of the
-    reference's at both lanes, the reference's two |ef| no further apart
-    than the two runs' ef differ there, and the step's own |ef| ordered
-    the step's way. Returns the flipped chunks' mask."""
-    pad = (-ef.size) % CHUNK
-    e = np.pad(ef, (0, pad)).reshape(-1, CHUNK)
-    o = np.pad(own.reshape(-1), (0, pad)).reshape(-1, CHUNK)
-    a = np.pad(ghat.reshape(-1), (0, pad)).reshape(-1, CHUNK) != 0
-    s = np.pad(sel, (0, pad)).reshape(-1, CHUNK)
-    want = np.where(s.any(axis=1), np.argmax(s, axis=1), np.argmax(np.abs(e), axis=1))
-    lane = np.argmax(a, axis=1)
-    flip = a.any(axis=1) & (lane != want)
-    for c in np.nonzero(flip)[0]:
-        ra, rb, ta, tb = e[c, want[c]], e[c, lane[c]], o[c, want[c]], o[c, lane[c]]
-        close = abs(ta - ra) <= NEAR_TIE_RTOL * abs(ra) and abs(tb - rb) <= NEAR_TIE_RTOL * abs(rb)
-        explained = abs(ra) - abs(rb) <= abs(ta - ra) + abs(tb - rb)
-        assert close and explained and abs(ta) <= abs(tb), (
-            f"chunk {c}: the reference's ef {ra!r} / {rb!r}, the step's {ta!r} / {tb!r}: "
-            f"another lane without a near tie")
-    return flip
 
 
 @pytest.mark.parametrize("arch,grid,run", HELD)

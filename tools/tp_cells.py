@@ -1,18 +1,23 @@
-"""``chip_smoke.py``'s ``TP_CONFIGS`` alone on the card: the tensor-parallel
-step's configurations at paper-transformer-base's full width.
+"""``chip_smoke.py``'s ``[tp]`` phase alone on the card: the ``TP_RUNS``
+cells named by their archs (the tensor-parallel step at full width, held
+against the stacked step), and with ``--configs`` the ``TP_CONFIGS``
+(paper-transformer-base's configurations on (4 data, 2 model)).
 
 Builds the kernels once (``repro_torch.kernels.build.library``), spawns
 ``chip_smoke.RING_WORLD`` (8) ranks on the one card, joined by gloo through
 a ``file://`` store in a temporary directory, each running
-``chip_smoke.tp_configs_rank`` on a (4 data, 2 model) grid, and prints what
-they measured as the whole script does (``chip_smoke.tp_phase``'s
-``[tp:configs]`` lines). A rank that fails, or ranks that outlast
-``TIMEOUT_S`` seconds, exit non-zero. Prints the card's name and power limit
-first.
+``chip_smoke.tp_run_rank`` for the named cells and then, with
+``--configs``, ``chip_smoke.tp_configs_rank``, and prints what they
+measured as the whole script does (``chip_smoke.tp_phase``'s ``[tp:...]``
+lines, each cell's seconds on rank 0). A rank that fails, or ranks that
+outlast ``TIMEOUT_S`` seconds, exit non-zero. Prints the card's name and
+power limit first.
 
-    python3 tools/tp_configs.py
+    python3 tools/tp_cells.py recurrentgemma-2b whisper-medium
+    python3 tools/tp_cells.py --configs
 """
 
+import argparse
 import datetime
 import multiprocessing
 import os
@@ -30,7 +35,7 @@ import chip_smoke as cs  # noqa: E402
 TIMEOUT_S = 700  # from the spawn to the last rank's result
 
 
-def rank_main(rank: int, world: int, store: str, conn) -> None:
+def rank_main(rank: int, world: int, store: str, runs: tuple, configs: bool, conn) -> None:
     import torch
     import torch.distributed as dist
 
@@ -38,12 +43,30 @@ def rank_main(rank: int, world: int, store: str, conn) -> None:
     dist.init_process_group(cs.RING_BACKEND, init_method=f"file://{store}", rank=rank,
                             world_size=world,
                             timeout=datetime.timedelta(seconds=cs.RING_TIMEOUT_S))
-    conn.send({"tp": [], "tp_s": [], "tp_configs": cs.tp_configs_rank(rank)})
+    out = {"tp": [], "tp_s": []}
+    for run in runs:
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out["tp"].append(cs.tp_run_rank(rank, run))
+        out["tp_s"].append(time.perf_counter() - t0)
+    if configs:
+        torch.cuda.empty_cache()
+        out["tp_configs"] = cs.tp_configs_rank(rank)
+    conn.send(out)
     dist.destroy_process_group()
 
 
-def main() -> int:
+def main(argv) -> int:
     sys.stdout.reconfigure(line_buffering=True)
+    known = [run.arch for run in cs.TP_RUNS]
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("cells", nargs="*", choices=known, metavar="ARCH",
+                        help=f"TP_RUNS cells to run, by arch: {', '.join(known)}")
+    parser.add_argument("--configs", action="store_true", help="also run TP_CONFIGS")
+    args = parser.parse_args(argv)
+    if not args.cells and not args.configs:
+        parser.error("name a cell or pass --configs")
+    runs = tuple(run for run in cs.TP_RUNS if run.arch in args.cells)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "unknown card"
@@ -58,7 +81,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         pipes = [ctx.Pipe(duplex=False) for _ in range(world)]
         procs = [ctx.Process(target=rank_main,
-                             args=(r, world, os.path.join(tmp, "store"), pipes[r][1]))
+                             args=(r, world, os.path.join(tmp, "store"), runs, args.configs,
+                                   pipes[r][1]))
                  for r in range(world)]
         t1 = time.perf_counter()
         results, deadline = {}, time.monotonic() + TIMEOUT_S
@@ -85,10 +109,10 @@ def main() -> int:
                 if p.is_alive():
                     p.kill()
                 p.join()
-    print(f"[tp:configs] the ranks took {time.perf_counter() - t1:.1f} s from the spawn")
-    cs.tp_phase(card, results, runs=())
+    print(f"[tp] the ranks took {time.perf_counter() - t1:.1f} s from the spawn")
+    cs.tp_phase(card, results, runs=runs)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))
