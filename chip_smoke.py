@@ -253,8 +253,10 @@ Phases, each fatal on failure:
      rank's ef_update and chunk_scatter, all vec4); step ms (max and median
      over ranks) with the gradient pass and the collectives inside it, the
      dense warm-up's all-reduce, the reduce's kernels of one step on one
-     rank (device ms) and peak memory by rank. Then ``RING_RUNS``, each 1
-     dense + 2 compressed steps in the same spawn, held the same way:
+     rank (device ms) and peak memory by rank. Then ``RING_RUNS``, from one
+     shared dense step in the same spawn, 2 compressed steps each (the
+     codecs, pod2, telemetry, the fused clt_k run and exact) or 1 (the
+     others), held the same way:
      ``[ring:compressors]`` true_topk, local_topk and random_k (fp32),
      ``[ring:codecs]`` clt_k with bf16, fp8 and fp8_ec residues and
      ``[ring:pod2]`` clt_k, fp8, ``groups=2`` (2 groups of 4 ranks, the
@@ -320,8 +322,28 @@ Phases, each fatal on failure:
      bit for bit and whose taps must be the stacked step's; and ``[tp:nan]``
      (``tp_nan_check``), a NaN in an fp8 block and row that cross the model
      slices coded as the stacked codec codes it. These launches stand under
-     ``tp_launches`` in the JSON line. A ``[time]`` line gives each phase's
-     seconds.
+     ``tp_launches`` in the JSON line.
+  13. ``[fsdp]``, the reference's ``fsdp`` policy (``build_train_step(
+     mesh=..., policy="fsdp")``: pods the workers, a worker's batch split
+     over "data", every leaf cut over "model" and on "embed" over "data"),
+     run by the same 8 ranks as a (2 pod, 2 data, 2 model) grid after
+     ``[tp]`` (``fsdp_run_rank``): paper-transformer-base at full width,
+     8 x 128 tokens a worker (4 x 128 a rank), fp8 residues, 1 dense + 1
+     compressed step unfused then fused. Launches as planned (the leader
+     pod's select, or fused its ``fused_select_update``; ef_update and
+     chunk_scatter; all vec4); each rank's resident parameter, momentum and
+     residue bytes its fsdp share; the pods' replicas of a block bitwise;
+     each pod line's payload the plan's share, the shares summing to the
+     plan's bytes; the fused pass bitwise the unfused one; the compressed
+     step's reduce teacher-forced, cuda backend bitwise torch backend;
+     rank 0's stacked 2-worker step after the passes holds the logical
+     parameters within ``TP_TOL`` outside counted near ties and the loss
+     within ``TP_LOSS_TOL``; the four kernels at the rank's part shapes
+     bitwise their plain versions. Prints the pod axis's payload, the data
+     axis's gather, reduce-scatter and all-reduce bytes and calls apart
+     from the model axis's, and each rank's peak. These launches stand
+     under ``fsdp_launches`` in the JSON line. A ``[time]`` line gives each
+     phase's seconds.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``. The bf16 main path's
@@ -4254,20 +4276,27 @@ class RingRun:
 # group step runs (the reference's pod2 setting: fp8, 2 groups of 4; its CI's
 # 8 MB buckets and fused legs, here at the port's 25 MB default and 4 MB)
 RING_TRAIN = RingRun("train", warmup=2, steps=5)
+# The compressors, buckets and fused true_topk runs take one compressed step
+# (steps=2), from zero residues, to keep the whole script inside its time
+# limit: their second step's holds (residues carried from one step to the
+# next) are gone; the codecs', pod2's, telemetry's, the fused clt_k run's (the
+# m + g select of ``fused_select_update`` on nonzero momentum) and the exact
+# run's keep two compressed steps, (b) three, and TP_CONFIGS' fused true_topk
+# run takes the keyed route from nonzero residues
 RING_RUNS = (
-    RingRun("compressors", "true_topk"),
-    RingRun("compressors", "local_topk"),
-    RingRun("compressors", "random_k"),
+    RingRun("compressors", "true_topk", steps=2),
+    RingRun("compressors", "local_topk", steps=2),
+    RingRun("compressors", "random_k", steps=2),
     RingRun("codecs", codec="bf16"),
     RingRun("codecs", codec="fp8"),
     RingRun("codecs", codec="fp8_ec"),
     RingRun("pod2", codec="fp8", groups=2, stats=True),
-    RingRun("buckets", buckets=25 << 20),
-    RingRun("buckets", buckets=4 << 20),
-    RingRun("buckets", buckets=25 << 20, overlap=False),
+    RingRun("buckets", buckets=25 << 20, steps=2),
+    RingRun("buckets", buckets=4 << 20, steps=2),
+    RingRun("buckets", buckets=25 << 20, overlap=False, steps=2),
     RingRun("telemetry", telemetry=True, metrics_every=1, stats=True),
     RingRun("fused", fused=True),
-    RingRun("fused", "true_topk", fused=True),
+    RingRun("fused", "true_topk", fused=True, steps=2),
     RingRun("exact", exact=True),
 )
 # the byte counts a rank sends along in ``exchange``, after its digests
@@ -5037,6 +5066,11 @@ def ring_rank(rank: int, world: int, store: str, conn) -> None:
         out["tp_s"].append(time.perf_counter() - t0)
     torch.cuda.empty_cache()
     out["tp_configs"] = tp_configs_rank(rank)
+    # the fsdp cell, on the whole world as a (pod, data, model) grid
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["fsdp"] = fsdp_run_rank(rank)
+    out["fsdp_s"] = time.perf_counter() - t0
     conn.send(out)
     conn.close()
     dist.destroy_process_group()
@@ -6133,12 +6167,12 @@ def tp_nan_check(mesh) -> dict:
     from repro_torch.core.state import CODECS
     from repro_torch.distributed import slices
 
-    model = mesh.group("model")
+    pieces = slices.grid_pieces(mesh, ("model",))
     parts, index = mesh.shape["model"], mesh.index("model")
     rows, cols = TP_NAN_SHAPE
     r, c = TP_NAN_AT
     check(c // (cols // parts) == 1, "[tp:nan] the NaN must lie on model rank 1")
-    sl = slices.Slice(TP_NAN_SHAPE, 1, parts, index)
+    sl = slices.Slice(TP_NAN_SHAPE, [(1, "model", parts, index)])
     gen = torch.Generator(device="cuda").manual_seed(TP_RESIDUE_SEED)
     row = torch.randn((1,) + TP_NAN_SHAPE, generator=gen, device="cuda")
     row[0, r, c] = float("nan")
@@ -6147,8 +6181,8 @@ def tp_nan_check(mesh) -> dict:
         store = (rows * cols,) if layout == "flat" else TP_NAN_SHAPE
         logical = row.reshape((1,) + store)
         m = slices.cut("fp32", {"q": logical}, sl, layout)["q"]
-        joined = slices.join(codec, slices.encode(codec, m, sl, layout, None, model), sl, layout,
-                             model)
+        joined = slices.join(codec, slices.encode(codec, m, sl, layout, None, pieces), sl, layout,
+                             pieces)
         want = CODECS[codec].encode(logical, store)
         check(sorted(joined) == sorted(want), f"[tp:nan] {codec} {layout}: fields {sorted(joined)}")
         for field, x in want.items():
@@ -6457,7 +6491,7 @@ def tp_configs_rank(rank: int):
         joined = {}
         if d_index == 0:  # rank 0's row, joined over its model group
             joined = {p: slices.join(config.codec, e, layout.slice(layout.paths.index(p)),
-                                     "flat", mesh.group("model"))
+                                     "flat", layout.pieces)
                       for p, e in mine.sc_state.residues.items()}
         hold = {"step_ms": step_ms, "loss": loss, "payload": payload, "share": share,
                 "planned": metrics["comm_bytes_per_worker"], "model_bytes": model_bytes,
@@ -6774,6 +6808,435 @@ def tp_phase(card_line: str, results: dict, runs=TP_RUNS) -> dict:
           f"bitwise the stacked codec's encode, the NaN's scale 1.0 (the flat partial amax's "
           f"scatter_reduce keeps the NaN); on {card_line}")
     print(f"[tp] launches summed over the ranks and passes {launches} on {card_line}")
+    return launches
+
+
+# The [fsdp] cell: the reference's fsdp policy (its default_settings for the
+# BIG_ARCHS on pod2, repro/launch/dryrun.py:48-67: pods the ScaleCom workers,
+# a worker's batch split over "data", every parameter, optimizer and residue
+# leaf cut over "model" and on its "embed" dim over "data", fp8 residues) in
+# [ring]'s 8 processes on a (2 pod, 2 data, 2 model) grid, at full width. The
+# reference's own fsdp archs do not fit one card even cut to a layer (PERF.md
+# §4), so the cell runs the main path's model.
+FSDP_GRID = (2, 2, 2)
+FSDP_AXES = ("pod", "data", "model")
+FSDP_ARCH = "paper-transformer-base"
+FSDP_BATCH, FSDP_SEQ = 8, 128  # a worker's rows: 4 x 128 a rank, the paper [tp] cell's
+FSDP_MODES = ("dense", "scalecom")
+FSDP_CODEC = "fp8"
+FSDP_MIN_SIZE = 1024
+FSDP_TAG = f"[fsdp:{FSDP_ARCH} 2x2x2]"
+
+
+def fsdp_resident_share(shapes: dict, specs: dict, codec: str) -> dict:
+    """The bytes a rank of the fsdp grid holds by its specs: each leaf's
+    logical fp32 bytes over the parts its spec cuts (parameters, momentum)
+    and each residue's codes (fp8: one byte a code) over them, beside fp8's
+    flat scales, one per 512 logical elements, whole on every rank."""
+    sizes = dict(zip(FSDP_AXES, FSDP_GRID))
+    parts = {p: math.prod(sizes[a] for a in specs[p] if a is not None) for p in shapes}
+    params = sum(math.prod(s) * 4 // parts[p] for p, s in shapes.items())
+    big = [p for p, s in shapes.items() if math.prod(s) >= FSDP_MIN_SIZE]
+    code = {"fp32": 4, "bf16": 2, "fp8": 1}[codec]
+    residues = sum(math.prod(shapes[p]) // parts[p] * code for p in big)
+    if codec == "fp8":
+        residues += sum(-(-math.prod(shapes[p]) // 512) * 4 for p in big)
+    return {"params": params, "momentum": params, "residues": residues}
+
+
+def fsdp_run_rank(rank: int) -> dict:
+    """The ``[fsdp]`` cell on this rank of the (2, 2, 2) grid: unfused then
+    fused, 1 dense + 1 compressed step of ``build_train_step(mesh=...,
+    policy="fsdp")`` from the same init, each step timed with its launches
+    (as planned: the leader pod's select, or fused its
+    ``fused_select_update``; ef_update and chunk_scatter; all vec4), the
+    pod axis's payload, the model axis's and the data axis's gloo calls
+    and bytes; the pods' replicas of a block bitwise, the fused pass
+    bitwise the unfused one, each rank's resident bytes its fsdp share
+    (``fsdp_resident_share``), the pod lines' payload the plan's share
+    and the shares summing to the plan's bytes; the compressed step's
+    reduce teacher-forced, cuda backend bitwise torch backend, unfused and
+    fused. After the passes rank 0 runs the stacked 2-worker step from the
+    same init and batches and holds the logical parameters (kept in its
+    host memory) within ``TP_TOL`` outside the chunks that selected another
+    lane at a near tie of the two steps' ef (``NEAR_TIE_RTOL``; the leader
+    pod's own ef kept too), and the loss within ``TP_LOSS_TOL``; then the
+    four kernels at the rank's part shapes bitwise their plain versions."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels, tree
+    from repro_torch.configs import registry
+    from repro_torch.core import state as cstate
+    from repro_torch.core.compressors import CompressorConfig
+    from repro_torch.core.plan import plan_shards, plan_tensors
+    from repro_torch.core.scalecom import ScaleComConfig
+    from repro_torch.data import make_batches
+    from repro_torch.distributed import ring, sharding, slices, tensor_parallel
+    from repro_torch.kernels import chunk_topk as ct
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import build_model
+    from repro_torch.models.convert import gather_shards
+    from repro_torch.optim import make_optimizer, schedule
+    from repro_torch.optim.optimizer import Optimizer
+    from repro_torch.training import build_train_step, init_train_state
+    from repro_torch.training import train_step as ts
+
+    world = math.prod(FSDP_GRID)
+    mesh = make_test_mesh(FSDP_GRID, FSDP_AXES)
+    tag, n = FSDP_TAG, FSDP_GRID[0]
+    pod, d_index, m_index = (mesh.index(a) for a in FSDP_AXES)
+    head = d_index == 0 and m_index == 0
+    cfg = registry.arch(FSDP_ARCH)
+    model = build_model(cfg, compute_dtype="float32", loss_chunk=64)
+    abstract, axes = model.abstract_params(), model.logical_axes()
+    specs = sharding.specs_for_axes(abstract, axes, "fsdp", mesh)
+    layout = ts._tp_layout(abstract, axes, mesh, "fsdp")
+    batches = list(make_batches(cfg.vocab, n, FSDP_BATCH, FSDP_SEQ, seed=0,
+                                steps=len(FSDP_MODES)))
+    lr = 0.05
+    sched, base_opt = schedule.constant(lr), make_optimizer("sgdm")
+    ghats = []
+
+    def spying(opt):
+        def update(grads, state, params, lr):
+            ghats.append(grads)
+            return opt.update(grads, state, params, lr)
+        return Optimizer(opt.init, update)
+
+    def sc_cfg(fused: bool, backend="auto"):
+        return ScaleComConfig(compressor=CompressorConfig("clt_k", chunk=CHUNK), beta=BETA,
+                              min_size=FSDP_MIN_SIZE, residue_dtype=FSDP_CODEC, fused=fused,
+                              backend=backend)
+
+    def resident(state) -> dict:
+        def size(xs):
+            return sum(x.numel() * x.element_size() for x in xs)
+        return {"params": size(tree.leaves(state.params)),
+                "momentum": size(tree.leaves(state.opt_state["m"])),
+                "residues": size(v for e in state.sc_state.residues.values() for v in e.values())}
+
+    want_resident = fsdp_resident_share(dict(zip(layout.paths, layout.shapes)),
+                                        dict(zip(layout.paths, layout.specs)), FSDP_CODEC)
+    out = {"steps": {}, "peak": {}, "checks": [],
+           "logical": 4 * sum(math.prod(s) for s in layout.shapes),
+           "seconds": dict.fromkeys(("init", "steps", "holds", "kept", "teacher", "stacked",
+                                     "kernels"), 0.0)}
+    secs, clock = out["seconds"], [time.perf_counter()]
+
+    def lap(key: str) -> None:
+        now = time.perf_counter()
+        secs[key] += now - clock[0]
+        clock[0] = now
+
+    real_reduce = ts._tp_reduce
+    captured, kept, plain_digests = [], [], []
+    data_keys = [k for k in tensor_parallel.sent if k not in tensor_parallel.MODEL_OPS]
+    for fused in (False, True):
+        first = not fused
+        state = init_train_state(model, base_opt, sc_cfg(fused),
+                                 torch.Generator(device="cuda").manual_seed(0), n_workers=n,
+                                 device="cuda", mesh=mesh, policy="fsdp")
+        out["resident"] = resident(state)
+        check(out["resident"] == want_resident,
+              f"{tag} rank {rank}: resident bytes {out['resident']}, its fsdp share is "
+              f"{want_resident}")
+        plans = plan_tensors(tuple((p, s, n) for p, s in zip(layout.paths, layout.shapes)),
+                             sc_cfg(fused), frozenset(state.sc_state.residues))
+        shards = plan_shards(plans, layout.specs, layout.parts, layout.piece_index,
+                             layout.pieces.axes)
+        fns = {mode: build_train_step(model, spying(base_opt), sched, sc_cfg(fused),
+                                      n_workers=n, mode=mode, mesh=mesh, policy="fsdp")
+               for mode in set(FSDP_MODES)}
+        rows = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        lap("init")
+        for i, mode in enumerate(FSDP_MODES):
+            t_sc = state.sc_state.t
+            before = state.sc_state.residues
+            copy_s = []
+
+            def capture(grads, sc_state, *rest, **kw):
+                torch.cuda.synchronize()
+                c0 = time.perf_counter()
+                captured[:] = [tree.tree_map(torch.clone, grads), sc_state]
+                copy_s.append(time.perf_counter() - c0)
+                return real_reduce(grads, sc_state, *rest, **kw)
+
+            if mode == "scalecom":
+                ts._tp_reduce = capture
+            ghats.clear()
+            ring.reset_sent()
+            tensor_parallel.reset_sent()
+            c0 = kernels.launches()
+            v0 = (ct.chunk_argmax.variants["vec4"], ct.chunk_scatter.variants["vec4"])
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = fns[mode](state, batches[i])
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0 - sum(copy_s)) * 1e3
+            ts._tp_reduce = real_reduce
+            lap("steps")
+            c1 = kernels.launches()
+            launched = {k: c1[k] - c0[k] for k in c1}
+            vec4 = (ct.chunk_argmax.variants["vec4"] - v0[0],
+                    ct.chunk_scatter.variants["vec4"] - v0[1])
+            want = (tp_expected_launches(shards, pod == t_sc % n, fused)
+                    if mode == "scalecom" else dict.fromkeys(launched, 0))
+            check(launched == want, f"{tag} {'fused' if fused else 'unfused'} step {i} rank "
+                                    f"{rank}: launches {launched}, want {want}")
+            check(vec4 == (want["chunk_argmax"], want["chunk_scatter"]),
+                  f"{tag} step {i} rank {rank}: vec4 launches {vec4}, want every one")
+            check(math.isfinite(loss), f"{tag} step {i} rank {rank}: loss {loss}")
+            check(resident(state) == want_resident,
+                  f"{tag} step {i} rank {rank}: resident bytes {resident(state)}, its fsdp "
+                  f"share is {want_resident}")
+            payload = ring.payload_sent()
+            share = metrics.get("comm_bytes_per_shard", 0.0)
+            rows.append({"mode": mode, "step_ms": step_ms, "loss": loss, "launches": launched,
+                         "model_calls": {k: tensor_parallel.calls[k]
+                                         for k in tensor_parallel.MODEL_OPS},
+                         "model_bytes": {k: tensor_parallel.sent[k]
+                                         for k in tensor_parallel.MODEL_OPS},
+                         "data_calls": {k: tensor_parallel.calls[k] for k in data_keys},
+                         "data_bytes": {k: tensor_parallel.sent[k] for k in data_keys},
+                         "payload": payload, "share": share,
+                         "planned": metrics.get("comm_bytes_per_worker", 0.0),
+                         "dense_bytes": metrics.get("comm_bytes_dense", 0.0)})
+            # the pods' replicas of a block bitwise; a fused pass bitwise the unfused one
+            row = [x for p in tree.leaves(state.params) for x in digest(p)]
+            table = exchange(row + [pod, d_index, m_index, payload], rank, world)
+            for other in table:
+                if other[-4] != pod and other[-3:-1] == [d_index, m_index]:
+                    check(other[:-4] == row, f"{tag} step {i}: rank {rank}'s parameters "
+                                             f"differ from its other pod's")
+            if first:
+                plain_digests.append(row)
+            else:
+                check(row == plain_digests[i], f"{tag} fused step {i} rank {rank}: parameters "
+                                               f"differ from the unfused pass's")
+            if mode == "scalecom":  # the pod lines' payload: the plan's share, summing to it
+                line = [t[-1] for t in table if t[-3:-1] == [d_index, m_index]]
+                check(sum(line) / n == share, f"{tag} step {i}: rank {rank}'s pod line sent "
+                                              f"{line}, the plan's share is {share}")
+                shares = exchange([int(share * 8)], rank, world)
+                check(sum(s[0] for s in shares) / 8 / n == metrics["comm_bytes_per_worker"],
+                      f"{tag} step {i}: the blocks' shares do not sum to the plan's bytes")
+                check(payload < metrics["comm_bytes_dense"] / 100,
+                      f"{tag} step {i}: rank {rank} sent {payload} B over the pods, the dense "
+                      f"gradient is {metrics['comm_bytes_dense']} B")
+            lap("holds")
+            if not first:
+                continue
+            # the logical parameters, ĝ and the leader pod's ef to rank 0's host
+            # memory: the stacked step runs after the passes
+            k = {"mode": mode, "loss": loss, "whole": None, "ghat": None, "ef": None}
+            whole = gather_shards(state.params, specs, mesh)
+            if rank == 0:
+                k["whole"] = {p: x.to("cpu", copy=True) for p, x in tree.flatten_with_path(whole)}
+            del whole
+            if mode == "scalecom":
+                g = gather_shards(ghats[-1], specs, mesh)
+                if rank == 0:
+                    k["ghat"] = {p: x.to("cpu", copy=True) for p, x in tree.flatten_with_path(g)}
+                del g
+                grads = dict(tree.flatten_with_path(captured[0]))
+                by_spec = dict(tree.flatten_with_path(specs))
+                k["ef"] = {}
+                for j, path in enumerate(layout.paths):
+                    if path not in before:
+                        continue
+                    m = slices.decode(FSDP_CODEC, before[path], layout.slice(j), "flat")
+                    ef = sharding.unshard(m.reshape(grads[path].shape[1:]) + grads[path][0],
+                                          by_spec[path], mesh).reshape(-1)
+                    if head:  # the leader pod's to rank 0, over the pod line
+                        dist.broadcast(ef, (t_sc % n) * world // n, group=mesh.group("pod"))
+                    if rank == 0:
+                        k["ef"][path] = ef.to("cpu", copy=True)
+                    del m, ef
+            kept.append(k)
+            lap("kept")
+        out["steps"]["fused" if fused else "unfused"] = rows
+        out["peak"]["fused" if fused else "unfused"] = torch.cuda.max_memory_allocated()
+        if first:
+            # the compressed step's reduce, teacher-forced: the cuda backend's
+            # bits against the torch backend's, unfused and fused
+            grads, before_state = captured
+            for f in (False, True):
+                bits = []
+                for b in ("cuda", "torch"):
+                    ghat, new, _ = ts._tp_reduce(grads, before_state, sc_cfg(f, b), layout)
+                    bits.append([digest(x) for x in tree.leaves(ghat)]
+                                + [digest(new.residues[p][q]) for p in sorted(new.residues)
+                                   for q in sorted(new.residues[p])])
+                    del ghat, new
+                check(bits[0] == bits[1], f"{tag} rank {rank}: the teacher-forced "
+                                          f"{'fused' if f else 'unfused'} reduce differs between "
+                                          f"the cuda and torch backends")
+            lap("teacher")
+        captured.clear()
+        del state, fns
+        ghats.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the stacked 2-worker step on rank 0 from the same init and batches
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    if rank == 0:
+        stacked = init_train_state(model, base_opt, sc_cfg(False),
+                                   torch.Generator(device="cuda").manual_seed(0), n_workers=n,
+                                   device="cuda")
+        fns_ref = {mode: build_train_step(model, base_opt, sched, sc_cfg(False), n_workers=n,
+                                          mode=mode) for mode in set(FSDP_MODES)}
+        real_grads = ts.per_worker_grads
+        skip, flipped, gap = {}, 0, 0.0
+        for i, k in enumerate(kept):
+            gpw = []
+            if k["mode"] == "scalecom":
+                ref_before, t_sc = stacked.sc_state, stacked.sc_state.t
+
+                def spied(*a, **kw):
+                    got = real_grads(*a, **kw)
+                    gpw.append(got[2])
+                    return got
+
+                ts.per_worker_grads = spied
+            stacked, m_ref = fns_ref[k["mode"]](stacked, batches[i])
+            ts.per_worker_grads = real_grads
+            loss_err = abs(k["loss"] - float(m_ref["loss"]))
+            check(loss_err < TP_LOSS_TOL, f"{tag} step {i}: loss {k['loss']} against the stacked "
+                                          f"step's {float(m_ref['loss'])}")
+            if k["mode"] == "scalecom":
+                g = dict(tree.flatten_with_path(gpw.pop()))
+                lead = t_sc % n
+                for path, enc in ref_before.residues.items():
+                    row = {q: v[lead:lead + 1] for q, v in enc.items()}
+                    ef = (cstate.CODECS[FSDP_CODEC].decode(row, (g[path][0].numel(),)).reshape(-1)
+                          + g[path][lead].reshape(-1))
+                    own = k["ef"][path].to(ef.device)
+                    top = float(ef.abs().max())
+                    for c, a, b in zip(*tp_flip_lanes(k["ghat"][path].to(ef.device), ef, CHUNK)):
+                        pa, pb = c * CHUNK + a, c * CHUNK + b
+                        ra, rb, ta, tb = (float(ef[pa]), float(ef[pb]), float(own[pa]),
+                                          float(own[pb]))
+                        close = all(abs(x - y) <= NEAR_TIE_RTOL * abs(y)
+                                    for x, y in ((ta, ra), (tb, rb)))
+                        explained = abs(ra) - abs(rb) <= abs(ta - ra) + abs(tb - rb)
+                        check(close and explained and abs(ta) <= abs(tb),
+                              f"{tag} step {i}: {path} elements {pa} / {pb}: the stacked "
+                              f"step's ef {ra!r} / {rb!r}, this step's {ta!r} / {tb!r}: another "
+                              f"lane without a near tie (rtol {NEAR_TIE_RTOL})")
+                        gap = max(gap, max(abs(ta - ra), abs(tb - rb)) / top if top else 0.0)
+                        skip.setdefault(path, torch.zeros(k["ghat"][path].numel(),
+                                                          dtype=torch.bool))[
+                            c * CHUNK:(c + 1) * CHUNK] = True
+                        flipped += 1
+                    del ef, own
+                del g, ref_before
+            worst = 0.0
+            for path, b in tree.flatten_with_path(stacked.params):
+                a = k["whole"][path].to(b.device)
+                keep = (~skip[path].to(b.device).reshape(a.shape) if path in skip else
+                        torch.ones_like(a, dtype=torch.bool))
+                check(bool(torch.allclose(a[keep], b[keep], rtol=TP_TOL["rtol"],
+                                          atol=TP_TOL["atol"])),
+                      f"{tag} step {i}: parameters {path} differ from the stacked step's beyond "
+                      f"rtol {TP_TOL['rtol']} / atol {TP_TOL['atol']}")
+                worst = max(worst, float((a - b)[keep].abs().max()))
+                del a, keep
+            out["checks"].append({"step": i, "params_err": worst, "loss_err": loss_err,
+                                  "flipped": flipped, "flip_gap": gap})
+            kept[i] = None
+        check(flipped <= 8, f"{tag}: {flipped} chunks selected another lane than the stacked "
+                            f"step")
+        del stacked, fns_ref
+    out["peak"]["stacked"] = torch.cuda.max_memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    lap("stacked")
+    out["kernel_shapes"] = tp_kernel_holds(shards, torch.Generator(device="cuda").manual_seed(rank))
+    lap("kernels")
+    out["n_compressed"] = sum(1 for sp in shards if not sp.plan.dense and sp.k > 0)
+    out["routes"] = {r: sum(1 for sp in shards if sp.route == r)
+                     for r in ("dense", "local", "part")}
+    out["two_cuts"] = sum(1 for sp in shards if len(sp.cuts) == 2)
+    dist.barrier()
+    return out
+
+
+def fsdp_phase(card_line: str, results: dict) -> dict:
+    """[fsdp]: prints what the ranks of ``ring_phase``'s spawn measured in
+    the fsdp cell (``fsdp_run_rank``) and returns the kernels' launches
+    summed over the ranks and passes."""
+    import statistics as st
+
+    tr = [results[r]["fsdp"] for r in range(RING_WORLD)]
+    tag = FSDP_TAG
+    launches = dict.fromkeys(TP_KERNELS, 0)
+    print(f"{tag} build_train_step(mesh=..., policy='fsdp'): {RING_WORLD} ranks ({RING_BACKEND}, "
+          f"[ring]'s processes) as ({FSDP_GRID[0]} pod, {FSDP_GRID[1]} data, {FSDP_GRID[2]} "
+          f"model), pods the workers; {FSDP_BATCH} x {FSDP_SEQ} tokens a worker, "
+          f"{FSDP_BATCH // FSDP_GRID[1]} x {FSDP_SEQ} a rank; clt_k chunk {CHUNK}, beta {BETA}, "
+          f"{FSDP_CODEC} residues, min_size {FSDP_MIN_SIZE}, sgdm, lr 0.05; 1 dense + 1 "
+          f"compressed step, unfused then fused; on {card_line}")
+    for fused in ("unfused", "fused"):
+        for i, mode in enumerate(FSDP_MODES):
+            rows = [x["steps"][fused][i] for x in tr]
+            step = [x["step_ms"] for x in rows]
+            held = ("; parameters bitwise the unfused pass's on every rank" if fused == "fused"
+                    else "")
+            if fused == "unfused":
+                c = tr[0]["checks"][i]
+                held = (f"; the logical parameters against the stacked step's: max abs err "
+                        f"{c['params_err']:.3e} (rtol {TP_TOL['rtol']} / atol {TP_TOL['atol']}) "
+                        f"outside {c['flipped']} near-tie chunks so far (ef gaps up to "
+                        f"{c['flip_gap']:.3e} of the leaf's largest), loss err "
+                        f"{c['loss_err']:.3e}")
+            mc, dc = rows[0]["model_calls"], rows[0]["data_calls"]
+            print(f"{tag} {fused} step {i} {mode}: loss {rows[0]['loss']:.4f}; step ms max "
+                  f"{max(step):.1f} median {st.median(step):.1f} over {len(tr)} ranks; pod axis "
+                  f"payload a rank {st.median(x['payload'] for x in rows) / 1e6:.3f} MB (median)"
+                  + (f", the plan's {rows[0]['planned'] / 1e6:.3f} MB a worker (dense "
+                     f"{rows[0]['dense_bytes'] / 1e6:.3f} MB)" if mode == "scalecom" else
+                     " (the dense all-reduce of its blocks)")
+                  + f"; data axis a rank {sum(dc.values())} gloo calls ("
+                  + ", ".join(f"{k} {v}" for k, v in dc.items())
+                  + f"), {st.median(sum(x['data_bytes'].values()) for x in rows) / 1e6:.2f} MB ("
+                  + ", ".join(f"{k} {st.median(x['data_bytes'][k] for x in rows) / 1e6:.2f}"
+                              for k in dc)
+                  + f"); model axis and the pod's gathers a rank {sum(mc.values())} gloo calls, "
+                  f"{st.median(sum(x['model_bytes'].values()) for x in rows) / 1e6:.2f} MB"
+                  f"{held}; the pods' replicas of each block bitwise; on {card_line}")
+            for x in rows:
+                for k in launches:
+                    launches[k] += x["launches"][k]
+    r0 = tr[0]
+    print(f"{tag} reduce routes on rank 0: {r0['routes']['local']} tensors where they lie, "
+          f"{r0['routes']['part']} in parts, {r0['routes']['dense']} dense blocks; "
+          f"{r0['two_cuts']} leaves cut on two dims; {r0['n_compressed']} compressed parts a "
+          f"rank; each pod line's payload the plan's share and the shares summing to the plan's "
+          f"bytes; launches as planned on every rank, all vec4; the compressed step's reduce "
+          f"teacher-forced on every rank: cuda backend == torch backend, bitwise, unfused and "
+          f"fused")
+    res = r0["resident"]
+    print(f"{tag} resident bytes a rank, every rank its fsdp share: parameters "
+          f"{res['params']:,}, momentum {res['momentum']:,}, {FSDP_CODEC} residues "
+          f"{res['residues']:,} (the logical parameters {r0['logical']:,} B); peak allocated GiB "
+          f"by rank, unfused / fused: "
+          + " / ".join(f"{x['peak']['unfused'] / 2**30:.2f}, {x['peak']['fused'] / 2**30:.2f}"
+                       for x in tr)
+          + f" (rank 0's stacked step after the passes {r0['peak']['stacked'] / 2**30:.2f}); "
+          f"{results[0]['fsdp_s']:.1f} s on rank 0 ("
+          + ", ".join(f"{k} {v:.1f}" for k, v in r0["seconds"].items()) + f") on {card_line}")
+    print(f"{tag} kernels at rank 0's part shapes (rows x chunk) "
+          + ", ".join(f"{r:,} x {c}" for r, c in r0["kernel_shapes"])
+          + ": chunk_argmax, ef_update, chunk_scatter and fused_select_update bitwise their "
+          f"plain versions; launches summed over the ranks and passes {launches} on "
+          f"{card_line}")
     return launches
 
 
@@ -7124,8 +7587,9 @@ def main() -> None:
 
     # -- 11. real collectives: the ring reduce and one worker per rank -----------------
     ring_launches, ring_results = ring_phase(card_line)
-    mark("[ring] and [tp]'s cells")
+    mark("[ring], [tp]'s and [fsdp]'s cells")
     tp_launches = tp_phase(card_line, ring_results)
+    fsdp_launches = fsdp_phase(card_line, ring_results)
     del ring_results
     print("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in phase_s.items())
           + f"; total {sum(phase_s.values()):.1f} (the interpreter's start and imports "
@@ -7134,6 +7598,7 @@ def main() -> None:
     for name in ("chunk_argmax", "ef_update", "chunk_scatter", "fused_select_update"):
         check(ring_launches[name] > 0, f"{name} was never launched on the ring path")
         check(tp_launches[name] > 0, f"{name} was never launched on the tensor-parallel path")
+        check(fsdp_launches[name] > 0, f"{name} was never launched on the fsdp path")
     for name in KERNELS:
         if name in RING_ONLY:
             # its path is a process group's leader: launched in [ring:fused] alone
@@ -7150,6 +7615,7 @@ def main() -> None:
         results[name]["ring_launches"] = ring_launches[name]
         results[name]["examples_launches"] = examples_launches[name]
         results[name]["tp_launches"] = tp_launches.get(name, 0)
+        results[name]["fsdp_launches"] = fsdp_launches.get(name, 0)
     results["fused_reduce"]["harness_routes"] = harness_routes
     print(json.dumps({"kernels": [results[name] for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,3 +1,5 @@
-from repro_torch.checkpoint.checkpoint import latest_step, restore, save
+from repro_torch.checkpoint.checkpoint import (
+    latest_step, restore, restore_sharded, save, save_sharded,
+)
 
-__all__ = ["latest_step", "restore", "save"]
+__all__ = ["latest_step", "restore", "restore_sharded", "save", "save_sharded"]

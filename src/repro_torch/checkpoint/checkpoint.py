@@ -16,6 +16,14 @@ bfloat16 and float8_e4m3fn leaves, which npz cannot hold, are stored as
 their raw uint16 / uint8 bits beside their dtype tag. A host integer leaf
 (the step, the residues' ``t``, adam's ``count``) is stored as an int32 0-d
 array, as the reference holds it, and restores as an int.
+
+A sharded step's state (``build_train_step(mesh=...)``, ``tp`` or
+``fsdp``) is saved as the reference saves its GSPMD state, whose ``save``
+writes ``np.asarray`` of each leaf, the logical array: ``save_sharded``
+gathers the logical ``TrainState`` (parameters, optimizer state and every
+worker's residue row in the stacked codec) and writes it from one rank, in
+this format, and ``restore_sharded`` reads it and gives each rank its
+share (``training.shard_train_state``).
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["save", "restore", "latest_step"]
+__all__ = ["save", "restore", "latest_step", "save_sharded", "restore_sharded"]
 
 _MANIFEST = "manifest.json"
 # dtype tag -> (numpy dtype of the stored bits, torch dtype they view as)
@@ -137,3 +145,39 @@ def restore(directory: str, like: Any, step: Optional[int] = None) -> Any:
 def latest_step(directory: str) -> int:
     with open(os.path.join(directory, _MANIFEST)) as f:
         return json.load(f)["step"]
+
+
+def save_sharded(directory: str, step: int, local, model, mesh, policy: str = "tp",
+                 groups: Optional[int] = None) -> Optional[str]:
+    """Write a sharded step's state: this rank's share ``local`` (of
+    ``model``'s parameters on ``mesh`` under ``policy``, residues of
+    ``groups`` rows if set) gathered into the logical stacked ``TrainState``
+    (``models.convert.train_state_from_shard(every_row=True)``; collective
+    over the grid), saved by global rank 0 as ``save`` saves the unsharded
+    one. Every rank of the grid returns once the file is written; rank 0
+    returns its path, the others None."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed.sharding import specs_for_axes
+    from repro_torch.models.convert import train_state_from_shard
+
+    specs = specs_for_axes(model.abstract_params(), model.logical_axes(), policy, mesh)
+    whole = train_state_from_shard(local, specs, mesh, policy, every_row=True, groups=groups)
+    path = save(directory, step, whole) if dist.get_rank() == 0 else None
+    for axis in mesh.axis_names:  # line by line: every rank of the grid waits for the write
+        dist.barrier(group=mesh.group(axis))
+    return path
+
+
+def restore_sharded(directory: str, like, model, mesh, policy: str = "tp",
+                    groups: Optional[int] = None, step: Optional[int] = None):
+    """This rank's share of a checkpoint of the logical stacked state
+    (``save_sharded``'s, the unsharded ``save``'s or the reference's):
+    ``restore`` into ``like`` (a logical stacked ``TrainState``, e.g.
+    ``init_train_state(..., device="cpu")``), then
+    ``training.shard_train_state(mesh=..., policy=...)``, on ``like``'s
+    devices."""
+    from repro_torch.training.train_step import shard_train_state
+
+    return shard_train_state(restore(directory, like, step), mesh=mesh,
+                             axes=model.logical_axes(), groups=groups, policy=policy)

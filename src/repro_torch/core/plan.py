@@ -259,28 +259,35 @@ def plan_buckets(plans: Tuple[TensorPlan, ...], bucket_bytes: int) -> Tuple[Buck
 
 @dataclasses.dataclass(frozen=True)
 class ShardPlan:
-    """One logical tensor's reduce on one rank of a model axis of ``parts``
-    ranks (the tensor-parallel step), from its logical ``plan``: the
-    ``min_size`` fallback, chunk count, k and wire bytes are the logical
-    tensor's, split among the model ranks.
+    """One logical tensor's reduce on one rank of the ranks a worker's
+    parameters are split over (the tensor-parallel step: a model axis of
+    ``parts`` ranks under ``tp``, a pod's (data, model) plane under
+    ``fsdp``), from its logical ``plan``: the ``min_size`` fallback, chunk
+    count, k and wire bytes are the logical tensor's, split among those
+    ranks.
 
-    dim:    the parameter dim split over the model axis, None if replicated
-    route:  "dense"  a split dense tensor: its slice all-reduced over the
-                     data group
-            "local"  a split compressed tensor whose slice, in its own work
+    dim:    the first parameter dim the rank's block cuts (under ``tp`` the
+            one split over the model axis), None if replicated
+    cuts:   (dim, mesh axis, parts, index) of each cut dim
+    unique: whether the block is the rank's alone (cut over every axis of
+            the split): else the ranks along an uncut axis hold copies
+    first:  whether the rank is the first of those copies
+    route:  "dense"  a dense tensor whose block is unique: all-reduced over
+                     the workers' group where it lies
+            "local"  a compressed tensor whose unique block, in its own work
                      view, is a run of whole chunks of the logical view:
                      reduced where it lies
-            "part"   the rest (a replicated tensor; a split compressed one
-                     whose chunks cross slices): the rank reduces its
-                     ``bounds[index]`` of the logical work view's units
-                     (chunks of a 1-D view, rows of a rowwise one, elements
-                     of a dense tensor), and the parts are gathered over the
-                     model axis
+            "part"   the rest (a replicated tensor or one the rank holds a
+                     copy of; a split compressed one whose chunks cross the
+                     blocks): the rank reduces its ``bounds[index]`` of the
+                     logical work view's units (chunks of a 1-D view, rows
+                     of a rowwise one, elements of a dense tensor), and the
+                     parts are gathered over the split's ranks
             "exact"  the exact path (a dense top-k of ``exact_k`` over the
                      logical tensor, split or not): every rank selects on
                      the logical tensor, and the k offsets and values go
-                     over the data group in ``bounds``' ranges of them, one
-                     a model rank
+                     over the workers' group in ``bounds``' ranges of them,
+                     one a rank of the split
     work:   the view this rank's reduce runs on ((size,), or rows; the
             exact route's the logical (size,))
     bounds: [(lo, hi)] per model rank, in units (the "part" and "exact"
@@ -300,6 +307,9 @@ class ShardPlan:
     n_chunks: int
     k: int
     bytes_payload: float
+    cuts: Tuple[Tuple[int, str, int, int], ...] = ()
+    unique: bool = False
+    first: bool = True
 
 
 def _even(n: int, parts: int) -> Tuple[Tuple[int, int], ...]:
@@ -314,11 +324,11 @@ def _even(n: int, parts: int) -> Tuple[Tuple[int, int], ...]:
     return tuple(out)
 
 
-def _whole_chunks(plan: TensorPlan, dim: int, parts: int) -> bool:
-    """Whether every rank's slice (dim ``dim`` in ``parts``), in its own
-    work view, is a run of whole chunks of the logical view, each in its
-    logical order."""
+def _whole_chunks(plan: TensorPlan, cuts) -> bool:
+    """Whether every rank's block (``cuts``), in its own work view, is a
+    run of whole chunks of the logical view, each in its logical order."""
     chunk, shape = plan.comp.chunk, plan.shape
+    dim, _, parts, _ = cuts[-1]  # the innermost cut sets the runs
     width = shape[dim] // parts
     if len(plan.work) == 1:  # flat: runs of width * inner elements, shape[dim] * inner apart
         inner = 1
@@ -328,29 +338,57 @@ def _whole_chunks(plan: TensorPlan, dim: int, parts: int) -> bool:
     return dim < len(shape) - 1 or width % chunk == 0  # rowwise: whole rows, or aligned cuts
 
 
-def _shard_one(plan: TensorPlan, spec, parts: int, index: int) -> ShardPlan:
-    split = [d for d, ax in enumerate(spec) if ax == "model"]
-    dim = split[0] if split and parts > 1 else None
-    local = tuple(plan.shape)
-    if dim is not None:
-        local = local[:dim] + (local[dim] // parts,) + local[dim + 1:]
+def grid_coords(axes, j: int) -> dict:
+    """The coordinates ({mesh axis: index}) of rank ``j`` of a group whose
+    ranks lie row-major over ``axes`` ((mesh axis, size) pairs)."""
+    out = {}
+    for name, size in reversed(tuple(axes)):
+        j, out[name] = divmod(j, size)
+    return out
+
+
+def first_holder(cut_axes, coords: dict) -> bool:
+    """Whether the rank at ``coords`` is the first of the ranks that hold
+    its block alike: index 0 along every axis of ``coords`` that the block
+    is not cut over (``cut_axes``)."""
+    return all(i == 0 for ax, i in coords.items() if ax not in cut_axes)
+
+
+def _shard_one(plan: TensorPlan, spec, axes, index: int) -> ShardPlan:
+    sizes = dict(axes)
+    coords = grid_coords(axes, index)
+    cuts = tuple((d, ax, sizes[ax], coords[ax]) for d, ax in enumerate(spec)
+                 if ax in sizes and sizes[ax] > 1)
+    held = {c[1] for c in cuts}
+    unique = bool(cuts) and all(ax in held for ax, size in axes if size > 1)
+    first = first_holder(held, coords)
+    dim = cuts[0][0] if cuts else None
+    parts = 1
+    for _, size in axes:
+        parts *= size
+    local = list(plan.shape)
+    for d, _, p, _ in cuts:
+        local[d] //= p
+    local = tuple(local)
     size = 1
     for d in local:
         size *= d
+    extra = dict(cuts=cuts, unique=unique, first=first)
     if plan.dense:
-        if dim is not None:
-            return ShardPlan(plan, dim, "dense", local, (size,), (), 1, 0, 0, 4.0 * size)
+        if unique:
+            return ShardPlan(plan, dim, "dense", local, (size,), (), 1, 0, 0, 4.0 * size, **extra)
         bounds = _even(plan.size, parts)
         lo, hi = bounds[index]
-        return ShardPlan(plan, None, "part", local, (hi - lo,), bounds, 1, 0, 0, 4.0 * (hi - lo))
+        return ShardPlan(plan, dim, "part", local, (hi - lo,), bounds, 1, 0, 0, 4.0 * (hi - lo),
+                         **extra)
     comp = plan.comp
     if comp.exact:
         bounds = _even(plan.k, parts)
         lo, hi = bounds[index]
         c_lo, c_hi = _even(plan.n_chunks, parts)[index]
         return ShardPlan(plan, dim, "exact", local, plan.work, bounds, 1, c_hi - c_lo, hi - lo,
-                         payload_bytes(comp, hi - lo, plan.groups) if hi > lo else 0.0)
-    if dim is not None and _whole_chunks(plan, dim, parts):
+                         payload_bytes(comp, hi - lo, plan.groups) if hi > lo else 0.0, **extra)
+    if unique and _whole_chunks(plan, cuts):
         work = (size,) if len(plan.work) == 1 else local
         rows = 1
         for d in work[:-1]:
@@ -358,7 +396,7 @@ def _shard_one(plan: TensorPlan, spec, parts: int, index: int) -> ShardPlan:
         nch = rows * num_chunks(work[-1], comp.chunk)
         k = nch * comp.topm
         return ShardPlan(plan, dim, "local", local, work, (), 1, nch, k,
-                         payload_bytes(comp, k, plan.groups))
+                         payload_bytes(comp, k, plan.groups), **extra)
     if len(plan.work) == 1:
         bounds = _even(plan.n_chunks, parts)
         lo, hi = bounds[index]
@@ -372,13 +410,22 @@ def _shard_one(plan: TensorPlan, spec, parts: int, index: int) -> ShardPlan:
         work, unit = (hi - lo, plan.work[-1]), plan.work[-1]
     k = nch * comp.topm
     return ShardPlan(plan, dim, "part", local, work, bounds, unit, nch, k,
-                     payload_bytes(comp, k, plan.groups) if k else 0.0)
+                     payload_bytes(comp, k, plan.groups) if k else 0.0, **extra)
 
 
-def plan_shards(plans, specs, parts: int, index: int) -> Tuple[ShardPlan, ...]:
-    """Each logical plan of ``plans`` on rank ``index`` of a model axis of
-    ``parts`` ranks: ``specs`` holds the leaves' sharding specs in the same
-    order (``distributed.sharding``; the mesh axis "model" splits). Summed
-    over the model ranks, the chunks, k and payload bytes are the logical
-    plan's, for every compressor and the exact path."""
-    return tuple(_shard_one(p, tuple(s), parts, index) for p, s in zip(plans, specs))
+def plan_shards(plans, specs, parts: int, index: int, axes=None) -> Tuple[ShardPlan, ...]:
+    """Each logical plan of ``plans`` on rank ``index`` of the ranks a
+    worker's parameters are split over: ``specs`` holds the leaves'
+    sharding specs in the same order (``distributed.sharding``), ``axes``
+    the split's (mesh axis, size) pairs, its ranks row-major over them
+    (default: a model axis of ``parts`` ranks, the ``tp`` step's; the
+    ``fsdp`` step's is (("data", D), ("model", M)), ``parts`` = D x M).
+    Summed over those ranks, the chunks, k and payload bytes are the
+    logical plan's, for every compressor and the exact path."""
+    axes = (("model", parts),) if axes is None else tuple(axes)
+    total = 1
+    for _, size in axes:
+        total *= size
+    if total != parts:
+        raise ValueError(f"the split's axes {axes} hold {total} ranks, not {parts}")
+    return tuple(_shard_one(p, tuple(s), axes, index) for p, s in zip(plans, specs))

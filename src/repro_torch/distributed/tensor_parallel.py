@@ -28,7 +28,13 @@ takes it as ``tp=`` and hands it to each layer, which splits its work where
 ``tp.over(<logical axis>)`` says so. ``sent`` counts the bytes this process
 has put into model-axis collectives and ``calls`` the collectives, by
 operation: these operators', and the tensor-parallel reduce's (a
-``ring.Collective`` of kind "model", one call per packed call).
+``ring.Collective`` of kind "model", one call per packed call; under
+``fsdp`` its gathers run over the pod's (data, model) plane and count here
+too). The ``fsdp`` step's data axis (``distributed.fsdp``: the parameters'
+gather and the gradients' reduce-scatter, and the all-reduce of a leaf's
+gradient that no dim cuts over "data") counts under keys of its own,
+``"data_all_gather"``, ``"data_reduce_scatter"`` and ``"data_all_reduce"``;
+``MODEL_OPS`` names the model axis's.
 """
 
 from __future__ import annotations
@@ -44,8 +50,10 @@ __all__ = ["ModelAxis", "sent", "calls", "reset_sent", "all_reduce", "all_gather
            "max_over_model",
            "vocab_embed", "vocab_xent"]
 
-sent = {"all_reduce": 0, "all_gather": 0}
-calls = {"all_reduce": 0, "all_gather": 0}
+sent = {"all_reduce": 0, "all_gather": 0, "data_all_gather": 0, "data_reduce_scatter": 0,
+        "data_all_reduce": 0}
+calls = dict(sent)
+MODEL_OPS = ("all_reduce", "all_gather")  # the model axis's keys; the others the fsdp data axis's
 
 
 def reset_sent() -> None:

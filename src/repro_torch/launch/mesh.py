@@ -7,7 +7,11 @@ order, as a JAX mesh's devices do, and each rank holds its coordinate on
 every axis and one process group per axis, the ranks that differ from it on
 that axis alone (its "line"): ``mesh.group("data")`` is the data group of the
 rank's model index, ``mesh.group("model")`` the model group of its data
-index.
+index. A grid of three axes also holds one group per pair of axes, the
+ranks that share the rank's index on the third (its "plane"):
+``mesh.group(("pod", "data"))`` on a (pod, data, model) grid is the ranks
+of its model index, ``mesh.group(("data", "model"))`` its pod's ranks,
+each plane's ranks in row-major order.
 
 A ``Mesh`` without groups is a layout only (axis names and sizes): what
 ``distributed.sharding.specs_for_axes`` reads, as the reference's
@@ -51,10 +55,15 @@ class Mesh:
     def size(self) -> int:
         return math.prod(self.sizes)
 
-    def group(self, axis: str):
-        """This rank's process group along ``axis``."""
+    def group(self, axis):
+        """This rank's process group along ``axis``, or with a pair of axis
+        names (in axis order) its plane's."""
         if self.groups is None:
             raise ValueError(f"mesh {self.shape} is a layout only: it has no process groups")
+        if isinstance(axis, tuple) and len(axis) == 1:
+            axis = axis[0]
+        if axis not in self.groups:
+            raise ValueError(f"mesh {self.shape} has no group of {axis!r}")
         return self.groups[axis]
 
     def lines(self, axis: str) -> Tuple[Tuple[int, ...], ...]:
@@ -85,6 +94,23 @@ def _rank(coords: Sequence[int], sizes: Sequence[int]) -> int:
     return r
 
 
+def _planes(shape: Sequence[int], a: int, b: int) -> Tuple[Tuple[int, ...], ...]:
+    """The ranks of each plane of axes ``a`` < ``b`` of the grid ``shape``
+    (row-major within a plane)."""
+    others = [s for i, s in enumerate(shape) if i not in (a, b)]
+    out = []
+    for rest in range(math.prod(others)):
+        fixed = list(_coords(rest, others))
+        ranks = []
+        for i in range(shape[a]):
+            for j in range(shape[b]):
+                c = fixed[:a] + [i] + fixed[a:]
+                c = c[:b] + [j] + c[b:]
+                ranks.append(_rank(c, shape))
+        out.append(tuple(ranks))
+    return tuple(out)
+
+
 def _lines(shape: Sequence[int], a: int) -> Tuple[Tuple[int, ...], ...]:
     """The ranks of each line along axis ``a`` of the grid ``shape``."""
     others = [s for i, s in enumerate(shape) if i != a]
@@ -99,9 +125,10 @@ def make_test_mesh(shape=(4, 2), axes=("data", "model"), *,
                    subset: bool = False) -> Optional[Mesh]:
     """The grid ``shape`` named ``axes`` over the default group's ranks
     (row-major, as the reference's devices), with this rank's coordinates
-    and one ``dist.new_group`` per axis line. Every rank must call it, in
-    the same order as its other ``new_group`` calls: each line's group is
-    made on every rank. With ``subset``, the grid takes the world's first
+    and one ``dist.new_group`` per axis line (and, on a grid of three axes,
+    per plane of each pair of axes, after the lines). Every rank must call
+    it, in the same order as its other ``new_group`` calls: each line's and
+    plane's group is made on every rank. With ``subset``, the grid takes the world's first
     ranks and the others get None."""
     shape, axes = tuple(shape), tuple(axes)
     if not dist.is_initialized():
@@ -119,6 +146,13 @@ def make_test_mesh(shape=(4, 2), axes=("data", "model"), *,
             group = dist.new_group(list(line))
             if rank in line:
                 groups[name] = group
+    if len(axes) >= 3:
+        for a in range(len(axes)):
+            for b in range(a + 1, len(axes)):
+                for plane in _planes(shape, a, b):
+                    group = dist.new_group(list(plane))
+                    if rank in plane:
+                        groups[(axes[a], axes[b])] = group
     return None if me is None else Mesh(axes, shape, dict(zip(axes, me)), groups)
 
 

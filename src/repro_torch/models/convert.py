@@ -15,8 +15,9 @@ For the tensor-parallel step (``build_train_step(mesh=...)``):
 specs of ``distributed.sharding.specs_for_axes``), ``train_state_shard_from_jax``
 its share of a worker-stacked ``TrainState`` (any residue codec, ``groups``),
 ``train_state_from_shard`` the share back as the logical tree and the rank's
-residue row, and ``gather_shards`` puts the ranks' slices back together into
-the logical tree.
+residue row (or every worker's: the whole stacked state), and
+``gather_shards`` puts the ranks' slices back together into the logical
+tree; under either sharded policy, ``tp`` or ``fsdp``.
 """
 
 from __future__ import annotations
@@ -116,12 +117,13 @@ def shards_from_jax(params, specs, mesh, device: Union[str, torch.device] = "cud
 
 
 def train_state_shard_from_jax(state, axes, mesh, device: Union[str, torch.device] = "cuda",
-                               groups=None):
+                               groups=None, policy: str = "tp"):
     """A worker-stacked ``repro.training.TrainState`` (params, an optimizer
     state of params-like trees, residues in any codec, G rows of them with
-    ``groups=G``) -> this rank's share for the tensor-parallel step, as
-    ``training.shard_train_state(mesh=..., axes=..., groups=...)`` gives it
-    from the port's own."""
+    ``groups=G``) -> this rank's share for the sharded step under
+    ``policy`` ("tp", or "fsdp" on a (pod, data, model) grid), as
+    ``training.shard_train_state(mesh=..., axes=..., groups=..., policy=...)``
+    gives it from the port's own."""
     from repro_torch.training.train_step import TrainState, shard_train_state
 
     dev = resolve_device(device)
@@ -129,7 +131,7 @@ def train_state_shard_from_jax(state, axes, mesh, device: Union[str, torch.devic
                        {k: params_from_jax(v, "cpu") if isinstance(v, dict) else int(np.asarray(v))
                         for k, v in state.opt_state.items()},
                        state_from_jax(state.sc_state, "cpu"), int(np.asarray(state.step)))
-    mine = shard_train_state(whole, mesh=mesh, axes=axes, groups=groups)
+    mine = shard_train_state(whole, mesh=mesh, axes=axes, groups=groups, policy=policy)
     move = lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x  # noqa: E731
     return TrainState(tree.tree_map(move, mine.params), tree.tree_map(move, mine.opt_state),
                       ScaleComState({p: {k: v.to(dev) for k, v in e.items()}
@@ -137,30 +139,57 @@ def train_state_shard_from_jax(state, axes, mesh, device: Union[str, torch.devic
                                     mine.sc_state.t), mine.step)
 
 
-def train_state_from_shard(local, specs, mesh):
+_WORKERS = {"tp": ("data", ("model",)), "fsdp": ("pod", ("data", "model"))}
+
+
+def _worker_rows(enc: Dict[str, torch.Tensor], group, rows: int) -> Dict[str, torch.Tensor]:
+    """Every worker rank's (1, ...) encoding -> the ``rows`` rows of the
+    stacked one (with fewer rows than ranks, the ranks of a group hold
+    replicas of its row: each group's first rank's), one all-gather a field
+    (code bits widened to int32: gloo gathers no 8- or 16-bit integers)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    out = {}
+    for field, v in enc.items():
+        bits = v.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[v.element_size()])
+        parts = [torch.empty_like(bits, dtype=torch.int32) for _ in range(n)]
+        dist.all_gather(parts, bits.to(torch.int32).contiguous(), group=group)
+        out[field] = torch.cat(parts[::n // rows]).to(bits.dtype).view(v.dtype)
+    return out
+
+
+def train_state_from_shard(local, specs, mesh, policy: str = "tp", *, every_row: bool = False,
+                           groups=None):
     """The inverse of ``train_state_shard_from_jax`` on this rank: its share
     -> the logical parameters and optimizer state (``gather_shards``) and
     its residue row (its worker's, or its group's) in the stacked codec's
     fields and (1, *storage) shapes (``distributed.slices.join``; flat fp8
     padded with zero codes; each residue's layout read off its storage,
     ``slices.infer_layout``), for ``residue_bits`` to compare with the
-    reference's row. Collective over the mesh groups that split a tensor;
-    ``specs``: the parameters' tp specs (``sharding.specs_for_axes``)."""
+    reference's row. With ``every_row`` the residues hold every worker's
+    row, (n, *storage) (with ``groups=G``, the G groups' rows), gathered
+    over the workers' group: the whole stacked state, on every rank.
+    Collective over the mesh groups that split a tensor; ``specs``: the
+    parameters' specs under ``policy`` (``sharding.specs_for_axes``)."""
     from repro_torch.distributed import slices
     from repro_torch.training.train_step import TrainState
 
+    worker, split = _WORKERS[policy]
     params = gather_shards(local.params, specs, mesh)
     opt_state = {k: gather_shards(v, specs, mesh) if isinstance(v, dict) else v
                  for k, v in local.opt_state.items()}
     by_path = dict(tree.flatten_with_path(specs))
     shapes = {p: tuple(x.shape) for p, x in tree.flatten_with_path(params)}
-    parts, residues = mesh.shape["model"], {}
+    pieces = slices.grid_pieces(mesh, split)
+    rows = mesh.shape[worker] if groups is None else groups
+    residues = {}
     for path, enc in local.sc_state.residues.items():
-        split = [d for d, ax in sharding.split_dims(by_path[path]) if ax == "model"]
-        sl = slices.Slice(shapes[path], split[0] if split and parts > 1 else None, parts,
-                          mesh.index("model"))
+        sl = slices.block_of(shapes[path], by_path[path], mesh, split)
         residues[path] = slices.join(slices.codec_name(enc), enc, sl,
-                                     slices.infer_layout(enc, shapes[path]), mesh.group("model"))
+                                     slices.infer_layout(enc, shapes[path]), pieces)
+        if every_row:
+            residues[path] = _worker_rows(residues[path], mesh.group(worker), rows)
     return TrainState(params, opt_state, ScaleComState(residues, local.sc_state.t), local.step)
 
 

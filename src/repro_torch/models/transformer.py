@@ -191,16 +191,16 @@ class Model:
     remat: bool = True  # the reference's RunConfig.remat; False keeps every activation (tests)
 
     def init(self, generator: torch.Generator,
-             device: Union[str, torch.device] = "cuda", mesh=None) -> Dict:
+             device: Union[str, torch.device] = "cuda", mesh=None, policy: str = "tp") -> Dict:
         """Random parameters drawn from ``generator`` in fp32, placed on
         ``device`` in ``param_dtype`` (``common.ParamStore``). With ``mesh``
         (a grid with coordinates, ``launch.mesh``) only this rank's slice
-        of each leaf under the ``tp`` specs is kept, cut from each layer as
-        it is drawn: the whole init's slices, bit for bit, and never more
-        than one layer of a leaf whole."""
+        of each leaf under ``policy``'s specs (``tp`` or ``fsdp``) is kept,
+        cut from each layer as it is drawn: the whole init's slices, bit
+        for bit, and never more than one layer of a leaf whole."""
         specs = None
         if mesh is not None:
-            specs = sharding.specs_for_axes(self.abstract_params(), self.logical_axes(), "tp",
+            specs = sharding.specs_for_axes(self.abstract_params(), self.logical_axes(), policy,
                                             mesh)
         return self._store(generator, resolve_device(device), specs, mesh).params
 

@@ -33,6 +33,10 @@ residues are this rank's row, or its group's, in any codec
 (``shard_train_state``); params and optimizer state are replicated and
 stay bitwise identical across ranks.
 
+With ``mesh`` (a grid of process groups) the step is the sharded one,
+under the reference's ``tp`` policy or its ``fsdp`` one (``policy=``):
+see ``build_train_step``.
+
 Batches arrive worker-stacked, as numpy arrays or tensors
 ({"tokens": (n, B, S), ...}), and are moved to the parameters' device here.
 """
@@ -55,14 +59,14 @@ from repro_torch.core import state as state_codecs
 from repro_torch.core.metrics import hamming_distance_topk, spearman_rho, topk_overlap
 from repro_torch.core import compressors
 from repro_torch.core.filter import lowpass_update
-from repro_torch.core.plan import _even, plan_shards, plan_tensors
+from repro_torch.core.plan import _even, first_holder, plan_shards, plan_tensors
 from repro_torch.core.scalecom import _SIMILARITY_KEYS, ScaleComConfig, _const, scalecom_reduce
 from repro_torch.core.state import (
     ScaleComState, codec_key, codec_signature, init_state, require_codec, resolve_layout,
     residue_signature,
 )
 from repro_torch.device import fp32_accumulation
-from repro_torch.distributed import slices, tensor_parallel
+from repro_torch.distributed import fsdp, slices, tensor_parallel
 from repro_torch.distributed.ring import (
     Collective, Flight, all_reduce_mean, drive, group_fold, make_hierarchy, ring_rounds,
     ring_steps,
@@ -108,10 +112,13 @@ def _with_grad(params):
     return tree.tree_map(lambda p: p.detach().requires_grad_(True), params)
 
 
-def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1, tp=None):
+def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1, tp=None,
+                     data_group=None):
     """(mean worker loss, {aux: (n,) per-worker values}, {path: (n, *shape)
     gradients}); the aux dict is the model's (``nll``, and the MoE losses).
-    ``tp`` goes to ``model.loss`` (the tensor-parallel pass).
+    ``tp`` goes to ``model.loss`` (the tensor-parallel pass), and so does
+    ``data_group`` (the ``fsdp`` step's: each worker's batch split over a
+    pod's data ranks, which MoE layers route as one batch).
 
     One vmapped pass over the workers per microbatch. With ``microbatches``
     M > 1, microbatch j is rows j*B/M .. (j+1)*B/M - 1 of every worker's
@@ -121,7 +128,8 @@ def per_worker_grads(model, params, batch, n_workers: int, microbatches: int = 1
     """
     shapes = _check_lead(batch, n_workers)
     # (params, one worker's batch) -> (grads, (loss, aux)), mapped over the workers
-    loss_fn = model.loss if tp is None else functools.partial(model.loss, tp=tp)
+    kw = {k: v for k, v in (("tp", tp), ("data_group", data_group)) if v is not None}
+    loss_fn = functools.partial(model.loss, **kw) if kw else model.loss
     batched = torch.func.vmap(torch.func.grad_and_value(loss_fn, has_aux=True),
                               in_dims=(None, 0))
     if microbatches == 1:
@@ -475,12 +483,19 @@ def _group_mean(loss: torch.Tensor, auxs: Dict, group) -> Tuple[torch.Tensor, Di
 
 @dataclasses.dataclass(frozen=True)
 class _TPLayout:
-    """The model's leaves on this rank of a (data x model) grid: logical
-    shapes and tp specs in leaf order, the dim each leaf splits over the
-    model axis (None: replicated), and the model axis that the pass takes
-    (``Model.loss(..., tp=axis)``)."""
+    """The model's leaves on this rank of a grid under a ``policy``:
+    logical shapes and specs in leaf order, the dim each leaf splits over
+    the model axis (None: not split there), and the model axis that the
+    pass takes (``Model.loss(..., tp=axis)``).
+
+    ``tp``: a (data, model) grid; a worker is the ranks of one data index,
+    and a leaf is cut over "model" at most. ``fsdp``: a (pod, data, model)
+    grid; a worker is a pod, its batch split over "data", and a leaf is cut
+    over "model" and its "embed" dim over "data" (``pieces``: the pod's
+    (data, model) plane holds every block)."""
 
     mesh: Any
+    policy: str
     paths: Tuple[str, ...]
     shapes: Tuple[Tuple[int, ...], ...]
     specs: Tuple[Tuple, ...]
@@ -492,20 +507,56 @@ class _TPLayout:
         return self.mesh.group("data")
 
     @property
-    def model(self):
-        return self.mesh.group("model")
+    def worker_axis(self) -> str:
+        return "pod" if self.policy == "fsdp" else "data"
+
+    @property
+    def workers(self):
+        """The group the compressor's reduce runs over: one rank a worker."""
+        return self.mesh.group(self.worker_axis)
+
+    @property
+    def row(self) -> int:
+        """This rank's worker: its residue row among the stacked step's."""
+        return self.mesh.index(self.worker_axis)
+
+    @property
+    def batch_group(self):
+        """The ranks that split the global batch, one share each, in its
+        order: the data group (``tp``), the (pod, data) plane (``fsdp``)."""
+        return self.mesh.group(("pod", "data")) if self.policy == "fsdp" else self.data
+
+    @property
+    def split_axes(self) -> Tuple[str, ...]:
+        return ("data", "model") if self.policy == "fsdp" else ("model",)
+
+    @functools.cached_property
+    def pieces(self) -> slices.Pieces:
+        """The groups a worker's blocks lie over."""
+        return slices.grid_pieces(self.mesh, self.split_axes)
+
+    @property
+    def parts(self) -> int:
+        return math.prod(size for _, size in self.pieces.axes)
+
+    @property
+    def piece_index(self) -> int:
+        """This rank's index in ``pieces.group``."""
+        i = 0
+        for a, size in self.pieces.axes:
+            i = i * size + self.mesh.index(a)
+        return i
 
     def slice(self, i: int) -> slices.Slice:
-        """Leaf ``i``'s slice on this rank."""
-        return slices.Slice(self.shapes[i], self.dims[i], self.mesh.shape["model"],
-                            self.mesh.index("model"))
+        """Leaf ``i``'s block on this rank."""
+        return slices.block_of(self.shapes[i], self.specs[i], self.mesh, self.split_axes)
 
 
-def _tp_layout(abstract, axes, mesh) -> _TPLayout:
+def _tp_layout(abstract, axes, mesh, policy: str = "tp") -> _TPLayout:
     """The layout of a parameter tree (tensors or ``meta`` shapes, logical)
-    with its logical ``axes`` on this rank of ``mesh``, under the ``tp``
-    specs."""
-    spec_tree = specs_for_axes(abstract, axes, "tp", mesh)
+    with its logical ``axes`` on this rank of ``mesh``, under ``policy``'s
+    specs (``tp`` or ``fsdp``)."""
+    spec_tree = specs_for_axes(abstract, axes, policy, mesh)
     specs = tree.leaves(spec_tree)
     flat = tree.flatten_with_path(abstract)
     split = mesh.shape["model"] > 1
@@ -513,25 +564,47 @@ def _tp_layout(abstract, axes, mesh) -> _TPLayout:
     axis = tensor_parallel.ModelAxis(mesh.group("model"), mesh.index("model"),
                                      mesh.shape["model"],
                                      split_axes(spec_tree, axes) if split else frozenset())
-    return _TPLayout(mesh, tuple(p for p, _ in flat), tuple(tuple(x.shape) for _, x in flat),
-                     tuple(specs), dims, axis)
+    return _TPLayout(mesh, policy, tuple(p for p, _ in flat),
+                     tuple(tuple(x.shape) for _, x in flat), tuple(specs), dims, axis)
 
 
 def _split_dim(spec) -> Optional[int]:
     return next((d for d, ax in enumerate(spec) if ax == "model"), None)
 
 
-def _tp_check(model, mesh, n_workers: int, group) -> None:
-    """Raises, naming it, for what the tensor-parallel step does not run."""
+_GRIDS = {"tp": ("data", "model"), "fsdp": ("pod", "data", "model")}
+
+
+def _tp_check(model, mesh, n_workers: int, group, policy: str, sc_cfg=None) -> None:
+    """Raises, naming it, for what the sharded step does not run."""
     if group is not None:
-        raise ValueError("pass the grid as mesh= (its data group is the workers' group), "
+        raise ValueError("pass the grid as mesh= (its worker axis is the workers' group), "
                          "not group= as well")
-    if tuple(mesh.axis_names) != ("data", "model") or mesh.groups is None:
-        raise ValueError(f"the tensor-parallel step takes a (data, model) grid of process "
-                         f"groups (launch.mesh.make_test_mesh), got {mesh.shape}")
-    if n_workers != mesh.shape["data"]:
-        raise ValueError(f"n_workers ({n_workers}) must equal the grid's data size "
-                         f"({mesh.shape['data']}): the ranks of one data index are one worker")
+    if policy not in _GRIDS:
+        raise ValueError(f"policy must be 'tp' or 'fsdp' (the reference's sharded train "
+                         f"policies), got {policy!r}")
+    grid = _GRIDS[policy]
+    if tuple(mesh.axis_names) != grid or mesh.groups is None:
+        if policy == "tp" and tuple(mesh.axis_names) == _GRIDS["fsdp"]:
+            raise ValueError(f"a (pod, data, model) grid {mesh.shape} runs policy='fsdp' (pods "
+                             f"the workers); the tp step takes a (data, model) grid")
+        if policy == "fsdp" and tuple(mesh.axis_names) == _GRIDS["tp"]:
+            raise ValueError(f"fsdp with its workers on 'data' ({mesh.shape}) is dense-only in "
+                             f"the reference (its train_step: fsdp-sharded params with per-rank "
+                             f"workers take mode='dense'); the fsdp step takes a (pod, data, "
+                             f"model) grid whose pods are the workers")
+        raise ValueError(f"the {policy} step takes a {grid} grid of process groups "
+                         f"(launch.mesh.make_test_mesh), got {mesh.shape}")
+    axis = _GRIDS[policy][0]
+    if n_workers != mesh.shape[axis]:
+        raise ValueError(f"n_workers ({n_workers}) must equal the grid's {axis} size "
+                         f"({mesh.shape[axis]}): the ranks of one {axis} index are one worker")
+    if policy == "fsdp" and sc_cfg is not None:
+        for what, on in (("groups", sc_cfg.groups is not None),
+                         ("telemetry", sc_cfg.telemetry)):
+            if on:
+                raise ValueError(f"{what} under the fsdp step is ROADMAP Queue 1 sharded-step "
+                                 f"item 3b, not ported yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -544,25 +617,24 @@ class _TPCtx:
     t: int
     backend: Any
     fused: bool
-    across: Any  # the data group, or with groups its inter group: the compressor's reduce
+    across: Any  # the workers' group, or with groups its inter group: the compressor's reduce
     hierarchy: Any
     row: int  # this rank's residue row among the stacked step's
-    mesh: Any
+    pieces: Any  # slices.Pieces: the groups a worker's blocks lie over
+    index: int  # this rank's index in pieces.group
     want_ef: bool  # the worker-mean EF, for contraction gamma (stats or taps)
     ef_kind: str  # the ``sent`` key its all-reduce counts under
     metrics_every: int
 
     @property
     def model(self):
-        return self.mesh.group("model")
-
-    @property
-    def index(self) -> int:
-        return self.mesh.index("model")
+        """The group of every rank of a worker's blocks (``tp``: the model
+        group), over which a tensor's blocks and parts are gathered."""
+        return self.pieces.group
 
     @property
     def parts(self) -> int:
-        return self.mesh.shape["model"]
+        return math.prod(size for _, size in self.pieces.axes)
 
 
 def _call(c: Collective):
@@ -611,6 +683,25 @@ def _model_gather(x: torch.Tensor, dim: int, group):
     return rows.movedim(0, dim).flatten(dim, dim + 1)
 
 
+def _assemble(x: torch.Tensor, sl: slices.Slice, pieces):
+    """The logical tensor from every rank's block ``x`` (``sl`` this
+    rank's): a round of one all-gather over ``pieces.group`` (the model
+    axis's count), none for a tensor that is not cut. One cut over the
+    whole group is a concatenation; else each block is written at its
+    logical place (blocks held by several ranks alike)."""
+    if not sl.cuts:
+        return x.reshape(sl.shape)
+    if len(sl.cuts) == 1 and len(pieces.axes) == 1:
+        return (yield from _model_gather(x.reshape(sl.local_shape), sl.dim, pieces.group))
+    rows = yield from _call(Collective("all_gather", x.reshape(-1).contiguous(), pieces.group,
+                                       "model"))
+    out = torch.empty(sl.shape, dtype=x.dtype, device=x.device)
+    for j in range(rows.shape[0]):
+        b = sl.at(pieces.coords(j))
+        b.cut(out).copy_(rows[j].view(b.local_shape))
+    return out
+
+
 def _gather_parts(part: torch.Tensor, sizes, group):
     """The flat concatenation of every model rank's ``part`` (``sizes[i]``
     elements on rank i): padded to the longest, one all-gather (a round)."""
@@ -642,21 +733,22 @@ def _stat_sums(ef: torch.Tensor, ghat: torch.Tensor, ctx: _TPCtx):
 def _tp_draw(sp, sl: slices.Slice, ctx: _TPCtx, device) -> torch.Tensor:
     """random_k's offsets at this rank's chunks: the draw over the logical
     tensor's work view (``compressors.random_offsets``), the rows of the
-    rank's chunks ("local": its slice's, "part": its range's)."""
+    rank's chunks ("local": its block's, "part": its range's)."""
     plan = sp.plan
     whole = compressors.random_offsets(ctx.t, plan.comp, plan.work, device)
     tail = tuple(whole.shape[len(plan.work):])  # (topm,) past top-1
     if sp.route == "part":  # its range of chunks (flat) or of rows (rowwise)
         lo, hi = sp.bounds[ctx.index]
         return whole.flatten(0, max(0, len(plan.work) - 2))[lo:hi]
-    if len(plan.work) == 1:  # flat: the slice's runs of whole chunks
-        outer = math.prod(plan.shape[:sp.dim])
-        runs = whole.reshape((outer, ctx.parts, -1) + tail)[:, ctx.index]
-        return runs.reshape((-1,) + tail).contiguous()
-    if sp.dim < len(plan.shape) - 1:  # rowwise: whole rows
-        return sl.cut(whole).contiguous()
-    per = sp.local_shape[-1] // plan.comp.chunk  # rowwise: runs of whole chunks a row
-    return whole.narrow(len(plan.shape) - 1, ctx.index * per, per).contiguous()
+    if len(plan.work) == 1:  # flat: the block's runs of whole chunks
+        return whole[sl.unit_ids(plan.comp.chunk, device)].contiguous()
+    last = len(plan.shape) - 1
+    rows = sl.rows().cut(whole)  # rowwise: the block's rows
+    if sl.cuts[-1][0] < last:  # whole rows
+        return rows.contiguous()
+    _, _, _, i = sl.cuts[-1]  # runs of whole chunks a row
+    per = sp.local_shape[-1] // plan.comp.chunk
+    return rows.narrow(last, i * per, per).contiguous()
 
 
 def _tp_run(sp, sl, work: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
@@ -678,14 +770,15 @@ def _tp_run(sp, sl, work: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
 
 def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
     """The exact path (``comp.exact``) for this rank's slice, as a round
-    generator: the logical EF gathered over the model group, the dense
-    top-k of ``exact_k`` over it (``compressors._top_k``, ties to the lower
-    logical offset, as ``ring._exact_steps`` and the stacked path take it),
-    and the offsets and values over the compressor's group in this model
-    rank's range of the k (``sp.bounds``), the ranges gathered back over the
-    model group. clt_k: the leader's top-k; true_topk: the top-k of the
-    oracle's mean (all-reduced part by part: the slice, or of a replicated
-    tensor a range of it); random_k: the shared draw; local_topk: each
+    generator: the logical EF gathered over the blocks' ranks (``ctx.
+    pieces``: the model group under ``tp``), the dense top-k of ``exact_k``
+    over it (``compressors._top_k``, ties to the lower logical offset, as
+    ``ring._exact_steps`` and the stacked path take it), and the offsets
+    and values over the compressor's group in this rank's range of the k
+    (``sp.bounds``), the ranges gathered back over the blocks' ranks.
+    clt_k: the leader's top-k; true_topk: the top-k of the oracle's mean
+    (all-reduced part by part: the slice, or of a tensor that other ranks
+    hold alike a range of it); random_k: the shared draw; local_topk: each
     rank's own, all_gathered. A rank with an empty range, or no leader's
     gather to join, yields an empty round in its place. Returns (ĝ slice,
     m' slice, the stats' partial sums or None, the k logical offsets this
@@ -697,29 +790,31 @@ def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
     sizes = [b - a for a, b in sp.bounds]
     ef = m + gw
     dev = ef.device
-    if sp.dim is None:  # a replicated tensor: its own part is a range of elements
+    def mine(x):  # the logical tensor, flat -> this rank's slice
+        return sl.cut(x.reshape(plan.shape))
+
+    if not sp.unique:  # replicated, or held alike by other ranks: its own part is a range
         ranges = _even(size, ctx.parts)
         a, b = ranges[ctx.index]
 
-        def own(x):
+        def own(x):  # the logical tensor -> its own elements
             return x.reshape(-1)[a:b]
 
         def whole(x_own):
             return _gather_parts(x_own, [hi_ - lo_ for lo_, hi_ in ranges], model)
 
-        ef_whole = ef.reshape(-1)
+        ef_whole = (yield from _assemble(ef, sl, ctx.pieces)).reshape(-1)
+        own_ef = own(ef_whole)
     else:
         def own(x):
-            return x.reshape(-1)
+            return mine(x).reshape(-1)
 
         def whole(x_own):
-            x = yield from _model_gather(x_own.reshape(sp.local_shape), sp.dim, model)
+            x = yield from _assemble(x_own, sl, ctx.pieces)
             return x.reshape(-1)
 
         ef_whole = yield from whole(ef)
-
-    def mine(x):  # the logical tensor, flat -> this rank's slice
-        return sl.cut(x.reshape(plan.shape))
+        own_ef = ef.reshape(-1)
 
     if comp.name == "local_topk":
         idx = compressors._top_k(ef_whole.abs(), k)
@@ -742,7 +837,7 @@ def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
             leader = int(ctx.t) % n
             key = ef_whole
             if comp.name == "true_topk":
-                total = yield from _call(Collective("all_reduce", own(ef), group, "oracle",
+                total = yield from _call(Collective("all_reduce", own_ef, group, "oracle",
                                                     pack=False))
                 if me == leader:
                     key = yield from whole(total / n)
@@ -768,9 +863,7 @@ def _tp_exact_steps(sp, sl, gw: torch.Tensor, m: torch.Tensor, ctx: _TPCtx):
     m_new = lowpass_update(m, gw, mine(own_dense), ctx.beta)
     sums = ef_mean = None
     if ctx.want_ef:
-        sums, ef_mean = yield from _stat_sums(
-            own(ef) if sp.dim is None else ef.reshape(-1),
-            own(ghat) if sp.dim is None else mine(ghat).reshape(-1), ctx)
+        sums, ef_mean = yield from _stat_sums(own_ef, own(ghat), ctx)
     return (mine(ghat), m_new, sums, idx, _payload_bytes(comp, hi - lo, hi - lo, n), ef_mean)
 
 
@@ -785,11 +878,12 @@ def _tp_taps(sp, sl, ctx: _TPCtx, ef, ef_mean, whole, lift, ghat, m_new, new_enc
     slices), ``sums`` their contraction sums, ``payload`` its share of the
     per-worker bytes.
 
-    Round 1 all-reduces over the model group (the model axis's count) this
-    rank's share of bytes_measured and of the contraction sums, and of a
-    split tensor the nonzeros of ĝ and the codec roundtrip's two squared
-    norms (a replicated tensor's are whole on every rank: counted on model
-    rank 0); on sampled steps it gathers the logical EF and worker mean.
+    Round 1 all-reduces over the blocks' ranks (the model group under
+    ``tp``; the model axis's count) this rank's share of bytes_measured and
+    of the contraction sums, and of its block the nonzeros of ĝ and the
+    codec roundtrip's two squared norms (a block that other ranks hold
+    alike counted on the first of them, ``ShardPlan.first``); on sampled
+    steps it gathers the logical EF and worker mean.
     Round 2 all-reduces the squared norms over the compressor's group, and
     on sampled steps, as the group step does, the unit EFs for the
     pairwise cosine, and broadcasts the Hamming, energy and Spearman taps
@@ -805,7 +899,7 @@ def _tp_taps(sp, sl, ctx: _TPCtx, ef, ef_mean, whole, lift, ghat, m_new, new_enc
     taps.tap("fused_launches", _const(_leader_launches(comp, use_fused), dev), path=plan.path)
     decoded = slices.decode(ctx.codec, new_enc, sl, ctx.layout)
     m_row = m_new.reshape(decoded.shape)
-    counted = sp.dim is not None or ctx.index == 0
+    counted = sp.first  # a block other ranks hold alike: counted once
     zero = _const(0.0, dev)
     mine = torch.stack([
         _const(payload, dev),
@@ -875,10 +969,8 @@ def _tp_leaf_steps(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
         return (total / n).to(g.dtype), None, None
     model, index = ctx.model, ctx.index
 
-    def whole(x):  # this rank's slice -> the logical tensor, flat (a round where split)
-        x = x.reshape(sp.local_shape)
-        if sp.dim is not None:
-            x = yield from _model_gather(x, sp.dim, model)
+    def whole(x):  # this rank's slice -> the logical tensor, flat (a round where cut)
+        x = yield from _assemble(x, sl, ctx.pieces)
         return x.reshape(-1)
 
     def mine(x):  # the logical tensor, flat -> this rank's slice
@@ -899,7 +991,7 @@ def _tp_leaf_steps(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
         ghat, m_new, sums, _, payload, ef_mean = yield from _tp_exact_steps(sp, sl, gw, m, ctx)
 
         def lift(y):  # ef_mean over the rank's own elements -> the logical tensor
-            if sp.dim is None:
+            if not sp.unique:
                 return _gather_parts(y, [b - a for a, b in _even(plan.size, ctx.parts)], model)
             return whole(y)
     elif sp.route == "local":
@@ -931,7 +1023,7 @@ def _tp_leaf_steps(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
     dither = slices.row_dither(ctx.codec, codec_key(plan.path, ctx.t), plan.groups, ctx.row, sl,
                                ctx.layout, device)
     new_enc = yield from slices.encode_steps(ctx.codec, m_new.reshape(store), sl, ctx.layout,
-                                             dither, model)
+                                             dither, ctx.pieces)
     if taps.active():
         use_fused = ctx.fused and sp.route != "exact" and plan.comp.name in FUSABLE_MODES
         yield from _tp_taps(sp, sl, ctx, m + gw, ef_mean, whole, lift, ghat, m_new, new_enc, sums,
@@ -942,14 +1034,17 @@ def _tp_leaf_steps(sp, g: torch.Tensor, enc, ctx: _TPCtx, sl: slices.Slice):
 def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _TPLayout,
                hierarchy=None, compute_stats: bool = False, buckets: Any = False,
                consume: bool = False):
-    """Algorithm 1 over this rank's (1, *slice) gradients on a (data x model)
-    grid: the plan of each logical tensor (``plan_tensors`` at n = the data
-    size, G = ``sc_cfg.groups`` or n) mapped onto the rank (``plan_shards``),
-    each tensor's part reduced over the data group (with ``hierarchy``: a
-    mean over the rank's group, then the compressor's reduce over its inter
-    group), the parts of a "part" tensor gathered over the model group, the
-    exact path's offsets and values in ranges of its k; the rank's residue
-    slice decoded and m' encoded in any codec (``distributed.slices``).
+    """Algorithm 1 over this rank's (1, *slice) gradients on a grid (``tp``:
+    (data x model), the workers on "data"; ``fsdp``: (pod x data x model),
+    the workers on "pod"): the plan of each logical tensor (``plan_tensors``
+    at n = the workers, G = ``sc_cfg.groups`` or n) mapped onto the rank's
+    block (``plan_shards`` over ``layout.pieces``: the model group, or the
+    pod's (data, model) plane), each tensor's part reduced over the
+    workers' group (with ``hierarchy``: a mean over the rank's group, then
+    the compressor's reduce over its inter group), the parts of a "part"
+    tensor gathered over the blocks' ranks, the exact path's offsets and
+    values in ranges of its k; the rank's residue slice decoded and m'
+    encoded in any codec (``distributed.slices``).
 
     ``buckets`` (``core.overlap.resolve_buckets``; None/"auto" reads
     $SCALECOM_TORCH_BUCKET_MB): the schedule of the logical plans, the
@@ -966,8 +1061,8 @@ def _tp_reduce(grads, sc_state: ScaleComState, sc_cfg: ScaleComConfig, layout: _
     ``comm_bytes_dense`` are the logical plan's (the stacked step's),
     ``comm_bytes_per_shard`` this rank's share of the first, and with
     ``compute_stats`` ``contraction_gamma`` over the logical tensors (each
-    rank's partial sums over the elements it reduces, summed over the model
-    group in one all-reduce). With ``sc_cfg.telemetry`` the taps come back
+    rank's partial sums over the elements it reduces, summed over the
+    blocks' ranks in one all-reduce). With ``sc_cfg.telemetry`` the taps come back
     as ``"obs/<key>"`` entries under the stacked reduce's keys, each the
     stacked step's value for the logical tensor and the same on every rank
     (``_tp_taps``; ``fused_launches`` counts the leader's launches), and
@@ -996,14 +1091,14 @@ def _drop_leaves(t) -> None:
 
 def _tp_reduce_body(grads, sc_state, sc_cfg, layout, hierarchy, compute_stats, buckets,
                     collected, consume):
-    n = layout.data.size()
+    n = layout.workers.size()
     flat = tree.flatten_with_path(grads)
     if tuple(p for p, _ in flat) != layout.paths:
         raise ValueError("the gradient tree's leaves are not the model's")
     plans = plan_tensors(tuple((p, s, n) for p, s in zip(layout.paths, layout.shapes)), sc_cfg,
                          frozenset(sc_state.residues))
-    shards = plan_shards(plans, layout.specs, layout.mesh.shape["model"],
-                         layout.mesh.index("model"))
+    shards = plan_shards(plans, layout.specs, layout.parts, layout.piece_index,
+                         layout.pieces.axes)
     codec, lay = sc_cfg.residue_dtype, resolve_layout(sc_cfg.layout)
     for i, (sp, (path, g)) in enumerate(zip(shards, flat)):
         if tuple(g.shape[1:]) != sp.local_shape:
@@ -1019,10 +1114,10 @@ def _tp_reduce_body(grads, sc_state, sc_cfg, layout, hierarchy, compute_stats, b
     device = flat[0][1].device
     ctx = _TPCtx(codec=codec, layout=lay, beta=sc_cfg.beta, t=sc_state.t,
                  backend=resolve_backend(sc_cfg.backend, device), fused=resolve_fused(sc_cfg.fused),
-                 across=layout.data if hierarchy is None else hierarchy.inter,
-                 hierarchy=hierarchy,
-                 row=layout.mesh.index("data") if hierarchy is None else hierarchy.index,
-                 mesh=layout.mesh, want_ef=compute_stats or sc_cfg.telemetry,
+                 across=layout.workers if hierarchy is None else hierarchy.inter,
+                 hierarchy=hierarchy, row=layout.row if hierarchy is None else hierarchy.index,
+                 pieces=layout.pieces, index=layout.piece_index,
+                 want_ef=compute_stats or sc_cfg.telemetry,
                  ef_kind="stats" if compute_stats else "telemetry",
                  metrics_every=sc_cfg.metrics_every)
     steps = [_tp_leaf_steps(sp, g, sc_state.residues.get(path), ctx, layout.slice(i))
@@ -1047,24 +1142,43 @@ def _tp_reduce_body(grads, sc_state, sc_cfg, layout, hierarchy, compute_stats, b
     if compute_stats:
         total = (torch.sum(torch.stack(sums), dim=0) if sums else
                  torch.zeros(2, dtype=torch.float32, device=device))
-        total = tensor_parallel.all_reduce(total, layout.model)
+        total = tensor_parallel.all_reduce(total, layout.pieces.group)
         stats["contraction_gamma"] = total[0] / torch.clamp_min(total[1], 1e-30)
     return (tree.unflatten(grads, ghat_leaves),
             ScaleComState(residues=new_residues, t=sc_state.t + 1), stats)
 
 
 def _tp_global_norm(ghat, layout: _TPLayout) -> torch.Tensor:
-    """``global_norm`` of the logical gradient from this rank's slices: a
-    split leaf's sum of squares all-reduced over the model group (one call
-    for all of them), a replicated leaf's counted once; summed in leaf
-    order."""
+    """``global_norm`` of the logical gradient from this rank's blocks: a
+    cut leaf's sum of squares all-reduced over the blocks' ranks (the model
+    group under ``tp``; one call for all of them, a block that other ranks
+    hold alike counted on the first of them), an uncut leaf's counted once;
+    summed in leaf order."""
     sq = [torch.sum(torch.square(g.to(torch.float32))) for g in tree.leaves(ghat)]
-    split = [i for i, d in enumerate(layout.dims) if d is not None]
-    if split:
-        total = tensor_parallel.all_reduce(torch.stack([sq[i] for i in split]), layout.model)
-        for j, i in enumerate(split):
+    cut = [(i, sl) for i, sl in enumerate(map(layout.slice, range(len(sq)))) if sl.cuts]
+    if cut:
+        coords = {a: layout.mesh.index(a) for a, _ in layout.pieces.axes}
+        mine = torch.stack([sq[i] if first_holder(sl.axes, coords) else torch.zeros_like(sq[i])
+                            for i, sl in cut])
+        total = tensor_parallel.all_reduce(mine, layout.pieces.group)
+        for j, (i, _) in enumerate(cut):
             sq[i] = total[j]
     return torch.sqrt(sum(sq))
+
+
+class _OnBlocks:
+    """``model`` whose loss takes this rank's ``fsdp`` blocks: each leaf
+    gathered over the pod's data ranks first (``distributed.fsdp.
+    gather_params``, ``specs`` in leaf order), so that the pass runs on the
+    ``tp`` slices and the gradients come back as blocks, summed over the
+    data ranks."""
+
+    def __init__(self, model, specs, data_group):
+        self.model, self.specs, self.data_group = model, specs, data_group
+
+    def loss(self, params, batch, **kw):
+        return self.model.loss(fsdp.gather_params(params, self.specs, self.data_group), batch,
+                               **kw)
 
 
 def build_train_step(
@@ -1081,6 +1195,7 @@ def build_train_step(
     buckets: Any = None,
     group=None,
     mesh=None,
+    policy: str = "tp",
 ) -> Callable[[TrainState, Any], Tuple[TrainState, Dict[str, Any]]]:
     """Returns ``train_step(state, batch) -> (state, metrics)``.
 
@@ -1117,10 +1232,10 @@ def build_train_step(
     async collectives, bucket by bucket; see ``_group_reduce``). The dense
     mode stays one all-reduce over the whole group.
 
-    ``mesh``: a (data, model) grid of process groups
-    (``launch.mesh.make_test_mesh``), the tensor-parallel step, the
-    counterpart of the reference's step under the ``tp`` policy (the
-    ``fsdp`` policy is a later ROADMAP item). The ranks
+    ``mesh``: a grid of process groups (``launch.mesh.make_test_mesh``),
+    the sharded step, the counterpart of the reference's step under its
+    ``policy``. ``policy="tp"`` (the default, as the reference's
+    ``RunConfig.sharding_policy``) takes a (data, model) grid: the ranks
     of one data index are one of the ``n_workers`` (= the data size)
     workers and take the same row of the batch; each holds its slice of
     every parameter, optimizer leaf and of its worker's residues
@@ -1143,17 +1258,46 @@ def build_train_step(
     (the encoder-decoder's encoder and cross-attention split as the
     decoder's self-attention); a vocabulary the model size does not divide
     stays whole on every rank.
+
+    ``policy="fsdp"`` takes a (pod, data, model) grid: the reference's
+    setting for its biggest archs on two pods (``repro/launch/dryrun.py``
+    ``default_settings``), in which each pod is one of the ``n_workers``
+    (= the pod size) workers. A rank takes its data index's share of its
+    pod's rows of the batch, and holds its block of every parameter,
+    optimizer leaf and of its pod's residue row under the fsdp specs: cut
+    over "model" as under ``tp`` and on the "embed" dim over "data"
+    (``shard_train_state(..., policy="fsdp")``). The pass gathers each
+    parameter's blocks over the pod's data ranks first
+    (``distributed.fsdp``: the gradients come back reduce-scattered,
+    summed over them, and are divided by the data size: the worker's
+    gradient), MoE layers route the pod's rows as one batch
+    (``per_worker_grads(data_group=)``), and the compressor's reduce runs
+    across the pods on the rank's block (``_tp_reduce``: blocks, parts and
+    fp8 scales over the pod's (data, model) plane). The dense mode
+    all-reduces each block over the pods after the data ranks' sum, and
+    routes MoE tokens over the (pod, data) plane. It runs every
+    compressor, the exact path, every residue codec, ``compute_stats`` and
+    ``buckets``; ``groups``, ``telemetry`` and ``microbatches`` > 1 raise
+    (ROADMAP Queue 1 sharded-step item 3b). The reference marks fsdp with
+    per-rank workers (its workers on "data") dense-only: a (data, model)
+    grid with ``policy="fsdp"`` raises, as does any other grid.
     """
     if mode not in ("scalecom", "dense"):
         raise ValueError(f"mode must be 'scalecom' or 'dense', got {mode!r}")
     if microbatches < 1:
         raise ValueError(f"microbatches must be >= 1, got {microbatches}")
     if mesh is not None:
-        _tp_check(model, mesh, n_workers, group)
-        layout = _tp_layout(model.abstract_params(), model.logical_axes(), mesh)
-        row = mesh.index("data")
+        _tp_check(model, mesh, n_workers, group, policy, sc_cfg)
+        if policy == "fsdp" and microbatches > 1:
+            raise ValueError("microbatches under the fsdp step is ROADMAP Queue 1 sharded-step "
+                             "item 3b, not ported yet")
+        layout = _tp_layout(model.abstract_params(), model.logical_axes(), mesh, policy)
+        row = layout.row
         hierarchy = (None if sc_cfg.groups is None else
-                     make_hierarchy(layout.data, sc_cfg.groups, lines=mesh.lines("data")))
+                     make_hierarchy(layout.workers, sc_cfg.groups, lines=mesh.lines("data")))
+        fsdp_ = policy == "fsdp"
+        share = mesh.shape["data"] if fsdp_ else 1  # the worker's batch split over "data"
+        loss_model = _OnBlocks(model, layout.specs, layout.data) if fsdp_ else model
     elif group is not None:
         if n_workers != group.size():
             raise ValueError(
@@ -1179,23 +1323,32 @@ def build_train_step(
     def tp_step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, Any]]:
         device = tree.leaves(state.params)[0].device
         batch = _batch_on(batch, device)
-        _check_lead(batch, n_workers)
+        shapes = _check_lead(batch, n_workers)
         batch = {k: v[row:row + 1] for k, v in batch.items()}
+        if share > 1:  # this data rank's rows of its pod's
+            B = next(iter(shapes.values()))[1]
+            if B % share:
+                raise ValueError(f"per-worker batch {B} is not divisible by the grid's data "
+                                 f"size {share}")
+            d = mesh.index("data")
+            batch = {k: v[:, d * (B // share):(d + 1) * (B // share)] for k, v in batch.items()}
         if mode == "scalecom":
-            loss, auxs, gpw = per_worker_grads(model, state.params, batch, 1, microbatches,
-                                               tp=layout.axis)
-        else:
-            loss, auxs, ghat = dense_grads(model, state.params, batch, tp=layout.axis,
-                                           data_group=layout.data)
-        if mode == "scalecom":
+            loss, auxs, gpw = per_worker_grads(loss_model, state.params, batch, 1, microbatches,
+                                               tp=layout.axis,
+                                               data_group=layout.data if share > 1 else None)
+            if share > 1:  # the gathers' backward summed the data ranks' gradients
+                for g in tree.leaves(gpw):
+                    g.div_(share)
             ghat, sc_state, stats = _tp_reduce(gpw, state.sc_state, sc_cfg, layout, hierarchy,
                                                compute_stats, buckets, consume=True)
             del gpw
         else:
-            ghat = tree.tree_map(lambda g: all_reduce_mean(g, layout.data), ghat)
+            loss, auxs, ghat = dense_grads(loss_model, state.params, batch, tp=layout.axis,
+                                           data_group=layout.batch_group)
+            ghat = tree.tree_map(lambda g: all_reduce_mean(g, layout.workers) / share, ghat)
             sc_state = ScaleComState(residues=state.sc_state.residues, t=state.sc_state.t + 1)
             stats = {}
-        loss, auxs = _group_mean(loss, auxs, layout.data)
+        loss, auxs = _group_mean(loss, auxs, layout.batch_group)
         return update(state, ghat, _tp_global_norm(ghat, layout), loss, auxs, sc_state, stats)
 
     if mesh is not None:
@@ -1234,21 +1387,22 @@ def build_train_step(
 
 def init_train_state(model, optimizer: Optimizer, sc_cfg: ScaleComConfig,
                      generator: torch.Generator, *, n_workers: int,
-                     device="cuda", mesh=None) -> TrainState:
+                     device="cuda", mesh=None, policy: str = "tp") -> TrainState:
     """Random parameters from ``generator`` on ``device``, optimizer state and
     zero ScaleCom residues.
 
-    With ``mesh`` (a (data, model) grid): this rank's share for the
-    tensor-parallel step, without the stacked state: the rank's slices of
-    the parameters (``Model.init(mesh=...)``: each layer cut as it is drawn,
+    With ``mesh`` (a (data, model) grid, or for ``policy="fsdp"`` a (pod,
+    data, model) one): this rank's share for the sharded step, without the
+    stacked state: the rank's blocks of the parameters under ``policy``'s
+    specs (``Model.init(mesh=...)``: each layer cut as it is drawn,
     the same draws on every rank for the same generator state, so the
     slices are the whole init's), the optimizer state on the slices, and a
     zero residue slice in ``sc_cfg.residue_dtype``'s codec, every field
     (``distributed.slices``), for every tensor whose logical size reaches
     ``min_size``."""
-    params = model.init(generator, device, mesh=mesh)
+    params = model.init(generator, device, mesh=mesh, policy=policy)
     if mesh is not None:
-        layout = _tp_layout(model.abstract_params(), model.logical_axes(), mesh)
+        layout = _tp_layout(model.abstract_params(), model.logical_axes(), mesh, policy)
         lay = resolve_layout(sc_cfg.layout)
         dev = tree.leaves(params)[0].device
         residues = {p: slices.init(sc_cfg.residue_dtype, layout.slice(i), lay, dev)
@@ -1264,7 +1418,7 @@ def init_train_state(model, optimizer: Optimizer, sc_cfg: ScaleComConfig,
 
 def shard_train_state(state: TrainState, rank: Optional[int] = None,
                       world: Optional[int] = None, groups: Optional[int] = None, *,
-                      mesh=None, axes=None) -> TrainState:
+                      mesh=None, axes=None, policy: str = "tp") -> TrainState:
     """Rank ``rank``'s share of a worker-stacked TrainState over ``world``
     ranks: its own row of every field of every residue encoding (with
     ``groups=G``, the row of its group, ``rank // (world // G)``, of G
@@ -1279,11 +1433,14 @@ def shard_train_state(state: TrainState, rank: Optional[int] = None,
     and of its worker's residue row (with ``groups=G``, the row of its
     group, ``data index // (data size // G)``, of G rows), every field of
     any codec cut to the slice (``distributed.slices.cut``: the codes at
-    the slice's logical positions, fp8's flat scales whole)."""
+    the slice's logical positions, fp8's flat scales whole). With
+    ``policy="fsdp"`` and a (pod, data, model) grid: its block under the
+    ``fsdp`` specs (cut over "model" and, on "embed", over "data") of every
+    leaf, and of its pod's residue row (a pod is one worker)."""
     if mesh is not None:
         if rank is not None or world is not None:
             raise ValueError("a grid's share takes mesh=, axes= and groups, not rank or world")
-        return _shard_tp_state(state, mesh, axes, groups)
+        return _shard_tp_state(state, mesh, axes, groups, policy)
     if rank is None or world is None:
         raise ValueError("shard_train_state takes rank and world, or mesh= and axes=")
     if not 0 <= rank < world:
@@ -1305,19 +1462,21 @@ def shard_train_state(state: TrainState, rank: Optional[int] = None,
                       ScaleComState(residues=residues, t=state.sc_state.t), state.step)
 
 
-def _shard_tp_state(state: TrainState, mesh, axes, groups: Optional[int]) -> TrainState:
+def _shard_tp_state(state: TrainState, mesh, axes, groups: Optional[int],
+                    policy: str = "tp") -> TrainState:
     if axes is None:
         raise ValueError("a grid's share needs the model's logical axes (Model.logical_axes())")
-    specs = specs_for_axes(state.params, axes, "tp", mesh)
+    specs = specs_for_axes(state.params, axes, policy, mesh)
     by_path = dict(tree.flatten_with_path(specs))
     shapes = {p: tuple(x.shape) for p, x in tree.flatten_with_path(state.params)}
-    parts = mesh.shape["model"]
-    n = mesh.shape["data"]
+    worker = "pod" if policy == "fsdp" else "data"
+    split = ("data", "model") if policy == "fsdp" else ("model",)
+    n = mesh.shape[worker]
     if groups is not None and (groups < 1 or n % groups):
-        raise ValueError(f"{n} workers not divisible into {groups} groups: a grid of {n} data "
+        raise ValueError(f"{n} workers not divisible into {groups} groups: a grid of {n} {worker} "
                          f"ranks needs n % groups == 0 (G={groups})")
     rows = n if groups is None else groups
-    row = mesh.index("data") if groups is None else mesh.index("data") // (n // groups)
+    row = mesh.index(worker) if groups is None else mesh.index(worker) // (n // groups)
 
     def shard(tree_):
         return tree.unflatten(tree_, [shard_of(x, by_path[p], mesh)
@@ -1334,8 +1493,7 @@ def _shard_tp_state(state: TrainState, mesh, axes, groups: Optional[int]) -> Tra
         if any(v.shape[0] != rows for v in enc.values()):
             raise ValueError(f"residue {path!r} must hold rows of {rows} workers, got "
                              f"{ {k: tuple(v.shape) for k, v in enc.items()} }")
-        sl = slices.Slice(shapes[path], _split_dim(by_path[path]) if parts > 1 else None, parts,
-                          mesh.index("model"))
+        sl = slices.block_of(shapes[path], by_path[path], mesh, split)
         residues[path] = slices.cut(slices.codec_name(enc),
                                     {k: v[row:row + 1] for k, v in enc.items()}, sl,
                                     slices.infer_layout(enc, shapes[path]))

@@ -148,12 +148,11 @@ def _nan_encodes(job: dict, mesh) -> dict:
     abstract = {k: torch.empty(s, device="meta") for k, s in job["shapes"].items()}
     layout = ts._tp_layout(abstract, job["axes"], mesh)
     sl = layout.slice(layout.paths.index("['a']"))
-    model = mesh.group("model")
     out = {}
     for (codec, lay, holder), row in job["nan"].items():
         m = slices.cut("fp32", {"q": torch.from_numpy(row)}, sl, lay)["q"]
-        enc = slices.encode(codec, m, sl, lay, None, model)
-        joined = slices.join(codec, enc, sl, lay, model)
+        enc = slices.encode(codec, m, sl, lay, None, layout.pieces)
+        joined = slices.join(codec, enc, sl, lay, layout.pieces)
         out[(codec, lay, holder)] = {
             "slice": residue_bits(ScaleComState({"a": enc}, 0))["a"],
             "row": residue_bits(ScaleComState({"a": joined}, 0))["a"]}

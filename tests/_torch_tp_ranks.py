@@ -148,8 +148,8 @@ def _refusals(job: dict, mesh) -> dict:
         os.environ.update(env)
         try:
             fn = build_train_step(model, opt, schedule.constant(LR), _sc_cfg(**cfg_kw),
-                                  mode="scalecom", mesh=mesh,
-                                  **{"n_workers": mesh.shape["data"], **step_kw})
+                                  mode="scalecom",
+                                  **{"n_workers": mesh.shape["data"], "mesh": mesh, **step_kw})
             whole = ts.init_train_state(model, opt, _sc_cfg(**cfg_kw),
                                         torch.Generator().manual_seed(0),
                                         n_workers=mesh.shape["data"], device="cpu")

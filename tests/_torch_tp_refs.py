@@ -1,10 +1,13 @@
-"""The reference's side of the tensor-parallel family tests
-(``test_torch_tp_families.py``, ``test_torch_tp_hybrid_encdec.py``): a
-SMOKE arch's carried-across state and batches with a function that runs
-the reference's unsharded step on them, and the numpy helpers that hold a
-rank's slices against it."""
+"""The reference's side of the sharded-step tests
+(``test_torch_tp_families.py``, ``test_torch_tp_hybrid_encdec.py``,
+``test_torch_tp_configs.py``, ``test_torch_fsdp.py``): a SMOKE arch's
+carried-across state and batches with a function that runs the
+reference's unsharded step on them, the reference's random_k draws and
+stochastic-rounding bits, and the numpy helpers that hold a rank's slices
+against it."""
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -35,8 +38,8 @@ CHUNK, LR = ranks.CHUNK, ranks.LR
 NEAR_TIE_RTOL = 1e-2
 
 
-def jcfg(codec: str) -> JCfg:
-    return JCfg(compressor=JComp("clt_k", chunk=CHUNK), beta=ranks.BETA, min_size=ranks.MIN_SIZE,
+def jcfg(codec: str, chunk: int = CHUNK) -> JCfg:
+    return JCfg(compressor=JComp("clt_k", chunk=chunk), beta=ranks.BETA, min_size=ranks.MIN_SIZE,
                 residue_dtype=codec, backend="jnp", fused=False, layout="flat")
 
 
@@ -46,29 +49,31 @@ def flat(t) -> dict:
 
 
 def arch_job(arch: str, n: int, codecs, modes=MODES, local_b=2, seq=32, overrides=None,
-             perturb=None):
+             perturb=None, chunk=CHUNK):
     """The carried-across state and batches of one arch (its SMOKE config
     with ``overrides``) at ``n`` workers, ``local_b`` x ``seq`` tokens a
-    worker (an encoder-decoder's frames too), and a function that runs the
-    reference on them: per codec (``run(codecs)``: a subset, by default
-    all), the params after each step, the metrics and, before each
-    compressed step, the leader's ef and the per-worker gradients.
+    worker (an encoder-decoder's frames and a VLM's vision prefix too), and
+    a function that runs the reference (clt_k at ``chunk``) on them: per
+    codec (``run(codecs)``: a subset, by default all), the params after
+    each step, the metrics and, before each compressed step, the leader
+    (``lead``), its ef and the per-worker gradients.
     ``perturb`` (default: RWKV-6 only) sets every
     constant-initialised leaf off its constant
     (``_torch_arch_parity.perturb_constants``)."""
     cfg = dataclasses.replace(jregistry.smoke(arch), **(overrides or {}))
     jmodel = jbuild(cfg, compute_dtype="float32", loss_chunk=16)
     jopt = jmake_opt("sgdm")
-    js0 = jinit(jmodel, jopt, jcfg("fp32"), jax.random.PRNGKey(0), n_workers=n)[0]
+    js0 = jinit(jmodel, jopt, jcfg("fp32", chunk), jax.random.PRNGKey(0), n_workers=n)[0]
     zeros = {c: jstate.init_state(js0.params, n, c, ranks.MIN_SIZE, "flat") for c in codecs}
     params = jax.tree.map(np.asarray, js0.params)
     if perturb is None:
         perturb = cfg.arch_type == "ssm"
     if perturb:
         params = parity.perturb_constants(params, 0)
-    inputs = dict(encoder_seq=cfg.encoder_seq, d_model=cfg.d_model) if cfg.is_encdec else {}
+    inputs = dict(vision_tokens=cfg.vision_tokens if cfg.arch_type == "vlm" else 0,
+                  encoder_seq=cfg.encoder_seq if cfg.is_encdec else 0, d_model=cfg.d_model)
     batches = list(jmake_batches(cfg.vocab, n, local_b, seq, seed=1, steps=3, **inputs))
-    job = {"arch": arch, "overrides": dict(overrides or {}), "params": params,
+    job = {"arch": arch, "overrides": dict(overrides or {}), "chunk": chunk, "params": params,
            "opt_m": jax.tree.map(np.asarray, js0.opt_state["m"]),
            "residues": {c: jax.tree.map(np.asarray, z.residues) for c, z in zeros.items()},
            "t": int(js0.sc_state.t), "step": int(js0.step), "batches": batches}
@@ -76,10 +81,10 @@ def arch_job(arch: str, n: int, codecs, modes=MODES, local_b=2, seq=32, override
 
     def run(only=codecs):
         grads_fn = jax.jit(jax.vmap(jax.grad(jmodel.loss, has_aux=True), in_axes=(None, 0)))
-        dense = jax.jit(jbuild_step(jmodel, jopt, jschedule.constant(LR), jcfg("fp32"),
+        dense = jax.jit(jbuild_step(jmodel, jopt, jschedule.constant(LR), jcfg("fp32", chunk),
                                     n_workers=n, mode="dense"))
         js = type(js0)(params=jax.tree.map(jnp.asarray, params), opt_state=js0.opt_state,
-                       sc_state=zeros["fp32"], step=js0.step)
+                       sc_state=zeros[codecs[0]], step=js0.step)
         warm, metrics = dense(js, batches[0])
         # the dense step leaves the residues as they were: each codec's run
         # takes its zero residues from there
@@ -87,7 +92,7 @@ def arch_job(arch: str, n: int, codecs, modes=MODES, local_b=2, seq=32, override
                  "metrics": {k: float(v) for k, v in metrics.items()}}
         out = {}
         for codec in only:
-            fn = jax.jit(jbuild_step(jmodel, jopt, jschedule.constant(LR), jcfg(codec),
+            fn = jax.jit(jbuild_step(jmodel, jopt, jschedule.constant(LR), jcfg(codec, chunk),
                                      n_workers=n, mode="scalecom"))
             js = type(warm)(params=warm.params, opt_state=warm.opt_state,
                             sc_state=jstate.ScaleComState(zeros[codec].residues, warm.sc_state.t),
@@ -104,7 +109,7 @@ def arch_job(arch: str, n: int, codecs, modes=MODES, local_b=2, seq=32, override
                 m_after = flat(js.opt_state["m"])
                 sel = {p: (m_after[p] != np.float32(0.9) * m_before[p]).reshape(-1) for p in ef}
                 steps.append({"params": flat(js.params), "ef": ef, "sel": sel, "grads": g,
-                              "metrics": {k: float(v) for k, v in metrics.items()}})
+                              "lead": lead, "metrics": {k: float(v) for k, v in metrics.items()}})
             out[codec] = steps
         return out
 
@@ -134,28 +139,54 @@ def whole(per_model: list, spec) -> np.ndarray:
     return np.concatenate(per_model, axis=dims[0]) if dims else per_model[0]
 
 
-def flips(ghat: np.ndarray, ef: np.ndarray, own: np.ndarray, sel: np.ndarray) -> np.ndarray:
+def flips(ghat: np.ndarray, ef: np.ndarray, own: np.ndarray, sel: np.ndarray, chunk=CHUNK,
+          rtol=NEAR_TIE_RTOL) -> np.ndarray:
     """Chunks where the step's ĝ has its lane elsewhere than the
     reference's selection (``sel``, the lanes its step updated; ``ef``, the
     leader's ef recomputed apart, may order an exact tie otherwise). Each must be
     a near tie that the two runs' ef explain: the step's own ef (``own``,
-    its leader's residue plus gradient) within ``NEAR_TIE_RTOL`` of the
+    its leader's residue plus gradient) within ``rtol`` of the
     reference's at both lanes, the reference's two |ef| no further apart
     than the two runs' ef differ there, and the step's own |ef| ordered
     the step's way. Returns the flipped chunks' mask."""
-    pad = (-ef.size) % CHUNK
-    e = np.pad(ef, (0, pad)).reshape(-1, CHUNK)
-    o = np.pad(own.reshape(-1), (0, pad)).reshape(-1, CHUNK)
-    a = np.pad(ghat.reshape(-1), (0, pad)).reshape(-1, CHUNK) != 0
-    s = np.pad(sel, (0, pad)).reshape(-1, CHUNK)
+    pad = (-ef.size) % chunk
+    e = np.pad(ef, (0, pad)).reshape(-1, chunk)
+    o = np.pad(own.reshape(-1), (0, pad)).reshape(-1, chunk)
+    a = np.pad(ghat.reshape(-1), (0, pad)).reshape(-1, chunk) != 0
+    s = np.pad(sel, (0, pad)).reshape(-1, chunk)
     want = np.where(s.any(axis=1), np.argmax(s, axis=1), np.argmax(np.abs(e), axis=1))
     lane = np.argmax(a, axis=1)
     flip = a.any(axis=1) & (lane != want)
     for c in np.nonzero(flip)[0]:
         ra, rb, ta, tb = e[c, want[c]], e[c, lane[c]], o[c, want[c]], o[c, lane[c]]
-        close = abs(ta - ra) <= NEAR_TIE_RTOL * abs(ra) and abs(tb - rb) <= NEAR_TIE_RTOL * abs(rb)
+        close = abs(ta - ra) <= rtol * abs(ra) and abs(tb - rb) <= rtol * abs(rb)
         explained = abs(ra) - abs(rb) <= abs(ta - ra) + abs(tb - rb)
         assert close and explained and abs(ta) <= abs(tb), (
             f"chunk {c}: the reference's ef {ra!r} / {rb!r}, the step's {ta!r} / {tb!r}: "
             f"another lane without a near tie")
     return flip
+
+
+def jax_draw(t, shape, high=None):
+    """The reference's random_k draw at step ``t`` (``repro.core.compressors``'
+    key), for ``core.compressors.random_draw``'s place on the ranks."""
+    key = jax.random.fold_in(jax.random.PRNGKey(0x5CA1EC0), t)
+    if high is None:
+        return np.array(jax.random.uniform(key, tuple(shape)))
+    return np.array(jax.random.randint(key, tuple(shape), 0, high, dtype=jnp.int32))
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _bits16(key, shape):
+    return jax.random.bits(key, shape, jnp.uint32) >> 16
+
+
+def jax_dither(path, t, shape):
+    """The stochastic-rounding bits of ``codec_key(path, t)`` over ``shape``,
+    as the reference's encode draws them."""
+    return np.asarray(_bits16(jstate.codec_key(path, jnp.int32(t)), tuple(shape))).astype(np.int32)
+
+
+def padded(size: int) -> int:
+    """``size`` up to whole fp8 blocks of 512."""
+    return -(-size // 512) * 512

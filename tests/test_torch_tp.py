@@ -31,7 +31,9 @@ the test's temporary directory) form a (2 data, 2 model) grid, then a
   cross-entropy and embedding against the whole-vocabulary ones, and
   starcoder2-3b SMOKE's loss and gradients with its 64 kv columns split 16
   a rank (half a head) against the unsplit ones.
-- A wrong ``n_workers`` raises, naming it.
+- A wrong ``n_workers`` raises, naming it, and so do the ``fsdp`` policy
+  with its workers on "data" (dense-only in the reference), a layout of
+  the fsdp grid without process groups and an unknown policy.
 """
 
 import concurrent.futures
@@ -100,8 +102,17 @@ ROUTES = {"['a']": "part", "['b']": "local", "['c']": "part", "['f']": "local"}
 # tests/test_torch_tp_hybrid_encdec.py)
 REFUSALS = [
     ("n_workers", ARCHS[0], {}, {"n_workers": 4}, {}),
+    # fsdp with its workers on "data": dense-only in the reference
+    ("fsdp_on_data", ARCHS[0], {}, {"policy": "fsdp"}, {}),
+    # a layout of the fsdp grid without process groups
+    ("fsdp_grid", ARCHS[0], {},
+     {"policy": "fsdp", "mesh": Mesh(("pod", "data", "model"), (1, 2, 2))}, {}),
+    ("policy", ARCHS[0], {}, {"policy": "dp"}, {}),
 ]
-REFUSED = {"n_workers": "n_workers (4) must equal the grid's data size"}
+REFUSED = {"n_workers": "n_workers (4) must equal the grid's data size",
+           "fsdp_on_data": "fsdp with its workers on 'data'",
+           "fsdp_grid": "the fsdp step takes a ('pod', 'data', 'model') grid of process groups",
+           "policy": "policy must be 'tp' or 'fsdp'"}
 
 
 def _jcfg() -> JCfg:

@@ -62,6 +62,9 @@ import numpy as np
 import pytest
 
 import _torch_tp_config_ranks as ranks
+from _torch_tp_refs import jax_dither as _jax_dither
+from _torch_tp_refs import jax_draw as _jax_draw
+from _torch_tp_refs import padded as _padded
 from repro.backends import resolve_backend as jresolve
 from repro.configs import registry as jregistry
 from repro.core import state as jstate
@@ -156,28 +159,6 @@ STEP_CASES = [("true_topk", "dense")] + [(label, "scalecom") for label in STEPS]
 def _bits(a) -> np.ndarray:
     a = np.asarray(a)
     return a.view(_UINT[a.dtype.itemsize])
-
-
-def _padded(size: int) -> int:
-    return -(-size // 512) * 512
-
-
-def _jax_draw(t, shape, high=None):
-    key = jax.random.fold_in(jax.random.PRNGKey(0x5CA1EC0), t)
-    if high is None:
-        return np.array(jax.random.uniform(key, tuple(shape)))
-    return np.array(jax.random.randint(key, tuple(shape), 0, high, dtype=jnp.int32))
-
-
-@functools.partial(jax.jit, static_argnums=1)
-def _bits16(key, shape):
-    return jax.random.bits(key, shape, jnp.uint32) >> 16
-
-
-def _jax_dither(path, t, shape):
-    """The stochastic-rounding bits of ``codec_key(path, t)`` over ``shape``,
-    as the reference's encode draws them."""
-    return np.asarray(_bits16(jstate.codec_key(path, jnp.int32(t)), tuple(shape))).astype(np.int32)
 
 
 @functools.partial(jax.jit, static_argnums=(1, 2))
@@ -552,7 +533,7 @@ def _fp8_steps(got: np.ndarray, want: np.ndarray) -> int:
 def _slice_of(path: str, m: int) -> slices.Slice:
     shape = TREE[path[2:-2]][0]
     dim = next((i for i, ax in enumerate(_specs(TREE)[path]) if ax == "model"), None)
-    return slices.Slice(shape, dim, GRID[1], m)
+    return slices.Slice(shape, [] if dim is None else [(dim, "model", GRID[1], m)])
 
 
 def _cut_row(field: str, row: np.ndarray, path: str, m: int, layout: str) -> np.ndarray:

@@ -281,7 +281,7 @@ def _slice_encodings(name: str, logical: torch.Tensor, dim, parts: int):
     """Each model rank's encoding of its slice of ``logical`` (flat layout),
     the crossing blocks' partial amaxes gathered as the model axis would
     gather them."""
-    sls = [slices.Slice(tuple(logical.shape), dim, parts, j) for j in range(parts)]
+    sls = [slices.Slice(tuple(logical.shape), [(dim, "model", parts, j)]) for j in range(parts)]
     ms = [sl.cut(logical).reshape(1, -1) for sl in sls]
     gens = [slices.encode_steps(name, m, sl, "flat") for m, sl in zip(ms, sls)]
     firsts = [next(g) for g in gens]
@@ -310,7 +310,7 @@ def test_fp8_whole_block_slices_code_as_the_per_element_path(monkeypatch, shape,
     flat[7], flat[700] = float("nan"), float("-inf")
     flat[1024:1536] = 0.0  # an all-zero block: scale 1
     flat[2048] = -0.0
-    ids = slices._whole_blocks(slices.Slice(shape, dim, parts, 0), "cpu")
+    ids = slices._whole_blocks(slices.Slice(shape, [(dim, "model", parts, 0)]), "cpu")
     assert (ids is not None) == whole_blocks
     sls, fast = _slice_encodings(name, logical, dim, parts)
     fast_dec = [slices.decode(name, a, sl, "flat") for sl, a in zip(sls, fast)]

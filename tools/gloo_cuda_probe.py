@@ -5,9 +5,10 @@ Spawns ``--world`` gloo ranks on the one card (a ``file://`` store in a
 temporary directory; 8 by default, the ring's world in ``chip_smoke.py``)
 and, on each:
 
-1. calls ``broadcast``, ``all_reduce``, ``all_gather`` and
-   ``all_gather_into_tensor`` on int32 and float32 CUDA tensors, checking
-   each result;
+1. calls ``broadcast``, ``all_reduce``, ``all_gather``,
+   ``all_gather_into_tensor``, ``reduce_scatter`` (the list form, which the
+   fsdp step's data axis calls) and ``reduce_scatter_tensor`` on int32 and
+   float32 CUDA tensors, checking each result;
 2. ``async_op=True`` on tensors a side stream writes: the side stream spins
    ``--spin-ms`` and then fills x; the async all_reduce (and broadcast) is
    issued on that stream and waited for. It prints the host ms of the issue
@@ -26,7 +27,8 @@ and, on each:
    waited for together, and one packed call.
 
 Prints one line per finding and the torch, CUDA and card versions; exits 1
-if any collective that ``repro_torch.distributed.ring`` calls fails.
+if any collective that the port calls (``repro_torch.distributed.ring``,
+``repro_torch.distributed.fsdp``) fails.
 
     python3 tools/gloo_cuda_probe.py [--world 8] [--reps 5] [--spin-ms 50]
 """
@@ -40,7 +42,7 @@ import sys
 import tempfile
 import time
 
-USED = ("broadcast", "all_reduce", "all_gather")  # what the ring calls
+USED = ("broadcast", "all_reduce", "all_gather", "reduce_scatter")  # what the port calls
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -80,6 +82,10 @@ def _collectives(world: int, rank: int) -> dict:
                                                           range(world)], x), torch.cat(ys))[1],
             "all_gather_into_tensor": lambda: (dist.all_gather_into_tensor(
                 y := torch.empty(world * 4, dtype=dtype, device="cuda"), x), y)[1],
+            "reduce_scatter": lambda: (dist.reduce_scatter(
+                y := torch.empty_like(x), [x + 100 * j for j in range(world)]), y)[1],
+            "reduce_scatter_tensor": lambda: (dist.reduce_scatter_tensor(
+                y := torch.empty_like(x), torch.cat([x + 100 * j for j in range(world)])), y)[1],
         }
         base = torch.arange(4, dtype=dtype)
         want = {
@@ -88,6 +94,9 @@ def _collectives(world: int, rank: int) -> dict:
             "all_gather": torch.cat([base + 10 * r for r in range(world)]),
         }
         want["all_gather_into_tensor"] = want["all_gather"]
+        # rank r's share: the sum over ranks of their r-th input, x + 100 r
+        want["reduce_scatter"] = want["all_reduce"] + 100 * world * rank
+        want["reduce_scatter_tensor"] = want["reduce_scatter"]
         for name, call in calls.items():
             try:
                 got = call()
